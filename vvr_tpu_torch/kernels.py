@@ -1,0 +1,174 @@
+"""Build, load and launch the port's hand-written CUDA kernels.
+
+All of csrc/*.cu is compiled by one nvcc call into a shared library with a
+plain C interface, loaded with ctypes (no PyTorch headers, so the build
+takes seconds). The library is built at first use into build/vvr_tpu_torch/
+at the repository root, named by a hash of the sources and flags, so an
+edited source rebuilds and an unchanged one loads the cached file.
+
+FMA contraction is off (-fmad=false): the block-colour hash and the DDA's
+`floor(o + d*t)` must round exactly as the JAX package and the oracle do.
+Fast math is never used.
+
+Each C entry point launches on the stream it is given and returns
+cudaGetLastError(); `launch` raises if that is not 0 and counts the launch
+in LAUNCHES. Nothing here falls back to another path.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import dataclasses
+import functools
+import hashlib
+import os
+import pathlib
+import shutil
+import subprocess
+
+import torch
+
+CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = (pathlib.Path(__file__).resolve().parents[1] / "build"
+             / "vvr_tpu_torch")
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC")
+
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+
+
+@dataclasses.dataclass(frozen=True)
+class Kernel:
+    symbol: str        # C entry point
+    argtypes: tuple    # ctypes argument types, the stream last
+    source: str        # file in the repository
+    replaces: str      # JAX pass it ports, file:line
+
+
+KERNELS = {
+    "jump_trace": Kernel(
+        "vvr_jump_trace", (_P, _I, _P, _P, _P, _I, _I) + (_P,) * 7 + (_P,),
+        "vvr_tpu_torch/csrc/jump_trace.cu", "vvr_tpu/ops/jump.py:289"),
+    "shade_surface": Kernel(
+        "vvr_shade_surface", (_P, _P, _P, _P, _P, _I, _F, _F, _F, _P, _P, _P),
+        "vvr_tpu_torch/csrc/shade.cu", "vvr_tpu/render/frame.py:192"),
+    "shade_pixel": Kernel(
+        "vvr_shade_pixel",
+        (_P, _P, _P, _P, _P, _P, _I, _I, _P, _I, _P, _I) + (_F,) * 6
+        + (_P, _P),
+        "vvr_tpu_torch/csrc/shade.cu", "vvr_tpu/render/frame.py:192"),
+    "write_skybox": Kernel(
+        "vvr_write_skybox", (_F, _F, _F, _I, _P, _P),
+        "vvr_tpu_torch/csrc/sky.cu", "vvr_tpu/ops/sky.py:285"),
+    "write_clouds": Kernel(
+        "vvr_write_clouds", (_F, _F, _F, _F, _I, _P, _P),
+        "vvr_tpu_torch/csrc/sky.cu", "vvr_tpu/ops/sky.py:193"),
+    "bloom_downsample": Kernel(
+        "vvr_bloom_downsample", (_P, _I, _I, _P, _I, _I, _P),
+        "vvr_tpu_torch/csrc/post.cu", "vvr_tpu/ops/post.py:92"),
+    "bloom_upsample": Kernel(
+        "vvr_bloom_upsample", (_P, _I, _I, _P, _I, _I, _P),
+        "vvr_tpu_torch/csrc/post.cu", "vvr_tpu/ops/post.py:127"),
+    "composite": Kernel(
+        "vvr_composite", (_P, _I, _I, _P, _I, _I, _F, _I, _P, _I, _I, _P),
+        "vvr_tpu_torch/csrc/post.cu", "vvr_tpu/ops/post.py:205"),
+}
+
+# launches of each kernel since the last reset_launches(); the wrappers
+# count only here, at the launch
+LAUNCHES = {name: 0 for name in KERNELS}
+
+
+def reset_launches() -> None:
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
+
+
+def _sources() -> list[pathlib.Path]:
+    return sorted(CSRC.glob("*.cu")) + sorted(CSRC.glob("*.cuh"))
+
+
+def _nvcc() -> str:
+    for cand in (os.environ.get("CUDA_HOME"), "/usr/local/cuda"):
+        if cand and (pathlib.Path(cand) / "bin" / "nvcc").exists():
+            return str(pathlib.Path(cand) / "bin" / "nvcc")
+    found = shutil.which("nvcc")
+    if found is None:
+        raise RuntimeError("nvcc not found: the CUDA kernels need the CUDA "
+                           "toolkit (CUDA_HOME or /usr/local/cuda)")
+    return found
+
+
+def library_path() -> pathlib.Path:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in _sources():
+        h.update(src.name.encode())
+        h.update(src.read_bytes())
+    return BUILD_DIR / f"libvvr_kernels_{h.hexdigest()[:16]}.so"
+
+
+def build() -> pathlib.Path:
+    """Compile csrc/*.cu into the shared library unless it is cached."""
+    out = library_path()
+    if out.exists():
+        return out
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_suffix(f".{os.getpid()}.tmp")
+    cmd = [_nvcc(), *NVCC_FLAGS, f"-I{CSRC}", "-o", str(tmp),
+           *(str(s) for s in sorted(CSRC.glob("*.cu")))]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
+                           f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
+    tmp.replace(out)
+    return out
+
+
+@functools.cache
+def _library() -> ctypes.CDLL:
+    lib = ctypes.CDLL(str(build()))
+    for k in KERNELS.values():
+        fn = getattr(lib, k.symbol)
+        fn.argtypes = list(k.argtypes)
+        fn.restype = ctypes.c_int
+    lib.vvr_error_string.argtypes = [ctypes.c_int]
+    lib.vvr_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def launch(name: str, device: torch.device, *args) -> None:
+    """Launch kernel `name` on `device`'s current stream and count it;
+    raises on a launch error. Pointer arguments are tensor.data_ptr() ints
+    (0 for an absent optional input)."""
+    lib = _library()
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = getattr(lib, KERNELS[name].symbol)(*args, stream)
+    if err != 0:
+        raise RuntimeError(f"{name}: CUDA error {err}: "
+                           f"{lib.vvr_error_string(err).decode()}")
+    LAUNCHES[name] += 1
+
+
+def check_cuda(*tensors: torch.Tensor) -> None:
+    """Raise unless every tensor is a contiguous CUDA tensor on one device
+    (the kernels take raw pointers and index them densely)."""
+    dev = tensors[0].device
+    for t in tensors:
+        if not t.is_cuda or t.device != dev:
+            raise ValueError(f"kernel input on {t.device}, expected {dev}")
+        if not t.is_contiguous():
+            raise ValueError("kernel inputs must be contiguous")
+
+
+def on_cuda(where) -> bool:
+    """Dispatch rule of every wrapper, on a tensor's device or a device:
+    CUDA launches the kernel, CPU runs the plain torch version, anything
+    else raises."""
+    dev = where.device if isinstance(where, torch.Tensor) \
+        else torch.device(where)
+    if dev.type == "cuda":
+        return True
+    if dev.type == "cpu":
+        return False
+    raise ValueError(f"no kernel or plain path for device {dev}")

@@ -1,0 +1,91 @@
+"""Frame graph — the per-frame pipeline of the slice.
+
+Counterpart of vvr_tpu/render/frame.py `render_frame` for the one
+configuration the port renders: DDA primary visibility on the jump grid,
+one hard shadow ray per lit pixel (or none), no mirrors (so only bounce 0
+runs), no AO, no point lights, the main view (debug_type 6). Every pass is
+a kernel on a CUDA device and its plain torch version on the CPU:
+
+  1. sky textures, unless the caller passes cached ones (K3)
+  2. primary trace (K1)
+  3. surface reconstruction and shadow-ray setup (K2 surface)
+  4. shadow trace toward the sun, lit pixels only (K1)
+  5. shading, sky and clouds into planar HDR (K2 shade)
+  6. bloom chain and composite to u8 (K4)
+"""
+
+from __future__ import annotations
+
+import torch
+
+from vvr_tpu_torch.config import DEBUG_MAIN, RenderConfig
+from vvr_tpu_torch.ops import post as post_ops
+from vvr_tpu_torch.ops import shade as shade_ops
+from vvr_tpu_torch.ops import sky as sky_ops
+from vvr_tpu_torch.ops.jump import trace_jump
+from vvr_tpu_torch.world.jumpgrid import JumpGrid
+
+F32 = torch.float32
+
+
+def check_frame_config(cfg: RenderConfig) -> None:
+    """Raise NotImplementedError for the frame knobs outside the slice,
+    naming the ROADMAP item that adds each."""
+    if cfg.shadow_samples > 1:
+        raise NotImplementedError(
+            "soft shadows (shadow_samples > 1) are not ported yet: "
+            "ROADMAP A9")
+    if cfg.pixelated_shadows:
+        raise NotImplementedError(
+            "pixelated_shadows is not ported yet: ROADMAP A9")
+    if cfg.ambient_occlusion:
+        raise NotImplementedError(
+            "ambient occlusion is not ported yet: ROADMAP A10")
+    if cfg.point_lights:
+        raise NotImplementedError(
+            "point lights are not ported yet: ROADMAP A10")
+    if cfg.debug_type != DEBUG_MAIN:
+        raise NotImplementedError(
+            f"debug_type {cfg.debug_type} is not ported yet: ROADMAP A13 "
+            "(heatmaps) and A14 (raster debug view)")
+
+
+def render_frame(grid: JumpGrid, o, d, sun, time: float, cfg: RenderConfig,
+                 sky=None):
+    """Full frame. `o`, `d`: the flattened (render_h * render_w, 3) camera
+    rays on the render device; `sun`: (3,) or (4,) direction (host array or
+    tensor); `sky`: optional cached (skybox, clouds) textures. Returns
+    (u8 image (H, W, 3), hdr rgba (rh, rw, 4)), both on the rays' device."""
+    check_frame_config(cfg)
+    rh, rw = cfg.render_height, cfg.render_width
+    n = o.shape[0]
+    if n != rh * rw:
+        raise ValueError(f"{n} rays for a {rh}x{rw} render")
+    dev = o.device
+    sun3 = torch.as_tensor(sun, dtype=F32).cpu().reshape(-1)[:3]
+    if sky is None:
+        skybox = sky_ops.write_skybox(sun3, time, cfg.skybox_resolution, dev)
+        clouds = sky_ops.write_clouds(sun3, time, cfg.clouds_resolution, dev)
+    else:
+        skybox, clouds = sky
+    max_steps = cfg.traversal_max_steps * 8
+
+    res = trace_jump(grid, o, d, max_steps=max_steps)
+    shadow_hit = None
+    if cfg.shadow_samples == 1:
+        s_o, s_act = shade_ops.shade_surface(o, d, res.hit, res.face,
+                                             res.axis_coord, sun3)
+        s_d = sun3.to(dev).expand(n, 3).contiguous()
+        shadow_hit = trace_jump(grid, s_o, s_d, max_steps=max_steps,
+                                active=s_act).hit
+    hdr = shade_ops.shade_pixel(o, d, res.hit, res.face, res.axis_coord,
+                                shadow_hit, grid.size, skybox, clouds, sun3,
+                                sky_ops.sun_colour_final(sun3), rh, rw)
+    if cfg.bloom_enabled:
+        bloom2 = post_ops.bloom_pyramid_p(hdr)
+    else:
+        bloom2 = torch.zeros((4, max(rh >> 2, 1), max(rw >> 2, 1)),
+                             dtype=F32, device=dev)
+    img = post_ops.composite_p(hdr, bloom2, cfg.height, cfg.width,
+                               cfg.bloom_strength, cfg.bloom_enabled)
+    return img, hdr.permute(1, 2, 0)
