@@ -14,11 +14,21 @@
 4. holds each kernel against its plain torch version on the card at the
    main path's shapes (and the trace against the numpy oracle on a
    65,536-ray subset), and the kernel frame against the plain-torch frame;
-5. times each kernel beside its plain version (CUDA events).
+5. times each kernel beside its plain version (CUDA events) and computes
+   its bound: the larger of the bytes it must move over 3.35 TB/s and its
+   operations over the peak for their type;
+6. drives the gather microbenchmark's path (vvr_tpu_torch.tools.
+   microbench_gather: every experiment of the two reference tools at
+   N = 2^21 lanes) with the launch counters reset just before and read
+   just after, and fails unless each of K5-K8 was launched; the tool holds
+   every kernel against its plain version bit for bit before timing it.
 
-Any failed check raises and the script exits non-zero. Without a CUDA
-device it exits non-zero before printing any result. The last line of
-stdout is {"ok": true, "device": {...}}.
+The frame check (3) covers the frame's kernels (K1-K4), the gather check
+(6) the gather's (K5-K8). Any failed check raises and the script exits
+non-zero. Without a CUDA device it exits non-zero before printing any
+result. Before the last line it prints {"kernels": [...]}, one row per
+kernel with its launches, error against its plain version, times and
+bound; the last line of stdout is {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -32,6 +42,19 @@ import time
 FRAMES = 24          # at t = i/60 s: spans two 0.25 s sky buckets
 ORACLE_RAYS = 65536
 CAMERA = ([128.0, 100.0, 20.0], [128.0, 20.0, 180.0], 85.0)  # bench.py:33
+# Operations per item of the frame's kernels (per trace sub-step, pixel or
+# texel), counted by hand from csrc/ and rounded; only the sky passes are
+# bound by them.
+OPS_PER_ITEM = {"jump_trace": 30, "shade_surface": 40, "shade_pixel": 250,
+                "write_skybox": 450, "write_clouds": 750,
+                "bloom_downsample": 220, "bloom_upsample": 40,
+                "composite": 60}
+# the gather experiment whose times stand in each kernel's row (the first
+# line of that name: pallas_onehot:R4096xC2 is the u32 one)
+GATHER_ROW = {"gather_chain": "pallas_take:R32768xC16",
+              "gather_chain_shared": "pallas_vreg:R1024",
+              "gather_onehot": "pallas_onehot:R4096xC2",
+              "gather_rows": "pallas_scalar:R266305xC2"}
 
 
 def nvidia_smi() -> str:
@@ -45,20 +68,6 @@ def nvidia_smi() -> str:
 def check(cond: bool, what: str) -> None:
     if not cond:
         raise AssertionError(what)
-
-
-def cuda_ms(torch, fn, reps: int) -> float:
-    """Mean device time of fn() over `reps` runs after one warm-up run."""
-    fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / reps
 
 
 def main() -> int:
@@ -78,6 +87,8 @@ def main() -> int:
     from vvr_tpu_torch.render.frame import render_frame
     from vvr_tpu_torch.render.oracle import trace_dense
     from vvr_tpu_torch.render.renderer import Renderer
+    from vvr_tpu_torch.tools import microbench_gather
+    from vvr_tpu_torch.tools.microbench_gather import bound_ms, cuda_ms
     from vvr_tpu_torch.utils.camera import Camera
     from vvr_tpu_torch.world.generator import assemble_dense
 
@@ -120,7 +131,9 @@ def main() -> int:
         frame_ms.append((time.perf_counter() - t0) * 1e3)
     launches = dict(kernels.LAUNCHES)
     peak_mb = torch.cuda.max_memory_allocated(dev) / 2 ** 20
-    missing = [k for k, v in launches.items() if v == 0]
+    frame_kernels = [k for k, v in kernels.KERNELS.items()
+                     if v.path == "frame"]
+    missing = [k for k in frame_kernels if launches[k] == 0]
     check(not missing, f"kernels not launched by the main path: {missing}")
     check(tuple(img.shape) == (1080, 1920, 3) and img.dtype == torch.uint8,
           f"frame shape {tuple(img.shape)} {img.dtype}")
@@ -134,7 +147,8 @@ def main() -> int:
           f"({renderer.rays_per_frame} rays/frame at the median)")
     print(f"peak device memory: {peak_mb:.1f} MiB "
           f"(max_memory_allocated over the frames)")
-    print(f"launches in the main path: {launches}")
+    print(f"launches in the main path: "
+          f"{ {k: launches[k] for k in frame_kernels} }")
 
     # ---- 4. each kernel against its plain version, main-path shapes
     sun3 = torch.from_numpy(renderer.sun[:3].copy())
@@ -304,23 +318,81 @@ def main() -> int:
                       lambda: post.composite_p_plain(hdr_k, mips[2], h, w),
                       50, 5),
     }
+    def nbytes(*ts):
+        return float(sum(t.nbytes for t in ts))
+
+    def mip_bytes(pairs):
+        return 16.0 * sum(sizes[a][0] * sizes[a][1] + sizes[b][0] * sizes[b][1]
+                          for a, b in pairs)
+
+    down = [(m - 1, m) for m in range(1, nm)]
+    up = [(m + 1, m) for m in range(nm - 2, 1, -1)]
+    items = {  # (bytes moved, items for OPS_PER_ITEM) at this run's shapes
+        "jump_trace": (nbytes(o, d, grid.rows,
+                              *(getattr(res_k, f) for f in fields)),
+                       float(res_k.iterations.sum())),
+        "shade_surface": (nbytes(o, d, res_k.hit, res_k.face,
+                                 res_k.axis_coord, so_k, sa_k), n),
+        "shade_pixel": (nbytes(o, d, res_k.hit, res_k.face, res_k.axis_coord,
+                               sh_k.hit, sb_k, cl_k, hdr_k), n),
+        "write_skybox": (nbytes(sb_k), sb_k.numel() / 3),
+        "write_clouds": (nbytes(cl_k), cl_k.numel() / 4),
+        "bloom_downsample": (mip_bytes(down),
+                             sum(sizes[b][0] * sizes[b][1] for _, b in down)),
+        "bloom_upsample": (mip_bytes(up),
+                           sum(sizes[b][0] * sizes[b][1] for _, b in up)),
+        "composite": (nbytes(hdr_k, mips[2], img_k), h * w),
+    }
     rows = []
     for name, (kfn, pfn, kreps, preps) in timed.items():
-        ms = cuda_ms(torch, kfn, kreps)
-        plain_ms = cuda_ms(torch, pfn, preps)
+        ms = cuda_ms(kfn, kreps)
+        plain_ms = cuda_ms(pfn, preps)
+        moved, count = items[name]
+        b_ms, b_by = bound_ms(moved, OPS_PER_ITEM[name] * count, "fp32")
         k = kernels.KERNELS[name]
         rows.append({"name": name, "route": "cuda", "source": k.source,
                      "replaces": k.replaces, "launches": launches[name],
                      "max_abs_err": errs[name], "ms": ms,
-                     "plain_ms": plain_ms})
+                     "plain_ms": plain_ms, "bound_ms": b_ms,
+                     "bound_by": b_by, "library_ms": None})
         print(f"time {name}: kernel {ms:.4f} ms, plain torch "
-              f"{plain_ms:.4f} ms")
-    shadow_ms = cuda_ms(torch, lambda: jump.trace_jump(
+              f"{plain_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
+    shadow_ms = cuda_ms(lambda: jump.trace_jump(
         grid, so_k, s_d, max_steps, active=sa_k), 10)
-    shadow_plain = cuda_ms(torch, lambda: jump.trace_jump_plain(
+    shadow_plain = cuda_ms(lambda: jump.trace_jump_plain(
         grid, so_k, s_d, max_steps, active=sa_k), 1)
     print(f"time jump_trace (shadow rays): kernel {shadow_ms:.4f} ms, "
           f"plain torch {shadow_plain:.4f} ms")
+
+    # ---- 6. the gather microbenchmark's path, through its entry point
+    gather_kernels = [k for k, v in kernels.KERNELS.items()
+                      if v.path == "gather"]
+    t0 = time.perf_counter()
+    kernels.reset_launches()
+    lines = microbench_gather.run_all(0, dev)
+    g_launches = dict(kernels.LAUNCHES)
+    missing = [k for k in gather_kernels if g_launches[k] == 0]
+    check(not missing, f"kernels not launched by the gather path: {missing}")
+    check(len(lines) == len(microbench_gather.EXPERIMENTS),
+          "gather experiments missing")
+    print(f"gather: {len(lines)} experiments at {microbench_gather.N} lanes "
+          f"in {time.perf_counter() - t0:.2f} s, each kernel bit-exact vs "
+          f"its plain version; launches "
+          f"{ {k: g_launches[k] for k in gather_kernels} }")
+    by_name = {}
+    for line in lines:
+        by_name.setdefault(line["name"], line)
+    for name in gather_kernels:
+        line = by_name[GATHER_ROW[name]]
+        check(line["kernel"] == name, f"{GATHER_ROW[name]} ran {line}")
+        k = kernels.KERNELS[name]
+        rows.append({"name": name, "route": "cuda", "source": k.source,
+                     "replaces": k.replaces, "launches": g_launches[name],
+                     "max_abs_err": 0.0, "ms": line["ms"],
+                     "plain_ms": line["plain_ms"],
+                     "bound_ms": line["bound_ms"],
+                     "bound_by": line["bound_by"],
+                     "library_ms": line["library_ms"]})
 
     print(json.dumps({"kernels": rows}))
     print(f"nvidia-smi: {nvidia_smi()}")

@@ -60,13 +60,14 @@ def _jax_camera(cam):
 @pytest.fixture(scope="module")
 def grids(small_world):
     jgrid = jax_build_jump_grid(small_world[2])
-    return jgrid, convert.jumpgrid_from_numpy(np.asarray(jgrid.rows), 64)
+    return jgrid, convert.jumpgrid_from_numpy(np.asarray(jgrid.rows), 64,
+                                              "cpu")
 
 
 @pytest.mark.parametrize("view", ["terrain", "sky", "snap0", "snap1"])
 def test_golden_views(view, grids):
     cam = _views()[view]
-    o, d = camera_rays(cam, 96, 64)
+    o, d = camera_rays(cam, 96, 64, "cpu")
     img, hdr = render_frame(grids[1], o, d, SUN, 0.0, RenderConfig(**SLICE))
     assert img.dtype == torch.uint8 and tuple(img.shape) == (64, 96, 3)
     assert torch.isfinite(hdr).all()
@@ -92,7 +93,7 @@ def test_terrain_hdr_equals_jax(grids):
     _, hdr = render_frame(grid, torch.from_numpy(np.array(jo)),
                           torch.from_numpy(np.array(jd)), SUN, 0.0,
                           RenderConfig(**cfg),
-                          sky=convert.sky_from_numpy(sb, cl))
+                          sky=convert.sky_from_numpy(sb, cl, "cpu"))
     hdr = hdr.numpy()
     np.testing.assert_array_equal(hdr[..., 3], ref[..., 3])
     assert (ref[..., 3] == 10).any() and (ref[..., 3] == 0).any()
@@ -104,7 +105,7 @@ def test_terrain_hdr_equals_jax(grids):
 def test_rays_close_to_jax(view):
     cam = _views()[view]
     jo, jd = jax_camera_rays(_jax_camera(cam), 96, 64)
-    o, d = camera_rays(cam, 96, 64)
+    o, d = camera_rays(cam, 96, 64, "cpu")
     np.testing.assert_array_equal(o.numpy(), np.asarray(jo))
     np.testing.assert_allclose(d.numpy(), np.asarray(jd), rtol=0,
                                atol=2.5e-7)
@@ -123,7 +124,7 @@ def test_renderer_renders_and_caches_sky(tmp_path, grids):
     assert r._sky_cache is sky0             # same 0.25 s bucket
     r.render(cam, time=0.3)
     assert r._sky_cache is not sky0          # next bucket rebuilt
-    o, d = camera_rays(cam, 96, 64)
+    o, d = camera_rays(cam, 96, 64, "cpu")
     ref, _ = render_frame(grids[1], o, d, SUN, 0.0, RenderConfig(**SLICE))
     np.testing.assert_array_equal(img, ref.numpy())
     assert r.rays_per_frame == 2 * 96 * 64

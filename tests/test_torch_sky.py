@@ -88,7 +88,7 @@ def test_samplers_equal_jax():
     rng = np.random.default_rng(7)
     jbox = rng.uniform(0, 1, (6, 32, 32, 3)).astype(np.float32)
     jcl = rng.uniform(0, 1, (64, 64, 4)).astype(np.float32)
-    box, cl = convert.sky_from_numpy(jbox, jcl)
+    box, cl = convert.sky_from_numpy(jbox, jcl, "cpu")
     d = _dirs(3000, 2)
     d[:100] = np.array([0.0, 1.0, 0.0], np.float32)   # straight up
     d[100:200, 1] = 0.0                               # grazing the plane

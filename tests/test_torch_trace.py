@@ -106,7 +106,7 @@ def test_trace_equals_jax_and_oracle(name, small_world):
     ref = jax_trace_jump(jgrid, jnp.asarray(o), jnp.asarray(d),
                          max_steps=steps, active=jnp.asarray(act),
                          compact=False)
-    grid = convert.jumpgrid_from_numpy(np.asarray(jgrid.rows), 64)
+    grid = convert.jumpgrid_from_numpy(np.asarray(jgrid.rows), 64, "cpu")
     res = trace_jump(grid, torch.from_numpy(o), torch.from_numpy(d),
                      max_steps=steps, active=torch.from_numpy(act))
     for f in FIELDS:
@@ -140,7 +140,7 @@ def test_trace_dispatch_cpu_plain_and_no_fallback(small_world):
     """A CPU tensor runs the plain version; a device with neither a
     kernel nor a plain path raises instead of falling back."""
     grid = convert.jumpgrid_from_numpy(
-        np.asarray(jax_build_jump_grid(small_world[2]).rows), 64)
+        np.asarray(jax_build_jump_grid(small_world[2]).rows), 64, "cpu")
     o, d = _rays(np.random.default_rng(12), 500, 64)
     a = trace_jump(grid, torch.from_numpy(o), torch.from_numpy(d))
     b = trace_jump_plain(grid, torch.from_numpy(o), torch.from_numpy(d))

@@ -53,7 +53,7 @@ def test_generator_occupancy_equals_jax(small_world):
     """Exact at 64^3: a one-ulp height difference would flip a y < h
     voxel, so equal occupancy pins the height field too."""
     _, _, occ = small_world
-    port = assemble_dense(generate_world(WorldConfig(depth=3)), 64)
+    port = assemble_dense(generate_world(WorldConfig(depth=3), "cpu"), 64)
     np.testing.assert_array_equal(port, occ)
 
 
@@ -71,7 +71,7 @@ def test_jump_rows_equal_jax(scene, small_world):
         occ = np.zeros((64, 64, 64), bool)
     ref = np.asarray(jax_build_jump_grid(occ).rows)
     np.testing.assert_array_equal(build_jump_rows(occ), ref)
-    grid = build_jump_grid(torch.from_numpy(occ))
+    grid = build_jump_grid(torch.from_numpy(occ), "cpu")
     assert grid.rows.dtype == torch.int32 and grid.size == 64
     np.testing.assert_array_equal(grid.rows.numpy().view(np.uint32), ref)
 

@@ -42,7 +42,8 @@ class Kernel:
     symbol: str        # C entry point
     argtypes: tuple    # ctypes argument types, the stream last
     source: str        # file in the repository
-    replaces: str      # JAX pass it ports, file:line
+    replaces: str      # JAX pass or Pallas kernel it ports, file:line
+    path: str = "frame"  # the entry point that runs it: frame or gather
 
 
 KERNELS = {
@@ -72,6 +73,24 @@ KERNELS = {
     "composite": Kernel(
         "vvr_composite", (_P, _I, _I, _P, _I, _I, _F, _I, _P, _I, _I, _P),
         "vvr_tpu_torch/csrc/post.cu", "vvr_tpu/ops/post.py:205"),
+    "gather_chain": Kernel(
+        "vvr_gather_chain", (_P, _I, _I, _P, _I, _P, _I, _P, _P),
+        "vvr_tpu_torch/csrc/gather.cu",
+        "tools/microbench_gather.py:92, tools/microbench_gather2.py:69",
+        "gather"),
+    "gather_chain_shared": Kernel(
+        "vvr_gather_chain_shared", (_P, _I, _I, _P, _I, _P, _I, _P, _P),
+        "vvr_tpu_torch/csrc/gather.cu", "tools/microbench_gather.py:133",
+        "gather"),
+    "gather_onehot": Kernel(
+        "vvr_gather_onehot", (_P, _I, _I, _P, _I, _P, _I, _P, _P),
+        "vvr_tpu_torch/csrc/gather.cu",
+        "tools/microbench_gather.py:177, tools/microbench_gather2.py:112",
+        "gather"),
+    "gather_rows": Kernel(
+        "vvr_gather_rows", (_P, _I, _I, _P, _I, _P, _P),
+        "vvr_tpu_torch/csrc/gather.cu", "tools/microbench_gather.py:228",
+        "gather"),
 }
 
 # launches of each kernel since the last reset_launches(); the wrappers

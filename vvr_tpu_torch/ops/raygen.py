@@ -46,7 +46,8 @@ def generate_rays(position, right, up, forward, tan_half_h, width: int,
     return o, d.contiguous()
 
 
-def camera_rays(cam: Camera, width: int, height: int, device="cpu"):
+def camera_rays(cam: Camera, width: int, height: int,
+                device="cuda"):
     right, up, forward = cam.basis()
     tan_half = np.float32(np.tan(np.radians(cam.fov) / 2.0))
 

@@ -263,7 +263,8 @@ def _host_sun(sun):
     return tuple(float(c) for c in s), s
 
 
-def write_skybox(sun, time=0.0, resolution: int = 256, device="cpu"):
+def write_skybox(sun, time=0.0, resolution: int = 256,
+                 device="cuda"):
     """(6, R, R, 3) cubemap on `device`; `time` is accepted for the JAX
     signature (the sky does not depend on it). CUDA: K3 `write_skybox`."""
     (sx, sy, sz), s = _host_sun(sun)
@@ -276,7 +277,7 @@ def write_skybox(sun, time=0.0, resolution: int = 256, device="cpu"):
     return out
 
 
-def write_clouds(sun, time, resolution: int = 512, device="cpu"):
+def write_clouds(sun, time, resolution: int = 512, device="cuda"):
     """(R, R, 4) cloud texture on `device` at `time` (seconds, taken as
     float32). CUDA: K3 `write_clouds`."""
     (sx, sy, sz), s = _host_sun(sun)

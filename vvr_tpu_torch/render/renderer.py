@@ -63,7 +63,7 @@ def check_slice(world_cfg: WorldConfig, cfg: RenderConfig,
 
 class Renderer:
     def __init__(self, world_cfg: WorldConfig, render_cfg: RenderConfig,
-                 device="cpu", scene: Scene | None = None,
+                 device="cuda", scene: Scene | None = None,
                  force_regenerate: bool = False,
                  mirror_materials: bool = False,
                  dynamic_world: bool = False, cache_path=None):

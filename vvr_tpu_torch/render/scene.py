@@ -29,8 +29,8 @@ class Scene:
     jumpgrid: JumpGrid
 
 
-def build_scene(cfg: WorldConfig, device="cpu", force_regenerate: bool = False,
-                cache_path=None) -> Scene:
+def build_scene(cfg: WorldConfig, device="cuda",
+                force_regenerate: bool = False, cache_path=None) -> Scene:
     """Load the cached world or generate and cache it (the height field
     runs on `device`), then build the jump grid on `device`."""
     device = torch.device(device)

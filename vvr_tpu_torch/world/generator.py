@@ -42,7 +42,7 @@ def height_field(cfg: WorldConfig, device) -> torch.Tensor:
     return stepped + (-diff) * detail * (5.0 * scale)
 
 
-def generate_world(cfg: WorldConfig, device="cpu") -> list[Chunk]:
+def generate_world(cfg: WorldConfig, device="cuda") -> list[Chunk]:
     """All chunks in x-major chunk order (reference
     create_sparse_structures, src/voxel.rs:58-95)."""
     surface = height_field(cfg, device).cpu().numpy()  # [z, x]

@@ -159,7 +159,7 @@ def build_jump_rows(occ: np.ndarray) -> np.ndarray:
     return rows
 
 
-def build_jump_grid(occ, device="cpu") -> JumpGrid:
+def build_jump_grid(occ, device="cuda") -> JumpGrid:
     """Build from dense bool occupancy [z,y,x] (numpy array or tensor);
     the rows land on `device`."""
     if isinstance(occ, torch.Tensor):
