@@ -3,7 +3,9 @@
 
 - Goldens: the port renders the golden views of tests/test_render.py with
   its own rays, on the JAX package's jump grid (convert.py), and must meet
-  that file's bar: fewer than 0.5% of pixels off by more than 2.
+  that file's bar: fewer than 0.5% of pixels off by more than 2. At the
+  default knobs (face rasterizer, sun classifier) the frame must also equal
+  the DDA frame pixel for pixel.
 - The JAX frame: same rays, world and sky textures through both packages;
   alpha exact, rgb within rtol=atol=1e-4 on at least 99.5% of pixels
   (pow ulps in lighting; a nearest cloud texel can flip on a boundary).
@@ -26,14 +28,19 @@ from vvr_tpu.config import RenderConfig as JaxRenderConfig
 from vvr_tpu.config import WorldConfig as JaxWorldConfig
 from vvr_tpu.ops.raygen import camera_rays as jax_camera_rays
 from vvr_tpu.render.frame import render_frame as jax_render_frame
+from vvr_tpu.ops.sunshadow import build_sun_grids as jax_build_sun_grids
 from vvr_tpu.utils.camera import Camera as JaxCamera
+from vvr_tpu.world.faces import extract_merged_faces as jax_merged_faces
 from vvr_tpu.world.jumpgrid import build_jump_grid as jax_build_jump_grid
 from vvr_tpu_torch import convert
 from vvr_tpu_torch.config import RenderConfig, WorldConfig
+from vvr_tpu_torch.ops import sunshadow
+from vvr_tpu_torch.ops.rastertrace import raster_camera
 from vvr_tpu_torch.ops.raygen import camera_rays
 from vvr_tpu_torch.render.frame import render_frame
 from vvr_tpu_torch.render.renderer import Renderer
 from vvr_tpu_torch.utils.camera import Camera, load_snapshots
+from vvr_tpu_torch.world.faces import extract_merged_faces
 
 GOLDEN_DIR = pathlib.Path(__file__).parent / "golden"
 SLICE = dict(width=96, height=64, shadow_samples=1, max_ray_iterations=2,
@@ -62,6 +69,40 @@ def grids(small_world):
     jgrid = jax_build_jump_grid(small_world[2])
     return jgrid, convert.jumpgrid_from_numpy(np.asarray(jgrid.rows), 64,
                                               "cpu")
+
+
+@pytest.fixture(scope="module")
+def classifier(small_world):
+    """The port's faces and hard-shadow classifier of the 64^3 world."""
+    faces = extract_merged_faces(small_world[2]).device_tuple("cpu")
+    e1, e2, s = sunshadow.sun_basis(SUN[:3])
+    return faces, (e1, e2, sunshadow.sun_grids(faces, e1, e2, s, 64))
+
+
+def _probe(occ, cam):
+    c = np.clip(np.floor(cam.position).astype(int), 0, 63)
+    return bool(occ[c[2], c[1], c[0]])
+
+
+@pytest.mark.parametrize("view", ["terrain", "sky", "snap0", "snap1"])
+def test_golden_views_default_knobs(view, grids, classifier, small_world):
+    """The face rasterizer and the sun classifier: the golden bar, and the
+    DDA frame's pixels exactly."""
+    cam = _views()[view]
+    o, d = camera_rays(cam, 96, 64, "cpu")
+    faces, sunmask = classifier
+    cfg = RenderConfig(**{**SLICE, "primary_raster": "auto",
+                          "sun_mask": "auto"})
+    img, hdr = render_frame(
+        grids[1], o, d, SUN, 0.0, cfg,
+        raster=(faces, raster_camera(cam), _probe(small_world[2], cam)),
+        sunmask=sunmask)
+    assert torch.isfinite(hdr).all()
+    golden = np.load(GOLDEN_DIR / f"{view}.npy")
+    diff = np.abs(img.numpy().astype(int) - golden.astype(int))
+    assert (diff > 2).mean() < 0.005, f"{view}: {(diff > 2).mean():.4%}"
+    ref, _ = render_frame(grids[1], o, d, SUN, 0.0, RenderConfig(**SLICE))
+    np.testing.assert_array_equal(img.numpy(), ref.numpy())
 
 
 @pytest.mark.parametrize("view", ["terrain", "sky", "snap0", "snap1"])
@@ -94,6 +135,47 @@ def test_terrain_hdr_equals_jax(grids):
                           torch.from_numpy(np.array(jd)), SUN, 0.0,
                           RenderConfig(**cfg),
                           sky=convert.sky_from_numpy(sb, cl, "cpu"))
+    hdr = hdr.numpy()
+    np.testing.assert_array_equal(hdr[..., 3], ref[..., 3])
+    assert (ref[..., 3] == 10).any() and (ref[..., 3] == 0).any()
+    ok = np.isclose(hdr[..., :3], ref[..., :3], rtol=1e-4, atol=1e-4).all(-1)
+    assert ok.mean() >= 0.995, f"{1 - ok.mean():.4%} of pixels differ"
+
+
+def test_default_knobs_hdr_equals_jax(grids, small_world):
+    """The JAX frame with `raster` and `sunmask` against the port's, at the
+    bar of test_terrain_hdr_equals_jax: same rays, faces, classifier grids
+    (the JAX build, converted) and sky textures."""
+    jgrid, grid = grids
+    occ = small_world[2]
+    cfg = {**SLICE, "width": 64, "height": 48, "primary_raster": "auto",
+           "sun_mask": "auto"}
+    cam = _views()["terrain"]
+    jo, jd = jax_camera_rays(_jax_camera(cam), 64, 48)
+    rng = np.random.default_rng(0)
+    sb = rng.uniform(0.0, 1.0, (6, 32, 32, 3)).astype(np.float32)
+    cl = rng.uniform(0.0, 1.0, (32, 32, 4)).astype(np.float32)
+    jfaces = jax_merged_faces(occ)
+    rc = raster_camera(cam)
+    probe = _probe(occ, cam)
+    e1, e2, s = sunshadow.sun_basis(SUN[:3])
+    jgrids, ok = jax_build_sun_grids(jfaces.device_tuple(), jnp.asarray(e1),
+                                     jnp.asarray(e2), jnp.asarray(s), 64)
+    assert bool(ok)
+    _, ref = jax_render_frame(
+        jgrid, jo, jd, jnp.asarray(SUN), jnp.float32(0.0),
+        JaxRenderConfig(**cfg), sky=(jnp.asarray(sb), jnp.asarray(cl)),
+        raster=(jfaces.device_tuple(), tuple(jnp.asarray(c) for c in rc),
+                jnp.asarray(probe)),
+        sunmask=(jnp.asarray(e1), jnp.asarray(e2), jgrids))
+    ref = np.asarray(ref)
+    _, hdr = render_frame(
+        grid, torch.from_numpy(np.array(jo)), torch.from_numpy(np.array(jd)),
+        SUN, 0.0, RenderConfig(**cfg),
+        sky=convert.sky_from_numpy(sb, cl, "cpu"),
+        raster=(convert.faces_from_numpy(jfaces, "cpu"), rc, probe),
+        sunmask=(e1, e2, convert.sun_grids_from_numpy(
+            tuple(np.asarray(a) for a in jgrids), "cpu")))
     hdr = hdr.numpy()
     np.testing.assert_array_equal(hdr[..., 3], ref[..., 3])
     assert (ref[..., 3] == 10).any() and (ref[..., 3] == 0).any()
@@ -134,6 +216,39 @@ def test_renderer_renders_and_caches_sky(tmp_path, grids):
         r.rays_per_frame / (res["avg_ms"] * 1e-3) / 1e6)
 
 
+def test_renderer_default_knobs_cache_sun_grids(tmp_path, grids):
+    """At the default knobs the Renderer rasterizes and classifies; it
+    builds the sun grids once per sun direction (and at 512^2 while the sun
+    is dragged), and its frames equal the DDA Renderer's."""
+    cfg = {k: v for k, v in SLICE.items()
+           if k not in ("primary_raster", "sun_mask")}
+    r = Renderer(WorldConfig(depth=3), RenderConfig(**cfg), device="cpu",
+                 cache_path=tmp_path / "map_64.npz")
+    assert r.use_raster and r.use_sunmask and r.scene.faces is not None
+    dda = Renderer(WorldConfig(depth=3), RenderConfig(**SLICE), device="cpu",
+                   scene=r.scene)
+    assert not dda.use_raster and not dda.use_sunmask
+    cam = _views()["terrain"]
+    img = r.render(cam, time=0.0, fetch=True)
+    cache = r._sunmask_cache
+    assert cache[1][2][0].shape == (2048 * 2048, 2)
+    r.render(cam, time=0.3)
+    assert r._sunmask_cache is cache           # same sun: no rebuild
+    np.testing.assert_array_equal(img, dda.render(cam, time=0.0,
+                                                  fetch=True))
+    r.set_sun_dragging(True)
+    r.render(cam, time=0.0)
+    assert r._sunmask_cache[1][2][0].shape == (512 * 512, 2)
+    r.set_sun_dragging(False)
+    sun = np.array([0.6, 0.5, 0.6], np.float32)
+    r.sun = dda.sun = np.append(sun / np.linalg.norm(sun),
+                                0.0).astype(np.float32)
+    moved = r.render(cam, time=0.0, fetch=True)
+    assert r._sunmask_cache is not cache       # the sun moved: rebuilt
+    np.testing.assert_array_equal(moved, dda.render(cam, time=0.0,
+                                                    fetch=True))
+
+
 @pytest.mark.parametrize("pair", [(RenderConfig, JaxRenderConfig),
                                   (WorldConfig, JaxWorldConfig)],
                          ids=["render", "world"])
@@ -146,9 +261,7 @@ def test_config_fields_equal_jax(pair):
 
 
 OUTSIDE = [
-    ("raster_auto", {"primary_raster": "auto"}, {}),
-    ("raster_on", {"primary_raster": "on"}, {}),
-    ("sun_mask", {"sun_mask": "auto"}, {}),
+    ("sun_mask_soft", {"sun_mask": "auto", "shadow_samples": 4}, {}),
     ("soft_shadows", {"shadow_samples": 4}, {}),
     ("ao", {"ambient_occlusion": True}, {}),
     ("point_lights", {"point_lights": True}, {}),

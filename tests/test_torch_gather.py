@@ -29,7 +29,7 @@ from vvr_tpu_torch.ops import gather, raygen, sky
 from vvr_tpu_torch.render import renderer, scene
 from vvr_tpu_torch.tools import microbench_gather as bench
 from vvr_tpu_torch.utils.camera import Camera
-from vvr_tpu_torch.world import generator, jumpgrid
+from vvr_tpu_torch.world import faces, generator, jumpgrid
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 G1, G2 = "tools/microbench_gather.py", "tools/microbench_gather2.py"
@@ -238,6 +238,9 @@ ENTRY_POINTS = {
     "occupancy_from_numpy": convert.occupancy_from_numpy,
     "gather_table_from_numpy": convert.gather_table_from_numpy,
     "gather_planes_from_numpy": convert.gather_planes_from_numpy,
+    "faces_from_numpy": convert.faces_from_numpy,
+    "sun_grids_from_numpy": convert.sun_grids_from_numpy,
+    "FaceSet.device_tuple": faces.FaceSet.device_tuple,
 }
 
 

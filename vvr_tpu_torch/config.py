@@ -76,10 +76,9 @@ class RenderConfig:
                                     # picks jump up to (size/8)^3 = 65536
                                     # superbricks, as the JAX package does
     primary_raster: str = "auto"    # face rasterizer for primary rays:
-                                    # "auto" = on for the main view; the
-                                    # port needs "off" (ROADMAP A4)
-    sun_mask: str = "auto"          # sun-space shadow classifier; the
-                                    # port needs "off" (ROADMAP A5)
+                                    # "auto" = on for the main view
+    sun_mask: str = "auto"          # sun-space hard-shadow classifier
+                                    # ("auto" = on with hard shadows)
     # Sky resources (reference: src/skybox.rs:43-45)
     skybox_resolution: int = 256
     clouds_resolution: int = 512

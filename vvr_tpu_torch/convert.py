@@ -12,6 +12,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from vvr_tpu_torch.world.faces import FIELDS
 from vvr_tpu_torch.world.jumpgrid import ROW_WORDS, JumpGrid
 
 
@@ -64,3 +65,24 @@ def gather_planes_from_numpy(planes: np.ndarray,
                          f"{planes.dtype} {planes.shape}")
     bits = torch.from_numpy(planes.view(np.int16).copy())
     return bits.view(torch.bfloat16).to(device)
+
+
+def faces_from_numpy(faces, device="cuda") -> tuple:
+    """The port's face tuple (FaceSet.device_tuple(): vx, vy, vz, axis,
+    sgn, eu, ev, einfo as int32) from a JAX `FaceSet` (its numpy fields)."""
+    arrays = [np.array(getattr(faces, k), np.int32) for k in FIELDS]
+    if any(a.shape != arrays[0].shape or a.ndim != 1 for a in arrays):
+        raise ValueError("face arrays must be 1-D of one length")
+    return tuple(torch.from_numpy(a).to(device) for a in arrays)
+
+
+def sun_grids_from_numpy(grids, device="cuda"):
+    """The port's hard-shadow grids (gBC, a0, b0, ts) from the JAX
+    `build_sun_grids` grids (gBC, cBC, a0, b0, ts); the coarse cBC is
+    dropped (no query reads it)."""
+    gbc, _cbc, a0, b0, ts = grids
+    gbc = np.array(gbc, np.float32)
+    if gbc.ndim != 2 or gbc.shape[1] != 2:
+        raise ValueError(f"gBC must be (G^2, 2), got {gbc.shape}")
+    return (torch.from_numpy(gbc).to(device), np.float32(a0),
+            np.float32(b0), np.float32(ts))

@@ -1,9 +1,10 @@
 """Build, load and launch the port's hand-written CUDA kernels.
 
-All of csrc/*.cu is compiled by one nvcc call into a shared library with a
-plain C interface, loaded with ctypes (no PyTorch headers, so the build
-takes seconds). The library is built at first use into build/vvr_tpu_torch/
-at the repository root, named by a hash of the sources and flags, so an
+Each csrc/*.cu is compiled by its own nvcc process, all started together,
+and the objects are linked into one shared library with a plain C
+interface, loaded with ctypes (no PyTorch headers, so the build takes
+seconds). The library is built at first use into build/vvr_tpu_torch/ at
+the repository root, named by a hash of the sources and flags, so an
 edited source rebuilds and an unchanged one loads the cached file.
 
 FMA contraction is off (-fmad=false): the block-colour hash and the DDA's
@@ -32,7 +33,7 @@ CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = (pathlib.Path(__file__).resolve().parents[1] / "build"
              / "vvr_tpu_torch")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC")
+              "-O3", "-fmad=false", "-Xcompiler", "-fPIC")
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 
@@ -73,6 +74,22 @@ KERNELS = {
     "composite": Kernel(
         "vvr_composite", (_P, _I, _I, _P, _I, _I, _F, _I, _P, _I, _I, _P),
         "vvr_tpu_torch/csrc/post.cu", "vvr_tpu/ops/post.py:205"),
+    "raster_fragments": Kernel(
+        "vvr_raster_fragments",
+        (_P,) * 7 + (_I,) + (_F,) * 14 + (_I, _I) + (_P,) * 4 + (_P,),
+        "vvr_tpu_torch/csrc/raster.cu", "vvr_tpu/ops/rastertrace.py:190"),
+    "raster_resolve": Kernel(
+        "vvr_raster_resolve",
+        (_P, _P, _F, _F, _F, _I, _I, _I, _P, _P, _P, _P, _P),
+        "vvr_tpu_torch/csrc/raster.cu", "vvr_tpu/ops/rastertrace.py:190"),
+    "sun_grids": Kernel(
+        "vvr_sun_grids", (_P,) * 8 + (_I,) + (_F,) * 12 + (_I, _P, _P, _P),
+        "vvr_tpu_torch/csrc/sunshadow.cu", "vvr_tpu/ops/sunshadow.py:112"),
+    "masked_shadow": Kernel(
+        "vvr_masked_shadow",
+        (_P, _I, _P, _P, _I) + (_F,) * 9 + (_P, _I) + (_F,) * 4
+        + (_I, _P, _P),
+        "vvr_tpu_torch/csrc/sunshadow.cu", "vvr_tpu/ops/sunshadow.py:654"),
     "gather_chain": Kernel(
         "vvr_gather_chain", (_P, _I, _I, _P, _I, _P, _I, _P, _P),
         "vvr_tpu_torch/csrc/gather.cu",
@@ -126,20 +143,47 @@ def library_path() -> pathlib.Path:
     return BUILD_DIR / f"libvvr_kernels_{h.hexdigest()[:16]}.so"
 
 
+def _run_all(cmds: list[list[str]]) -> None:
+    """Run the commands in parallel; raise with the output of each one
+    that failed."""
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for c in cmds]
+    errors = []
+    for cmd, proc in zip(cmds, procs):
+        out, _ = proc.communicate()
+        if proc.returncode != 0:
+            errors.append(f"nvcc failed ({proc.returncode}):\n"
+                          f"{' '.join(cmd)}\n{out}")
+    if errors:
+        raise RuntimeError("\n".join(errors))
+
+
 def build() -> pathlib.Path:
-    """Compile csrc/*.cu into the shared library unless it is cached."""
+    """Compile csrc/*.cu into the shared library unless it is cached: one
+    nvcc per source, all at once, then one link."""
     out = library_path()
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, f"-I{CSRC}", "-o", str(tmp),
-           *(str(s) for s in sorted(CSRC.glob("*.cu")))]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                           f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
-    tmp.replace(out)
+    tag = f"{out.stem}.{os.getpid()}"
+    nvcc = _nvcc()
+    objs = []
+    cmds = []
+    for src in sorted(CSRC.glob("*.cu")):
+        obj = BUILD_DIR / f"{tag}.{src.stem}.o"
+        objs.append(obj)
+        cmds.append([nvcc, *NVCC_FLAGS, f"-I{CSRC}", "-c", "-o", str(obj),
+                     str(src)])
+    try:
+        _run_all(cmds)
+        tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        _run_all([[nvcc, *NVCC_FLAGS, "-shared", "-o", str(tmp),
+                   *(str(o) for o in objs)]])
+        tmp.replace(out)
+    finally:
+        for obj in objs:
+            obj.unlink(missing_ok=True)
     return out
 
 

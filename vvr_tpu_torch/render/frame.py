@@ -1,15 +1,18 @@
 """Frame graph — the per-frame pipeline of the slice.
 
-Counterpart of vvr_tpu/render/frame.py `render_frame` for the one
-configuration the port renders: DDA primary visibility on the jump grid,
-one hard shadow ray per lit pixel (or none), no mirrors (so only bounce 0
-runs), no AO, no point lights, the main view (debug_type 6). Every pass is
-a kernel on a CUDA device and its plain torch version on the CPU:
+Counterpart of vvr_tpu/render/frame.py `render_frame` for the slice the
+port renders: primary visibility by the face rasterizer or the jump-grid
+DDA, one hard shadow ray per lit pixel (or none) answered by the sun
+classifier or the DDA, no mirrors (so only bounce 0 runs), no AO, no point
+lights, the main view (debug_type 6). Every pass is a kernel on a CUDA
+device and its plain torch version on the CPU:
 
   1. sky textures, unless the caller passes cached ones (K3)
-  2. primary trace (K1)
+  2. primary visibility: the face rasterizer with `raster` (K9, K10),
+     else the DDA (K1)
   3. surface reconstruction and shadow-ray setup (K2 surface)
-  4. shadow trace toward the sun, lit pixels only (K1)
+  4. shadow query toward the sun, lit pixels only: the sun classifier with
+     `sunmask` (K12, its residue through the DDA inline), else the DDA (K1)
   5. shading, sky and clouds into planar HDR (K2 shade)
   6. bloom chain and composite to u8 (K4)
 """
@@ -23,6 +26,8 @@ from vvr_tpu_torch.ops import post as post_ops
 from vvr_tpu_torch.ops import shade as shade_ops
 from vvr_tpu_torch.ops import sky as sky_ops
 from vvr_tpu_torch.ops.jump import trace_jump
+from vvr_tpu_torch.ops.rastertrace import trace_raster
+from vvr_tpu_torch.ops.sunshadow import masked_shadow_hits
 from vvr_tpu_torch.world.jumpgrid import JumpGrid
 
 F32 = torch.float32
@@ -51,11 +56,15 @@ def check_frame_config(cfg: RenderConfig) -> None:
 
 
 def render_frame(grid: JumpGrid, o, d, sun, time: float, cfg: RenderConfig,
-                 sky=None):
+                 sky=None, raster=None, sunmask=None):
     """Full frame. `o`, `d`: the flattened (render_h * render_w, 3) camera
     rays on the render device; `sun`: (3,) or (4,) direction (host array or
-    tensor); `sky`: optional cached (skybox, clouds) textures. Returns
-    (u8 image (H, W, 3), hdr rgba (rh, rw, 4)), both on the rays' device."""
+    tensor); `sky`: optional cached (skybox, clouds) textures; `raster`:
+    optional (faces, raster_camera, camera-in-solid probe) for rasterized
+    primary visibility (the rays must be that camera's wavefront);
+    `sunmask`: optional (e1, e2, grids) of the hard-shadow classifier.
+    Returns (u8 image (H, W, 3), hdr rgba (rh, rw, 4)), both on the rays'
+    device."""
     check_frame_config(cfg)
     rh, rw = cfg.render_height, cfg.render_width
     n = o.shape[0]
@@ -70,14 +79,24 @@ def render_frame(grid: JumpGrid, o, d, sun, time: float, cfg: RenderConfig,
         skybox, clouds = sky
     max_steps = cfg.traversal_max_steps * 8
 
-    res = trace_jump(grid, o, d, max_steps=max_steps)
+    if raster is not None:
+        faces, rcam, probe = raster
+        res = trace_raster(faces, rcam, d, probe, grid.size, rw, rh)
+    else:
+        res = trace_jump(grid, o, d, max_steps=max_steps)
     shadow_hit = None
     if cfg.shadow_samples == 1:
+        # shadow start: surface + 0.05 along the sun
         s_o, s_act = shade_ops.shade_surface(o, d, res.hit, res.face,
                                              res.axis_coord, sun3)
-        s_d = sun3.to(dev).expand(n, 3).contiguous()
-        shadow_hit = trace_jump(grid, s_o, s_d, max_steps=max_steps,
-                                active=s_act).hit
+        if sunmask is not None:
+            e1, e2, grids = sunmask
+            shadow_hit = masked_shadow_hits(grid, s_o, sun3.numpy(), e1, e2,
+                                            grids, s_act, max_steps)
+        else:
+            s_d = sun3.to(dev).expand(n, 3).contiguous()
+            shadow_hit = trace_jump(grid, s_o, s_d, max_steps=max_steps,
+                                    active=s_act).hit
     hdr = shade_ops.shade_pixel(o, d, res.hit, res.face, res.axis_coord,
                                 shadow_hit, grid.size, skybox, clouds, sun3,
                                 sky_ops.sun_colour_final(sun3), rh, rw)

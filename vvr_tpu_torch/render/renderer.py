@@ -2,7 +2,10 @@
 
 Counterpart of vvr_tpu/render/renderer.py for the slice:
 `Renderer(WorldConfig, RenderConfig, device=...).render(camera)`. It owns
-the scene, the sun, the cross-frame sky cache and the frame statistics.
+the scene, the sun, the cross-frame sky and sun-grid caches and the frame
+statistics. `primary_raster` and `sun_mask` resolve as in the JAX package
+(renderer.py:79-98): at their "auto" defaults the main view rasterizes its
+primary visibility and answers hard shadows with the sun classifier.
 Configurations outside the slice raise NotImplementedError naming the
 ROADMAP item that adds them.
 """
@@ -17,6 +20,8 @@ import torch
 
 from vvr_tpu_torch.config import RenderConfig, WorldConfig
 from vvr_tpu_torch.ops import sky as sky_ops
+from vvr_tpu_torch.ops import sunshadow
+from vvr_tpu_torch.ops.rastertrace import raster_camera
 from vvr_tpu_torch.ops.raygen import camera_rays
 from vvr_tpu_torch.render.frame import check_frame_config, render_frame
 from vvr_tpu_torch.render.scene import Scene, build_scene
@@ -28,22 +33,31 @@ log = logging.getLogger(__name__)
 DEFAULT_SUN = np.array([-0.28, 0.65, -0.71, 0.0], np.float32)
 
 
+def use_raster(cfg: RenderConfig) -> bool:
+    """Rasterized primary visibility: on for the main view (the debug
+    heatmaps need the DDA's counters)."""
+    return cfg.primary_raster == "on" or (cfg.primary_raster == "auto"
+                                          and cfg.debug_type == 6)
+
+
+def use_sunmask(cfg: RenderConfig) -> bool:
+    """The sun classifier answers the shadow rays, unless shadows are off
+    or pixelated (the quarter-voxel floor can bury the query in solid,
+    where a certain-light claim is unsound)."""
+    return (cfg.sun_mask != "off" and cfg.shadow_samples >= 1
+            and not cfg.pixelated_shadows)
+
+
 def check_slice(world_cfg: WorldConfig, cfg: RenderConfig,
                 mirror_materials: bool = False,
                 dynamic_world: bool = False) -> None:
     """Raise NotImplementedError unless the configuration is the slice the
     port renders; each message names the ROADMAP item that adds the
     feature."""
-    if cfg.primary_raster == "on" or (cfg.primary_raster == "auto"
-                                      and cfg.debug_type == 6):
+    if use_sunmask(cfg) and cfg.shadow_samples > 1:
         raise NotImplementedError(
-            "primary_raster resolves to on: the face rasterizer is not "
-            "ported yet (ROADMAP A4); pass primary_raster='off'")
-    if (cfg.sun_mask != "off" and cfg.shadow_samples >= 1
-            and not cfg.pixelated_shadows):
-        raise NotImplementedError(
-            "sun_mask resolves to on: the sun-space shadow classifier is "
-            "not ported yet (ROADMAP A5); pass sun_mask='off'")
+            "sun_mask with soft shadows (shadow_samples > 1) needs the cone "
+            "grids, which are not ported yet: ROADMAP A9")
     if mirror_materials:
         raise NotImplementedError(
             "mirror materials are not ported yet: ROADMAP A10")
@@ -74,12 +88,18 @@ class Renderer:
         self.scene = scene or build_scene(world_cfg, self.device,
                                           force_regenerate=force_regenerate,
                                           cache_path=cache_path)
+        self.use_raster = use_raster(render_cfg)
+        self.use_sunmask = use_sunmask(render_cfg)
+        if self.use_raster or self.use_sunmask:
+            self.scene.ensure_faces()
         self.stats = Statistics()
         self.frame_count = 0
         self.elapsed = 0.0
         sun = DEFAULT_SUN[:3] / np.linalg.norm(DEFAULT_SUN[:3])
         self.sun = np.concatenate([sun, [0.0]]).astype(np.float32)
         self._sky_cache = None  # (key, (skybox, clouds))
+        self._sunmask_cache = None  # (key, (e1, e2, grids))
+        self._sun_dragging = False
 
     @property
     def rays_per_frame(self) -> int:
@@ -111,6 +131,26 @@ class Renderer:
             self._sky_cache = (key, sky)
         return self._sky_cache[1]
 
+    def set_sun_dragging(self, dragging: bool) -> None:
+        """While the sun is dragged, _sunmask builds 512^2 grids instead of
+        2048^2: cheaper per sun direction, and as exact (a coarser grid
+        only widens the ambiguous residue the DDA answers)."""
+        self._sun_dragging = bool(dragging)
+
+    def _sunmask(self):
+        """(e1, e2, grids) of the sun classifier, rebuilt only when the
+        key (sun, scene epoch, reduced resolution, cone) changes."""
+        lo = self._sun_dragging
+        key = (self.sun[:3].tobytes(), self.scene.epoch, lo,
+               self.cfg.shadow_samples > 1)
+        if self._sunmask_cache is None or self._sunmask_cache[0] != key:
+            e1, e2, s = sunshadow.sun_basis(self.sun[:3])
+            grids = sunshadow.sun_grids(
+                self.scene.ensure_faces(), e1, e2, s, self.scene.cfg.size,
+                sunshadow.GRID_DRAGGING if lo else sunshadow.GRID)
+            self._sunmask_cache = (key, (e1, e2, grids))
+        return self._sunmask_cache[1]
+
     def render(self, camera: Camera, time: float | None = None,
                timed: bool = False, fetch: bool = False):
         """One frame -> (H, W, 3) u8 on the render device (a numpy array
@@ -120,8 +160,14 @@ class Renderer:
         t0 = _time.monotonic()
         o, d = camera_rays(camera, self.cfg.render_width,
                            self.cfg.render_height, self.device)
+        raster = None
+        if self.use_raster:
+            raster = (self.scene.ensure_faces(), raster_camera(camera),
+                      self.scene.solid_at_host(camera.position))
+        sunmask = self._sunmask() if self.use_sunmask else None
         img, _ = render_frame(self.scene.jumpgrid, o, d, self.sun, t,
-                              self.cfg, sky=self._sky(t))
+                              self.cfg, sky=self._sky(t), raster=raster,
+                              sunmask=sunmask)
         if timed:
             self._sync()
             self.stats.push_timing((_time.monotonic() - t0) * 1e3)
