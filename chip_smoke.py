@@ -11,7 +11,9 @@
    visibility, one hard shadow ray per lit pixel answered by the sun
    classifier, sky textures cached per 0.25 s bucket, bloom, ACES) through
    `Renderer.render`; reads the counters and fails unless each kernel of
-   that path (K2, K3, K4, K9, K10, K11, K12) was launched;
+   that path (K2, K3, K4, K9, K10, K11, K12) was launched, and each
+   per-frame kernel (K9 and the bloom pyramid among them) once in every
+   frame; prints the port's kernel launches per frame;
 3. the DDA frame (`primary_raster="off", sun_mask="off"`: K1 for primary
    and shadow rays) over the same scene, counters reset before it and read
    after, its median printed beside the default frame's;
@@ -19,9 +21,10 @@
    main path's shapes; the raster (K9+K10) against K1's primary trace on
    every ray, with each ray where they differ traced by the numpy oracle
    (the raster must be the oracle's), and both against the oracle on a
-   65,536-ray subset; K12 against an every-lane K1 shadow trace; the
-   default frame against the DDA frame, and the kernel frame against the
-   plain-torch frame;
+   65,536-ray subset; K12 against an every-lane K1 shadow trace; the bloom
+   pyramid's mip 2 against the plain pass-by-pass chain, at the main
+   path's shape and at small odd shapes; the default frame against the
+   DDA frame, and the kernel frame against the plain-torch frame;
 5. times each kernel beside its plain version (CUDA events) and computes
    its bound: the larger of the bytes it must move over 3.35 TB/s and its
    operations over the peak for their type;
@@ -50,13 +53,16 @@ FRAMES = 24          # at t = i/60 s: spans two 0.25 s sky buckets
 ORACLE_RAYS = 65536
 CAMERA = ([128.0, 100.0, 20.0], [128.0, 20.0, 180.0], 85.0)  # bench.py:33
 # Operations per item of the frame's kernels (per trace sub-step, pixel,
-# texel, bbox fragment, (face, texel) pair or shadow lane), counted by hand
+# texel, K9 fragment, (face, texel) pair or shadow lane), counted by hand
 # from csrc/ and rounded; K12's residue adds jump_trace's per sub-step.
 OPS_PER_ITEM = {"jump_trace": 30, "shade_surface": 40, "shade_pixel": 250,
                 "write_skybox": 450, "write_clouds": 750,
-                "bloom_downsample": 220, "bloom_upsample": 40,
-                "composite": 60, "raster_fragments": 70,
+                "bloom_pyramid": 220, "composite": 60,
+                "raster_fragments": 70,
                 "raster_resolve": 45, "sun_grids": 90, "masked_shadow": 60}
+# the bloom pyramid's items are its downsampled texels (220 operations
+# each) and its upsampled ones, at this many operations
+BLOOM_UP_OPS = 40
 # K1's primary rays that differ from the numpy oracle (JAX trace_jump
 # gives the same answer: its jump and subcell steps place the cell by a
 # floor, which can take an exact x/z crossing tie the other way); more than
@@ -165,18 +171,30 @@ def main() -> int:
         return med
 
     frame_kernels = ["shade_surface", "shade_pixel", "write_skybox",
-                     "write_clouds", "bloom_downsample", "bloom_upsample",
-                     "composite", "raster_fragments", "raster_resolve",
-                     "sun_grids", "masked_shadow"]
+                     "write_clouds", "bloom_pyramid", "composite",
+                     "raster_fragments", "raster_resolve", "sun_grids",
+                     "masked_shadow"]
+    # launched once in every frame (K3 only per sky bucket, K11 per sun)
+    per_frame = ["shade_surface", "shade_pixel", "bloom_pyramid",
+                 "composite", "raster_fragments", "raster_resolve",
+                 "masked_shadow"]
     med = frames(renderer, "default knobs")
     launches = dict(kernels.LAUNCHES)
     peak_mb = torch.cuda.max_memory_allocated(dev) / 2 ** 20
     missing = [k for k in frame_kernels if launches[k] == 0]
     check(not missing, f"kernels not launched by the main path: {missing}")
+    n_frames = FRAMES + 1  # with the warm-up frame
+    uneven = {k: launches[k] for k in per_frame if launches[k] != n_frames}
+    check(not uneven, f"per-frame kernels not launched once in each of the "
+          f"{n_frames} frames: {uneven}")
     print(f"peak device memory: {peak_mb:.1f} MiB "
           f"(max_memory_allocated over setup and frames)")
-    print(f"launches in the main path: "
+    print(f"launches in the main path ({n_frames} frames): "
           f"{ {k: launches[k] for k in frame_kernels + ['jump_trace']} }")
+    print(f"kernel launches per main-path frame: "
+          f"{sum(launches.values()) / n_frames:.2f} through kernels.launch "
+          f"({sum(launches[k] for k in per_frame) / n_frames:.0f} per-frame "
+          f"kernels, plus K3 per sky bucket and K11 per sun)")
 
     # ---- 3. the DDA frame over the same scene
     dda = Renderer(wcfg, RenderConfig(width=1920, height=1080,
@@ -354,27 +372,23 @@ def main() -> int:
     h, w = cfg.height, cfg.width
     nm = post.bloom_mip_count(w, h)
     sizes = [(max(h >> m, 1), max(w >> m, 1)) for m in range(nm)]
-    mips = [hdr_k]
-    errs["bloom_downsample"] = 0.0
-    for m in range(1, nm):
-        a = post.bloom_downsample(mips[-1], *sizes[m])
-        b = post.bloom_downsample_plain(mips[-1], *sizes[m])
-        check(torch.allclose(a, b, rtol=1e-5, atol=1e-5),
-              f"K4 downsample mip {m} differs beyond 1e-5")
-        errs["bloom_downsample"] = max(errs["bloom_downsample"],
-                                       float((a - b).abs().max()))
-        mips.append(a)
-    errs["bloom_upsample"] = 0.0
-    for m in range(nm - 2, 1, -1):
-        a = post.bloom_upsample(mips[m + 1], *sizes[m])
-        b = post.bloom_upsample_plain(mips[m + 1], *sizes[m])
-        check(torch.allclose(a, b, rtol=1e-5, atol=1e-5),
-              f"K4 upsample mip {m} differs beyond 1e-5")
-        errs["bloom_upsample"] = max(errs["bloom_upsample"],
-                                     float((a - b).abs().max()))
-        mips[m] = a
-    img_k = post.composite_p(hdr_k, mips[2], h, w)
-    img_p = post.composite_p_plain(hdr_k, mips[2], h, w)
+    # the pyramid's mip 2 against the plain chain, at the main path's shape
+    # and at odd shapes (a mip side of 1; mips of odd sides)
+    bloom_k = post.bloom_pyramid_p(hdr_k)
+    bloom_p = post.bloom_pyramid_plain(hdr_k)
+    check(bloom_k.shape == bloom_p.shape and torch.allclose(
+        bloom_k, bloom_p, rtol=1e-5, atol=1e-5),
+        "K4 bloom pyramid differs beyond rtol=atol=1e-5")
+    errs["bloom_pyramid"] = float((bloom_k - bloom_p).abs().max())
+    gen = torch.Generator(device=dev).manual_seed(0)
+    for bh, bw in ((5, 700), (67, 33), (135, 241), (1080, 1917)):
+        x = torch.rand((4, bh, bw), generator=gen, device=dev) * 2.0
+        a, b = post.bloom_pyramid_p(x), post.bloom_pyramid_plain(x)
+        check(a.shape == b.shape and torch.allclose(a, b, rtol=1e-5,
+                                                    atol=1e-5),
+              f"K4 bloom pyramid at {bh}x{bw} differs beyond 1e-5")
+    img_k = post.composite_p(hdr_k, bloom_k, h, w)
+    img_p = post.composite_p_plain(hdr_k, bloom_k, h, w)
     u8 = (img_k.int() - img_p.int()).abs()
     check(int(u8.max()) <= 1, f"K4 composite: u8 differs by {int(u8.max())}")
     errs["composite"] = float(u8.max())
@@ -415,12 +429,8 @@ def main() -> int:
         sky.write_skybox_plain(sun_d, cfg.skybox_resolution),
         sky.write_clouds_plain(sun_d, t, cfg.clouds_resolution), sun3,
         sun_col, h, w)
-    pm = [phdr]
-    for m in range(1, nm):
-        pm.append(post.bloom_downsample_plain(pm[-1], *sizes[m]))
-    for m in range(nm - 2, 1, -1):
-        pm[m] = post.bloom_upsample_plain(pm[m + 1], *sizes[m])
-    img_pf = post.composite_p_plain(phdr, pm[2], h, w)
+    img_pf = post.composite_p_plain(phdr, post.bloom_pyramid_plain(phdr),
+                                    h, w)
     check(bool(torch.isfinite(hdr_kf).all()), "kernel frame HDR not finite")
     alpha = hdr_kf[..., 3]
     check(bool((alpha == 10).any() and (alpha == 0).any()),
@@ -433,13 +443,6 @@ def main() -> int:
           f"more than 2 u8 levels (bar 0.005)")
 
     # ---- 5. times, kernel beside plain, main-path shapes
-    def down_chain(fn):
-        return lambda: [fn(mips[m - 1], *sizes[m]) for m in range(1, nm)]
-
-    def up_chain(fn):
-        return lambda: [fn(mips[m + 1], *sizes[m])
-                        for m in range(nm - 2, 1, -1)]
-
     timed = {
         "jump_trace": (lambda: jump.trace_jump(grid, o, d, max_steps),
                        lambda: jump.trace_jump_plain(grid, o, d, max_steps),
@@ -478,29 +481,30 @@ def main() -> int:
             lambda: sky.write_clouds_plain(sun_d, 0.25,
                                            cfg.clouds_resolution),
             20, 3),
-        "bloom_downsample": (down_chain(post.bloom_downsample),
-                             down_chain(post.bloom_downsample_plain), 50, 5),
-        "bloom_upsample": (up_chain(post.bloom_upsample),
-                           up_chain(post.bloom_upsample_plain), 50, 5),
-        "composite": (lambda: post.composite_p(hdr_k, mips[2], h, w),
-                      lambda: post.composite_p_plain(hdr_k, mips[2], h, w),
+        "bloom_pyramid": (lambda: post.bloom_pyramid_p(hdr_k),
+                          lambda: post.bloom_pyramid_plain(hdr_k), 50, 5),
+        "composite": (lambda: post.composite_p(hdr_k, bloom_k, h, w),
+                      lambda: post.composite_p_plain(hdr_k, bloom_k, h, w),
                       50, 5),
     }
     def nbytes(*ts):
         return float(sum(t.nbytes for t in ts))
 
-    def mip_bytes(pairs):
-        return 16.0 * sum(sizes[a][0] * sizes[a][1] + sizes[b][0] * sizes[b][1]
-                          for a, b in pairs)
+    def texels(ms):
+        return float(sum(sizes[m][0] * sizes[m][1] for m in ms))
 
-    down = [(m - 1, m) for m in range(1, nm)]
-    up = [(m + 1, m) for m in range(nm - 2, 1, -1)]
-    # the data-dependent work: K9's bbox fragments, K11's (face, texel)
-    # pairs, K12's lanes plus its residue's DDA sub-steps (charged at K1's
-    # rate)
-    use, imin, imax, jmin, jmax = rt.project_faces(faces, rcam, w, h)
-    fragments = float(torch.where(use, (imax - imin + 1) * (jmax - jmin + 1),
-                                  0).sum())
+    down_texels = texels(range(1, nm))
+    up_texels = texels(range(nm - 2, 1, -1))
+    # the data-dependent work: K9's fragments (its tight boxes; beside them
+    # the JAX boxes of the plain version), K11's (face, texel) pairs, K12's
+    # lanes plus its residue's DDA sub-steps (charged at K1's rate)
+    def box_fragments(tight):
+        use, imin, imax, jmin, jmax = rt.project_faces(faces, rcam, w, h,
+                                                       tight)
+        return float(torch.where(use, (imax - imin + 1) * (jmax - jmin + 1),
+                                 0).sum())
+
+    fragments, jax_fragments = box_fragments(True), box_fragments(False)
     fs = ss.face_setup(faces, e1, e2, s_basis, *grids_k[1:], ss.GRID)
     pairs = float(torch.where(fs["occl"], (fs["oi1"] - fs["oi0"] + 1)
                               * (fs["oj1"] - fs["oj0"] + 1), 0).sum())
@@ -524,11 +528,11 @@ def main() -> int:
                                sh_k.hit, sb_k, cl_k, hdr_k), n),
         "write_skybox": (nbytes(sb_k), sb_k.numel() / 3),
         "write_clouds": (nbytes(cl_k), cl_k.numel() / 4),
-        "bloom_downsample": (mip_bytes(down),
-                             sum(sizes[b][0] * sizes[b][1] for _, b in down)),
-        "bloom_upsample": (mip_bytes(up),
-                           sum(sizes[b][0] * sizes[b][1] for _, b in up)),
-        "composite": (nbytes(hdr_k, mips[2], img_k), h * w),
+        # the HDR image read once and mip 2 written once
+        "bloom_pyramid": (nbytes(hdr_k, bloom_k),
+                          down_texels + up_texels * BLOOM_UP_OPS
+                          / OPS_PER_ITEM["bloom_pyramid"]),
+        "composite": (nbytes(hdr_k, bloom_k, img_k), h * w),
     }
     rows = []
     for name, (kfn, pfn, kreps, preps) in timed.items():
@@ -554,8 +558,9 @@ def main() -> int:
           f"{by_name['masked_shadow']['ms']:.4f} ms on the same lanes")
     print(f"time primary visibility: K9+K10 "
           f"{by_name['raster_fragments']['ms'] + by_name['raster_resolve']['ms']:.4f}"
-          f" ms vs K1 {by_name['jump_trace']['ms']:.4f} ms; {fragments:.0f} "
-          f"bbox fragments ({fragments / n:.2f} per pixel); K11 "
+          f" ms vs K1 {by_name['jump_trace']['ms']:.4f} ms; K9 tests "
+          f"{fragments:.0f} fragments ({fragments / n:.2f} per pixel; "
+          f"{jax_fragments:.0f} in the JAX boxes of its plain version); K11 "
           f"{pairs:.0f} (face, texel) pairs")
 
     # ---- 6. the gather microbenchmark's path, through its entry point

@@ -1,5 +1,5 @@
-"""K4 (bloom chain and compositor): the port's plain torch versions held to
-the JAX package's `bloom_downsample`, `bloom_upsample`, `bloom_pyramid_p`
+"""K4 (bloom pyramid and compositor): the port's plain torch versions held
+to the JAX package's `bloom_downsample`, `bloom_upsample`, `bloom_pyramid_p`
 and `composite_p`.
 
 Tolerances: bloom atol=rtol=1e-5 (the 3x3 window sum may add in another
@@ -25,23 +25,26 @@ def _hdr(h, w, seed):
     return img
 
 
-@pytest.mark.parametrize("shape", [(64, 96), (30, 40), (67, 33)])
+# (5, 700): mip 2 is 1 x 175, a side of 1
+@pytest.mark.parametrize("shape", [(64, 96), (30, 40), (67, 33), (5, 700)])
 def test_bloom_passes_and_pyramid_equal_jax(shape):
     h, w = shape
     img = _hdr(h, w, 1)
     nh, nw = max(h >> 1, 1), max(w >> 1, 1)
-    down = post.bloom_downsample(torch.from_numpy(img), nh, nw)
+    down = post.bloom_downsample_plain(torch.from_numpy(img), nh, nw)
     np.testing.assert_allclose(
         down.numpy(), np.asarray(jpost.bloom_downsample(jnp.asarray(img),
                                                         nh, nw)),
         rtol=1e-5, atol=1e-5)
-    up = post.bloom_upsample(down, h, w)
+    up = post.bloom_upsample_plain(down, h, w)
     np.testing.assert_allclose(
         up.numpy(), np.asarray(jpost.bloom_upsample(jnp.asarray(
             down.numpy()), h, w)), rtol=1e-5, atol=1e-5)
     b2 = post.bloom_pyramid_p(torch.from_numpy(img))
     ref = np.asarray(jpost.bloom_pyramid_p(jnp.asarray(img)))
     assert b2.shape == ref.shape
+    if shape == (5, 700):
+        assert b2.shape == (4, 1, 175)
     np.testing.assert_allclose(b2.numpy(), ref, rtol=1e-5, atol=1e-5)
 
 
@@ -64,3 +67,9 @@ def test_mip_count():
     assert post.bloom_mip_count(1920, 1080) == jpost.bloom_mip_count(1920,
                                                                      1080)
     assert post.bloom_mip_count(96, 64) == jpost.bloom_mip_count(96, 64)
+
+
+def test_bloom_dispatch_no_fallback():
+    """A device with neither a kernel nor a plain path raises."""
+    with pytest.raises(ValueError):
+        post.bloom_pyramid_p(torch.zeros((4, 64, 96)).to("meta"))

@@ -1,5 +1,7 @@
 """K9 + K10 (the face rasterizer): the port's plain `trace_raster` held to
-the JAX package's `trace_raster` and to the port's numpy oracle.
+the JAX package's `trace_raster` and to the port's numpy oracle, and the
+CUDA K9's tile-binned design (`raster_fragments_tiled_plain`) held to the
+plain K9 key for key.
 
 Tolerance: none. (hit, face, axis_coord, t) are integer or exact float
 outputs of the oracle's own formulas. Against JAX the inputs are the same
@@ -45,6 +47,30 @@ def _staircase():
     return np.ascontiguousarray(yy <= ((xx + zz) // 2) % 24)
 
 
+def _edges_at_centres():
+    """A checkered wall at z = 10 (a backing wall at z = 11) seen straight
+    along +z from z = 2 with a 90-degree fov at 64 x 64: every voxel edge
+    of the z = 10 plane projects onto a column or row of pixel centres
+    (ic = 64 - 4x, jc = 64 - 4y)."""
+    occ = np.zeros((16, 16, 16), bool)
+    yy, xx = np.meshgrid(np.arange(4, 12), np.arange(4, 12), indexing="ij")
+    occ[10, 4:12, 4:12] = (xx + yy) % 2 == 0
+    occ[11, 4:12, 4:12] = True
+    return occ, Camera.look_at([8.125, 8.125, 2.0], [8.125, 8.125, 12.0],
+                               90.0), 64, 64
+
+
+def _straddle():
+    """A floor (y < 4) with a pillar, the camera just above it looking
+    along it: the floor's top faces run from behind the camera to in
+    front of it."""
+    occ = np.zeros((16, 16, 16), bool)
+    occ[:, :4] = True
+    occ[8:10, 4:8, 6:8] = True
+    return occ, Camera.look_at([8.3, 5.2, 3.1], [8.3, 4.2, 15.0], 80.0), \
+        96, 72
+
+
 def _case(name, occ):
     """(occ, camera, w, h) of one oracle case."""
     if name == "single_block":
@@ -77,11 +103,31 @@ def _case(name, occ):
         # width: the middle column's x and z crossings are near ties
         return _staircase(), Camera.look_at([1.5, 16.0, 1.5],
                                             [60.0, 10.0, 60.0], 40.0), 97, 65
+    if name == "edges_at_centres":
+        return _edges_at_centres()
+    if name == "straddle":
+        return _straddle()
     raise ValueError(name)
 
 
 CASES = ["single_block", "inside_solid", "outside_world", "close_big_faces",
-         "random0", "random1", "staircase"]
+         "random0", "random1", "staircase", "edges_at_centres", "straddle"]
+
+
+def _corners(fs):
+    """(n, 4, 3) float64 corners of the face rectangles."""
+    vx, vy, vz, axis, sgn, eu, ev = (np.asarray(a, np.float64)
+                                     for a in fs.device_tuple("cpu")[:7])
+    plane = np.choose(axis.astype(int), [vx, vy, vz]) + sgn
+    out = []
+    for du in (0.0, 1.0):
+        for dv in (0.0, 1.0):
+            out.append(np.stack([
+                np.where(axis == 0, plane, vx + du * eu),
+                np.where(axis == 1, plane, vy + np.where(axis == 0, du * eu,
+                                                         dv * ev)),
+                np.where(axis == 2, plane, vz + dv * ev)], -1))
+    return np.stack(out, 1)
 
 
 @pytest.mark.parametrize("name", CASES)
@@ -99,8 +145,90 @@ def test_raster_equals_oracle(name, small_world):
         assert hit.all() and (res.t == 0).all() and (res.face == 0).all()
     if name == "outside_world":
         assert not hit.any()
-    if name in ("single_block", "staircase", "close_big_faces"):
+    if name in ("single_block", "staircase", "close_big_faces",
+                "edges_at_centres", "straddle"):
         assert hit.any()
+
+
+@pytest.mark.parametrize("name", CASES)
+def test_tiled_twin_equals_plain(name, small_world):
+    """K9's tile-binned design gives the plain K9's keys bit for bit, with
+    its default bin limit (at these sizes every face is binned) and with
+    every face on the big list (0)."""
+    occ, cam, w, h = _case(name, small_world[2])
+    fs = extract_merged_faces(occ).device_tuple("cpu")
+    rc = raster_camera(cam)
+    _, d = camera_rays(cam, w, h, "cpu")
+    ref = rastertrace.raster_fragments_plain(fs, rc, d, w, h)
+    for bin_max in (rastertrace.BIN_MAX, 0):
+        out = rastertrace.raster_fragments_tiled_plain(fs, rc, d, w, h,
+                                                       bin_max)
+        assert torch.equal(out, ref), (bin_max, int((out != ref).sum()))
+    if name in ("single_block", "staircase", "edges_at_centres", "straddle"):
+        assert (ref != -1).any()
+
+
+@pytest.mark.parametrize("name", CASES)
+def test_depth_cull_bound_holds(name, small_world):
+    """K9's depth cull never drops a fragment the exact test covers: each
+    covered fragment's key is at least its face's `face_t_keys` bound."""
+    occ, cam, w, h = _case(name, small_world[2])
+    fs = extract_merged_faces(occ).device_tuple("cpu")
+    rc = raster_camera(cam)
+    _, d = camera_rays(cam, w, h, "cpu")
+    face, _, key = rastertrace.tiled_fragments_plain(fs, rc, d, w, h)
+    bound = rastertrace.face_t_keys(fs, rc)
+    assert (bound[face] <= key).all()
+    if name in ("single_block", "staircase", "edges_at_centres", "straddle"):
+        assert (bound[face] > 0).any()
+
+
+@pytest.mark.parametrize("name", CASES)
+def test_tight_box_holds_every_covered_fragment(name, small_world):
+    """K9's tight bbox never drops a fragment the exact test covers: every
+    covered fragment of the JAX box lies in its face's tight box."""
+    occ, cam, w, h = _case(name, small_world[2])
+    fs = extract_merged_faces(occ).device_tuple("cpu")
+    rc = raster_camera(cam)
+    _, d = camera_rays(cam, w, h, "cpu")
+    face, pix, _ = rastertrace.tiled_fragments_plain(fs, rc, d, w, h,
+                                                     tight=False)
+    use, imin, imax, jmin, jmax = rastertrace.project_faces(fs, rc, w, h,
+                                                            tight=True)
+    i, j = pix % w, pix // w
+    assert (use[face] & (imin[face] <= i) & (i <= imax[face])
+            & (jmin[face] <= j) & (j <= jmax[face])).all()
+    loose = rastertrace.project_faces(fs, rc, w, h)
+    area = [((b - a + 1) * (bb - aa + 1))[u].sum()
+            for u, a, b, aa, bb in (loose, (use, imin, imax, jmin, jmax))]
+    assert area[1] <= area[0]
+
+
+def test_edges_at_centres_case_is_one():
+    """The z = 10 plane's face corners project within 1e-3 px of pixel
+    centres (float64 pinhole projection)."""
+    occ, cam, w, h = _edges_at_centres()
+    right, up, fwd = (np.asarray(v, np.float64) for v in cam.basis())
+    tan_half = np.tan(np.radians(cam.fov) / 2.0)
+    corners = _corners(extract_merged_faces(occ))
+    front = corners[:, :, 2].max(1) == 10.0
+    q = corners[front] - np.asarray(cam.position, np.float64)
+    zc = q @ fwd
+    ic = (q @ right / (zc * tan_half) + 1.0) * (w / 2) - 0.5
+    jc = (1.0 - q @ up / (zc * tan_half * h / w)) * (h / 2) - 0.5
+    assert front.sum() > 4
+    assert np.abs(ic - np.round(ic)).max() < 1e-3
+    assert np.abs(jc - np.round(jc)).max() < 1e-3
+
+
+def test_straddle_case_is_one():
+    """Some face of the straddle case has corners on both sides of the
+    camera plane."""
+    occ, cam, _, _ = _straddle()
+    fwd = np.asarray(cam.basis()[2], np.float64)
+    zc = (_corners(extract_merged_faces(occ))
+          - np.asarray(cam.position, np.float64)) @ fwd
+    assert ((zc <= 1e-6).any(1) & (zc > 1e-6).any(1)).any()
 
 
 def test_raster_equals_jax(small_world):
@@ -154,12 +282,15 @@ def test_grazing_cell_follows_the_oracle():
     t = torch.tensor([0.5, 0.5, 0.5, 0.5])      # u crosses at t_a exactly
     first = torch.tensor([True, False, True, False])
     np.testing.assert_array_equal(
-        rastertrace.cell_at(o, d, t, first).numpy(), [1, 0, -1, 0])
+        rastertrace.cell_at(o, d, t, first,
+                            rastertrace.reciprocal(d)).numpy(),
+        [1, 0, -1, 0])
     # no crossing: the start cell
+    d0 = torch.tensor([0.0])
     np.testing.assert_array_equal(
-        rastertrace.cell_at(torch.tensor([3.25]), torch.tensor([0.0]),
-                            torch.tensor([7.0]), torch.tensor([True])),
-        [3])
+        rastertrace.cell_at(torch.tensor([3.25]), d0, torch.tensor([7.0]),
+                            torch.tensor([True]),
+                            rastertrace.reciprocal(d0)), [3])
 
 
 def test_raster_dispatch_no_fallback(small_world):

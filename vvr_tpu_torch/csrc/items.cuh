@@ -1,6 +1,7 @@
-// Work items over a face set, shared by K9 (raster.cu) and K11
-// (sunshadow.cu): the face table, an exclusive scan of the per-face item
-// counts, and the lookup from an item to its face.
+// Work items over a face set, for K11 (sunshadow.cu): the face table, an
+// exclusive scan of the per-face item counts, and the lookup from an item
+// to its face. K9 (raster.cu) takes the face table, the float-to-int
+// helpers and the one-block scan (of its tile counts).
 //
 // A face that covers a large area (a wall next to the camera, a long
 // merged rectangle in sun space) makes many items, a small one few. Each

@@ -65,12 +65,9 @@ KERNELS = {
     "write_clouds": Kernel(
         "vvr_write_clouds", (_F, _F, _F, _F, _I, _P, _P),
         "vvr_tpu_torch/csrc/sky.cu", "vvr_tpu/ops/sky.py:193"),
-    "bloom_downsample": Kernel(
-        "vvr_bloom_downsample", (_P, _I, _I, _P, _I, _I, _P),
-        "vvr_tpu_torch/csrc/post.cu", "vvr_tpu/ops/post.py:92"),
-    "bloom_upsample": Kernel(
-        "vvr_bloom_upsample", (_P, _I, _I, _P, _I, _I, _P),
-        "vvr_tpu_torch/csrc/post.cu", "vvr_tpu/ops/post.py:127"),
+    "bloom_pyramid": Kernel(
+        "vvr_bloom_pyramid", (_P, _I, _I, _I, _P, _P),
+        "vvr_tpu_torch/csrc/post.cu", "vvr_tpu/ops/post.py:146"),
     "composite": Kernel(
         "vvr_composite", (_P, _I, _I, _P, _I, _I, _F, _I, _P, _I, _I, _P),
         "vvr_tpu_torch/csrc/post.cu", "vvr_tpu/ops/post.py:205"),

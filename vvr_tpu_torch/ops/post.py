@@ -1,7 +1,7 @@
 """Bloom mip chain and compositor — kernel K4 (csrc/post.cu).
 
-Replaces vvr_tpu/ops/post.py `bloom_downsample` (:92), `bloom_upsample`
-(:127) and `composite_p` (:205), with `bloom_pyramid_p` driving the chain:
+Replaces vvr_tpu/ops/post.py `bloom_pyramid_p` (:146, with its passes
+`bloom_downsample` :92 and `bloom_upsample` :127) and `composite_p` (:205):
 
   downsample: 9 taps on the half-texel grid, each kept where
               length(rgba) > 0.6 (the sky's alpha 10 makes the sky bloom),
@@ -12,12 +12,16 @@ Replaces vvr_tpu/ops/post.py `bloom_downsample` (:92), `bloom_upsample`
               u8 quantization `(clip * 255 + 0.5)` truncated, integer
               upscale to the output size.
 
-What bounds them on an H100: memory bandwidth. Mip 1 reads the 33 MB HDR
-image and writes a quarter of it; later mips are small; the composite reads
-the HDR image and the bloom mip and writes 6 MB of u8. One thread per
-output texel computes its taps straight from the finer image, so the
-half-texel grid and the intermediate upsample planes are never stored
-(the JAX version builds them as whole arrays to avoid TPU gathers).
+What bounds them on an H100: memory bandwidth and latency. Mip 1 reads the
+33 MB HDR image and writes a quarter of it; the other eleven levels are
+small, so each costs a dependent step. `bloom_pyramid` runs every level in
+one cooperative launch, with a grid sync between stages and the mips in
+one scratch buffer: a downsample level takes a thread per output texel
+(its 64 texels loaded at once), and the five upsample levels run as one
+stage, a tile of mip 2 per CTA in shared memory. The composite reads the
+HDR image and the bloom mip and writes 6 MB of u8, one thread per output
+texel. The per-level plain functions are the pyramid's plain version,
+pass by pass.
 
 All images are planar (C, H, W) float32, as in the JAX version.
 """
@@ -157,40 +161,46 @@ def _check_planar(img, channels: int = 4):
     kernels.check_cuda(img)
 
 
-def bloom_downsample(prev, next_h: int, next_w: int):
-    if not kernels.on_cuda(prev):
-        return bloom_downsample_plain(prev, next_h, next_w)
-    _check_planar(prev)
-    out = torch.empty((4, next_h, next_w), dtype=F32, device=prev.device)
-    kernels.launch("bloom_downsample", prev.device, prev.data_ptr(),
-                   prev.shape[1], prev.shape[2], out.data_ptr(), next_h,
-                   next_w)
-    return out
+def _mip_offsets(h: int, w: int, n_mips: int):
+    """Element offset of each mip 1..n_mips-1 in the pyramid's scratch
+    buffer, back to back (csrc/post.cu mip_offset), and the total."""
+    offsets, off = {}, 0
+    for m in range(1, n_mips):
+        offsets[m] = off
+        off += 4 * _mip_size(h, m) * _mip_size(w, m)
+    return offsets, off
 
 
-def bloom_upsample(prev, next_h: int, next_w: int):
-    if not kernels.on_cuda(prev):
-        return bloom_upsample_plain(prev, next_h, next_w)
-    _check_planar(prev)
-    out = torch.empty((4, next_h, next_w), dtype=F32, device=prev.device)
-    kernels.launch("bloom_upsample", prev.device, prev.data_ptr(),
-                   prev.shape[1], prev.shape[2], out.data_ptr(), next_h,
-                   next_w)
-    return out
-
-
-def bloom_pyramid_p(rendered):
-    """Full bloom chain on a planar (4, H, W) image; returns mip 2."""
+def bloom_pyramid_plain(rendered):
+    """Full bloom chain on a planar (4, H, W) image, pass by pass; returns
+    mip 2."""
     h, w = rendered.shape[1], rendered.shape[2]
     n_mips = bloom_mip_count(w, h)
     mips = [rendered]
     for m in range(1, n_mips):
-        mips.append(bloom_downsample(mips[m - 1], _mip_size(h, m),
-                                     _mip_size(w, m)))
+        mips.append(bloom_downsample_plain(mips[m - 1], _mip_size(h, m),
+                                           _mip_size(w, m)))
     for m in range(n_mips - 2, 1, -1):
-        mips[m] = bloom_upsample(mips[m + 1], _mip_size(h, m),
-                                 _mip_size(w, m))
+        mips[m] = bloom_upsample_plain(mips[m + 1], _mip_size(h, m),
+                                       _mip_size(w, m))
     return mips[2]
+
+
+def bloom_pyramid_p(rendered):
+    """Full bloom chain on a planar (4, H, W) image; returns mip 2.
+    CUDA: K4 `bloom_pyramid`, every level in one launch; mip 2 is a view
+    of its scratch buffer."""
+    if not kernels.on_cuda(rendered):
+        return bloom_pyramid_plain(rendered)
+    _check_planar(rendered)
+    h, w = rendered.shape[1], rendered.shape[2]
+    n_mips = bloom_mip_count(w, h)
+    offsets, total = _mip_offsets(h, w, n_mips)
+    scratch = torch.empty(total, dtype=F32, device=rendered.device)
+    kernels.launch("bloom_pyramid", rendered.device, rendered.data_ptr(), h,
+                   w, n_mips, scratch.data_ptr())
+    h2, w2 = _mip_size(h, 2), _mip_size(w, 2)
+    return scratch[offsets[2]:offsets[2] + 4 * h2 * w2].view(4, h2, w2)
 
 
 def composite_p(rendered, bloom_mip2, out_h: int, out_w: int,

@@ -17,13 +17,15 @@ over one scene, and prints, each from this run:
 3. per phase, CUDA events around each call of the frame's passes; a phase
    includes the host's launch gaps inside it;
 4. one window of synchronized frames of each kind under torch.profiler
-   with CUDA activity only: device time per kernel per frame, and the
+   with CUDA activity only: device time per kernel per frame, summed per
+   C entry point for K9 (its four kernels) and the bloom pyramid, and the
    device busy share of that window = the union of device intervals
    (kernels, copies, sets) over the span from the first to the last event
    of the trace, both on the trace's clock. The profiler's own overhead
    stretches the window on the host, so this share is most likely below
    the unprofiled one;
-5. the work counters at this camera.
+5. the work counters at this camera (K9's fragments in its tight boxes
+   and in the JAX boxes, its binned (face, tile) pairs and big faces).
 
 It exits non-zero without a CUDA device.
 """
@@ -60,9 +62,16 @@ DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
 # torch ops (ray generation, the sun expand, the host-to-device copies).
 PORT_KERNELS = ("vvr_jump_trace_kernel", "vvr_shade_surface_kernel",
                 "vvr_shade_pixel_kernel", "skybox_kernel", "clouds_kernel",
-                "downsample_kernel", "upsample_kernel", "composite_kernel",
+                "vvr_bloom_pyramid_kernel", "composite_kernel",
                 "vvr_raster_", "vvr_scan_", "vvr_sun_",
                 "vvr_masked_shadow_kernel")
+# the device kernels of one C entry point, by name part: K9 launches
+# project, scan, bin and tile kernels (and a memset), the pyramid one
+ENTRY_KERNELS = {
+    "K9 raster_fragments": ("vvr_raster_project", "vvr_scan_",
+                            "vvr_raster_bin", "vvr_raster_tile"),
+    "K4 bloom_pyramid": ("vvr_bloom_pyramid_kernel",),
+}
 
 
 def union_us(intervals) -> float:
@@ -160,6 +169,10 @@ def window(label, renderer, cam, trace_path) -> None:
     for k, (cnt, us) in sorted(per_name.items(), key=lambda kv: -kv[1][1]):
         print(f"  device {us / n:9.2f} us/frame  {cnt / n:5.1f} calls/frame"
               f"  {k[:110]}")
+    for entry, parts in ENTRY_KERNELS.items():
+        got = [v for k, v in per_name.items() if any(p in k for p in parts)]
+        print(f"  entry {entry}: device {sum(v[1] for v in got) / n:.2f} "
+              f"us/frame in {sum(v[0] for v in got) / n:.1f} kernels/frame")
 
 
 def main(argv=None) -> int:
@@ -277,14 +290,14 @@ def main(argv=None) -> int:
     print("phases (default knobs):")
     phases(("ray generation (plain torch)", "K9 raster fragments",
             "K10 raster resolve", "K2 shade_surface",
-            "K12 masked shadow", "K2 shade_pixel", "K4 bloom chain",
+            "K12 masked shadow", "K2 shade_pixel", "K4 bloom pyramid",
             "K4 composite"),
            (rays, fragments, resolve, surface, classifier, pixel, bloom,
             composite))
     print("phases (DDA):")
     phases(("ray generation (plain torch)", "K1 primary trace",
             "K2 shade_surface", "K1 shadow trace (+ sun expand)",
-            "K2 shade_pixel", "K4 bloom chain", "K4 composite"),
+            "K2 shade_pixel", "K4 bloom pyramid", "K4 composite"),
            (rays, primary, surface, shadow, pixel, bloom, composite))
 
     # ---- 4. one profiled window per frame kind
@@ -303,12 +316,26 @@ def main(argv=None) -> int:
     print(f"primary rays (K1): hit share {float(res.hit.float().mean()):.4f}, "
           f"sub-steps mean {float(it.mean()):.2f} max {float(it.max()):.0f}, "
           f"row fetches mean {float(res.fetches.float().mean()):.2f}")
-    use, imin, imax, jmin, jmax = rt.project_faces(faces, rcam, w, h)
-    frags = float(torch.where(use, (imax - imin + 1) * (jmax - jmin + 1),
-                              0).sum())
+    frags = {}
+    for tight in (False, True):
+        use, imin, imax, jmin, jmax = rt.project_faces(faces, rcam, w, h,
+                                                       tight)
+        frags[tight] = float(torch.where(
+            use, (imax - imin + 1) * (jmax - jmin + 1), 0).sum())
     print(f"raster: {int(use.sum())} of {faces[0].shape[0]} faces make "
-          f"fragments, {frags:.0f} bbox fragments ({frags / (w * h):.2f} "
-          f"per pixel)")
+          f"fragments in K9's tight boxes, {frags[True]:.0f} fragments "
+          f"({frags[True] / (w * h):.2f} per pixel; the JAX boxes of the "
+          f"plain version {frags[False]:.0f}, "
+          f"{frags[False] / (w * h):.2f} per pixel)")
+    spans = ((imax // rt.TILE - imin // rt.TILE + 1)
+             * (jmax // rt.TILE - jmin // rt.TILE + 1))
+    binned = use & (spans <= rt.BIN_MAX)
+    n_tiles = -(-w // rt.TILE) * -(-h // rt.TILE)
+    print(f"raster bins ({rt.TILE}^2 tiles, {n_tiles} of them): "
+          f"{int(binned.sum())} faces binned into "
+          f"{int(spans[binned].sum())} (face, tile) pairs, "
+          f"{int((use & ~binned).sum())} on the big list that every tile "
+          f"reads")
     full = jump.trace_jump(grid, st["s_o"], sun3.to(dev).expand(
         w * h, 3).contiguous(), max_steps, active=s_a)
     it = full.iterations.float()[s_a]
