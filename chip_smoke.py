@@ -11,20 +11,25 @@
    visibility, one hard shadow ray per lit pixel answered by the sun
    classifier, sky textures cached per 0.25 s bucket, bloom, ACES) through
    `Renderer.render`; reads the counters and fails unless each kernel of
-   that path (K2, K3, K4, K9, K10, K11, K12) was launched, and each
-   per-frame kernel (K9 and the bloom pyramid among them) once in every
-   frame; prints the port's kernel launches per frame;
+   that path (K2 shade_pixel, K3, K4, K9, K10, K11, K12; K12 computes the
+   shadow rays' starts, so K2 shade_surface and K1 must not run) was
+   launched, and each per-frame kernel once in every frame; prints the
+   port's kernel launches per frame;
 3. the DDA frame (`primary_raster="off", sun_mask="off"`: K1 for primary
-   and shadow rays) over the same scene, counters reset before it and read
-   after, its median printed beside the default frame's;
+   and shadow rays, K2 shade_surface for their starts) over the same
+   scene, counters reset before it and read after, checked and printed the
+   same way, its median printed beside the default frame's;
 4. holds each kernel against its plain torch version on the card at the
    main path's shapes; the raster (K9+K10) against K1's primary trace on
    every ray, with each ray where they differ traced by the numpy oracle
    (the raster must be the oracle's), and both against the oracle on a
-   65,536-ray subset; K12 against an every-lane K1 shadow trace; the bloom
-   pyramid's mip 2 against the plain pass-by-pass chain, at the main
-   path's shape and at small odd shapes; the default frame against the
-   DDA frame, and the kernel frame against the plain-torch frame;
+   65,536-ray subset; K12 on the raster hits against its plain version,
+   against K12 on K2's starts, against an every-lane K1 shadow trace and
+   its mask against K2's, and prints the lanes each of its tests answers;
+   the bloom pyramid's mip 2 against the plain pass-by-pass chain, at the
+   main path's shape and at small odd shapes; the composite with bloom,
+   without it and at an integer upscale of 2; the default frame against
+   the DDA frame, and the kernel frame against the plain-torch frame;
 5. times each kernel beside its plain version (CUDA events) and computes
    its bound: the larger of the bytes it must move over 3.35 TB/s and its
    operations over the peak for their type;
@@ -54,10 +59,14 @@ ORACLE_RAYS = 65536
 CAMERA = ([128.0, 100.0, 20.0], [128.0, 20.0, 180.0], 85.0)  # bench.py:33
 # Operations per item of the frame's kernels (per trace sub-step, pixel,
 # texel, K9 fragment, (face, texel) pair or shadow lane), counted by hand
-# from csrc/ and rounded; K12's residue adds jump_trace's per sub-step.
+# from csrc/ and rounded; K12 adds shade_surface's per pixel (it computes
+# the starts) and jump_trace's per sub-step of its residue. The composite's
+# 190 per pixel are three channels of the bloom's interpolation (7),
+# strength (2), ACES (7 and an IEEE division, about 10), powf (about 30:
+# log2 and exp2 in extended precision) and the clamp and quantization (6).
 OPS_PER_ITEM = {"jump_trace": 30, "shade_surface": 40, "shade_pixel": 250,
                 "write_skybox": 450, "write_clouds": 750,
-                "bloom_pyramid": 220, "composite": 60,
+                "bloom_pyramid": 220, "composite": 190,
                 "raster_fragments": 70,
                 "raster_resolve": 45, "sun_grids": 90, "masked_shadow": 60}
 # the bloom pyramid's items are its downsampled texels (220 operations
@@ -170,31 +179,43 @@ def main() -> int:
               f"({r.rays_per_frame} rays/frame at the median)")
         return med
 
-    frame_kernels = ["shade_surface", "shade_pixel", "write_skybox",
-                     "write_clouds", "bloom_pyramid", "composite",
-                     "raster_fragments", "raster_resolve", "sun_grids",
-                     "masked_shadow"]
-    # launched once in every frame (K3 only per sky bucket, K11 per sun)
-    per_frame = ["shade_surface", "shade_pixel", "bloom_pyramid",
-                 "composite", "raster_fragments", "raster_resolve",
-                 "masked_shadow"]
-    med = frames(renderer, "default knobs")
-    launches = dict(kernels.LAUNCHES)
-    peak_mb = torch.cuda.max_memory_allocated(dev) / 2 ** 20
-    missing = [k for k in frame_kernels if launches[k] == 0]
-    check(not missing, f"kernels not launched by the main path: {missing}")
+    # the kernels of each frame, and those launched once in every frame (K3
+    # only per sky bucket, K11 per sun); K12 computes the shadow rays'
+    # starts itself, so K2 shade_surface runs only in the DDA frame
+    frame_kernels = ["shade_pixel", "write_skybox", "write_clouds",
+                     "bloom_pyramid", "composite", "raster_fragments",
+                     "raster_resolve", "sun_grids", "masked_shadow"]
+    per_frame = ["shade_pixel", "bloom_pyramid", "composite",
+                 "raster_fragments", "raster_resolve", "masked_shadow"]
+    dda_kernels = ["jump_trace", "shade_surface", "shade_pixel",
+                   "bloom_pyramid", "composite"]
+    dda_per_frame = ["shade_surface", "shade_pixel", "bloom_pyramid",
+                     "composite"]
     n_frames = FRAMES + 1  # with the warm-up frame
-    uneven = {k: launches[k] for k in per_frame if launches[k] != n_frames}
-    check(not uneven, f"per-frame kernels not launched once in each of the "
-          f"{n_frames} frames: {uneven}")
+
+    def frame_launches(label, kinds, every):
+        got = dict(kernels.LAUNCHES)
+        missing = [k for k in kinds if got[k] == 0]
+        check(not missing, f"kernels not launched by the {label} frame: "
+              f"{missing}")
+        uneven = {k: got[k] for k in every if got[k] != n_frames}
+        check(not uneven, f"{label} frame: per-frame kernels not launched "
+              f"once in each of the {n_frames} frames: {uneven}")
+        print(f"launches in the {label} frame ({n_frames} frames): "
+              f"{ {k: v for k, v in got.items() if v} }")
+        print(f"kernel launches per {label} frame: "
+              f"{sum(got.values()) / n_frames:.2f} through kernels.launch")
+        return got
+
+    med = frames(renderer, "default knobs")
+    peak_mb = torch.cuda.max_memory_allocated(dev) / 2 ** 20
+    launches = frame_launches("default-knob", frame_kernels, per_frame)
+    check(launches["shade_surface"] == 0 and launches["jump_trace"] == 0,
+          "the default-knob frame launched K1 or K2 shade_surface")
     print(f"peak device memory: {peak_mb:.1f} MiB "
           f"(max_memory_allocated over setup and frames)")
-    print(f"launches in the main path ({n_frames} frames): "
-          f"{ {k: launches[k] for k in frame_kernels + ['jump_trace']} }")
-    print(f"kernel launches per main-path frame: "
-          f"{sum(launches.values()) / n_frames:.2f} through kernels.launch "
-          f"({sum(launches[k] for k in per_frame) / n_frames:.0f} per-frame "
-          f"kernels, plus K3 per sky bucket and K11 per sun)")
+    print(f"({len(per_frame)} per-frame kernels, plus K3 per sky bucket and "
+          f"K11 per sun)")
 
     # ---- 3. the DDA frame over the same scene
     dda = Renderer(wcfg, RenderConfig(width=1920, height=1080,
@@ -203,9 +224,11 @@ def main() -> int:
                    device=dev, scene=renderer.scene)
     kernels.reset_launches()
     med_dda = frames(dda, "DDA")
-    dda_launches = dict(kernels.LAUNCHES)
-    check(dda_launches["jump_trace"] > 0, "the DDA frame did not launch K1")
-    launches["jump_trace"] = dda_launches["jump_trace"]
+    dda_launches = frame_launches("DDA", dda_kernels, dda_per_frame)
+    check(dda_launches["jump_trace"] == 2 * n_frames,
+          "the DDA frame did not launch K1 twice a frame")
+    for k in ("jump_trace", "shade_surface"):
+        launches[k] = dda_launches[k]
     print(f"frame median: default knobs {med:.3f} ms, DDA {med_dda:.3f} ms "
           f"(same call, same card)")
 
@@ -308,28 +331,47 @@ def main() -> int:
           f"{float(fin[:, 1].float().mean()):.4f}; depths "
           f"{float(gk[fin].min()):.3f}..{float(gk[fin].max()):.3f}")
 
-    # K2 surface on the raster hits, then K12 against K1 and its plain
-    so_k, sa_k = shade.shade_surface(o, d, ras_k.hit, ras_k.face,
-                                     ras_k.axis_coord, sun3)
+    # K12 on the raster hits (the main path's entry, which computes the
+    # starts itself) against its plain version (K2 surface, then the
+    # query), against its entry on K2's starts, and against an every-lane
+    # K1 shadow trace
+    hits = (o, d, ras_k.hit, ras_k.face, ras_k.axis_coord)
+    so_k, sa_k = shade.shade_surface(*hits, sun3)
     s_d = sun_d.expand(n, 3).contiguous()
-    ms_k = ss.masked_shadow_hits(grid, so_k, sun_np, e1, e2, grids_k, sa_k,
+    ms_k = ss.masked_shadow_from_hits(grid, *hits, sun_np, e1, e2, grids_k,
+                                      max_steps)
+    ms_p = ss.masked_shadow_from_hits_plain(grid, *hits, sun_np, e1, e2,
+                                            grids_k, max_steps)
+    ms_s = ss.masked_shadow_hits(grid, so_k, sun_np, e1, e2, grids_k, sa_k,
                                  max_steps)
-    ms_p = ss.masked_shadow_hits_plain(grid, so_k, sun_np, e1, e2, grids_k,
-                                       sa_k, max_steps)
     every = jump.trace_jump(grid, so_k, s_d, max_steps, active=sa_k).hit
     check(torch.equal(ms_k, ms_p),
           f"K12 vs plain: {int((ms_k != ms_p).sum())} lanes differ")
+    check(torch.equal(ms_k, ms_s),
+          f"K12 on the hits vs on K2's starts: "
+          f"{int((ms_k != ms_s).sum())} lanes differ")
     check(torch.equal(ms_k & sa_k, every & sa_k),
           f"K12 vs every-lane K1: {int(((ms_k != every) & sa_k).sum())} "
           "active lanes differ")
     check(not bool((ms_k & ~sa_k).any()), "K12 hit on an inactive lane")
+    # K12's own mask: under a gBC that claims certain shadow on every
+    # texel, each active start inside the world is a hit, and no other
+    dark = (torch.full_like(grids_k[0], 3e38),) + tuple(grids_k[1:])
+    mask_k = ss.masked_shadow_from_hits(grid, *hits, sun_np, e1, e2, dark,
+                                        max_steps)
+    inw = ((so_k >= 0) & (so_k < wcfg.size)).all(1)
+    check(torch.equal(mask_k, sa_k & inw),
+          f"K12's shadow mask differs from K2 shade_surface's on "
+          f"{int((mask_k != (sa_k & inw)).sum())} lanes inside the world")
     errs["masked_shadow"] = 0.0
-    known, residue = ss.shadow_residue(grid, so_k, sun_np, e1, e2, grids_k,
-                                       sa_k)
-    print(f"K12: {int(sa_k.sum())} active lanes of {n} bit-exact vs plain "
-          f"and vs an every-lane K1 shadow trace; {int(residue.sum())} "
-          f"lanes ({float(residue.sum() / sa_k.sum()):.4f}) left to the "
-          f"DDA, {int(known.sum())} hits known without it")
+    branch = ss.shadow_branches(grid, so_k, sun_np, e1, e2, grids_k, sa_k)
+    counts = torch.bincount(branch, minlength=len(ss.BRANCHES)).tolist()
+    residue = branch == ss.BRANCHES.index("residue")
+    print(f"K12: {int(sa_k.sum())} active lanes of {n} bit-exact vs plain, "
+          f"vs K12 on K2's starts and vs an every-lane K1 shadow trace; its "
+          f"mask equals K2 shade_surface's on the {int(inw.sum())} lanes "
+          f"starting inside the world")
+    print(f"K12 branches (lanes): {dict(zip(ss.BRANCHES, counts))}")
 
     so_d, sa_d = shade.shade_surface(o, d, res_k.hit, res_k.face,
                                      res_k.axis_coord, sun3)
@@ -387,11 +429,32 @@ def main() -> int:
         check(a.shape == b.shape and torch.allclose(a, b, rtol=1e-5,
                                                     atol=1e-5),
               f"K4 bloom pyramid at {bh}x{bw} differs beyond 1e-5")
+    # the composite within one u8 step of its plain version (torch's pow
+    # and CUDA's powf may round a value across a step) with bloom, without
+    # it and at an integer upscale of 2
+    for label, b2, on, oh, ow in (("bloom", bloom_k, True, h, w),
+                                  ("no bloom", torch.zeros_like(bloom_k),
+                                   False, h, w),
+                                  ("upscale 2", bloom_k, True, 2 * h, 2 * w)):
+        img_k = post.composite_p(hdr_k, b2, oh, ow, 0.05, on)
+        img_p = post.composite_p_plain(hdr_k, b2, oh, ow, 0.05, on)
+        u8 = (img_k.int() - img_p.int()).abs()
+        check(tuple(img_k.shape) == (oh, ow, 3) and int(u8.max()) <= 1,
+              f"K4 composite ({label}): u8 differs by {int(u8.max())}")
+        print(f"K4 composite ({label}, {ow}x{oh}): u8 within {int(u8.max())} "
+              f"of plain; {int((u8 > 0).any(-1).sum())} pixels differ")
+        if label == "bloom":
+            errs["composite"] = float(u8.max())
+    # a render width that is not a multiple of 4 (no float4 loads), as is
+    # and upscaled
+    x = torch.rand((4, 67, 33), generator=gen, device=dev) * 2.0
+    bx = post.bloom_pyramid_p(x)
+    for oh, ow in ((67, 33), (134, 66)):
+        u8 = (post.composite_p(x, bx, oh, ow).int()
+              - post.composite_p_plain(x, bx, oh, ow).int()).abs()
+        check(int(u8.max()) <= 1, f"K4 composite at {ow}x{oh} from 33x67: "
+              f"u8 differs by {int(u8.max())}")
     img_k = post.composite_p(hdr_k, bloom_k, h, w)
-    img_p = post.composite_p_plain(hdr_k, bloom_k, h, w)
-    u8 = (img_k.int() - img_p.int()).abs()
-    check(int(u8.max()) <= 1, f"K4 composite: u8 differs by {int(u8.max())}")
-    errs["composite"] = float(u8.max())
     print(f"kernel vs plain on the card: {errs}")
 
     # ---- the default frame against the DDA frame, same sky
@@ -465,11 +528,11 @@ def main() -> int:
             lambda: ss.sun_grids_plain(faces, e1, e2, s_basis, wcfg.size),
             10, 1),
         "masked_shadow": (
-            lambda: ss.masked_shadow_hits(grid, so_k, sun_np, e1, e2,
-                                          grids_k, sa_k, max_steps),
-            lambda: ss.masked_shadow_hits_plain(grid, so_k, sun_np, e1, e2,
-                                                grids_k, sa_k, max_steps),
-            10, 1),
+            lambda: ss.masked_shadow_from_hits(grid, *hits, sun_np, e1, e2,
+                                               grids_k, max_steps),
+            lambda: ss.masked_shadow_from_hits_plain(
+                grid, *hits, sun_np, e1, e2, grids_k, max_steps),
+            20, 1),
         "shade_pixel": (lambda: shade.shade_pixel(*args),
                         lambda: shade.shade_pixel_plain(*args), 50, 5),
         "write_skybox": (
@@ -508,16 +571,23 @@ def main() -> int:
     fs = ss.face_setup(faces, e1, e2, s_basis, *grids_k[1:], ss.GRID)
     pairs = float(torch.where(fs["occl"], (fs["oi1"] - fs["oi0"] + 1)
                               * (fs["oj1"] - fs["oj0"] + 1), 0).sum())
-    res_steps = float(jump.trace_jump(grid, so_k, s_d, max_steps,
-                                      active=residue).iterations.sum())
+    res_it = jump.trace_jump(grid, so_k, s_d, max_steps,
+                             active=residue).iterations[residue].float()
+    res_steps = float(res_it.sum())
+    print(f"K12 residue: {int(residue.sum())} lanes, DDA sub-steps sum "
+          f"{res_steps:.0f}, mean {float(res_it.mean()):.2f}, max "
+          f"{float(res_it.max()):.0f}")
     lanes = float(sa_k.sum())
     items = {  # (bytes moved, items for OPS_PER_ITEM) at this run's shapes
         "raster_fragments": (nbytes(*faces[:7], d, keys_k), fragments),
         "raster_resolve": (nbytes(keys_k, d, ras_k.hit, ras_k.face,
                                   ras_k.axis_coord, ras_k.t), n),
         "sun_grids": (nbytes(*faces[:8], gk), pairs),
-        "masked_shadow": (nbytes(so_k, sa_k, gk, grid.rows, ms_k),
-                          lanes + res_steps * OPS_PER_ITEM["jump_trace"]
+        # the starts of every hit (K2 shade_surface's operations), the
+        # lit lanes' tests, the residue's DDA sub-steps
+        "masked_shadow": (nbytes(*hits, gk, grid.rows, ms_k),
+                          lanes + (n * OPS_PER_ITEM["shade_surface"]
+                                   + res_steps * OPS_PER_ITEM["jump_trace"])
                           / OPS_PER_ITEM["masked_shadow"]),
         "jump_trace": (nbytes(o, d, grid.rows,
                               *(getattr(res_k, f) for f in fields)),
@@ -532,7 +602,8 @@ def main() -> int:
         "bloom_pyramid": (nbytes(hdr_k, bloom_k),
                           down_texels + up_texels * BLOOM_UP_OPS
                           / OPS_PER_ITEM["bloom_pyramid"]),
-        "composite": (nbytes(hdr_k, bloom_k, img_k), h * w),
+        # three of the four channels of the HDR image and of mip 2
+        "composite": (nbytes(hdr_k[:3], bloom_k[:3], img_k), h * w),
     }
     rows = []
     for name, (kfn, pfn, kreps, preps) in timed.items():

@@ -157,17 +157,22 @@ def test_certain_answers_agree_with_oracle(name, grids, world):
 
 
 @pytest.fixture(scope="module")
-def surface(world, grids):
-    """Shadow starts of a 96x64 frame: its raster hits, surface + 0.05
-    along the default sun, lit-facing lanes active."""
-    occ, _, grid, _, faces = world
+def hits(world):
+    """The primary hits of a 96x64 frame from the raster:
+    (o, d, hit, face, axis_coord)."""
+    faces = world[4]
     o, d = camera_rays(CAM, 96, 64, "cpu")
     res = trace_raster(faces.device_tuple("cpu"), raster_camera(CAM), d,
                        False, 64, 96, 64)
+    return o, d, res.hit, res.face, res.axis_coord
+
+
+@pytest.fixture(scope="module")
+def surface(hits):
+    """Shadow starts of the 96x64 frame's raster hits: surface + 0.05
+    along the default sun, lit-facing lanes active."""
     sun = torch.from_numpy(SUNS["default"])
-    s_o, act = shade.shade_surface_plain(o, d, res.hit, res.face,
-                                         res.axis_coord, sun)
-    return s_o, act
+    return shade.shade_surface_plain(*hits, sun)
 
 
 def test_masked_shadow_equals_every_lane_dda(world, grids, surface):
@@ -205,6 +210,54 @@ def test_masked_shadow_equals_jax(world, grids, surface):
         grid, s_o, sun, e1, e2, convert.sun_grids_from_numpy(ref, "cpu"),
         act, STEPS)
     np.testing.assert_array_equal(got.numpy(), want)
+
+
+@pytest.mark.parametrize("name", ["default", "low"])
+def test_masked_shadow_from_hits_equals_jax(world, grids, hits, name):
+    """The frame's K12 entry on the primary hits: its plain version is K2
+    `shade_surface_plain` followed by `masked_shadow_hits_plain`, and it
+    answers as JAX `masked_shadow_hits` on the same starts and the JAX
+    grids, under the default sun and a low one."""
+    _, jgrid, grid, _, _ = world
+    (e1, e2, _), ref, _ = grids[name]
+    sun = SUNS[name]
+    port_grids = convert.sun_grids_from_numpy(ref, "cpu")
+    got = sunshadow.masked_shadow_from_hits(grid, *hits, sun, e1, e2,
+                                            port_grids, STEPS)
+    s_o, act = shade.shade_surface_plain(*hits, torch.from_numpy(sun))
+    assert torch.equal(got, sunshadow.masked_shadow_hits_plain(
+        grid, s_o, sun, e1, e2, port_grids, act, STEPS))
+    assert 0 < int(got.sum()) < int(act.sum())
+
+    def tr(o, d, active=None, pack_first=None, shadow=False):
+        return jax_trace_jump(jgrid, o, d, max_steps=STEPS, active=active,
+                              compact=False)
+
+    want = np.asarray(jax_masked_shadow(
+        tr, jnp.asarray(s_o.numpy()), jnp.asarray(sun), jnp.asarray(e1),
+        jnp.asarray(e2), tuple(jnp.asarray(a) for a in ref),
+        jnp.asarray(act.numpy()), 64, None))
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+def test_branches_partition_the_lanes(world, grids, surface):
+    """Every active lane has one branch and every inactive lane none, and
+    a branch that answers without the DDA gives the every-lane DDA's
+    answer."""
+    grid = world[2]
+    (e1, e2, _), _, port = grids["default"]
+    s_o, act = surface
+    sun = SUNS["default"]
+    br = sunshadow.shadow_branches(grid, s_o, sun, e1, e2, port, act)
+    assert torch.equal(br == 0, ~act)
+    counts = torch.bincount(br, minlength=len(sunshadow.BRANCHES))
+    assert len(counts) == len(sunshadow.BRANCHES)
+    assert int(counts[3]) > 0 and int(counts[4]) > 0
+    dda = trace_jump_plain(grid, s_o, torch.from_numpy(sun).expand(
+        s_o.shape[0], 3), STEPS, active=act).hit
+    hits = (br == 2) | (br == 3) | (br == 5)
+    lights = (br == 1) | (br == 4) | (br == 6) | (br == 7)
+    assert not bool((hits & ~dda).any()) and not bool((lights & dda).any())
 
 
 def test_near_segment_equals_jax(world, surface):

@@ -1,5 +1,5 @@
 // K4: the bloom pyramid, one cooperative launch, and the compositor, one
-// thread per output texel (ops/post.py wraps both entry points). Replace
+// thread per 4 render texels (ops/post.py wraps both entry points). Replace
 // vvr_tpu/ops/post.py:146 `bloom_pyramid_p` (its passes `bloom_downsample`
 // :92 and `bloom_upsample` :127) and :205 `composite_p`. Images are planar
 // (C, H, W) float32.
@@ -28,6 +28,17 @@
 // latency of each dependent level (a grid sync, an L2 round trip and a
 // little arithmetic; 7 stages at 1080p). One launch replaces the twelve
 // of the per-level design.
+//
+// The compositor reads 3 of the HDR image's 4 channels and writes 3 bytes
+// a texel, but it is bound by its instructions: the tonemap (an IEEE
+// division in ACES, an accurate `powf`) is the larger share, the indexing
+// and the bloom's loads the rest. Its design below cuts the second share.
+// A 256-entry threshold table in place of `powf` (8 comparisons give the
+// u8, were it to grow with the ACES value) does not give powf's bytes on
+// every float in [0, 1]: the u8 of powf drops by one from one float to the
+// next at one point of the range. Deferring to powf within 16 float steps
+// of each threshold made the table exact over all of [0, 1] on the card,
+// and slower than powf alone, so the compositor keeps powf.
 #include <cooperative_groups.h>
 
 #include "common.cuh"
@@ -263,14 +274,30 @@ vvr_bloom_pyramid_kernel(const float* hdr, int h, int w, int n_mips,
     }
 }
 
-// 4x bilinear upsample at texel-center phases along rows (post.py:169-184)
+// The composite, one thread per 4 horizontally adjacent texels of one
+// render row (columns 4g .. 4g+3), on a 2D grid: no division by a runtime
+// width. The group's 4 texels read the same 3 bloom columns (x >> 2 and
+// its neighbours; the edge clamp keeps a group's columns together, since
+// 4w - 1 ends a group), so each channel loads the 3 x 3 bloom texels once,
+// interpolates each column along the rows once, and gives each texel its
+// phase (post.py:169-184): 9 loads where a thread per texel makes 36. The
+// HDR values of a channel are one float4 load and the 12 bytes of output
+// three aligned 32-bit stores; an output larger than the render repeats
+// each texel's bytes over its integer upscale block. Every float keeps
+// the per-texel formula's operations and order, so the bytes do not
+// depend on the grouping.
+#define VVR_COMP_TX 32
+#define VVR_COMP_TY 4
+
+// the 4x bilinear row interpolation of bloom column q at render row y
+// (clamped to 4h - 1) of a mip of h rows and w columns
 __device__ __forceinline__ float up4_rows(const float* __restrict__ p, int h,
-                                          int w, int r, int q) {
-    const int k = r >> 2;
-    const float prev = p[(size_t)max(k - 1, 0) * w + q];
-    const float cur = p[(size_t)k * w + q];
-    const float nxt = p[(size_t)min(k + 1, h - 1) * w + q];
-    switch (r & 3) {
+                                          int w, int y, int q) {
+    const int k = y >> 2;
+    const float prev = __ldg(p + (size_t)max(k - 1, 0) * w + q);
+    const float cur = __ldg(p + (size_t)k * w + q);
+    const float nxt = __ldg(p + (size_t)min(k + 1, h - 1) * w + q);
+    switch (y & 3) {
         case 0: return 0.375f * prev + 0.625f * cur;
         case 1: return 0.125f * prev + 0.875f * cur;
         case 2: return 0.875f * cur + 0.125f * nxt;
@@ -278,15 +305,9 @@ __device__ __forceinline__ float up4_rows(const float* __restrict__ p, int h,
     }
 }
 
-__device__ __forceinline__ float up4(const float* __restrict__ p, int h,
-                                     int w, int y, int x) {
-    y = min(y, 4 * h - 1);
-    x = min(x, 4 * w - 1);
-    const int k = x >> 2;
-    const float prev = up4_rows(p, h, w, y, max(k - 1, 0));
-    const float cur = up4_rows(p, h, w, y, k);
-    const float nxt = up4_rows(p, h, w, y, min(k + 1, w - 1));
-    switch (x & 3) {
+__device__ __forceinline__ float up4_phase(float prev, float cur, float nxt,
+                                           int phase) {
+    switch (phase) {
         case 0: return 0.375f * prev + 0.625f * cur;
         case 1: return 0.125f * prev + 0.875f * cur;
         case 2: return 0.875f * cur + 0.125f * nxt;
@@ -300,31 +321,85 @@ __device__ __forceinline__ float aces(float x) {
                                                   + 0.14f), 0.0f, 1.0f);
 }
 
+// gamma 1/2.2 and the u8 quantization of a tonemapped value
+__device__ __forceinline__ unsigned quantize(float a) {
+    const float ldr = powf(a, (float)(1.0 / 2.2));
+    return (unsigned)(uint8_t)(vvr_clamp(ldr, 0.0f, 1.0f) * 255.0f + 0.5f);
+}
+
 // composite: upscale + bloom + ACES + gamma -> u8 (post.py:205-227)
-__global__ void composite_kernel(const float* __restrict__ hdr, int rh,
-                                 int rw, const float* __restrict__ bloom,
-                                 int bh, int bw, float strength,
-                                 int bloom_on, uint8_t* __restrict__ out,
-                                 int out_h, int out_w) {
-    const int idx = blockIdx.x * blockDim.x + threadIdx.x;
-    if (idx >= out_h * out_w) return;
-    const int y = idx / out_w;
-    const int x = idx % out_w;
-    const int sy = max(out_h / rh, 1);
-    const int sx = max(out_w / rw, 1);
-    const int ry = min(y / sy, rh - 1);
-    const int rx = min(x / sx, rw - 1);
-    const float gamma = (float)(1.0 / 2.2);
+__global__ void __launch_bounds__(VVR_COMP_TX * VVR_COMP_TY)
+composite_kernel(const float* __restrict__ hdr, int rh, int rw,
+                 const float* __restrict__ bloom, int bh, int bw,
+                 float strength, int bloom_on, uint8_t* __restrict__ out,
+                 int out_h, int out_w) {
+    const int x0 = 4 * (blockIdx.x * VVR_COMP_TX + threadIdx.x);
+    const int ry = blockIdx.y * VVR_COMP_TY + threadIdx.y;
+    if (ry >= rh || x0 >= rw) return;
+    // a float4 per channel and 4 texels a group
+    const bool whole = (rw & 3) == 0 && ((uintptr_t)hdr & 15) == 0;
+    const size_t plane = (size_t)rh * rw;
+    const size_t at = (size_t)ry * rw + x0;
+    unsigned q[3][4];
 #pragma unroll
     for (int c = 0; c < 3; ++c) {
-        float col = hdr[(size_t)c * rh * rw + (size_t)ry * rw + rx];
-        if (bloom_on) {
-            col = col + up4(bloom + (size_t)c * bh * bw, bh, bw, ry, rx)
-                        * strength;
+        float col[4];
+        if (whole) {
+            const float4 v = __ldg(
+                reinterpret_cast<const float4*>(hdr + c * plane + at));
+            col[0] = v.x;
+            col[1] = v.y;
+            col[2] = v.z;
+            col[3] = v.w;
+        } else {
+#pragma unroll
+            for (int i = 0; i < 4; ++i) {
+                col[i] = x0 + i < rw ? __ldg(hdr + c * plane + at + i)
+                                     : 0.0f;
+            }
         }
-        const float ldr = powf(aces(col), gamma);
-        out[3 * (size_t)idx + c] =
-            (uint8_t)(vvr_clamp(ldr, 0.0f, 1.0f) * 255.0f + 0.5f);
+        if (bloom_on) {
+            const float* p = bloom + (size_t)c * bh * bw;
+            const int y = min(ry, 4 * bh - 1);
+            const int k = min(x0, 4 * bw - 1) >> 2;
+            const float prev = up4_rows(p, bh, bw, y, max(k - 1, 0));
+            const float cur = up4_rows(p, bh, bw, y, k);
+            const float nxt = up4_rows(p, bh, bw, y, min(k + 1, bw - 1));
+#pragma unroll
+            for (int i = 0; i < 4; ++i) {
+                const int phase = min(x0 + i, 4 * bw - 1) & 3;
+                col[i] = col[i] + up4_phase(prev, cur, nxt, phase)
+                                  * strength;
+            }
+        }
+#pragma unroll
+        for (int i = 0; i < 4; ++i) q[c][i] = quantize(aces(col[i]));
+    }
+    if (whole && out_h == rh && out_w == rw) {
+        // bytes r0 g0 b0 r1 | g1 b1 r2 g2 | b2 r3 g3 b3, little-endian
+        uint32_t* o = reinterpret_cast<uint32_t*>(out + 3 * at);
+        o[0] = q[0][0] | (q[1][0] << 8) | (q[2][0] << 16) | (q[0][1] << 24);
+        o[1] = q[1][1] | (q[2][1] << 8) | (q[0][2] << 16) | (q[1][2] << 24);
+        o[2] = q[2][2] | (q[0][3] << 8) | (q[1][3] << 16) | (q[2][3] << 24);
+        return;
+    }
+    // output texel (y, x) shows render texel (min(y / sy, rh - 1),
+    // min(x / sx, rw - 1)): the rows and columns that show this group's
+    const int sy = max(out_h / rh, 1), sx = max(out_w / rw, 1);
+    const int y_end = ry == rh - 1 ? out_h : min((ry + 1) * sy, out_h);
+    for (int y = ry * sy; y < y_end; ++y) {
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+            const int rx = x0 + i;
+            if (rx >= rw) break;
+            const int x_end = rx == rw - 1 ? out_w : min((rx + 1) * sx, out_w);
+            for (int x = rx * sx; x < x_end; ++x) {
+                uint8_t* o = out + 3 * ((size_t)y * out_w + x);
+                o[0] = (uint8_t)q[0][i];
+                o[1] = (uint8_t)q[1][i];
+                o[2] = (uint8_t)q[2][i];
+            }
+        }
     }
 }
 
@@ -364,8 +439,10 @@ extern "C" int vvr_composite(const void* hdr, int rh, int rw,
                              const void* bloom, int bh, int bw,
                              float strength, int bloom_on, void* out,
                              int out_h, int out_w, void* stream) {
-    composite_kernel<<<vvr_blocks((long long)out_h * out_w, 256), 256, 0,
-                       (cudaStream_t)stream>>>(
+    const dim3 block(VVR_COMP_TX, VVR_COMP_TY);
+    const dim3 blocks(vvr_blocks((rw + 3) / 4, VVR_COMP_TX),
+                      vvr_blocks(rh, VVR_COMP_TY));
+    composite_kernel<<<blocks, block, 0, (cudaStream_t)stream>>>(
         (const float*)hdr, rh, rw, (const float*)bloom, bh, bw, strength,
         bloom_on, (uint8_t*)out, out_h, out_w);
     return (int)cudaGetLastError();

@@ -3,44 +3,14 @@
 // vvr_tpu/render/frame.py:192-570 for the slice configuration, with
 // vvr_tpu/ops/shade.py `material_at_soa`, `get_face_normal_soa`,
 // `lighting_soa` and the nearest cloud/skybox lookups of
-// vvr_tpu/ops/sky.py:243-330.
-#include "common.cuh"
+// vvr_tpu/ops/sky.py:243-330. `shade_surface` writes the shadow rays'
+// starts for K1 in the DDA frame; the default frame's K12 computes them in
+// registers from the same surface.cuh.
+#include "surface.cuh"
 
 #define VVR_PI_F 3.1415926538f
 #define VVR_CLOUD_HEIGHT 800.0f
 #define VVR_CLOUD_EXTENT 8000.0f
-
-struct Surface {
-    float nx, ny, nz;   // entry-face normal
-    float wx, wy, wz;   // exact hit point
-    int bx, by, bz;     // hit voxel
-};
-
-// hit reconstruction (frame.py:212-238): the entry plane sits at
-// axis_coord, +1 when entering from the high side
-static __device__ __forceinline__ Surface vvr_reconstruct(
-        float ox, float oy, float oz, float dx, float dy, float dz, int face,
-        int axis_coord) {
-    const float sgx = dx >= 0.0f ? 1.0f : -1.0f;
-    const float sgy = dy >= 0.0f ? 1.0f : -1.0f;
-    const float sgz = dz >= 0.0f ? 1.0f : -1.0f;
-    Surface s;
-    s.nx = face == 0 ? -sgx : 0.0f;
-    s.ny = face == 1 ? -sgy : 0.0f;
-    s.nz = face == 2 ? -sgz : 0.0f;
-    const float sg = face == 0 ? sgx : (face == 1 ? sgy : sgz);
-    const float plane = (float)axis_coord + (sg < 0.0f ? 1.0f : 0.0f);
-    const float df = face == 0 ? dx : (face == 1 ? dy : dz);
-    const float of = face == 0 ? ox : (face == 1 ? oy : oz);
-    const float dist = (plane - of) / (fabsf(df) < 1e-12f ? 1e-12f : df);
-    s.wx = face == 0 ? plane : ox + dx * dist;
-    s.wy = face == 1 ? plane : oy + dy * dist;
-    s.wz = face == 2 ? plane : oz + dz * dist;
-    s.bx = face == 0 ? axis_coord : (int)floorf(s.wx);
-    s.by = face == 1 ? axis_coord : (int)floorf(s.wy);
-    s.bz = face == 2 ? axis_coord : (int)floorf(s.wz);
-    return s;
-}
 
 // per_block_unique_colour (utils/hash.py): hash33 of block * k, then
 // normalized, rounded where the JAX package's jitted frame rounds (XLA
@@ -154,11 +124,11 @@ __global__ void vvr_shade_surface_kernel(
     const Surface s = vvr_reconstruct(o[3 * i], o[3 * i + 1], o[3 * i + 2],
                                       d[3 * i], d[3 * i + 1], d[3 * i + 2],
                                       face[i], axis_coord[i]);
-    s_o[3 * i] = s.wx + sx * 0.05f;
-    s_o[3 * i + 1] = s.wy + sy * 0.05f;
-    s_o[3 * i + 2] = s.wz + sz * 0.05f;
-    const bool facing = ((s.nx * sx + s.ny * sy) + s.nz * sz) > 0.0f;
-    s_act[i] = (hit[i] != 0 && facing) ? 1 : 0;
+    const VvrShadowStart st = vvr_shadow_start(s, hit[i] != 0, sx, sy, sz);
+    s_o[3 * i] = st.x;
+    s_o[3 * i + 1] = st.y;
+    s_o[3 * i + 2] = st.z;
+    s_act[i] = st.active ? 1 : 0;
 }
 
 __global__ void vvr_shade_pixel_kernel(

@@ -17,26 +17,37 @@
 // the grids start at NEG = -3e38 and are decoded in place at the end,
 // interleaved as gBC (G^2, 2).
 //
-// K12 answers one shadow lane per thread: project the start s_o onto
-// (e1, e2, s), read one gBC row, then certain shadow (depth below B - SAFE)
-// or certain light (surface depth above C + SAFE) (`_certain`, :525); an
-// ambiguous lane walks its first 6 voxel crossings (`_near_segment`, :536)
-// and re-tests light at the lifted depth (:739); only a lane still
-// ambiguous runs the jump-grid DDA inline (jump_dda.cuh). A start whose own
-// voxel is solid is a hit first, as in the DDA: the grids' light claim
-// holds only for starts in empty space, and the JAX version's surface-depth
-// margin does not cover a start buried deeper than 0.05 (a camera inside
-// solid, whose primary hits sit at t = 0). The TPU design's
-// two-stage pack of the ambiguous lanes, its lax.cond overflow net, the
-// build's fixed entry capacity with its retry flag, and the coarse level
-// cBC that no query reads are not ported.
+// K12 answers one shadow lane per thread. On the frame's path it takes the
+// primary hits and computes the lane's start (surface + 0.05 along the sun)
+// and its mask (the face turns toward the sun) in registers with K2
+// `shade_surface`'s own code (surface.cuh), so the starts never make the
+// round trip through device memory and the frame launches one kernel
+// fewer; `masked_shadow_hits` hands it the starts instead. It projects the
+// start onto (e1, e2, s), reads one gBC row, then tests certain shadow
+// (depth below B - SAFE) or certain light (surface depth above C + SAFE)
+// (`_certain`, :525); an ambiguous lane walks its first 6 voxel crossings
+// (`_near_segment`, :536) and re-tests light at the lifted depth (:739);
+// only a lane still ambiguous runs the jump-grid DDA inline
+// (jump_dda.cuh). A start whose own voxel is solid is a hit first, as in
+// the DDA: the grids' light claim holds only for starts in empty space,
+// and the JAX version's surface-depth margin does not cover a start buried
+// deeper than 0.05 (a camera inside solid, whose primary hits sit at
+// t = 0). The TPU design's two-stage pack of the ambiguous lanes, its
+// lax.cond overflow net, the build's fixed entry capacity with its retry
+// flag, and the coarse level cBC that no query reads are not ported.
 //
 // What bounds them on an H100: K11 is a scatter of about 8 B of atomics per
-// covered texel into a 32 MiB table that sits in L2; K12 reads 12 B and
-// writes 1 B per lane plus one 8 B row, and its residue runs the DDA, which
-// is latency-bound like K1.
+// covered texel into a 32 MiB table that sits in L2. K12 reads 33 B of
+// primary hit per lane (o, d, hit, face, axis_coord) and writes 1 B, plus
+// one 8 B gBC row and a brick word per lit lane; a lane of the residue
+// (0.4% at the bench view) runs the DDA, which is latency-bound like K1 and
+// keeps its CTA's slot for up to tens of microseconds. Appending the
+// residue to a queue and draining it in full warps after a grid sync (one
+// cooperative launch) was measured slower: the drain starts only when the
+// last lane is classified, and its longest DDA then runs alone.
 #include "items.cuh"
 #include "jump_dda.cuh"
+#include "surface.cuh"
 
 #define VVR_SAFE 0.02f
 #define VVR_NEG (-3e38f)
@@ -299,67 +310,121 @@ static __device__ __forceinline__ bool vvr_start_solid(
         vx & 7, vy & 7, vz & 7);
 }
 
-static __global__ void vvr_masked_shadow_kernel(
-        const uint32_t* __restrict__ rows, int size,
-        const float* __restrict__ s_o, const uint8_t* __restrict__ active,
-        int n, VvrSunBasis B, const float2* __restrict__ gbc,
-        VvrSunFrame G, float back, int max_steps, uint8_t* __restrict__ out) {
-    const int p = blockIdx.x * blockDim.x + threadIdx.x;
-    if (p >= n) return;
-    bool res = false;
-    if (active[p]) {
-        const float ox = s_o[3 * p], oy = s_o[3 * p + 1],
-                    oz = s_o[3 * p + 2];
-        const float fs = (float)size;
-        const bool inw = ox >= 0.0f && ox < fs && oy >= 0.0f && oy < fs
-                         && oz >= 0.0f && oz < fs;
-        const float qa = (ox * B.e1x + oy * B.e1y) + oz * B.e1z;
-        const float qb = (ox * B.e2x + oy * B.e2y) + oz * B.e2z;
-        const float qz = (ox * B.sx + oy * B.sy) + oz * B.sz;
-        const int i = vvr_floor_int((qa - G.a0) / G.ts);
-        const int j = vvr_floor_int((qb - G.b0) / G.ts);
-        const bool inb = inw && i >= 0 && i < G.grid && j >= 0 && j < G.grid;
-        const float2 row = gbc[inb ? (long long)j * G.grid + i : 0];
-        if (!inw) {
-            res = false;                      // the DDA's origin-outside rule
-        } else if (vvr_start_solid(rows, size, ox, oy, oz)) {
-            res = true;                       // the DDA's start-in-solid hit
-        } else if (inb && qz < row.x - VVR_SAFE) {
-            res = true;                       // certain shadow
-        } else if (inb && qz - back > row.y + VVR_SAFE) {
-            res = false;                      // certain light
-        } else {
-            bool nh, nexit;
-            float t_end;
-            vvr_near_segment(rows, size, ox, oy, oz, B.sx, B.sy, B.sz, &nh,
-                             &nexit, &t_end);
-            if (nh) {
-                res = true;
-            } else if (nexit || qz + t_end > row.y + VVR_SAFE) {
-                res = false;                  // left the world, or lifted
-            } else {
-                res = vvr_jump_trace_ray(rows, size, ox, oy, oz, B.sx, B.sy,
-                                         B.sz, true, max_steps).hit;
-            }
-        }
+// The lanes' inputs: the shadow rays' starts and their mask
+// (`masked_shadow_hits`), or, with s_o null, the primary hits they come
+// from (the frame's entry), whose starts are computed here as K2
+// `shade_surface` computes them (surface.cuh).
+struct VvrShadowLanes {
+    const float* s_o;
+    const uint8_t* active;
+    const float* o;
+    const float* d;
+    const uint8_t* hit;
+    const int* face;
+    const int* axis_coord;
+};
+
+// lane p's start; false for a lane that casts no shadow ray
+static __device__ __forceinline__ bool vvr_lane_start(
+        const VvrShadowLanes& L, int p, const VvrSunBasis& B, float* ox,
+        float* oy, float* oz) {
+    if (L.s_o != nullptr) {
+        if (L.active[p] == 0) return false;
+        *ox = L.s_o[3 * p];
+        *oy = L.s_o[3 * p + 1];
+        *oz = L.s_o[3 * p + 2];
+        return true;
     }
-    out[p] = res ? 1 : 0;
+    if (L.hit[p] == 0) return false;
+    const Surface s = vvr_reconstruct(
+        L.o[3 * p], L.o[3 * p + 1], L.o[3 * p + 2], L.d[3 * p],
+        L.d[3 * p + 1], L.d[3 * p + 2], L.face[p], L.axis_coord[p]);
+    const VvrShadowStart st = vvr_shadow_start(s, true, B.sx, B.sy, B.sz);
+    *ox = st.x;
+    *oy = st.y;
+    *oz = st.z;
+    return st.active;
 }
 
+#define VVR_K12_LIGHT 0
+#define VVR_K12_SHADOW 1
+#define VVR_K12_RESIDUE 2
+
+// the answer for one start without the DDA, or VVR_K12_RESIDUE
+static __device__ int vvr_classify_start(
+        const uint32_t* __restrict__ rows, int size, float ox, float oy,
+        float oz, const VvrSunBasis& B, const float2* __restrict__ gbc,
+        const VvrSunFrame& G, float back) {
+    const float fs = (float)size;
+    const bool inw = ox >= 0.0f && ox < fs && oy >= 0.0f && oy < fs
+                     && oz >= 0.0f && oz < fs;
+    if (!inw) return VVR_K12_LIGHT;           // the DDA's origin-outside rule
+    const float qa = (ox * B.e1x + oy * B.e1y) + oz * B.e1z;
+    const float qb = (ox * B.e2x + oy * B.e2y) + oz * B.e2z;
+    const float qz = (ox * B.sx + oy * B.sy) + oz * B.sz;
+    const int i = vvr_floor_int((qa - G.a0) / G.ts);
+    const int j = vvr_floor_int((qb - G.b0) / G.ts);
+    const bool inb = i >= 0 && i < G.grid && j >= 0 && j < G.grid;
+    const float2 row = gbc[inb ? (long long)j * G.grid + i : 0];
+    if (vvr_start_solid(rows, size, ox, oy, oz)) {
+        return VVR_K12_SHADOW;                // the DDA's start-in-solid hit
+    }
+    if (inb && qz < row.x - VVR_SAFE) return VVR_K12_SHADOW;  // certain
+    if (inb && qz - back > row.y + VVR_SAFE) return VVR_K12_LIGHT;
+    bool nh, nexit;
+    float t_end;
+    vvr_near_segment(rows, size, ox, oy, oz, B.sx, B.sy, B.sz, &nh, &nexit,
+                     &t_end);
+    if (nh) return VVR_K12_SHADOW;
+    if (nexit || qz + t_end > row.y + VVR_SAFE) {
+        return VVR_K12_LIGHT;                 // left the world, or lifted
+    }
+    return VVR_K12_RESIDUE;
+}
+
+// One thread per lane: its start (read, or computed from its primary
+// hit), the tests above, and, for a residue lane, the jump-grid DDA inline.
+static __global__ void __launch_bounds__(128)
+vvr_masked_shadow_kernel(const uint32_t* __restrict__ rows, int size,
+                         VvrShadowLanes L, int n, VvrSunBasis B,
+                         const float2* __restrict__ gbc, VvrSunFrame G,
+                         float back, int max_steps,
+                         uint8_t* __restrict__ out) {
+    const int p = blockIdx.x * blockDim.x + threadIdx.x;
+    if (p >= n) return;
+    int r = VVR_K12_LIGHT;
+    float ox, oy, oz;
+    if (vvr_lane_start(L, p, B, &ox, &oy, &oz)) {
+        r = vvr_classify_start(rows, size, ox, oy, oz, B, gbc, G, back);
+        if (r == VVR_K12_RESIDUE) {
+            r = vvr_jump_trace_ray(rows, size, ox, oy, oz, B.sx, B.sy, B.sz,
+                                   true, max_steps).hit ? VVR_K12_SHADOW
+                                                        : VVR_K12_LIGHT;
+        }
+    }
+    out[p] = (uint8_t)r;
+}
+
+// K12 over n lanes given as starts (s_o, active) or, with s_o null, as
+// the primary hits (o, d, hit, face, axis_coord)
 extern "C" int vvr_masked_shadow(
         const void* rows, int size, const void* s_o, const void* active,
-        int n, float sx, float sy, float sz, float e1x, float e1y, float e1z,
-        float e2x, float e2y, float e2z, const void* gbc, int grid, float a0,
-        float b0, float ts, float back, int max_steps, void* out,
-        void* stream) {
+        const void* o, const void* d, const void* hit, const void* face,
+        const void* axis_coord, int n, float sx, float sy, float sz,
+        float e1x, float e1y, float e1z, float e2x, float e2y, float e2z,
+        const void* gbc, int grid, float a0, float b0, float ts, float back,
+        int max_steps, void* out, void* stream) {
+    const VvrShadowLanes L = {(const float*)s_o, (const uint8_t*)active,
+                              (const float*)o, (const float*)d,
+                              (const uint8_t*)hit, (const int*)face,
+                              (const int*)axis_coord};
     const VvrSunBasis B = {e1x, e1y, e1z, e2x, e2y, e2z, sx, sy, sz};
     const VvrSunFrame G = {a0, b0, ts, grid};
     if (n > 0) {
         vvr_masked_shadow_kernel<<<vvr_blocks(n, 128), 128, 0,
                                    (cudaStream_t)stream>>>(
-            (const uint32_t*)rows, size, (const float*)s_o,
-            (const uint8_t*)active, n, B, (const float2*)gbc, G, back,
-            max_steps, (uint8_t*)out);
+            (const uint32_t*)rows, size, L, n, B, (const float2*)gbc, G,
+            back, max_steps, (uint8_t*)out);
     }
     return (int)cudaGetLastError();
 }

@@ -84,7 +84,7 @@ KERNELS = {
         "vvr_tpu_torch/csrc/sunshadow.cu", "vvr_tpu/ops/sunshadow.py:112"),
     "masked_shadow": Kernel(
         "vvr_masked_shadow",
-        (_P, _I, _P, _P, _I) + (_F,) * 9 + (_P, _I) + (_F,) * 4
+        (_P, _I) + (_P,) * 7 + (_I,) + (_F,) * 9 + (_P, _I) + (_F,) * 4
         + (_I, _P, _P),
         "vvr_tpu_torch/csrc/sunshadow.cu", "vvr_tpu/ops/sunshadow.py:654"),
     "gather_chain": Kernel(

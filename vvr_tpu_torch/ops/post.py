@@ -18,10 +18,12 @@ small, so each costs a dependent step. `bloom_pyramid` runs every level in
 one cooperative launch, with a grid sync between stages and the mips in
 one scratch buffer: a downsample level takes a thread per output texel
 (its 64 texels loaded at once), and the five upsample levels run as one
-stage, a tile of mip 2 per CTA in shared memory. The composite reads the
-HDR image and the bloom mip and writes 6 MB of u8, one thread per output
-texel. The per-level plain functions are the pyramid's plain version,
-pass by pass.
+stage, a tile of mip 2 per CTA in shared memory. The composite reads
+three channels of the HDR image and of the bloom mip and writes 6 MB of
+u8; its tonemap (`powf`, an IEEE division) makes it bound by instructions,
+so a thread takes 4 adjacent texels of a row, loads the bloom texels they
+share once, reads a float4 per channel and stores three 32-bit words. The
+per-level plain functions are the pyramid's plain version, pass by pass.
 
 All images are planar (C, H, W) float32, as in the JAX version.
 """

@@ -178,7 +178,7 @@ def shade_pixel_plain(o, d, hit, face, axis_coord, shadow_hit, size: int,
     return torch.stack(out).reshape(4, height, width)
 
 
-def _check_trace_inputs(o, d, hit, face, axis_coord):
+def check_trace_inputs(o, d, hit, face, axis_coord):
     n = o.shape[0]
     if o.shape != (n, 3) or d.shape != (n, 3) or o.dtype != F32 \
             or d.dtype != F32:
@@ -193,7 +193,7 @@ def shade_surface(o, d, hit, face, axis_coord, sun):
     `shade_surface`."""
     if not kernels.on_cuda(o):
         return shade_surface_plain(o, d, hit, face, axis_coord, sun)
-    _check_trace_inputs(o, d, hit, face, axis_coord)
+    check_trace_inputs(o, d, hit, face, axis_coord)
     kernels.check_cuda(o, d, hit, face, axis_coord)
     n = o.shape[0]
     s_o = torch.empty((n, 3), dtype=F32, device=o.device)
@@ -212,7 +212,7 @@ def shade_pixel(o, d, hit, face, axis_coord, shadow_hit, size: int, skybox,
         return shade_pixel_plain(o, d, hit, face, axis_coord, shadow_hit,
                                  size, skybox, clouds, sun, sun_col, height,
                                  width)
-    _check_trace_inputs(o, d, hit, face, axis_coord)
+    check_trace_inputs(o, d, hit, face, axis_coord)
     n = o.shape[0]
     if n != height * width:
         raise ValueError(f"{n} rays for a {height}x{width} image")

@@ -25,6 +25,11 @@ the DDA's hit; a miss lifts the query above the local wall), and only what
 is still ambiguous runs the jump-grid DDA. The answer equals the DDA's for
 every lane whose DDA ends within its step cap.
 
+The frame calls `masked_shadow_from_hits` with its primary hits: on the
+card K12 computes each lane's start and mask from them in registers, with
+K2 `shade_surface`'s code (csrc/surface.cuh), so the frame launches no
+`shade_surface` and the starts never reach device memory.
+
 The grids are (gBC (G^2, 2) f32, a0, b0, ts): texel (i, j) covers
 [a0 + i*ts, a0 + (i+1)*ts) x [b0 + j*ts, ...) of the (e1, e2) plane, row
 j*G + i. The JAX build's fixed entry capacity with its overflow flag and
@@ -42,6 +47,8 @@ import torch
 
 from vvr_tpu_torch import kernels
 from vvr_tpu_torch.ops.jump import trace_jump_plain
+from vvr_tpu_torch.ops.shade import (check_trace_inputs,
+                                     shade_surface_plain)
 from vvr_tpu_torch.utils.hash import sqrt32
 from vvr_tpu_torch.world.jumpgrid import JumpGrid
 from vvr_tpu_torch.world.occupancy import brick_solid
@@ -304,35 +311,44 @@ def certain(s_o, sun3, e1, e2, grids, size: int, back: float = BACK):
     return shadow, light, inw, qz, row[:, 1]
 
 
-def shadow_residue(grid: JumpGrid, s_o, sun3, e1, e2, grids, active,
-                   back: float = BACK):
-    """(known hits, residue): the lanes K12 answers as hits without the
-    DDA (a buried start, certain shadow, a hit within the near segment),
-    and the lanes it leaves to the DDA."""
+# the branch of K12 that answers a lane, in K12's order (shadow_branches)
+BRANCHES = ("inactive", "outside", "buried", "certain shadow",
+            "certain light", "near-walk hit", "exit", "lift", "residue")
+
+
+def shadow_branches(grid: JumpGrid, s_o, sun3, e1, e2, grids, active,
+                    back: float = BACK):
+    """(N,) int64: for each lane, the index in BRANCHES of the test that
+    answers it in K12: a start outside the world (light), a buried start
+    (hit), certain shadow, certain light, then the near walk's hit, its
+    exit from the world and its lift (light), and the residue the DDA
+    answers."""
     shadow, light, inw, qz, row_c = certain(s_o, sun3, e1, e2, grids,
                                             grid.size, back)
     v = torch.clamp(torch.floor(s_o), 0, grid.size - 1).to(torch.int64)
     g = grid.gsize
     words = grid.rows[(v[:, 0] >> 3) + (v[:, 1] >> 3) * g
                       + (v[:, 2] >> 3) * g * g].to(torch.int64) & MASK32
-    buried = inw & brick_solid(words, v[:, 0] & 7, v[:, 1] & 7, v[:, 2] & 7)
-    known_hit = active & (buried | shadow)
-    known_miss = active & ~known_hit & (light | ~inw)
-    amb = torch.nonzero(active & ~known_hit & ~known_miss)[:, 0]
+    buried = brick_solid(words, v[:, 0] & 7, v[:, 1] & 7, v[:, 2] & 7)
+    br = torch.zeros(s_o.shape[0], dtype=torch.int64, device=s_o.device)
+    rest = active.clone()
+    for code, cond in ((1, ~inw), (2, buried), (3, shadow), (4, light)):
+        br[rest & cond] = code
+        rest &= ~cond
+    amb = torch.nonzero(rest)[:, 0]
     nh, nexit, t_end = near_segment_plain(grid, s_o[amb], sun3)
     lift = qz[amb] + t_end > row_c[amb] + SAFE
-    known_hit[amb[nh]] = True
-    residue = torch.zeros_like(known_hit)
-    residue[amb[~(nh | nexit | lift)]] = True
-    return known_hit, residue
+    br[amb] = torch.where(nh, 5, torch.where(nexit, 6,
+                                             torch.where(lift, 7, 8)))
+    return br
 
 
 def masked_shadow_hits_plain(grid: JumpGrid, s_o, sun3, e1, e2, grids,
                              active, max_steps: int, back: float = BACK):
     """Plain torch K12: (N,) bool shadow hits of the active lanes."""
-    out, residue = shadow_residue(grid, s_o, sun3, e1, e2, grids, active,
-                                  back)
-    res = torch.nonzero(residue)[:, 0]
+    br = shadow_branches(grid, s_o, sun3, e1, e2, grids, active, back)
+    out = (br == 2) | (br == 3) | (br == 5)  # buried, certain, near-walk hit
+    res = torch.nonzero(br == 8)[:, 0]       # the residue
     sun = torch.as_tensor(np.asarray(sun3, np.float32), device=s_o.device)
     dda = trace_jump_plain(grid, s_o[res], sun.expand(len(res), 3),
                            max_steps).hit
@@ -340,9 +356,40 @@ def masked_shadow_hits_plain(grid: JumpGrid, s_o, sun3, e1, e2, grids,
     return out
 
 
+def masked_shadow_from_hits_plain(grid: JumpGrid, o, d, hit, face,
+                                  axis_coord, sun3, e1, e2, grids,
+                                  max_steps: int, back: float = BACK):
+    """Plain torch version of the frame's K12 entry: K2 `shade_surface`'s
+    starts, then the query on them."""
+    sun = torch.as_tensor(np.asarray(sun3, np.float32))
+    s_o, s_act = shade_surface_plain(o, d, hit, face, axis_coord, sun)
+    return masked_shadow_hits_plain(grid, s_o, sun3, e1, e2, grids, s_act,
+                                    max_steps, back)
+
+
+def _launch_k12(grid: JumpGrid, lanes, n: int, sun3, e1, e2, grids,
+                max_steps: int, back: float):
+    """K12 over n lanes: `lanes` is (s_o, active) or the primary hits
+    (o, d, hit, face, axis_coord)."""
+    gbc, a0, b0, ts = grids
+    if gbc.dtype != F32 or gbc.dim() != 2 or gbc.shape[1] != 2:
+        raise ValueError("gBC must be (G^2, 2) float32")
+    kernels.check_cuda(grid.rows, gbc, *lanes)
+    dev = gbc.device
+    ptrs = [t.data_ptr() for t in lanes]
+    ptrs = ptrs + [0] * 5 if len(ptrs) == 2 else [0, 0] + ptrs
+    out = torch.empty(n, dtype=torch.bool, device=dev)
+    kernels.launch("masked_shadow", dev, grid.rows.data_ptr(), grid.size,
+                   *ptrs, n, *(float(c) for v in (sun3, e1, e2) for c in v),
+                   gbc.data_ptr(), math.isqrt(gbc.shape[0]), float(a0),
+                   float(b0), float(ts), float(back), max_steps,
+                   out.data_ptr())
+    return out
+
+
 def masked_shadow_hits(grid: JumpGrid, s_o, sun3, e1, e2, grids, active,
                        max_steps: int, back: float = BACK):
-    """The frame's hard-shadow query: (N,) bool, whether the ray from s_o
+    """The hard-shadow query: (N,) bool, whether the ray from s_o
     (surface point + `back` along the sun) toward the sun hits, for the
     active lanes (False elsewhere). `sun3` is the frame's sun direction,
     (e1, e2) and `grids` come from sun_basis and sun_grids. Light
@@ -354,20 +401,27 @@ def masked_shadow_hits(grid: JumpGrid, s_o, sun3, e1, e2, grids, active,
     if not kernels.on_cuda(s_o):
         return masked_shadow_hits_plain(grid, s_o, sun3, e1, e2, grids,
                                         active, max_steps, back)
-    gbc, a0, b0, ts = grids
     n = s_o.shape[0]
     if s_o.shape != (n, 3) or s_o.dtype != F32:
         raise ValueError("s_o must be (N, 3) float32")
     if active.dtype != torch.bool or active.shape != (n,):
         raise ValueError("active must be a (N,) bool tensor")
-    if gbc.dtype != F32 or gbc.dim() != 2 or gbc.shape[1] != 2:
-        raise ValueError("gBC must be (G^2, 2) float32")
-    kernels.check_cuda(grid.rows, s_o, active, gbc)
-    out = torch.empty(n, dtype=torch.bool, device=s_o.device)
-    kernels.launch("masked_shadow", s_o.device, grid.rows.data_ptr(),
-                   grid.size, s_o.data_ptr(), active.data_ptr(), n,
-                   *(float(c) for v in (sun3, e1, e2) for c in v),
-                   gbc.data_ptr(), math.isqrt(gbc.shape[0]), float(a0),
-                   float(b0), float(ts), float(back), max_steps,
-                   out.data_ptr())
-    return out
+    return _launch_k12(grid, (s_o, active), n, sun3, e1, e2, grids,
+                       max_steps, back)
+
+
+def masked_shadow_from_hits(grid: JumpGrid, o, d, hit, face, axis_coord,
+                            sun3, e1, e2, grids, max_steps: int,
+                            back: float = BACK):
+    """The frame's hard-shadow query from its primary hits: the starts
+    and mask of K2 `shade_surface` (surface + 0.05 along `sun3`, lanes
+    whose face turns toward the sun), then `masked_shadow_hits` on them.
+    CUDA: the same K12 kernel, which computes each start in registers, so
+    the starts never reach device memory."""
+    if not kernels.on_cuda(o):
+        return masked_shadow_from_hits_plain(grid, o, d, hit, face,
+                                             axis_coord, sun3, e1, e2,
+                                             grids, max_steps, back)
+    check_trace_inputs(o, d, hit, face, axis_coord)
+    return _launch_k12(grid, (o, d, hit, face, axis_coord), o.shape[0],
+                       sun3, e1, e2, grids, max_steps, back)

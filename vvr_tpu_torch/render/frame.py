@@ -10,11 +10,12 @@ device and its plain torch version on the CPU:
   1. sky textures, unless the caller passes cached ones (K3)
   2. primary visibility: the face rasterizer with `raster` (K9, K10),
      else the DDA (K1)
-  3. surface reconstruction and shadow-ray setup (K2 surface)
-  4. shadow query toward the sun, lit pixels only: the sun classifier with
-     `sunmask` (K12, its residue through the DDA inline), else the DDA (K1)
-  5. shading, sky and clouds into planar HDR (K2 shade)
-  6. bloom chain and composite to u8 (K4)
+  3. shadow query toward the sun from surface + 0.05, lit pixels only:
+     the sun classifier with `sunmask` (K12, which reconstructs the
+     surface and the start itself and sends its residue through the DDA),
+     else the starts from K2 surface and the DDA (K1)
+  4. shading, sky and clouds into planar HDR (K2 shade)
+  5. bloom chain and composite to u8 (K4)
 """
 
 from __future__ import annotations
@@ -27,7 +28,7 @@ from vvr_tpu_torch.ops import shade as shade_ops
 from vvr_tpu_torch.ops import sky as sky_ops
 from vvr_tpu_torch.ops.jump import trace_jump
 from vvr_tpu_torch.ops.rastertrace import trace_raster
-from vvr_tpu_torch.ops.sunshadow import masked_shadow_hits
+from vvr_tpu_torch.ops.sunshadow import masked_shadow_from_hits
 from vvr_tpu_torch.world.jumpgrid import JumpGrid
 
 F32 = torch.float32
@@ -87,13 +88,14 @@ def render_frame(grid: JumpGrid, o, d, sun, time: float, cfg: RenderConfig,
     shadow_hit = None
     if cfg.shadow_samples == 1:
         # shadow start: surface + 0.05 along the sun
-        s_o, s_act = shade_ops.shade_surface(o, d, res.hit, res.face,
-                                             res.axis_coord, sun3)
         if sunmask is not None:
             e1, e2, grids = sunmask
-            shadow_hit = masked_shadow_hits(grid, s_o, sun3.numpy(), e1, e2,
-                                            grids, s_act, max_steps)
+            shadow_hit = masked_shadow_from_hits(
+                grid, o, d, res.hit, res.face, res.axis_coord, sun3.numpy(),
+                e1, e2, grids, max_steps)
         else:
+            s_o, s_act = shade_ops.shade_surface(o, d, res.hit, res.face,
+                                                 res.axis_coord, sun3)
             s_d = sun3.to(dev).expand(n, 3).contiguous()
             shadow_hit = trace_jump(grid, s_o, s_d, max_steps=max_steps,
                                     active=s_act).hit

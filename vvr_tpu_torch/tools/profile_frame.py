@@ -18,7 +18,8 @@ over one scene, and prints, each from this run:
    includes the host's launch gaps inside it;
 4. one window of synchronized frames of each kind under torch.profiler
    with CUDA activity only: device time per kernel per frame, summed per
-   C entry point for K9 (its four kernels) and the bloom pyramid, and the
+   C entry point (K9's four kernels; the bloom pyramid, the composite, K12
+   and K2 shade_surface one each), and the
    device busy share of that window = the union of device intervals
    (kernels, copies, sets) over the span from the first to the last event
    of the trace, both on the trace's clock. The profiler's own overhead
@@ -66,11 +67,14 @@ PORT_KERNELS = ("vvr_jump_trace_kernel", "vvr_shade_surface_kernel",
                 "vvr_raster_", "vvr_scan_", "vvr_sun_",
                 "vvr_masked_shadow_kernel")
 # the device kernels of one C entry point, by name part: K9 launches
-# project, scan, bin and tile kernels (and a memset), the pyramid one
+# project, scan, bin and tile kernels (and a memset), the others one each
 ENTRY_KERNELS = {
     "K9 raster_fragments": ("vvr_raster_project", "vvr_scan_",
                             "vvr_raster_bin", "vvr_raster_tile"),
     "K4 bloom_pyramid": ("vvr_bloom_pyramid_kernel",),
+    "K4 composite": ("composite_kernel",),
+    "K12 masked_shadow": ("vvr_masked_shadow_kernel",),
+    "K2 shade_surface": ("vvr_shade_surface_kernel",),
 }
 
 
@@ -267,8 +271,10 @@ def main(argv=None) -> int:
             st["o"], st["d"], r.hit, r.face, r.axis_coord, sun3)
 
     def classifier(st):
-        st["sh"] = ss.masked_shadow_hits(grid, st["s_o"], sun_np, e1, e2,
-                                         grids, st["s_a"], max_steps)
+        r = st["res"]
+        st["sh"] = ss.masked_shadow_from_hits(
+            grid, st["o"], st["d"], r.hit, r.face, r.axis_coord, sun_np, e1,
+            e2, grids, max_steps)
 
     def shadow(st):
         s_d = sun3.to(dev).expand(st["o"].shape[0], 3).contiguous()
@@ -289,11 +295,9 @@ def main(argv=None) -> int:
 
     print("phases (default knobs):")
     phases(("ray generation (plain torch)", "K9 raster fragments",
-            "K10 raster resolve", "K2 shade_surface",
-            "K12 masked shadow", "K2 shade_pixel", "K4 bloom pyramid",
-            "K4 composite"),
-           (rays, fragments, resolve, surface, classifier, pixel, bloom,
-            composite))
+            "K10 raster resolve", "K12 masked shadow (from the hits)",
+            "K2 shade_pixel", "K4 bloom pyramid", "K4 composite"),
+           (rays, fragments, resolve, classifier, pixel, bloom, composite))
     print("phases (DDA):")
     phases(("ray generation (plain torch)", "K1 primary trace",
             "K2 shade_surface", "K1 shadow trace (+ sun expand)",
@@ -342,13 +346,16 @@ def main(argv=None) -> int:
     print(f"shadow rays: {int(s_a.sum())} traced, sub-steps mean "
           f"{float(it.mean()):.2f} max {float(it.max()):.0f}, blocked share "
           f"{float(sh.float()[s_a].mean()):.4f}")
-    known, residue = ss.shadow_residue(grid, st["s_o"], sun_np, e1, e2,
-                                       grids, s_a)
+    branch = ss.shadow_branches(grid, st["s_o"], sun_np, e1, e2, grids,
+                                s_a)
+    counts = torch.bincount(branch, minlength=len(ss.BRANCHES)).tolist()
+    residue = branch == ss.BRANCHES.index("residue")
     rit = full.iterations.float()[residue]
     print(f"sun classifier: {int(residue.sum())} lanes "
           f"({float(residue.sum() / s_a.sum()):.4f} of the active) left to "
-          f"the DDA, their sub-steps mean {float(rit.mean()):.2f}; "
-          f"{int(known.sum())} hits known without it")
+          f"the DDA, their sub-steps mean {float(rit.mean()):.2f} max "
+          f"{float(rit.max()):.0f}; lanes by branch "
+          f"{dict(zip(ss.BRANCHES, counts))}")
     return 0
 
 
