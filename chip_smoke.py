@@ -18,10 +18,16 @@
 3. the DDA frame (`primary_raster="off", sun_mask="off"`: K1 for primary
    and shadow rays, K2 shade_surface for their starts) over the same
    scene, counters reset before it and read after, checked and printed the
-   same way, its median printed beside the default frame's;
+   same way, its median printed beside the default frame's; fails unless
+   each of its K1 launches traced by 8x4 tiles without the counters, the
+   shadow trace with the one sun direction (no (N, 3) copy);
 4. holds each kernel against its plain torch version on the card at the
-   main path's shapes; the raster (K9+K10) against K1's primary trace on
-   every ray, with each ray where they differ traced by the numpy oracle
+   main path's shapes; K1 with and without its counters, flat and by 8x4
+   tiles, on the primary and the shadow rays (one sun direction, and the
+   direction per ray) at 1920x1080 and at 33x67; prints the registers and
+   spills of K1 and K12 (`-Xptxas -v`); the raster (K9+K10) against K1's
+   primary trace on every ray, with each ray where they differ traced by
+   the numpy oracle
    (the raster must be the oracle's), and both against the oracle on a
    65,536-ray subset; K12 on the raster hits against its plain version,
    against K12 on K2's starts, against an every-lane K1 shadow trace and
@@ -222,11 +228,31 @@ def main() -> int:
                                       shadow_samples=1, max_ray_iterations=3,
                                       primary_raster="off", sun_mask="off"),
                    device=dev, scene=renderer.scene)
+    # K1's launch arguments in these frames, read where the wrapper hands
+    # them to kernels.launch: (direction stride, image width, counters)
+    k1_args = []
+    launch = kernels.launch
+
+    def recorded(name, device, *args):
+        if name == "jump_trace":
+            k1_args.append((args[4], args[7], args[13] != 0))
+        launch(name, device, *args)
+
+    kernels.launch = recorded
     kernels.reset_launches()
-    med_dda = frames(dda, "DDA")
+    try:
+        med_dda = frames(dda, "DDA")
+    finally:
+        kernels.launch = launch
     dda_launches = frame_launches("DDA", dda_kernels, dda_per_frame)
     check(dda_launches["jump_trace"] == 2 * n_frames,
           "the DDA frame did not launch K1 twice a frame")
+    want = [(3, cfg.width, False), (0, cfg.width, False)] * n_frames
+    check(k1_args == want, f"the DDA frame's K1 launches (direction stride, "
+          f"width, counters) {sorted(set(k1_args))}, expected {want[:2]}")
+    print(f"K1 in the DDA frame: {len(k1_args)} launches, each by 8x4 tiles "
+          f"without counters; the shadow trace with one sun direction "
+          f"(stride 0), no (N, 3) copy")
     for k in ("jump_trace", "shade_surface"):
         launches[k] = dda_launches[k]
     print(f"frame median: default knobs {med:.3f} ms, DDA {med_dda:.3f} ms "
@@ -243,15 +269,30 @@ def main() -> int:
               "missed_pops")
     errs = {}
 
-    def same_trace(a, b, what):
-        for f in fields:
+    def same_trace(a, b, what, names=fields):
+        for f in names:
             x, y = getattr(a, f), getattr(b, f)
             check(bool((x == y).all()),
                   f"{what}: {f} differs on {int((x != y).sum())} rays")
         return float((a.t - b.t).abs().max())
 
-    res_k = jump.trace_jump(grid, o, d, max_steps)
-    res_p = jump.trace_jump_plain(grid, o, d, max_steps)
+    def k1_forms(o_, d_, width, what, active=None):
+        """K1 flat and tiled, with and without counters, against the plain
+        version; returns the flat trace with counters and the plain one."""
+        ref_ = jump.trace_jump_plain(grid, o_, d_, max_steps, active=active)
+        out = None
+        for w_ in (None, width):
+            for st in (True, False):
+                got = jump.trace_jump(grid, o_, d_, max_steps, active=active,
+                                      width=w_, stats=st)
+                same_trace(got, ref_, f"{what} (width {w_}, counters {st})",
+                           fields if st else fields[:4])
+                check(st or got.iterations is None,
+                      f"{what}: counters written without stats")
+                out = got if (w_, st) == (None, True) else out
+        return out, ref_
+
+    res_k, res_p = k1_forms(o, d, cfg.width, "K1 primary")
     errs["jump_trace"] = same_trace(res_k, res_p, "K1 primary")
     occ = assemble_dense(renderer.scene.chunks, wcfg.size)
     sel = np.sort(np.random.default_rng(0).choice(n, ORACLE_RAYS,
@@ -337,14 +378,14 @@ def main() -> int:
     # K1 shadow trace
     hits = (o, d, ras_k.hit, ras_k.face, ras_k.axis_coord)
     so_k, sa_k = shade.shade_surface(*hits, sun3)
-    s_d = sun_d.expand(n, 3).contiguous()
     ms_k = ss.masked_shadow_from_hits(grid, *hits, sun_np, e1, e2, grids_k,
                                       max_steps)
     ms_p = ss.masked_shadow_from_hits_plain(grid, *hits, sun_np, e1, e2,
                                             grids_k, max_steps)
     ms_s = ss.masked_shadow_hits(grid, so_k, sun_np, e1, e2, grids_k, sa_k,
                                  max_steps)
-    every = jump.trace_jump(grid, so_k, s_d, max_steps, active=sa_k).hit
+    every = jump.trace_jump(grid, so_k, sun_d, max_steps, active=sa_k,
+                            width=cfg.width, stats=False).hit
     check(torch.equal(ms_k, ms_p),
           f"K12 vs plain: {int((ms_k != ms_p).sum())} lanes differ")
     check(torch.equal(ms_k, ms_s),
@@ -381,11 +422,26 @@ def main() -> int:
     check(torch.allclose(so_d, so_p, rtol=1e-4, atol=1e-4),
           "K2 surface: shadow origins differ")
     errs["shade_surface"] = float((so_d - so_p).abs().max())
-    sh_k = jump.trace_jump(grid, so_d, s_d, max_steps, active=sa_d)
-    sh_p = jump.trace_jump_plain(grid, so_d, s_d, max_steps, active=sa_d)
-    same_trace(sh_k, sh_p, "K1 shadow")
-    print(f"K1 shadow: {int(sa_d.sum())} active of {n} rays bit-exact vs "
-          f"plain")
+    s_d = sun_d.expand(n, 3).contiguous()
+    sh_k = k1_forms(so_d, sun_d, cfg.width, "K1 shadow", active=sa_d)[0]
+    same_trace(jump.trace_jump(grid, so_d, s_d, max_steps, active=sa_d),
+               sh_k, "K1 shadow, the direction per ray vs one direction")
+    print(f"K1: {n} primary rays and {int(sa_d.sum())} active of {n} shadow "
+          f"rays (one sun direction, and the same per ray) bit-exact vs "
+          f"plain, flat and by 8x4 tiles, with and without the counters")
+    # an odd image size: ragged tiles in both directions
+    o_odd, d_odd = camera_rays(cam, 33, 67, dev)
+    r_odd = k1_forms(o_odd, d_odd, 33, "K1 primary at 33x67")[0]
+    so_odd, sa_odd = shade.shade_surface(o_odd, d_odd, r_odd.hit, r_odd.face,
+                                         r_odd.axis_coord, sun3)
+    k1_forms(so_odd, sun_d, 33, "K1 shadow at 33x67", active=sa_odd)
+    print(f"K1 at 33x67: primary ({int(r_odd.hit.sum())} hits) and shadow "
+          f"({int(sa_odd.sum())} active) rays bit-exact vs plain in all four "
+          f"forms")
+    for part in ("vvr_jump_trace_kernel", "vvr_masked_shadow_kernel"):
+        for name, regs, st, ld in kernels.ptxas_usage(part):
+            print(f"ptxas: {name}: {regs} registers, spill stores {st} B, "
+                  f"spill loads {ld} B")
 
     sb_k = sky.write_skybox(sun3, 0.0, cfg.skybox_resolution, dev)
     sb_p = sky.write_skybox_plain(sun_d, cfg.skybox_resolution)
@@ -486,7 +542,8 @@ def main() -> int:
     pr = jump.trace_jump_plain(grid, o, d, max_steps)
     ps_o, ps_a = shade.shade_surface_plain(o, d, pr.hit, pr.face,
                                            pr.axis_coord, sun3)
-    psh = jump.trace_jump_plain(grid, ps_o, s_d, max_steps, active=ps_a)
+    psh = jump.trace_jump_plain(grid, ps_o, sun_d, max_steps, active=ps_a,
+                                stats=False)
     phdr = shade.shade_pixel_plain(
         o, d, pr.hit, pr.face, pr.axis_coord, psh.hit, wcfg.size,
         sky.write_skybox_plain(sun_d, cfg.skybox_resolution),
@@ -506,9 +563,11 @@ def main() -> int:
           f"more than 2 u8 levels (bar 0.005)")
 
     # ---- 5. times, kernel beside plain, main-path shapes
-    timed = {
-        "jump_trace": (lambda: jump.trace_jump(grid, o, d, max_steps),
-                       lambda: jump.trace_jump_plain(grid, o, d, max_steps),
+    timed = {  # K1 as the DDA frame calls it, on the primary rays
+        "jump_trace": (lambda: jump.trace_jump(grid, o, d, max_steps,
+                                               width=w, stats=False),
+                       lambda: jump.trace_jump_plain(grid, o, d, max_steps,
+                                                     stats=False),
                        10, 1),
         "shade_surface": (
             lambda: shade.shade_surface(o, d, res_k.hit, res_k.face,
@@ -571,7 +630,7 @@ def main() -> int:
     fs = ss.face_setup(faces, e1, e2, s_basis, *grids_k[1:], ss.GRID)
     pairs = float(torch.where(fs["occl"], (fs["oi1"] - fs["oi0"] + 1)
                               * (fs["oj1"] - fs["oj0"] + 1), 0).sum())
-    res_it = jump.trace_jump(grid, so_k, s_d, max_steps,
+    res_it = jump.trace_jump(grid, so_k, sun_d, max_steps,
                              active=residue).iterations[residue].float()
     res_steps = float(res_it.sum())
     print(f"K12 residue: {int(residue.sum())} lanes, DDA sub-steps sum "
@@ -589,8 +648,9 @@ def main() -> int:
                           lanes + (n * OPS_PER_ITEM["shade_surface"]
                                    + res_steps * OPS_PER_ITEM["jump_trace"])
                           / OPS_PER_ITEM["masked_shadow"]),
+        # the frame's outputs (hit, face, axis_coord, t)
         "jump_trace": (nbytes(o, d, grid.rows,
-                              *(getattr(res_k, f) for f in fields)),
+                              *(getattr(res_k, f) for f in fields[:4])),
                        float(res_k.iterations.sum())),
         "shade_surface": (nbytes(o, d, res_k.hit, res_k.face,
                                  res_k.axis_coord, so_k, sa_k), n),
@@ -620,13 +680,27 @@ def main() -> int:
         print(f"time {name}: kernel {ms:.4f} ms, plain torch "
               f"{plain_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
     by_name = {r["name"]: r for r in rows}
-    shadow_ms = cuda_ms(lambda: jump.trace_jump(
-        grid, so_k, s_d, max_steps, active=sa_k), 10)
-    shadow_plain = cuda_ms(lambda: jump.trace_jump_plain(
-        grid, so_k, s_d, max_steps, active=sa_k), 1)
-    print(f"time jump_trace (shadow rays of the raster hits): kernel "
-          f"{shadow_ms:.4f} ms, plain torch {shadow_plain:.4f} ms; K12 "
-          f"{by_name['masked_shadow']['ms']:.4f} ms on the same lanes")
+    # K1's other forms: with the counters and flat (the call the kernel
+    # table timed before the tiled form), and the frame's shadow trace
+    # beside the form with counters and a direction per ray
+    k1_runs = (
+        ("primary, flat, with counters", o, d, None, None, True, res_k),
+        ("shadow, frame form (tiled, one direction, no counters)", so_d,
+         sun_d, sa_d, w, False, sh_k),
+        ("shadow, flat, direction per ray, with counters", so_d, s_d, sa_d,
+         None, True, sh_k))
+    for label, ro, rd, ra, rw_, st, rr in k1_runs:
+        k_ms = cuda_ms(lambda: jump.trace_jump(grid, ro, rd, max_steps,
+                                               active=ra, width=rw_,
+                                               stats=st), 10)
+        outs = [getattr(rr, f) for f in (fields if st else fields[:4])]
+        b_ms, b_by = bound_ms(nbytes(ro, rd, grid.rows, *outs),
+                              OPS_PER_ITEM["jump_trace"]
+                              * float(rr.iterations.sum()), "fp32")
+        print(f"time jump_trace ({label}): kernel {k_ms:.4f} ms, bound "
+              f"{b_ms:.6f} ms ({b_by})")
+    print(f"K12 {by_name['masked_shadow']['ms']:.4f} ms on the lanes of the "
+          f"raster hits")
     print(f"time primary visibility: K9+K10 "
           f"{by_name['raster_fragments']['ms'] + by_name['raster_resolve']['ms']:.4f}"
           f" ms vs K1 {by_name['jump_trace']['ms']:.4f} ms; K9 tests "

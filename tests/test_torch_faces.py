@@ -15,6 +15,9 @@ from vvr_tpu_torch.render.scene import build_scene
 from vvr_tpu_torch.world.faces import (FIELDS, extract_faces,
                                        extract_merged_faces)
 
+# one intra-op thread: the suite runs six pytest workers on eight cores
+torch.set_num_threads(1)
+
 
 def _occupancy(name, small_world):
     if name == "terrain":

@@ -42,6 +42,9 @@ from vvr_tpu_torch.render.renderer import Renderer
 from vvr_tpu_torch.utils.camera import Camera, load_snapshots
 from vvr_tpu_torch.world.faces import extract_merged_faces
 
+# one intra-op thread: the suite runs six pytest workers on eight cores
+torch.set_num_threads(1)
+
 GOLDEN_DIR = pathlib.Path(__file__).parent / "golden"
 SLICE = dict(width=96, height=64, shadow_samples=1, max_ray_iterations=2,
              skybox_resolution=32, clouds_resolution=32,
@@ -181,6 +184,49 @@ def test_default_knobs_hdr_equals_jax(grids, small_world):
     assert (ref[..., 3] == 10).any() and (ref[..., 3] == 0).any()
     ok = np.isclose(hdr[..., :3], ref[..., :3], rtol=1e-4, atol=1e-4).all(-1)
     assert ok.mean() >= 0.995, f"{1 - ok.mean():.4%} of pixels differ"
+
+
+@pytest.mark.parametrize("iterations", [0, 1])
+def test_max_ray_iterations_equals_jax(iterations, grids):
+    """The JAX frame runs `max_ray_iterations` bounces and zeroes the lanes
+    still active: with 0 every pixel is black with alpha 0; with 1 (no
+    mirrors) bounce 0 runs, as at the default 3. Same rays, world and sky
+    textures through both packages, the bar of
+    test_terrain_hdr_equals_jax."""
+    jgrid, grid = grids
+    cfg = {**SLICE, "width": 64, "height": 48,
+           "max_ray_iterations": iterations}
+    jo, jd = jax_camera_rays(_jax_camera(_views()["terrain"]), 64, 48)
+    rng = np.random.default_rng(0)
+    sb = rng.uniform(0.0, 1.0, (6, 32, 32, 3)).astype(np.float32)
+    cl = rng.uniform(0.0, 1.0, (32, 32, 4)).astype(np.float32)
+    ref_img, ref = jax_render_frame(jgrid, jo, jd, jnp.asarray(SUN),
+                                    jnp.float32(0.0), JaxRenderConfig(**cfg),
+                                    sky=(jnp.asarray(sb), jnp.asarray(cl)))
+    ref = np.asarray(ref)
+    img, hdr = render_frame(grid, torch.from_numpy(np.array(jo)),
+                            torch.from_numpy(np.array(jd)), SUN, 0.0,
+                            RenderConfig(**cfg),
+                            sky=convert.sky_from_numpy(sb, cl, "cpu"))
+    hdr = hdr.numpy()
+    np.testing.assert_array_equal(hdr[..., 3], ref[..., 3])
+    if iterations == 0:
+        assert not ref.any()
+        np.testing.assert_array_equal(hdr, ref)
+        np.testing.assert_array_equal(img.numpy(), np.asarray(ref_img))
+        return
+    assert (ref[..., 3] == 10).any() and (ref[..., 3] == 0).any()
+    ok = np.isclose(hdr[..., :3], ref[..., :3], rtol=1e-4, atol=1e-4).all(-1)
+    assert ok.mean() >= 0.995, f"{1 - ok.mean():.4%} of pixels differ"
+
+
+def test_negative_max_ray_iterations_raises(grids):
+    o, d = camera_rays(_views()["terrain"], 96, 64, "cpu")
+    cfg = RenderConfig(**{**SLICE, "max_ray_iterations": -1})
+    with pytest.raises(ValueError, match="max_ray_iterations"):
+        render_frame(grids[1], o, d, SUN, 0.0, cfg)
+    with pytest.raises(ValueError, match="max_ray_iterations"):
+        Renderer(WorldConfig(depth=3), cfg, device="cpu")
 
 
 @pytest.mark.parametrize("view", ["terrain", "snap1"])

@@ -31,6 +31,9 @@ from vvr_tpu_torch.tools import microbench_gather as bench
 from vvr_tpu_torch.utils.camera import Camera
 from vvr_tpu_torch.world import faces, generator, jumpgrid
 
+# one intra-op thread: the suite runs six pytest workers on eight cores
+torch.set_num_threads(1)
+
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 G1, G2 = "tools/microbench_gather.py", "tools/microbench_gather2.py"
 WRAPPER = {"pallas_take": "gather_chain", "pallas_tala": "gather_chain",

@@ -14,6 +14,9 @@ import torch
 from vvr_tpu.ops import post as jpost
 from vvr_tpu_torch.ops import post
 
+# one intra-op thread: the suite runs six pytest workers on eight cores
+torch.set_num_threads(1)
+
 
 def _hdr(h, w, seed):
     """Planar rgba with bright spots and sky (alpha 10) regions."""

@@ -24,6 +24,9 @@ from vvr_tpu_torch.render.oracle import trace_dense
 from vvr_tpu_torch.utils.camera import Camera
 from vvr_tpu_torch.world.faces import extract_faces, extract_merged_faces
 
+# one intra-op thread: the suite runs six pytest workers on eight cores
+torch.set_num_threads(1)
+
 FIELDS = ("hit", "face", "axis_coord", "t")
 TERRAIN_CAM = Camera.look_at([32.0, 45.0, 6.0], [32.0, 10.0, 40.0], fov=85.0)
 

@@ -24,6 +24,9 @@ from vvr_tpu.utils import hash as jhash
 from vvr_tpu_torch.ops import shade
 from vvr_tpu_torch.utils import hash as thash
 
+# one intra-op thread: the suite runs six pytest workers on eight cores
+torch.set_num_threads(1)
+
 
 def _blocks():
     rng = np.random.default_rng(3)

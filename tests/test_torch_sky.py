@@ -25,6 +25,9 @@ from vvr_tpu.ops import sky as jsky
 from vvr_tpu_torch import convert
 from vvr_tpu_torch.ops import sky
 
+# one intra-op thread: the suite runs six pytest workers on eight cores
+torch.set_num_threads(1)
+
 SUNS = {
     "day": (-0.28, 0.65, -0.71),
     "low": (0.6, 0.05, 0.8),

@@ -35,6 +35,9 @@ from vvr_tpu_torch.render.oracle import trace_dense
 from vvr_tpu_torch.utils.camera import Camera
 from vvr_tpu_torch.world.faces import extract_merged_faces
 
+# one intra-op thread: the suite runs six pytest workers on eight cores
+torch.set_num_threads(1)
+
 SUNS = {"default": [-0.28, 0.65, -0.71], "low": [0.6, 0.15, 0.3],
         "steep": [0.1, 0.95, 0.2], "x_major": [0.95, 0.3, 0.1]}
 SUNS = {k: (np.array(v, np.float32) / np.linalg.norm(v)).astype(np.float32)

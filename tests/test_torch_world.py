@@ -19,9 +19,13 @@ from vvr_tpu.world import cache as jcache
 from vvr_tpu.world.jumpgrid import build_jump_grid as jax_build_jump_grid
 from vvr_tpu_torch.config import WorldConfig
 from vvr_tpu_torch.ops import noise
+from vvr_tpu_torch.render.scene import build_scene
 from vvr_tpu_torch.world import cache
 from vvr_tpu_torch.world.generator import assemble_dense, generate_world
 from vvr_tpu_torch.world.jumpgrid import build_jump_grid, build_jump_rows
+
+# one intra-op thread: the suite runs six pytest workers on eight cores
+torch.set_num_threads(1)
 
 
 def _points(seed=0, n=4096):
@@ -90,8 +94,38 @@ def test_world_cache_format_shared_and_path_separate(tmp_path, small_world):
     np.testing.assert_array_equal(
         np.stack([c.voxels for c in back]),
         np.stack([c.voxels for c in chunks]))
-    assert cache.default_cache_path(64) != jcache.default_cache_path(64)
-    assert "vvr_tpu_torch" in cache.default_cache_path(64).parts
+    port_path = cache.default_cache_path(WorldConfig(depth=3))
+    assert port_path != jcache.default_cache_path(64)
+    assert "vvr_tpu_torch" in port_path.parts
+
+
+def test_world_cache_keyed_by_every_field(tmp_path, monkeypatch):
+    """build_scene's default cache file is named by every WorldConfig
+    field: two seeds of one size give two worlds, each reloaded from its
+    own file."""
+    monkeypatch.setenv("HOME", str(tmp_path))
+    cfgs = [WorldConfig(depth=3), WorldConfig(depth=3, seed=1)]
+    paths = [cache.default_cache_path(c) for c in cfgs]
+    assert paths[0] != paths[1]
+    a, b = (build_scene(c, "cpu") for c in cfgs)
+    assert all(p.exists() and tmp_path in p.parents for p in paths)
+    assert not torch.equal(a.jumpgrid.rows, b.jumpgrid.rows)
+    again = build_scene(cfgs[1], "cpu")
+    assert torch.equal(again.jumpgrid.rows, b.jumpgrid.rows)
+
+
+def test_world_cache_of_another_size_not_loaded(tmp_path, small_world):
+    """A file whose stored size is not the asked one is not loaded:
+    build_scene regenerates the world and rewrites the file."""
+    _, chunks, occ = small_world
+    path = tmp_path / "map.npz"
+    cache.save_world(path, chunks, 128)
+    assert cache.load_world(path, 64) is None
+    assert cache.load_world(path) is not None
+    scene = build_scene(WorldConfig(depth=3), "cpu", cache_path=path)
+    np.testing.assert_array_equal(assemble_dense(scene.chunks, 64), occ)
+    np.testing.assert_array_equal(
+        assemble_dense(cache.load_world(path, 64), 64), occ)
 
 
 def test_port_imports_neither_jax_nor_vvr_tpu():

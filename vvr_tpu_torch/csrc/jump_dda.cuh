@@ -1,13 +1,19 @@
 // The jump-grid DDA of one ray, as a __device__ function: K1
-// (jump_trace.cu) runs it per primary or shadow ray, and a later kernel can
-// run it inline (a shadow trace fused into the shade kernel) without a
-// second copy.
+// (jump_trace.cu) runs it per primary or shadow ray, and K12
+// (sunshadow.cu) runs it inline for its residue, without a second copy.
 //
 // Port of vvr_tpu/ops/jump.py `_make_stepper` (fetch :94-165, in-brick
 // step :167-235), `_make_ray` :240, `_init_state` :255 and `_outputs` :275,
 // one thread per ray. Every float expression keeps the JAX op order and the
 // file is compiled with -fmad=false: `floor(o + d*te)` and
 // `(bound - o) * inv` must round as the oracle's (render/oracle.py) do.
+//
+// Every sub-step is the exit from a box [lo, hi] per axis (ops/jump.py):
+// the jump box of a row whose octant distance is > 0, an empty 2^3 subcell,
+// or one voxel. A trip of the loop loads the row if the ray waits for one,
+// then takes one box exit, so a warp whose lanes jump and lanes step in a
+// brick runs one body, not both; a load that enters a brick goes on to its
+// in-brick test in the same trip.
 #pragma once
 
 #include "common.cuh"
@@ -17,15 +23,17 @@ struct JumpHit {
     int face;
     int axis_coord;
     float t;
-    int iterations;
+    int iterations;   // the counters are 0 unless STATS
     int fetches;
     int missed_pops;
 };
 
-// clip(int(floor(x)), lo, hi), clamped in float first
+// clip(int(floor(x)), lo, hi): floor and convert in one instruction, which
+// saturates at the int range (a NaN gives 0), then an integer clamp; three
+// instructions where a float clamp takes six (faster on the H100, PERF.md)
 static __device__ __forceinline__ int vvr_floor_clip(float x, int lo,
                                                      int hi) {
-    return (int)vvr_clamp(floorf(x), (float)lo, (float)hi);
+    return min(max(__float2int_rd(x), lo), hi);
 }
 
 static __device__ __forceinline__ float vvr_axis_t(float bound, float o,
@@ -41,6 +49,9 @@ static __device__ __forceinline__ bool vvr_brick_solid(
     return ((w >> (lx + ((ly & 3) << 3))) & 1u) != 0u;
 }
 
+// STATS: count fetches and missed_pops (the iterations are counted for the
+// cap either way, and returned only with STATS).
+template <bool STATS>
 static __device__ JumpHit vvr_jump_trace_ray(
         const uint32_t* __restrict__ rows, int size, float ox, float oy,
         float oz, float dx, float dy, float dz, bool active, int max_steps) {
@@ -52,8 +63,8 @@ static __device__ JumpHit vvr_jump_trace_ray(
     const int px = dx > 0.0f, py = dy > 0.0f, pz = dz > 0.0f;
     const int oct = px | (py << 1) | (pz << 2);
 
-    bool act = active && ox >= 0.0f && ox < fs && oy >= 0.0f && oy < fs
-               && oz >= 0.0f && oz < fs;
+    const bool act = active && ox >= 0.0f && ox < fs && oy >= 0.0f
+                     && oy < fs && oz >= 0.0f && oz < fs;
     int vx = vvr_floor_clip(ox, 0, size - 1);
     int vy = vvr_floor_clip(oy, 0, size - 1);
     int vz = vvr_floor_clip(oz, 0, size - 1);
@@ -65,117 +76,92 @@ static __device__ JumpHit vvr_jump_trace_ray(
     uint32_t slo = 0u, shi = 0u;
 
     while (act) {
+        int lox, hix, loy, hiy, loz, hiz;
+        bool jump = false;
         if (pend) {
-            // fetch: jump across an all-empty box, or enter the brick
+            // the row: its subcell masks (words 17-18) and octant distance
+            // (word 24 + oct), two 16 B loads issued together
             const uint32_t* r = rows + (size_t)addr * 32;
-            const int dval = (int)__ldg(r + 24 + oct);
+            const uint4 sub = __ldg(reinterpret_cast<const uint4*>(r + 16));
+            const uint4 dist =
+                __ldg(reinterpret_cast<const uint4*>(r + 24 + (oct & 4)));
+            const int o3 = oct & 3;
+            const int dval = (int)(o3 == 0 ? dist.x
+                                   : o3 == 1 ? dist.y
+                                   : o3 == 2 ? dist.z : dist.w);
             ++it;
-            ++fe;
-            if (dval == 0) {
-                row = r;
-                slo = __ldg(r + 17);
-                shi = __ldg(r + 18);
-                pend = false;
-            } else {
+            if (STATS) ++fe;
+            if (dval > 0) {
+                // the all-empty box of superbricks b .. b +- (dval - 1)
+                jump = true;
                 const int bx = vx >> 3, by = vy >> 3, bz = vz >> 3;
-                const int exx = px ? (bx + dval) * 8 : (bx - dval + 1) * 8;
-                const int exy = py ? (by + dval) * 8 : (by - dval + 1) * 8;
-                const int exz = pz ? (bz + dval) * 8 : (bz - dval + 1) * 8;
-                const float tx = vvr_axis_t((float)exx, ox, dx, ix);
-                const float ty = vvr_axis_t((float)exy, oy, dy, iy);
-                const float tz = vvr_axis_t((float)exz, oz, dz, iz);
-                const float te = fminf(tx, fminf(ty, tz));
-                const int nf = tz <= te ? 2 : (ty <= te ? 1 : 0);
-                int nvx, nvy, nvz;
-                if (nf == 0) {
-                    nvx = px ? exx : exx - 1;
-                } else {
-                    nvx = vvr_floor_clip(ox + dx * te,
-                                         px ? bx * 8 : (bx - dval + 1) * 8,
-                                         px ? (bx + dval) * 8 - 1 : bx * 8 + 7);
-                }
-                if (nf == 1) {
-                    nvy = py ? exy : exy - 1;
-                } else {
-                    nvy = vvr_floor_clip(oy + dy * te,
-                                         py ? by * 8 : (by - dval + 1) * 8,
-                                         py ? (by + dval) * 8 - 1 : by * 8 + 7);
-                }
-                if (nf == 2) {
-                    nvz = pz ? exz : exz - 1;
-                } else {
-                    nvz = vvr_floor_clip(oz + dz * te,
-                                         pz ? bz * 8 : (bz - dval + 1) * 8,
-                                         pz ? (bz + dval) * 8 - 1 : bz * 8 + 7);
-                }
-                vx = nvx;
-                vy = nvy;
-                vz = nvz;
-                t = te;
-                face = nf;
-                addr = (nvx >> 3) + (nvy >> 3) * g + (nvz >> 3) * g * g;
-                if (nvx < 0 || nvx >= size || nvy < 0 || nvy >= size
-                    || nvz < 0 || nvz >= size) {
-                    act = false;
-                }
+                lox = px ? bx * 8 : (bx - dval + 1) * 8;
+                hix = px ? (bx + dval) * 8 - 1 : bx * 8 + 7;
+                loy = py ? by * 8 : (by - dval + 1) * 8;
+                hiy = py ? (by + dval) * 8 - 1 : by * 8 + 7;
+                loz = pz ? bz * 8 : (bz - dval + 1) * 8;
+                hiz = pz ? (bz + dval) * 8 - 1 : bz * 8 + 7;
+            } else {
+                row = r;
+                slo = sub.y;
+                shi = sub.z;
+                pend = false;
+                if (it >= max_steps) break;  // the cap, between load and step
             }
-        } else {
-            // in-brick step: solid test, then a voxel or 2^3-subcell step
+        }
+        if (!jump) {
+            // in-brick: the solid test, then the box of the ray's 2^3
+            // subcell if the row's mask says it is empty, else of its voxel
             const int lx = vx & 7, ly = vy & 7, lz = vz & 7;
             ++it;
             if (vvr_brick_solid(row, lx, ly, lz)) {
                 hit = true;
-                act = false;
-            } else {
-                const int sbit = (lx >> 1) | ((ly >> 1) << 2)
-                                 | ((lz >> 1) << 4);
-                const uint32_t sword = sbit >= 32 ? shi : slo;
-                const bool big = ((sword >> (sbit & 31)) & 1u) == 0u;
-                const int bxi = big ? (((vx >> 1) + px) << 1) : vx + px;
-                const int byi = big ? (((vy >> 1) + py) << 1) : vy + py;
-                const int bzi = big ? (((vz >> 1) + pz) << 1) : vz + pz;
-                const float tx = vvr_axis_t((float)bxi, ox, dx, ix);
-                const float ty = vvr_axis_t((float)byi, oy, dy, iy);
-                const float tz = vvr_axis_t((float)bzi, oz, dz, iz);
-                const float te = fminf(tx, fminf(ty, tz));
-                const int nf = tz <= te ? 2 : (ty <= te ? 1 : 0);
-                int nvx = vx, nvy = vy, nvz = vz;
-                if (nf == 0) {
-                    nvx = px ? bxi : bxi - 1;
-                } else if (big) {
-                    const int b0 = (vx >> 1) << 1;
-                    nvx = vvr_floor_clip(ox + dx * te, b0, b0 + 1);
-                }
-                if (nf == 1) {
-                    nvy = py ? byi : byi - 1;
-                } else if (big) {
-                    const int b0 = (vy >> 1) << 1;
-                    nvy = vvr_floor_clip(oy + dy * te, b0, b0 + 1);
-                }
-                if (nf == 2) {
-                    nvz = pz ? bzi : bzi - 1;
-                } else if (big) {
-                    const int b0 = (vz >> 1) << 1;
-                    nvz = vvr_floor_clip(oz + dz * te, b0, b0 + 1);
-                }
-                const int moved = nf == 0 ? nvx : (nf == 1 ? nvy : nvz);
-                const int stayed = nf == 0 ? vx : (nf == 1 ? vy : vz);
-                const bool exited = (moved >> 3) != (stayed >> 3);
-                vx = nvx;
-                vy = nvy;
-                vz = nvz;
-                t = te;
-                face = nf;
-                if (exited) ++em;
-                if (moved < 0 || moved >= size) {
-                    act = false;
-                } else if (exited) {
-                    pend = true;
-                    addr = (nvx >> 3) + (nvy >> 3) * g + (nvz >> 3) * g * g;
-                }
+                break;
             }
+            const int sbit = (lx >> 1) | ((ly >> 1) << 2) | ((lz >> 1) << 4);
+            const uint32_t sword = sbit >= 32 ? shi : slo;
+            const bool big = ((sword >> (sbit & 31)) & 1u) == 0u;
+            lox = big ? (vx >> 1) << 1 : vx;
+            hix = big ? lox + 1 : vx;
+            loy = big ? (vy >> 1) << 1 : vy;
+            hiy = big ? loy + 1 : vy;
+            loz = big ? (vz >> 1) << 1 : vz;
+            hiz = big ? loz + 1 : vz;
         }
-        if (it >= max_steps) act = false;
+        // the exit from the box: its plane is hi + 1 on a positive axis and
+        // lo on a negative one
+        const int bx = px ? hix + 1 : lox;
+        const int by = py ? hiy + 1 : loy;
+        const int bz = pz ? hiz + 1 : loz;
+        const float tx = vvr_axis_t((float)bx, ox, dx, ix);
+        const float ty = vvr_axis_t((float)by, oy, dy, iy);
+        const float tz = vvr_axis_t((float)bz, oz, dz, iz);
+        const float te = fminf(tx, fminf(ty, tz));
+        const int nf = tz <= te ? 2 : (ty <= te ? 1 : 0);
+        const int nvx = nf == 0 ? (px ? bx : bx - 1)
+                                : vvr_floor_clip(ox + dx * te, lox, hix);
+        const int nvy = nf == 1 ? (py ? by : by - 1)
+                                : vvr_floor_clip(oy + dy * te, loy, hiy);
+        const int nvz = nf == 2 ? (pz ? bz : bz - 1)
+                                : vvr_floor_clip(oz + dz * te, loz, hiz);
+        const int moved = nf == 0 ? nvx : (nf == 1 ? nvy : nvz);
+        const int stayed = nf == 0 ? vx : (nf == 1 ? vy : vz);
+        const bool exited = (moved >> 3) != (stayed >> 3);  // every jump
+        if (STATS && exited && !jump) ++em;
+        vx = nvx;
+        vy = nvy;
+        vz = nvz;
+        t = te;
+        face = nf;
+        if ((unsigned)nvx >= (unsigned)size || (unsigned)nvy >= (unsigned)size
+            || (unsigned)nvz >= (unsigned)size) {
+            break;  // left the world
+        }
+        if (exited) {
+            pend = true;
+            addr = (nvx >> 3) + (nvy >> 3) * g + (nvz >> 3) * g * g;
+        }
+        if (it >= max_steps) break;
     }
 
     JumpHit res;
@@ -183,7 +169,7 @@ static __device__ JumpHit vvr_jump_trace_ray(
     res.face = face;
     res.axis_coord = hit ? (face == 0 ? vx : (face == 1 ? vy : vz)) : 0;
     res.t = hit ? t : VVR_BIG_T;
-    res.iterations = it;
+    res.iterations = STATS ? it : 0;
     res.fetches = fe;
     res.missed_pops = em;
     return res;

@@ -397,9 +397,9 @@ vvr_masked_shadow_kernel(const uint32_t* __restrict__ rows, int size,
     if (vvr_lane_start(L, p, B, &ox, &oy, &oz)) {
         r = vvr_classify_start(rows, size, ox, oy, oz, B, gbc, G, back);
         if (r == VVR_K12_RESIDUE) {
-            r = vvr_jump_trace_ray(rows, size, ox, oy, oz, B.sx, B.sy, B.sz,
-                                   true, max_steps).hit ? VVR_K12_SHADOW
-                                                        : VVR_K12_LIGHT;
+            r = vvr_jump_trace_ray<false>(rows, size, ox, oy, oz, B.sx,
+                                          B.sy, B.sz, true, max_steps).hit
+                    ? VVR_K12_SHADOW : VVR_K12_LIGHT;
         }
     }
     out[p] = (uint8_t)r;

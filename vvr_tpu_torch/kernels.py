@@ -34,6 +34,9 @@ BUILD_DIR = (pathlib.Path(__file__).resolve().parents[1] / "build"
              / "vvr_tpu_torch")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-fmad=false", "-Xcompiler", "-fPIC")
+# each source's compile also reports its kernels' registers and spills,
+# kept beside the library (ptxas_usage)
+PTXAS_VERBOSE = ("-Xptxas", "-v")
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 
@@ -49,7 +52,8 @@ class Kernel:
 
 KERNELS = {
     "jump_trace": Kernel(
-        "vvr_jump_trace", (_P, _I, _P, _P, _P, _I, _I) + (_P,) * 7 + (_P,),
+        "vvr_jump_trace", (_P, _I, _P, _P, _I, _P, _I, _I, _I) + (_P,) * 7
+        + (_P,),
         "vvr_tpu_torch/csrc/jump_trace.cu", "vvr_tpu/ops/jump.py:289"),
     "shade_surface": Kernel(
         "vvr_shade_surface", (_P, _P, _P, _P, _P, _I, _F, _F, _F, _P, _P, _P),
@@ -133,27 +137,29 @@ def _nvcc() -> str:
 
 
 def library_path() -> pathlib.Path:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    h = hashlib.sha256(" ".join(NVCC_FLAGS + PTXAS_VERBOSE).encode())
     for src in _sources():
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return BUILD_DIR / f"libvvr_kernels_{h.hexdigest()[:16]}.so"
 
 
-def _run_all(cmds: list[list[str]]) -> None:
-    """Run the commands in parallel; raise with the output of each one
-    that failed."""
+def _run_all(cmds: list[list[str]]) -> list[str]:
+    """Run the commands in parallel and return their outputs; raise with
+    the output of each one that failed."""
     procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
                               stderr=subprocess.STDOUT, text=True)
              for c in cmds]
-    errors = []
+    errors, outs = [], []
     for cmd, proc in zip(cmds, procs):
         out, _ = proc.communicate()
+        outs.append(out)
         if proc.returncode != 0:
             errors.append(f"nvcc failed ({proc.returncode}):\n"
                           f"{' '.join(cmd)}\n{out}")
     if errors:
         raise RuntimeError("\n".join(errors))
+    return outs
 
 
 def build() -> pathlib.Path:
@@ -170,10 +176,11 @@ def build() -> pathlib.Path:
     for src in sorted(CSRC.glob("*.cu")):
         obj = BUILD_DIR / f"{tag}.{src.stem}.o"
         objs.append(obj)
-        cmds.append([nvcc, *NVCC_FLAGS, f"-I{CSRC}", "-c", "-o", str(obj),
-                     str(src)])
+        cmds.append([nvcc, *NVCC_FLAGS, *PTXAS_VERBOSE, f"-I{CSRC}", "-c",
+                     "-o", str(obj), str(src)])
     try:
-        _run_all(cmds)
+        report = _run_all(cmds)
+        _ptxas_log(out).write_text("".join(report))
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
         _run_all([[nvcc, *NVCC_FLAGS, "-shared", "-o", str(tmp),
                    *(str(o) for o in objs)]])
@@ -181,6 +188,31 @@ def build() -> pathlib.Path:
     finally:
         for obj in objs:
             obj.unlink(missing_ok=True)
+    return out
+
+
+def _ptxas_log(lib: pathlib.Path) -> pathlib.Path:
+    return lib.with_suffix(".ptxas.txt")
+
+
+def ptxas_usage(part: str) -> list[tuple[str, int, int, int]]:
+    """(mangled kernel name, registers, spill store bytes, spill load
+    bytes; -1 where not reported) of each compiled kernel whose name
+    contains `part`, from the `-Xptxas -v` report of this library's
+    build."""
+    out, name = [], None
+    for line in _ptxas_log(library_path()).read_text().splitlines():
+        if "Compiling entry function" in line:
+            name, spills = line.split("'")[1], (-1, -1)
+        elif name and "spill stores" in line:
+            nums = [int(w) for w in line.replace(",", " ").split()
+                    if w.isdigit()]
+            spills = (nums[1], nums[2])
+        elif name and "Used" in line and "registers" in line:
+            regs = int(line.split("Used")[1].split()[0])
+            if part in name:
+                out.append((name, regs, *spills))
+            name = None
     return out
 
 

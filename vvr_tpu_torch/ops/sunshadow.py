@@ -350,8 +350,7 @@ def masked_shadow_hits_plain(grid: JumpGrid, s_o, sun3, e1, e2, grids,
     out = (br == 2) | (br == 3) | (br == 5)  # buried, certain, near-walk hit
     res = torch.nonzero(br == 8)[:, 0]       # the residue
     sun = torch.as_tensor(np.asarray(sun3, np.float32), device=s_o.device)
-    dda = trace_jump_plain(grid, s_o[res], sun.expand(len(res), 3),
-                           max_steps).hit
+    dda = trace_jump_plain(grid, s_o[res], sun, max_steps, stats=False).hit
     out[res[dda]] = True
     return out
 

@@ -65,8 +65,9 @@ def build_scene(cfg: WorldConfig, device="cuda",
     """Load the cached world or generate and cache it (the height field
     runs on `device`), then build the jump grid on `device`."""
     device = torch.device(device)
-    path = cache_path or cache_mod.default_cache_path(cfg.size)
-    chunks = None if force_regenerate else cache_mod.load_world(path)
+    path = cache_path or cache_mod.default_cache_path(cfg)
+    chunks = None if force_regenerate else cache_mod.load_world(path,
+                                                                cfg.size)
     if chunks is None:
         log.info("generating world (size %d)...", cfg.size)
         chunks = generate_world(cfg, device)

@@ -8,8 +8,10 @@ t = 0: face rasterizer, sun classifier, one hard shadow ray per lit pixel)
 with the vvr_tpu_torch package found under DIR (default: this checkout),
 in three configurations: 1920x1080 with bloom, without bloom, and
 3840x2160 composited from a 1920x1080 render (the compositor's integer
-upscale). It prints one JSON line: for each configuration the SHA-256 of
-the frame's HDR image and of its u8 image. The calls are those of
+upscale); and beside them the DDA frame (`primary_raster="off",
+sun_mask="off"`: K1 traces the primary and the shadow rays) at 1920x1080.
+It prints one JSON line: for each configuration the SHA-256 of the frame's
+HDR image and of its u8 image. The calls are those of
 `Renderer.render`, which earlier checkouts of the port share, so running
 the script once with --root at an unpacked `git archive` of another commit
 and once without, in one call on one card, shows whether the two trees'
@@ -27,7 +29,9 @@ import sys
 CAMERA = ([128.0, 100.0, 20.0], [128.0, 20.0, 180.0], 85.0)  # bench.py:33
 CONFIGS = {"bloom": dict(width=1920, height=1080),
            "no bloom": dict(width=1920, height=1080, bloom_enabled=False),
-           "upscale 2": dict(width=3840, height=2160, downscale_factor=2)}
+           "upscale 2": dict(width=3840, height=2160, downscale_factor=2),
+           "dda": dict(width=1920, height=1080, primary_raster="off",
+                       sun_mask="off")}
 
 
 def digest(t) -> str:
@@ -65,11 +69,13 @@ def main(argv=None) -> int:
                      / "map_256.npz")
         scene = r.scene
         o, d = camera_rays(cam, cfg.render_width, cfg.render_height, dev)
-        raster = (scene.ensure_faces(), raster_camera(cam),
-                  scene.solid_at_host(cam.position))
+        raster = ((scene.ensure_faces(), raster_camera(cam),
+                   scene.solid_at_host(cam.position)) if r.use_raster
+                  else None)
         img, hdr = render_frame(scene.jumpgrid, o, d, r.sun, 0.0, cfg,
                                 sky=r._sky(0.0), raster=raster,
-                                sunmask=r._sunmask())
+                                sunmask=r._sunmask() if r.use_sunmask
+                                else None)
         torch.cuda.synchronize()
         out[name] = {"hdr": digest(hdr), "u8": digest(img),
                      "shape": list(img.shape)}

@@ -1,6 +1,6 @@
 """Where the time of the slice frame goes, on one NVIDIA GPU.
 
-    python3 -m vvr_tpu_torch.tools.profile_frame [--trace PATH]
+    python3 vvr_tpu_torch/tools/profile_frame.py [--trace PATH] [--root DIR]
 
 Renders the frames that chip_smoke.py drives (256^3 world, 1920x1080, one
 hard shadow ray per lit pixel, the bench camera, a fixed time so no sky
@@ -18,8 +18,9 @@ over one scene, and prints, each from this run:
    includes the host's launch gaps inside it;
 4. one window of synchronized frames of each kind under torch.profiler
    with CUDA activity only: device time per kernel per frame, summed per
-   C entry point (K9's four kernels; the bloom pyramid, the composite, K12
-   and K2 shade_surface one each), and the
+   C entry point (K9's four kernels; K1, the bloom pyramid, the composite,
+   K12 and K2 shade_surface one each), K1's per call of the DDA frame (its
+   launches alternate: primary rays, then shadow rays), and the
    device busy share of that window = the union of device intervals
    (kernels, copies, sets) over the span from the first to the last event
    of the trace, both on the trace's clock. The profiler's own overhead
@@ -28,12 +29,18 @@ over one scene, and prints, each from this run:
 5. the work counters at this camera (K9's fragments in its tight boxes
    and in the JAX boxes, its binned (face, tile) pairs and big faces).
 
-It exits non-zero without a CUDA device.
+It measures the vvr_tpu_torch package found under DIR (default: this
+checkout), so one call can run it on an unpacked `git archive` of another
+commit and on this one in turns; where that package's K1 wrapper predates
+the frame's arguments (image width, no counters, one shadow direction),
+the DDA phases call it as that package's frame did. It exits non-zero
+without a CUDA device.
 """
 
 from __future__ import annotations
 
 import argparse
+import inspect
 import json
 import pathlib
 import statistics
@@ -43,17 +50,6 @@ import tempfile
 import time
 
 import torch
-
-from vvr_tpu_torch import kernels
-from vvr_tpu_torch.config import RenderConfig, WorldConfig
-from vvr_tpu_torch.ops import jump, post, shade, sky
-from vvr_tpu_torch.ops import rastertrace as rt
-from vvr_tpu_torch.ops import sunshadow as ss
-from vvr_tpu_torch.ops.raygen import camera_rays
-from vvr_tpu_torch.render.renderer import Renderer
-from vvr_tpu_torch.utils.camera import Camera
-from vvr_tpu_torch.world.faces import extract_merged_faces
-from vvr_tpu_torch.world.generator import assemble_dense
 
 CAMERA = ([128.0, 100.0, 20.0], [128.0, 20.0, 180.0], 85.0)  # bench.py:33
 FRAMES = 50      # per host-clock window
@@ -69,6 +65,7 @@ PORT_KERNELS = ("vvr_jump_trace_kernel", "vvr_shade_surface_kernel",
 # the device kernels of one C entry point, by name part: K9 launches
 # project, scan, bin and tile kernels (and a memset), the others one each
 ENTRY_KERNELS = {
+    "K1 jump_trace": ("vvr_jump_trace_kernel",),
     "K9 raster_fragments": ("vvr_raster_project", "vvr_scan_",
                             "vvr_raster_bin", "vvr_raster_tile"),
     "K4 bloom_pyramid": ("vvr_bloom_pyramid_kernel",),
@@ -177,16 +174,38 @@ def window(label, renderer, cam, trace_path) -> None:
         got = [v for k, v in per_name.items() if any(p in k for p in parts)]
         print(f"  entry {entry}: device {sum(v[1] for v in got) / n:.2f} "
               f"us/frame in {sum(v[0] for v in got) / n:.1f} kernels/frame")
+    k1 = sorted((e["ts"], e["dur"]) for e in dev_ev
+                if "vvr_jump_trace_kernel" in e["name"])
+    if k1 and len(k1) == 2 * n:
+        primary, shadow = (sum(u for _, u in k1[k::2]) / n for k in (0, 1))
+        print(f"  K1 per call: primary rays {primary:.2f} us/frame, shadow "
+              f"rays {shadow:.2f} us/frame")
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--trace", type=pathlib.Path, default=None,
                     help="keep the default frame's chrome trace here")
+    ap.add_argument("--root", type=pathlib.Path,
+                    default=pathlib.Path(__file__).resolve().parents[2],
+                    help="the checkout whose vvr_tpu_torch is measured")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("profile_frame: no CUDA device", file=sys.stderr)
         return 1
+    root = args.root.resolve()
+    sys.path.insert(0, str(root))
+    from vvr_tpu_torch import kernels
+    from vvr_tpu_torch.config import RenderConfig, WorldConfig
+    from vvr_tpu_torch.ops import jump, post, shade, sky
+    from vvr_tpu_torch.ops import rastertrace as rt
+    from vvr_tpu_torch.ops import sunshadow as ss
+    from vvr_tpu_torch.ops.raygen import camera_rays
+    from vvr_tpu_torch.render.renderer import Renderer
+    from vvr_tpu_torch.utils.camera import Camera
+    from vvr_tpu_torch.world.faces import extract_merged_faces
+    from vvr_tpu_torch.world.generator import assemble_dense
+    print(f"measuring the vvr_tpu_torch of {root}")
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit,clocks.sm,clocks.max.sm",
          "--format=csv,noheader", "-i", "0"],
@@ -197,10 +216,9 @@ def main(argv=None) -> int:
     knobs = dict(width=1920, height=1080, shadow_samples=1,
                  max_ray_iterations=3)
     cfg = RenderConfig(**knobs)
-    repo = pathlib.Path(__file__).resolve().parents[2]
     wcfg = WorldConfig(depth=4)
     renderer = Renderer(wcfg, cfg, device=dev, force_regenerate=True,
-                        cache_path=repo / "build" / "vvr_tpu_torch"
+                        cache_path=root / "build" / "vvr_tpu_torch"
                         / "map_256.npz")
     dda = Renderer(wcfg, RenderConfig(**knobs, primary_raster="off",
                                       sun_mask="off"),
@@ -262,8 +280,14 @@ def main(argv=None) -> int:
         st["res"] = rt.raster_resolve(st["keys"], rcam, st["d"], probe,
                                       wcfg.size)
 
+    # K1 as the measured package's DDA frame calls it
+    frame_k1 = ({"width": w, "stats": False}
+                if "stats" in inspect.signature(jump.trace_jump).parameters
+                else None)
+
     def primary(st):
-        st["res"] = jump.trace_jump(grid, st["o"], st["d"], max_steps)
+        st["res"] = jump.trace_jump(grid, st["o"], st["d"], max_steps,
+                                    **(frame_k1 or {}))
 
     def surface(st):
         r = st["res"]
@@ -277,9 +301,14 @@ def main(argv=None) -> int:
             e2, grids, max_steps)
 
     def shadow(st):
-        s_d = sun3.to(dev).expand(st["o"].shape[0], 3).contiguous()
-        st["sh"] = jump.trace_jump(grid, st["s_o"], s_d, max_steps,
-                                   active=st["s_a"]).hit
+        if frame_k1 is None:
+            s_d = sun3.to(dev).expand(st["o"].shape[0], 3).contiguous()
+            st["sh"] = jump.trace_jump(grid, st["s_o"], s_d, max_steps,
+                                       active=st["s_a"]).hit
+        else:
+            st["sh"] = jump.trace_jump(grid, st["s_o"], sun3.to(dev),
+                                       max_steps, active=st["s_a"],
+                                       **frame_k1).hit
 
     def pixel(st):
         r = st["res"]
@@ -300,7 +329,7 @@ def main(argv=None) -> int:
            (rays, fragments, resolve, classifier, pixel, bloom, composite))
     print("phases (DDA):")
     phases(("ray generation (plain torch)", "K1 primary trace",
-            "K2 shade_surface", "K1 shadow trace (+ sun expand)",
+            "K2 shade_surface", "K1 shadow trace",
             "K2 shade_pixel", "K4 bloom pyramid", "K4 composite"),
            (rays, primary, surface, shadow, pixel, bloom, composite))
 
@@ -315,7 +344,8 @@ def main(argv=None) -> int:
     st = {}
     for call in (rays, primary, surface, shadow):
         call(st)
-    res, sh, s_a = st["res"], st["sh"], st["s_a"]
+    sh, s_a = st["sh"], st["s_a"]
+    res = jump.trace_jump(grid, st["o"], st["d"], max_steps)  # counters
     it = res.iterations.float()
     print(f"primary rays (K1): hit share {float(res.hit.float().mean()):.4f}, "
           f"sub-steps mean {float(it.mean()):.2f} max {float(it.max()):.0f}, "
