@@ -13,8 +13,10 @@
    `Renderer.render`; reads the counters and fails unless each kernel of
    that path (K2 shade_pixel, K3, K4, K9, K10, K11, K12; K12 computes the
    shadow rays' starts, so K2 shade_surface and K1 must not run) was
-   launched, and each per-frame kernel once in every frame; prints the
-   port's kernel launches per frame;
+   launched, each per-frame kernel once in every frame and K3 once per
+   sky bucket (both textures in one launch); prints the port's kernel
+   launches per frame and the slowest frame, with whether it rebuilt the
+   sky;
 3. the DDA frame (`primary_raster="off", sun_mask="off"`: K1 for primary
    and shadow rays, K2 shade_surface for their starts) over the same
    scene, counters reset before it and read after, checked and printed the
@@ -35,10 +37,19 @@
    the bloom pyramid's mip 2 against the plain pass-by-pass chain, at the
    main path's shape and at small odd shapes; the composite with bloom,
    without it and at an integer upscale of 2; the default frame against
-   the DDA frame, and the kernel frame against the plain-torch frame;
+   the DDA frame, and the kernel frame against the plain-torch frame; K3
+   (one launch) bit-equal to a launch per texture and within rtol 1e-4,
+   atol 1e-5 of the plain versions at 256/512 (run on the card) and 7/13
+   (run on the CPU), two suns; K8
+   bit-exact against its plain version at odd shapes (1, 2, 3, 4, 16 and 17
+   columns, 1000 and 33 lanes, indices negative and past the rows); prints
+   the registers and spills of K3 and K8;
 5. times each kernel beside its plain version (CUDA events) and computes
    its bound: the larger of the bytes it must move over 3.35 TB/s and its
-   operations over the peak for their type;
+   operations over the peak for their type (for K3 also its MUFU
+   operations over 16 a clock on each SM at the card's maximum SM clock);
+   times the host's microseconds per kernels.launch call, beside K8's
+   wrapper and torch.index_select;
 6. drives the gather microbenchmark's path (vvr_tpu_torch.tools.
    microbench_gather: every experiment of the two reference tools at
    N = 2^21 lanes) with the launch counters reset just before and read
@@ -71,10 +82,30 @@ CAMERA = ([128.0, 100.0, 20.0], [128.0, 20.0, 180.0], 85.0)  # bench.py:33
 # strength (2), ACES (7 and an IEEE division, about 10), powf (about 30:
 # log2 and exp2 in extended precision) and the clamp and quantization (6).
 OPS_PER_ITEM = {"jump_trace": 30, "shade_surface": 40, "shade_pixel": 250,
-                "write_skybox": 450, "write_clouds": 750,
+                "write_sky": 450,
                 "bloom_pyramid": 220, "composite": 190,
                 "raster_fragments": 70,
                 "raster_resolve": 45, "sun_grids": 90, "masked_shadow": 60}
+# K3's items are its skybox texels (450 operations each) and its cloud
+# texels, at this many
+CLOUD_OPS = 750
+# K3's special-function (MUFU) operations per texel, counted by hand from
+# csrc/sky.cu with the kinds the SASS shows (tools/sass_count.py): an IEEE
+# sqrtf is one MUFU.RSQ, an expf one MUFU.EX2, an IEEE division one
+# MUFU.RCP, a powf counted as one MUFU.EX2. A skybox texel pays SKY_MUFU
+# plus SKY_DEPTH_MUFU for each closed-form optical depth its branches take
+# (scaled_depth: five sqrtf, two expf); a cloud texel CLOUD_MUFU (its sky
+# looks up, one optical depth, no planet hit).
+SKY_MUFU = 19         # u, v, the normalize, the planet, pm, 3 attenuate,
+#                       the sun disc, the stars
+SKY_DEPTH_MUFU = 7
+CLOUD_MUFU = 28       # px, pz, two normalizes, powf, sqrtf, the planet,
+#                       one optical depth, pm, 3 attenuate
+MUFU_PER_CLOCK_PER_SM = 16
+# K8 against its plain version at odd shapes: (rows, cols), lanes
+K8_ODD = [(4099, c) for c in (1, 2, 3, 4, 16, 17)]
+K8_ODD_LANES = (1000, 33)
+LAUNCH_CALLS = 10_000   # host timing of kernels.launch
 # the bloom pyramid's items are its downsampled texels (220 operations
 # each) and its upsampled ones, at this many operations
 BLOOM_UP_OPS = 40
@@ -99,6 +130,45 @@ def nvidia_smi() -> str:
     return out.stdout.strip()
 
 
+def nvidia_smi_clock() -> float:
+    """The SM clock the card boosts to, in Hz (nvidia-smi clocks.max.sm)."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits", "-i", "0"],
+        capture_output=True, text=True, timeout=60, check=True)
+    return float(out.stdout.strip()) * 1e6
+
+
+def sky_mufu(sky, sun, r_sky: int, r_clouds: int) -> float:
+    """K3's MUFU operations for one launch at these resolutions: the
+    skybox texels' optical depths by the branches their directions take
+    (the plain version's face directions), the cloud texels' fixed."""
+    import torch
+    r = r_sky
+    g = (torch.arange(r, dtype=torch.float32, device=sun.device) / r) \
+        * 2.0 - 1.0
+    vv, uu = torch.meshgrid(g, g, indexing="ij")
+    start = sky._vec((0.0, sky.CAM_POS_Y + sky.BOTTOM_RADIUS, 0.0), sun)
+    sd = sun / sky._norm(sun)
+    depths = 0.0
+
+    def n_depth(ray, direction):     # optical_depth takes 1 or 2
+        return 1.0 + (sky._dot(ray, direction) <= 0.0).double()
+    for f in range(6):
+        d = sky._face_dirs(f, uu, vv)
+        d = d / sky._norm(d)
+        d = d * sky._vec((-1.0, 1.0, -1.0), sun)
+        st = start.expand(d.shape)
+        planet = sky.planet_bounds(st, d)
+        hit = planet >= 0.0
+        end = st + d * planet[..., None]
+        depths += float((n_depth(st, d) + hit.double()
+                         * (n_depth(end, d) + n_depth(end, sd.expand(
+                             d.shape)))).sum())
+    return (6 * r * r * SKY_MUFU + depths * SKY_DEPTH_MUFU
+            + r_clouds * r_clouds * CLOUD_MUFU)
+
+
 def check(cond: bool, what: str) -> None:
     if not cond:
         raise AssertionError(what)
@@ -116,7 +186,7 @@ def main() -> int:
 
     from vvr_tpu_torch import kernels
     from vvr_tpu_torch.config import RenderConfig, WorldConfig
-    from vvr_tpu_torch.ops import jump, post, shade, sky
+    from vvr_tpu_torch.ops import gather, jump, post, shade, sky
     from vvr_tpu_torch.ops import rastertrace as rt
     from vvr_tpu_torch.ops import sunshadow as ss
     from vvr_tpu_torch.ops.raygen import camera_rays
@@ -131,6 +201,8 @@ def main() -> int:
     dev = torch.device("cuda", 0)
     kind = torch.cuda.get_device_name(0)
     smi = nvidia_smi()
+    props = torch.cuda.get_device_properties(0)
+    clock_hz = nvidia_smi_clock()
     print(f"device: {kind} | nvidia-smi: {smi}")
 
     # ---- 1. build
@@ -163,14 +235,17 @@ def main() -> int:
     def frames(r, label):
         r.render(cam, time=0.0)
         torch.cuda.synchronize()
-        ms = []
+        ms, rebuilt = [], []
         img = None
         for i in range(FRAMES):
+            before = kernels.LAUNCHES["write_sky"]
             t0 = time.perf_counter()
             img = r.render(cam, time=i / 60.0)
             torch.cuda.synchronize()
             ms.append((time.perf_counter() - t0) * 1e3)
+            rebuilt.append(kernels.LAUNCHES["write_sky"] > before)
         med = sorted(ms)[FRAMES // 2]
+        slow = max(range(FRAMES), key=ms.__getitem__)
         check(tuple(img.shape) == (1080, 1920, 3)
               and img.dtype == torch.uint8,
               f"{label} frame shape {tuple(img.shape)} {img.dtype}")
@@ -180,6 +255,10 @@ def main() -> int:
               f"median {med:.3f} ms, mean {sum(ms) / FRAMES:.3f} ms, min "
               f"{min(ms):.3f} ms, max {max(ms):.3f} ms (host clock, "
               f"synchronized)")
+        print(f"slowest frame ({label}): index {slow} (t = {slow}/60 s), "
+              f"{ms[slow]:.3f} ms, rebuilt the sky: "
+              f"{'yes' if rebuilt[slow] else 'no'}; frames that rebuilt it: "
+              f"{[i for i in range(FRAMES) if rebuilt[i]]}")
         print(f"Mrays/s ({label}): "
               f"{r.rays_per_frame / (med * 1e-3) / 1e6:.3f} "
               f"({r.rays_per_frame} rays/frame at the median)")
@@ -188,7 +267,7 @@ def main() -> int:
     # the kernels of each frame, and those launched once in every frame (K3
     # only per sky bucket, K11 per sun); K12 computes the shadow rays'
     # starts itself, so K2 shade_surface runs only in the DDA frame
-    frame_kernels = ["shade_pixel", "write_skybox", "write_clouds",
+    frame_kernels = ["shade_pixel", "write_sky",
                      "bloom_pyramid", "composite", "raster_fragments",
                      "raster_resolve", "sun_grids", "masked_shadow"]
     per_frame = ["shade_pixel", "bloom_pyramid", "composite",
@@ -198,6 +277,10 @@ def main() -> int:
     dda_per_frame = ["shade_surface", "shade_pixel", "bloom_pyramid",
                      "composite"]
     n_frames = FRAMES + 1  # with the warm-up frame
+    # K3: one launch per sky bucket of the frames' times (the warm-up's
+    # t = 0 is in the first)
+    q = cfg.sky_cache_quantum
+    buckets = len({int((i / 60.0) / q) for i in range(FRAMES)} | {0})
 
     def frame_launches(label, kinds, every):
         got = dict(kernels.LAUNCHES)
@@ -216,6 +299,11 @@ def main() -> int:
     med = frames(renderer, "default knobs")
     peak_mb = torch.cuda.max_memory_allocated(dev) / 2 ** 20
     launches = frame_launches("default-knob", frame_kernels, per_frame)
+    check(launches["write_sky"] == buckets,
+          f"the default-knob frames launched K3 {launches['write_sky']} "
+          f"times over {buckets} sky buckets, expected one launch a bucket")
+    print(f"K3 in the default-knob frames: {launches['write_sky']} launches "
+          f"(write_sky) for {buckets} sky buckets, both textures each")
     check(launches["shade_surface"] == 0 and launches["jump_trace"] == 0,
           "the default-knob frame launched K1 or K2 shade_surface")
     print(f"peak device memory: {peak_mb:.1f} MiB "
@@ -443,16 +531,67 @@ def main() -> int:
             print(f"ptxas: {name}: {regs} registers, spill stores {st} B, "
                   f"spill loads {ld} B")
 
-    sb_k = sky.write_skybox(sun3, 0.0, cfg.skybox_resolution, dev)
-    sb_p = sky.write_skybox_plain(sun_d, cfg.skybox_resolution)
-    cl_k = sky.write_clouds(sun3, 0.25, cfg.clouds_resolution, dev)
-    cl_p = sky.write_clouds_plain(sun_d, 0.25, cfg.clouds_resolution)
-    check(torch.allclose(sb_k, sb_p, rtol=1e-4, atol=1e-5),
-          "K3 skybox differs beyond rtol 1e-4, atol 1e-5")
-    check(torch.allclose(cl_k, cl_p, rtol=1e-4, atol=1e-5),
-          "K3 clouds differ beyond rtol 1e-4, atol 1e-5")
-    errs["write_skybox"] = float((sb_k - sb_p).abs().max())
-    errs["write_clouds"] = float((cl_k - cl_p).abs().max())
+    # K3: both textures from one launch, bit-equal to a launch per texture
+    # (the separate write_skybox and write_clouds) and within rtol 1e-4,
+    # atol 1e-5 of the plain versions, at the main path's resolutions and
+    # at odd ones (ragged tiles), at the frame's sun and a low one
+    rs, rc = cfg.skybox_resolution, cfg.clouds_resolution
+    low = torch.tensor([0.6, 0.05, 0.8]) / float(np.linalg.norm([0.6, 0.05,
+                                                                 0.8]))
+    errs["write_sky"] = 0.0
+    for s_, t_, r_s, r_c in ((sun3, 0.25, rs, rc), (low, 1.75, rs, rc),
+                             (sun3, 0.25, 7, 13), (low, 1.75, 7, 13)):
+        before = kernels.LAUNCHES["write_sky"]
+        sb_, cl_ = sky.write_sky(s_, t_, r_s, r_c, dev)
+        check(kernels.LAUNCHES["write_sky"] == before + 1,
+              "write_sky did not launch K3 once")
+        check(torch.equal(sb_, sky.write_skybox(s_, t_, r_s, dev))
+              and torch.equal(cl_, sky.write_clouds(s_, t_, r_c, dev)),
+              f"K3 at {r_s}/{r_c}: one launch differs from a launch per "
+              "texture")
+        # the plain versions on the card at the main path's sizes; on the
+        # CPU at the odd ones, where torch's card ops depart from both
+        # (PERF.md, section 6)
+        pdev = dev if r_s == rs else torch.device("cpu")
+        sd_ = s_.to(pdev)
+        sb_p = sky.write_skybox_plain(sd_, r_s).to(dev)
+        cl_p = sky.write_clouds_plain(sd_, t_, r_c).to(dev)
+        check(torch.allclose(sb_, sb_p, rtol=1e-4, atol=1e-5),
+              f"K3 skybox at {r_s} differs beyond rtol 1e-4, atol 1e-5 from "
+              f"its plain version on the {pdev.type}")
+        check(torch.allclose(cl_, cl_p, rtol=1e-4, atol=1e-5),
+              f"K3 clouds at {r_c} differ beyond rtol 1e-4, atol 1e-5 from "
+              f"their plain version on the {pdev.type}")
+        errs["write_sky"] = max(errs["write_sky"],
+                                float((sb_ - sb_p).abs().max()),
+                                float((cl_ - cl_p).abs().max()))
+    sb_k, cl_k = sky.write_sky(sun3, 0.25, rs, rc, dev)
+    print(f"K3: one launch bit-equal to a launch per texture and within "
+          f"rtol 1e-4, atol 1e-5 of plain at {rs}/{rc} (plain on the card) "
+          f"and 7/13 (plain on the CPU), two suns; max |diff| "
+          f"{errs['write_sky']}")
+    for part in ("vvr_sky_kernel", "rows_kernel"):
+        for name, regs, st, ld in kernels.ptxas_usage(part):
+            print(f"ptxas: {name}: {regs} registers, spill stores {st} B, "
+                  f"spill loads {ld} B")
+    # K8 at odd shapes: indices negative and past the table's rows
+    for (rows_, cols_), lanes_ in ((rc_, l_) for rc_ in K8_ODD
+                                   for l_ in K8_ODD_LANES):
+        g8 = torch.Generator(device=dev).manual_seed(cols_ * 7 + lanes_)
+        tab = torch.randint(-2 ** 31, 2 ** 31 - 1, (rows_, cols_),
+                            generator=g8, device=dev,
+                            dtype=torch.int32).view(torch.uint32)
+        ix = torch.randint(-3 * rows_, 3 * rows_, (lanes_,), generator=g8,
+                           device=dev, dtype=torch.int32)
+        check(bool((ix < 0).any() and (ix >= rows_).any()),
+              "K8 odd shapes: no negative or out-of-range index")
+        got = gather.gather_rows(tab, ix)
+        want = gather.gather_rows_plain(tab, ix)
+        check(torch.equal(got.view(torch.int32), want.view(torch.int32)),
+              f"K8 at {rows_}x{cols_}, {lanes_} lanes: differs from plain")
+    print(f"K8: bit-exact vs plain at {rows_} rows x "
+          f"{[c for _, c in K8_ODD]} columns, {list(K8_ODD_LANES)} lanes, "
+          f"indices negative and past the rows")
 
     sun_col = sky.sun_colour_final(sun3)
     args = (o, d, res_k.hit, res_k.face, res_k.axis_coord, sh_k.hit,
@@ -594,14 +733,10 @@ def main() -> int:
             20, 1),
         "shade_pixel": (lambda: shade.shade_pixel(*args),
                         lambda: shade.shade_pixel_plain(*args), 50, 5),
-        "write_skybox": (
-            lambda: sky.write_skybox(sun3, 0.0, cfg.skybox_resolution, dev),
-            lambda: sky.write_skybox_plain(sun_d, cfg.skybox_resolution),
-            20, 3),
-        "write_clouds": (
-            lambda: sky.write_clouds(sun3, 0.25, cfg.clouds_resolution, dev),
-            lambda: sky.write_clouds_plain(sun_d, 0.25,
-                                           cfg.clouds_resolution),
+        "write_sky": (
+            lambda: sky.write_sky(sun3, 0.25, rs, rc, dev),
+            lambda: (sky.write_skybox_plain(sun_d, rs),
+                     sky.write_clouds_plain(sun_d, 0.25, rc)),
             20, 3),
         "bloom_pyramid": (lambda: post.bloom_pyramid_p(hdr_k),
                           lambda: post.bloom_pyramid_plain(hdr_k), 50, 5),
@@ -656,8 +791,9 @@ def main() -> int:
                                  res_k.axis_coord, so_k, sa_k), n),
         "shade_pixel": (nbytes(o, d, res_k.hit, res_k.face, res_k.axis_coord,
                                sh_k.hit, sb_k, cl_k, hdr_k), n),
-        "write_skybox": (nbytes(sb_k), sb_k.numel() / 3),
-        "write_clouds": (nbytes(cl_k), cl_k.numel() / 4),
+        "write_sky": (nbytes(sb_k, cl_k),
+                      sb_k.numel() / 3 + cl_k.numel() / 4 * CLOUD_OPS
+                      / OPS_PER_ITEM["write_sky"]),
         # the HDR image read once and mip 2 written once
         "bloom_pyramid": (nbytes(hdr_k, bloom_k),
                           down_texels + up_texels * BLOOM_UP_OPS
@@ -671,6 +807,18 @@ def main() -> int:
         plain_ms = cuda_ms(pfn, preps)
         moved, count = items[name]
         b_ms, b_by = bound_ms(moved, OPS_PER_ITEM[name] * count, "fp32")
+        if name == "write_sky":
+            # the SFU term: MUFU operations over 16 a clock on each SM
+            sfu = sky_mufu(sky, sun_d, rs, rc)
+            sfu_ms = sfu / (props.multi_processor_count
+                            * MUFU_PER_CLOCK_PER_SM * clock_hz) * 1e3
+            print(f"K3 bound terms: bytes and FMA {b_ms:.6f} ms ({b_by}), "
+                  f"SFU {sfu_ms:.6f} ms ({sfu:.0f} MUFU operations, "
+                  f"{props.multi_processor_count} SMs at "
+                  f"{clock_hz / 1e6:.0f} MHz); the "
+                  f"{'SFU' if sfu_ms > b_ms else b_by} term binds")
+            if sfu_ms > b_ms:
+                b_ms, b_by = sfu_ms, "operations"
         k = kernels.KERNELS[name]
         rows.append({"name": name, "route": "cuda", "source": k.source,
                      "replaces": k.replaces, "launches": launches[name],
@@ -707,6 +855,31 @@ def main() -> int:
           f"{fragments:.0f} fragments ({fragments / n:.2f} per pixel; "
           f"{jax_fragments:.0f} in the JAX boxes of its plain version); K11 "
           f"{pairs:.0f} (face, texel) pairs")
+
+    # the host's cost of one launch through kernels.launch (K8 on a 64x2
+    # table, 32 lanes: the device's part is negligible), beside K8's whole
+    # wrapper and torch.index_select on the same inputs
+    tab = torch.randint(0, 1 << 30, (64, 2), device=dev,
+                        dtype=torch.int32).view(torch.uint32)
+    ix = torch.randint(0, 64, (32,), device=dev, dtype=torch.int32)
+    out8 = torch.empty((32, 2), dtype=torch.uint32, device=dev)
+    cargs = (tab.data_ptr(), 64, 2, ix.data_ptr(), 32, out8.data_ptr())
+    host = {}
+    for label, fn in (
+            ("kernels.launch", lambda: kernels.launch("gather_rows", dev,
+                                                      *cargs)),
+            ("gather_rows", lambda: gather.gather_rows(tab, ix)),
+            ("index_select", lambda: torch.index_select(
+                tab.view(torch.int32), 0, ix))):
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter_ns()
+        for _ in range(LAUNCH_CALLS):
+            fn()
+        host[label] = (time.perf_counter_ns() - t0) / LAUNCH_CALLS / 1e3
+        torch.cuda.synchronize()
+    print(f"host us per call over {LAUNCH_CALLS} (64x2 table, 32 lanes): "
+          + ", ".join(f"{k} {v:.3f}" for k, v in host.items()))
 
     # ---- 6. the gather microbenchmark's path, through its entry point
     gather_kernels = [k for k, v in kernels.KERNELS.items()

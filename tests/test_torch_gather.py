@@ -236,6 +236,7 @@ ENTRY_POINTS = {
     "camera_rays": raygen.camera_rays,
     "write_skybox": sky.write_skybox,
     "write_clouds": sky.write_clouds,
+    "write_sky": sky.write_sky,
     "jumpgrid_from_numpy": convert.jumpgrid_from_numpy,
     "sky_from_numpy": convert.sky_from_numpy,
     "occupancy_from_numpy": convert.occupancy_from_numpy,

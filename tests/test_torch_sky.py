@@ -105,3 +105,46 @@ def test_samplers_equal_jax():
     ref_s = np.asarray(jsky.sample_skybox(jnp.asarray(jbox), jnp.asarray(d)))
     np.testing.assert_array_equal(sky.sample_skybox(box, *td.unbind(1))
                                   .numpy(), ref_s)
+
+
+@pytest.mark.parametrize("sun,time", [("day", 0.25), ("low", 1.75)])
+def test_write_sky_equals_the_plain_textures(sun, time):
+    """write_sky on the CPU is write_skybox_plain and write_clouds_plain at
+    the same (sun, time), bit for bit, at odd sizes."""
+    s = _sun(sun)
+    skybox, clouds = sky.write_sky(s, time, 7, 13, "cpu")
+    st = torch.from_numpy(s)
+    assert torch.equal(skybox, sky.write_skybox_plain(st, 7))
+    assert torch.equal(clouds, sky.write_clouds_plain(st, time, 13))
+    assert skybox.shape == (6, 7, 7, 3) and clouds.shape == (13, 13, 4)
+
+
+def test_renderer_builds_the_sky_through_write_sky(tmp_path, monkeypatch):
+    """The Renderer's sky cache calls write_sky once per 0.25 s bucket (64^3
+    world, 32x24 frames) and never the one-texture entry points."""
+    from vvr_tpu_torch.config import RenderConfig, WorldConfig
+    from vvr_tpu_torch.render import renderer as rmod
+    from vvr_tpu_torch.utils.camera import Camera
+    calls = []
+    real = sky.write_sky
+
+    def counted(*args, **kwargs):
+        calls.append(args[1])
+        return real(*args, **kwargs)
+
+    def refused(*args, **kwargs):
+        raise AssertionError("a one-texture entry point was called")
+
+    monkeypatch.setattr(rmod.sky_ops, "write_sky", counted)
+    monkeypatch.setattr(rmod.sky_ops, "write_skybox", refused)
+    monkeypatch.setattr(rmod.sky_ops, "write_clouds", refused)
+    cfg = RenderConfig(width=32, height=24, shadow_samples=1,
+                       max_ray_iterations=2, skybox_resolution=8,
+                       clouds_resolution=8, primary_raster="off",
+                       sun_mask="off")
+    r = rmod.Renderer(WorldConfig(depth=3), cfg, device="cpu",
+                      cache_path=tmp_path / "map_64.npz")
+    cam = Camera.look_at([32, 28, 6], [32, 2, 45], fov=85)
+    for t in (0.0, 0.1, 0.3, 0.45, 0.6):
+        assert r.render(cam, time=t, fetch=True).shape == (24, 32, 3)
+    assert calls == [0.0, 0.25, 0.5]

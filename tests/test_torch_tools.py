@@ -13,7 +13,8 @@ from vvr_tpu_torch.config import WorldConfig
 from vvr_tpu_torch.ops.jump import trace_jump_plain
 from vvr_tpu_torch.ops.raygen import camera_rays
 from vvr_tpu_torch.render.scene import build_scene
-from vvr_tpu_torch.tools import frame_digest, lane_use, profile_frame
+from vvr_tpu_torch.tools import (frame_digest, lane_use, profile_frame,
+                                 profile_gather, sass_count, sky_variants)
 from vvr_tpu_torch.utils.camera import Camera
 
 # one intra-op thread: the suite runs six pytest workers on eight cores
@@ -44,6 +45,35 @@ def test_frame_digest_needs_cuda(capsys, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     assert frame_digest.main([]) == 1
     assert "no CUDA device" in capsys.readouterr().err
+
+
+@pytest.mark.parametrize("tool", [profile_gather, sky_variants],
+                         ids=["profile_gather", "sky_variants"])
+def test_measuring_tools_need_cuda(tool, capsys, monkeypatch):
+    monkeypatch.setattr(sys, "path", list(sys.path))
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    assert tool.main([]) == 1
+    assert "no CUDA device" in capsys.readouterr().err
+
+
+def test_sass_count_reads_the_listing():
+    """Per kernel: every instruction once, MUFU by kind, local loads and
+    stores, calls; other kernels are left out."""
+    listing = """
+        Function : _ZN12_GLOBAL__N_114vvr_sky_kernelEv
+        /*0000*/                   LDC R1, c[0x0][0x28] ;   /* 0x0000 */
+        /*0010*/                   MUFU.RSQ R5, R4 ;        /* 0x0000 */
+        /*0020*/              @!P0 MUFU.EX2 R5, R4 ;        /* 0x0000 */
+        /*0030*/               @P1 CALL.REL.NOINC 0x100 ;  /* 0x0000 */
+        /*0040*/                   STL [R1], R2 ;           /* 0x0000 */
+        /*0050*/                   LDL R3, [R1] ;           /* 0x0000 */
+        Function : _Z5otherv
+        /*0000*/                   MUFU.RCP R5, R4 ;        /* 0x0000 */
+"""
+    got = sass_count.count(listing, ["vvr_sky_kernel"])
+    assert got == {"_ZN12_GLOBAL__N_114vvr_sky_kernelEv": {
+        "instructions": 6, "mufu": {"EX2": 1, "RSQ": 1}, "local_loads": 1,
+        "local_stores": 1, "calls": 1}}
 
 
 def test_frame_digest_hashes_the_bytes():

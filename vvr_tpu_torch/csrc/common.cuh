@@ -68,15 +68,16 @@ static __host__ __device__ __forceinline__ uint32_t vvr_seed_key(int seed) {
                       & 0xFFFFFFFFLL);
 }
 
+// the gradient table of noise.py, {(+-1, +-s)} then {(+-s, +-1)}, by
+// selects: a table indexed at run time sits in local memory
 static __device__ __forceinline__ void vvr_grad2(uint32_t h, float* gx,
                                                  float* gy) {
-    const float kx[8] = {1.0f, -1.0f, 1.0f, -1.0f, 0.70710678f, -0.70710678f,
-                         0.70710678f, -0.70710678f};
-    const float ky[8] = {0.70710678f, 0.70710678f, -0.70710678f,
-                         -0.70710678f, 1.0f, 1.0f, -1.0f, -1.0f};
-    int idx = (int)(h >> 28) & 7;
-    *gx = kx[idx];
-    *gy = ky[idx];
+    const int idx = (int)(h >> 28) & 7;
+    const float s = 0.70710678f;
+    const float mx = (idx & 4) ? s : 1.0f;
+    const float my = (idx & 4) ? 1.0f : s;
+    *gx = (idx & 1) ? -mx : mx;
+    *gy = (idx & 2) ? -my : my;
 }
 
 // sdnoise2 (noise.py:116-165): simplex noise value and derivatives

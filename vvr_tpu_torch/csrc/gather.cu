@@ -8,7 +8,8 @@
 //   K6 gather_chain_shared  pallas_vreg (:133); the table in shared memory
 //   K7 gather_onehot_mma    pallas_onehot (:177), pallas_onehot (gather2
 //                           :112); the one-hot product on the tensor cores
-//   K8 gather_rows          pallas_scalar (:228), un-chained
+//   K8 gather_rows          pallas_scalar (:228), un-chained; a warp
+//                           moves 32 rows as 16-byte vectors
 //
 // K5-K7 run the reference's chain of kChain dependent gathers per lane:
 // r = T[idx, 0]; acc += r; idx = (int32(r) ^ idx) mod rows, with a floor
@@ -276,15 +277,92 @@ onehot_kernel(const uint16_t* __restrict__ planes, int rows,
     if (keep) sink[blockIdx.x * blockDim.x + threadIdx.x] = fold;
 }
 
-// K8: out[i, :] = T[idx[i], :], neighbouring threads on neighbouring words
+// K8: out[i, :] = T[floor_mod(idx[i], rows), :], moved as vectors V of
+// 16, 8 or 4 bytes (vpr of them a row). A warp takes 32 rows at a time:
+// lane l loads idx[base + l] and takes its floor mod, once per row; then
+// the lanes walk the group's 32 * vpr vectors in order (vector k is vector
+// k % vpr of row k / vpr, a shift where vpr is a power of two), each lane
+// taking its row's offset from the row's lane by a shuffle, so neighbouring
+// lanes load neighbouring pieces of a row and store neighbouring pieces of
+// the output. A lane issues kRowBatch loads before its first store. All
+// offsets are 32-bit: the wrapper checks rows * cols and n * cols < 2^31.
+//
+// What bounds it on the H100: the reference's tables (2.1 MB and 2 MB) sit
+// in L2, and a call moves 0.26-2.1 MB, under 1 us at 3.35 TB/s; each warp
+// waits two dependent L2 round trips (the index, then the row), so a call
+// is its launch, that latency and the grid's tail (PERF.md, K8 row).
+constexpr int kRowBatch = 4;
+
+template <typename V>
 __global__ void __launch_bounds__(kThreads)
-rows_kernel(const uint32_t* __restrict__ table, int rows, int cols,
-            const int* __restrict__ idx, int n, uint32_t* __restrict__ out) {
-    const long long e = blockIdx.x * (long long)blockDim.x + threadIdx.x;
-    if (e >= (long long)n * cols) return;
-    const int i = (int)(e / cols);
-    const int c = (int)(e % cols);
-    out[e] = table[(size_t)floor_mod(idx[i], rows) * cols + c];
+rows_kernel(const V* __restrict__ table, int rows, int vpr, int shift,
+            const int* __restrict__ idx, int n, V* __restrict__ out) {
+    const int lane = threadIdx.x & 31;
+    const int warp = blockIdx.x * (kThreads / 32) + threadIdx.x / 32;
+    const int stride = gridDim.x * kThreads;
+    const int per_group = 32 * vpr;
+    for (long long b0 = warp * 32LL; b0 < n; b0 += stride) {
+        const int base = (int)b0;
+        const int left = n - base;
+        const int src = lane < left ? floor_mod(idx[base + lane], rows) * vpr
+                                    : 0;
+        const int count = min(32, left) * vpr;
+        V* dst = out + base * vpr;
+        for (int k0 = lane; k0 < per_group; k0 += 32 * kRowBatch) {
+            V v[kRowBatch];
+#pragma unroll
+            for (int b = 0; b < kRowBatch; ++b) {
+                const int k = k0 + 32 * b;
+                const int r = shift >= 0 ? k >> shift : k / vpr;
+                const int at = __shfl_sync(kFull, src, r & 31);
+                if (k < count) v[b] = table[at + (k - r * vpr)];
+            }
+#pragma unroll
+            for (int b = 0; b < kRowBatch; ++b) {
+                const int k = k0 + 32 * b;
+                if (k < count) dst[k] = v[b];
+            }
+        }
+    }
+}
+
+// SMs of the current device, read once per device
+int sm_count(int* sms) {
+    static int cache[64];
+    int dev = 0;
+    cudaError_t err = cudaGetDevice(&dev);
+    if (err != cudaSuccess) return (int)err;
+    if (dev >= 64) {
+        return (int)cudaDeviceGetAttribute(
+            sms, cudaDevAttrMultiProcessorCount, dev);
+    }
+    if (cache[dev] == 0) {
+        err = cudaDeviceGetAttribute(&cache[dev],
+                                     cudaDevAttrMultiProcessorCount, dev);
+        if (err != cudaSuccess) return (int)err;
+    }
+    *sms = cache[dev];
+    return 0;
+}
+
+template <typename V>
+int launch_rows(const void* table, int rows, int cols, const void* idx,
+                int n, void* out, cudaStream_t stream) {
+    constexpr int words = (int)(sizeof(V) / sizeof(uint32_t));
+    const int vpr = cols / words;
+    const int shift = (vpr & (vpr - 1)) == 0 ? __builtin_ctz(vpr) : -1;
+    int sms = 0;
+    const int err = sm_count(&sms);
+    if (err != 0) return err;
+    // a warp a group of 32 rows, at most 8 blocks an SM (full occupancy
+    // at 256 threads); more groups loop
+    const long long groups = (n + 31LL) / 32;
+    const long long need = (groups + kThreads / 32 - 1) / (kThreads / 32);
+    const long long cap = 8LL * sms;
+    rows_kernel<V><<<(unsigned)(need < cap ? need : cap), kThreads, 0,
+                     stream>>>(
+        (const V*)table, rows, vpr, shift, (const int*)idx, n, (V*)out);
+    return (int)cudaGetLastError();
 }
 
 // blocks for a grid-stride kernel: as many as fit on the card at once, no
@@ -372,12 +450,14 @@ extern "C" int vvr_gather_onehot(const void* planes, int rows, int cols4,
     }
 }
 
+// table and out 16-byte aligned (the wrapper checks both); n > 0
 extern "C" int vvr_gather_rows(const void* table, int rows, int cols,
                                const void* idx, int n, void* out,
                                void* stream) {
-    rows_kernel<<<vvr_blocks((long long)n * cols, kThreads), kThreads, 0,
-                  (cudaStream_t)stream>>>(
-        (const uint32_t*)table, rows, cols, (const int*)idx, n,
-        (uint32_t*)out);
-    return (int)cudaGetLastError();
+    const cudaStream_t s = (cudaStream_t)stream;
+    if ((cols & 3) == 0)
+        return launch_rows<uint4>(table, rows, cols, idx, n, out, s);
+    if ((cols & 1) == 0)
+        return launch_rows<uint2>(table, rows, cols, idx, n, out, s);
+    return launch_rows<uint32_t>(table, rows, cols, idx, n, out, s);
 }

@@ -2,10 +2,15 @@
 
 Each csrc/*.cu is compiled by its own nvcc process, all started together,
 and the objects are linked into one shared library with a plain C
-interface, loaded with ctypes (no PyTorch headers, so the build takes
-seconds). The library is built at first use into build/vvr_tpu_torch/ at
-the repository root, named by a hash of the sources and flags, so an
-edited source rebuilds and an unchanged one loads the cached file.
+interface (no PyTorch headers, so the build takes seconds). Beside them
+the library holds a small CPython binding generated from KERNELS: one C
+function per kernel that converts its Python numbers and calls the entry
+point, so a launch costs one call from Python and no ctypes call frame.
+The library is built at first use into build/vvr_tpu_torch/ at the
+repository root, named by a hash of the sources, the binding, the flags
+and the interpreter, so an edited source rebuilds and an unchanged one
+loads the cached file; it is imported as the extension module
+`vvr_launch`.
 
 FMA contraction is off (-fmad=false): the block-colour hash and the DDA's
 `floor(o + d*t)` must round exactly as the JAX package and the oracle do.
@@ -22,10 +27,12 @@ import ctypes
 import dataclasses
 import functools
 import hashlib
+import importlib.util
 import os
 import pathlib
 import shutil
 import subprocess
+import sysconfig
 
 import torch
 
@@ -44,7 +51,8 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 @dataclasses.dataclass(frozen=True)
 class Kernel:
     symbol: str        # C entry point
-    argtypes: tuple    # ctypes argument types, the stream last
+    argtypes: tuple    # its argument types (pointer, int, float as ctypes
+    #                    types), the stream last
     source: str        # file in the repository
     replaces: str      # JAX pass or Pallas kernel it ports, file:line
     path: str = "frame"  # the entry point that runs it: frame or gather
@@ -63,12 +71,10 @@ KERNELS = {
         (_P, _P, _P, _P, _P, _P, _I, _I, _P, _I, _P, _I) + (_F,) * 6
         + (_P, _P),
         "vvr_tpu_torch/csrc/shade.cu", "vvr_tpu/render/frame.py:192"),
-    "write_skybox": Kernel(
-        "vvr_write_skybox", (_F, _F, _F, _I, _P, _P),
-        "vvr_tpu_torch/csrc/sky.cu", "vvr_tpu/ops/sky.py:285"),
-    "write_clouds": Kernel(
-        "vvr_write_clouds", (_F, _F, _F, _F, _I, _P, _P),
-        "vvr_tpu_torch/csrc/sky.cu", "vvr_tpu/ops/sky.py:193"),
+    "write_sky": Kernel(
+        "vvr_write_sky", (_F, _F, _F, _F, _I, _I, _P, _P, _P),
+        "vvr_tpu_torch/csrc/sky.cu",
+        "vvr_tpu/ops/sky.py:285, vvr_tpu/ops/sky.py:193"),
     "bloom_pyramid": Kernel(
         "vvr_bloom_pyramid", (_P, _I, _I, _I, _P, _P),
         "vvr_tpu_torch/csrc/post.cu", "vvr_tpu/ops/post.py:146"),
@@ -136,8 +142,93 @@ def _nvcc() -> str:
     return found
 
 
+# the CPython binding's C spelling and converter of each argument type
+_C_ARGS = {_P: ("void*", "as_ptr"), _I: ("int", "as_int"),
+           _F: ("float", "as_float")}
+MODULE = "vvr_launch"
+_BINDING_HEAD = """// generated by vvr_tpu_torch/kernels.py from KERNELS
+#define PY_SSIZE_T_CLEAN
+#include <Python.h>
+#include <climits>
+
+static int as_ptr(PyObject* o, void** v) {
+    *v = PyLong_AsVoidPtr(o);
+    return !(*v == nullptr && PyErr_Occurred());
+}
+static int as_int(PyObject* o, int* v) {
+    const long x = PyLong_AsLong(o);
+    if (x == -1 && PyErr_Occurred()) return 0;
+    if (x < INT_MIN || x > INT_MAX) {
+        PyErr_SetString(PyExc_OverflowError,
+                        "kernel argument outside the C int range");
+        return 0;
+    }
+    *v = (int)x;
+    return 1;
+}
+static int as_float(PyObject* o, float* v) {
+    const double x = PyFloat_AsDouble(o);
+    if (x == -1.0 && PyErr_Occurred()) return 0;
+    *v = (float)x;
+    return 1;
+}
+extern "C" const char* vvr_error_string(int err);
+static PyObject* error_string(PyObject*, PyObject* arg) {
+    const long e = PyLong_AsLong(arg);
+    if (e == -1 && PyErr_Occurred()) return nullptr;
+    return PyUnicode_FromString(vvr_error_string((int)e));
+}
+"""
+
+
+def binding_source() -> str:
+    """C++ of the CPython binding: for each kernel a METH_FASTCALL function
+    `name(*args, stream)` that converts each argument as its ctypes type
+    would (a pointer from an int, a C int with a range check, a float) and
+    returns the entry point's error code."""
+    out = [_BINDING_HEAD]
+    table = []
+    for name, k in KERNELS.items():
+        spell = [_C_ARGS[t] for t in k.argtypes]
+        n = len(spell)
+        out.append(f'extern "C" int {k.symbol}('
+                   f'{", ".join(c for c, _ in spell)});')
+        out.append(f"static PyObject* k_{name}(PyObject*, "
+                   "PyObject* const* a, Py_ssize_t n) {")
+        out.append(f"    if (n != {n}) return PyErr_Format(PyExc_TypeError, "
+                   f'"{name} takes {n} arguments (%zd given)", n);')
+        out += [f"    {c} a{i};" for i, (c, _) in enumerate(spell)]
+        conv = " || ".join(f"!{f}(a[{i}], &a{i})"
+                           for i, (_, f) in enumerate(spell))
+        out.append(f"    if ({conv}) return nullptr;")
+        out.append(f"    return PyLong_FromLong({k.symbol}("
+                   f'{", ".join(f"a{i}" for i in range(n))}));')
+        out.append("}")
+        table.append(f'    {{"{name}", (PyCFunction)(void (*)(void))k_{name}'
+                     ", METH_FASTCALL, nullptr},")
+    out.append("static PyMethodDef methods[] = {")
+    out += table
+    out.append('    {"error_string", error_string, METH_O, nullptr},')
+    out.append("    {nullptr, nullptr, 0, nullptr}};")
+    out.append("static struct PyModuleDef module_def = {"
+               f'PyModuleDef_HEAD_INIT, "{MODULE}", nullptr, -1, methods}};')
+    out.append(f"PyMODINIT_FUNC PyInit_{MODULE}(void) {{ "
+               "return PyModule_Create(&module_def); }")
+    return "\n".join(out) + "\n"
+
+
+def _python_include() -> str:
+    inc = sysconfig.get_paths()["include"]
+    if not (pathlib.Path(inc) / "Python.h").exists():
+        raise RuntimeError(f"Python.h not found under {inc}: the kernels' "
+                           "launch binding needs the interpreter's headers")
+    return inc
+
+
 def library_path() -> pathlib.Path:
     h = hashlib.sha256(" ".join(NVCC_FLAGS + PTXAS_VERBOSE).encode())
+    h.update(binding_source().encode())
+    h.update(str(sysconfig.get_config_var("EXT_SUFFIX")).encode())
     for src in _sources():
         h.update(src.name.encode())
         h.update(src.read_bytes())
@@ -163,8 +254,8 @@ def _run_all(cmds: list[list[str]]) -> list[str]:
 
 
 def build() -> pathlib.Path:
-    """Compile csrc/*.cu into the shared library unless it is cached: one
-    nvcc per source, all at once, then one link."""
+    """Compile csrc/*.cu and the binding into the shared library unless it
+    is cached: one nvcc per source, all at once, then one link."""
     out = library_path()
     if out.exists():
         return out
@@ -178,9 +269,14 @@ def build() -> pathlib.Path:
         objs.append(obj)
         cmds.append([nvcc, *NVCC_FLAGS, *PTXAS_VERBOSE, f"-I{CSRC}", "-c",
                      "-o", str(obj), str(src)])
+    binding = BUILD_DIR / f"{tag}.binding.cpp"
+    binding.write_text(binding_source())
+    objs.append(binding.with_suffix(".o"))
+    cmds.append([nvcc, *NVCC_FLAGS, f"-I{_python_include()}", "-c", "-o",
+                 str(objs[-1]), str(binding)])
     try:
         report = _run_all(cmds)
-        _ptxas_log(out).write_text("".join(report))
+        _ptxas_log(out).write_text("".join(report[:-1]))
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
         _run_all([[nvcc, *NVCC_FLAGS, "-shared", "-o", str(tmp),
                    *(str(o) for o in objs)]])
@@ -188,6 +284,7 @@ def build() -> pathlib.Path:
     finally:
         for obj in objs:
             obj.unlink(missing_ok=True)
+        binding.unlink(missing_ok=True)
     return out
 
 
@@ -217,38 +314,59 @@ def ptxas_usage(part: str) -> list[tuple[str, int, int, int]]:
 
 
 @functools.cache
-def _library() -> ctypes.CDLL:
-    lib = ctypes.CDLL(str(build()))
-    for k in KERNELS.values():
-        fn = getattr(lib, k.symbol)
-        fn.argtypes = list(k.argtypes)
-        fn.restype = ctypes.c_int
-    lib.vvr_error_string.argtypes = [ctypes.c_int]
-    lib.vvr_error_string.restype = ctypes.c_char_p
-    return lib
+def _binding():
+    """The library, built if need be, imported as the extension module
+    MODULE."""
+    spec = importlib.util.spec_from_file_location(MODULE, build())
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+@functools.cache
+def _entry_points() -> dict:
+    """Each kernel's launcher in the binding, looked up once: it takes the
+    kernel's arguments and the stream as Python numbers, keeps the GIL (as
+    PyTorch's own launches do: the entry points only enqueue work) and
+    returns the entry point's error code."""
+    module = _binding()
+    return {name: getattr(module, name) for name in KERNELS}
 
 
 def launch(name: str, device: torch.device, *args) -> None:
     """Launch kernel `name` on `device`'s current stream and count it;
     raises on a launch error. Pointer arguments are tensor.data_ptr() ints
-    (0 for an absent optional input)."""
-    lib = _library()
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = getattr(lib, KERNELS[name].symbol)(*args, stream)
+    (0 for an absent optional input).
+
+    The C entry point launches on the current device, so `device` is made
+    current first where it is not (a launch with another device's
+    pointers fails with a non-zero code, which raises). The stream is the
+    device's current one as a raw cudaStream_t, read as Triton's launcher
+    reads it (torch._C._cuda_getCurrentRawStream) without building a
+    torch.cuda.Stream; it is read at every launch, never cached, since a
+    profiler, a side stream or a CUDA graph capture changes it."""
+    fn = _entry_points()[name]
+    index = device.index
+    current = torch._C._cuda_getDevice()
+    if index is None or index == current:
+        err = fn(*args, torch._C._cuda_getCurrentRawStream(current))
+    else:
+        with torch.cuda.device(index):
+            err = fn(*args, torch._C._cuda_getCurrentRawStream(index))
     if err != 0:
         raise RuntimeError(f"{name}: CUDA error {err}: "
-                           f"{lib.vvr_error_string(err).decode()}")
+                           f"{_binding().error_string(err)}")
     LAUNCHES[name] += 1
 
 
 def check_cuda(*tensors: torch.Tensor) -> None:
     """Raise unless every tensor is a contiguous CUDA tensor on one device
     (the kernels take raw pointers and index them densely)."""
-    dev = tensors[0].device
+    dev = tensors[0].get_device()   # -1 off the card
     for t in tensors:
-        if not t.is_cuda or t.device != dev:
-            raise ValueError(f"kernel input on {t.device}, expected {dev}")
+        if t.get_device() != dev or dev < 0:
+            raise ValueError(f"kernel input on {t.device}, expected one "
+                             f"CUDA device")
         if not t.is_contiguous():
             raise ValueError("kernel inputs must be contiguous")
 
@@ -257,8 +375,12 @@ def on_cuda(where) -> bool:
     """Dispatch rule of every wrapper, on a tensor's device or a device:
     CUDA launches the kernel, CPU runs the plain torch version, anything
     else raises."""
-    dev = where.device if isinstance(where, torch.Tensor) \
-        else torch.device(where)
+    if isinstance(where, torch.Tensor):
+        if where.is_cuda:
+            return True
+        dev = where.device
+    else:
+        dev = torch.device(where)
     if dev.type == "cuda":
         return True
     if dev.type == "cpu":

@@ -23,12 +23,17 @@ them, on one design for an H100:
                            (mma.sync m16n8k16, every k tile of every row),
                            decoded back to the 32-bit word.
   gather_rows          K8  pallas_scalar (tools/microbench_gather.py:228):
-                           one un-chained row gather, out[i] = T[idx[i]].
+                           one un-chained row gather, out[i] = T[idx[i]];
+                           a warp moves 32 rows as 16-byte vectors (8- or
+                           4-byte where 4 or 2 does not divide cols), the
+                           index and its floor mod once per row.
 
 What bounds them on an H100: K5, K6 and K8 move a few MB (the indices, the
 outputs, the table once), a few microseconds at 3.35 TB/s; what they
 measure is the latency of dependent fetches from L2 or shared memory, which
-no bandwidth bound sees, so their roofline shares are low by design. K7 is
+no bandwidth bound sees, so their roofline shares are low by design. K8's
+single gather is a microsecond of device work, so a call is bound by its
+launch and the host's path in front of it (kernels.launch). K7 is
 bound by its tensor-core work, 2 * lanes * rows * 4*cols per step, which
 at (4096, 2) and (512, 16) is 2^40 operations for 2^21 lanes (about 1.1
 ms at the bf16 dense peak, which mma.sync does not reach).
@@ -142,30 +147,38 @@ def gather_rows_plain(table: torch.Tensor, idx: torch.Tensor):
 # wrappers: CUDA tensors launch K5-K8, CPU tensors run the plain versions
 # ---------------------------------------------------------------------------
 
-def _check(table: torch.Tensor, idx: torch.Tensor, dtype, dims) -> None:
-    if table.dtype != dtype or table.dim() not in dims:
-        raise ValueError(f"table must be {dtype} with {dims} dims, got "
-                         f"{table.dtype} {tuple(table.shape)}")
-    if idx.dtype != I32 or idx.dim() != 1:
-        raise ValueError(f"idx must be (N,) int32, got {idx.dtype} "
-                         f"{tuple(idx.shape)}")
-    kernels.check_cuda(table, idx)
-    if table.data_ptr() % 16:
+def _check(table: torch.Tensor, idx: torch.Tensor, dtype, dims):
+    """What the kernels need of their inputs, and no more: the dtypes and
+    dims they index by, contiguous tensors on the table's CUDA device, a
+    table on a 16-byte boundary (vector loads) with a row or more and fewer
+    than 2^31 words (32-bit offsets). Returns the table's address, its
+    shape and the number of lanes."""
+    shape, lanes = table.shape, idx.shape
+    if table.dtype != dtype or len(shape) not in dims \
+            or idx.dtype != I32 or len(lanes) != 1:
+        raise ValueError(f"table must be {dtype} with {dims} dims and idx "
+                         f"(N,) int32, got {table.dtype} {tuple(shape)} and "
+                         f"{idx.dtype} {tuple(idx.shape)}")
+    if table.get_device() != idx.get_device():
+        raise ValueError(f"idx on {idx.device}, the table on {table.device}")
+    if not (table.is_contiguous() and idx.is_contiguous()):
+        raise ValueError("kernel inputs must be contiguous")
+    ptr = table.data_ptr()
+    if ptr % 16:
         raise ValueError("the table must start on a 16-byte boundary")
-    if table.shape[0] < 1 or table.numel() >= 1 << 31:
-        raise ValueError(f"table of {table.shape[0]} rows, "
-                         f"{table.numel()} words")
+    if shape[0] < 1 or table.numel() >= 1 << 31:
+        raise ValueError(f"table of {shape[0]} rows, {table.numel()} words")
+    return ptr, shape, lanes[0]
 
 
 def _cols(table: torch.Tensor) -> int:
     return 1 if table.dim() == 1 else table.shape[1]
 
 
-def _chain(name: str, table: torch.Tensor, idx: torch.Tensor):
+def _chain(name: str, table: torch.Tensor, idx: torch.Tensor, tptr: int):
     out = torch.empty(idx.shape, dtype=U32, device=idx.device)
-    kernels.launch(name, idx.device, table.data_ptr(), table.shape[0],
-                   _cols(table), idx.data_ptr(), idx.shape[0],
-                   out.data_ptr(), 0, 0)
+    kernels.launch(name, idx.device, tptr, table.shape[0], _cols(table),
+                   idx.data_ptr(), idx.shape[0], out.data_ptr(), 0, 0)
     return out
 
 
@@ -173,8 +186,8 @@ def gather_chain(table: torch.Tensor, idx: torch.Tensor):
     """(N,) uint32 chain sums. CUDA: K5, the table in device memory."""
     if not kernels.on_cuda(table):
         return gather_chain_plain(table, idx)
-    _check(table, idx, U32, (1, 2))
-    return _chain("gather_chain", table, idx)
+    tptr = _check(table, idx, U32, (1, 2))[0]
+    return _chain("gather_chain", table, idx, tptr)
 
 
 def gather_chain_shared(table: torch.Tensor, idx: torch.Tensor):
@@ -182,13 +195,13 @@ def gather_chain_shared(table: torch.Tensor, idx: torch.Tensor):
     table larger than a block's shared memory raises (use gather_chain)."""
     if not kernels.on_cuda(table):
         return gather_chain_plain(table, idx)
-    _check(table, idx, U32, (1, 2))
+    tptr = _check(table, idx, U32, (1, 2))[0]
     if table.numel() * 4 > SHARED_BYTES:
         raise ValueError(f"a {tuple(table.shape)} table takes "
                          f"{table.numel() * 4} B, more than the "
                          f"{SHARED_BYTES} B of shared memory of a block: "
                          "use gather_chain")
-    return _chain("gather_chain_shared", table, idx)
+    return _chain("gather_chain_shared", table, idx, tptr)
 
 
 def gather_onehot(planes: torch.Tensor, idx: torch.Tensor, out_dtype=U32):
@@ -201,8 +214,7 @@ def gather_onehot(planes: torch.Tensor, idx: torch.Tensor, out_dtype=U32):
                          f"{out_dtype}")
     if not kernels.on_cuda(planes):
         return gather_onehot_plain(planes, idx, out_dtype)
-    _check(planes, idx, torch.bfloat16, (2,))
-    rows, cols4 = planes.shape
+    pptr, (rows, cols4), _ = _check(planes, idx, torch.bfloat16, (2,))
     if rows % 16 or cols4 not in (8, 16, 32, 64):
         raise ValueError(f"K7 takes rows a multiple of 16 and 8, 16, 32 or "
                          f"64 plane columns, got {tuple(planes.shape)}")
@@ -210,7 +222,7 @@ def gather_onehot(planes: torch.Tensor, idx: torch.Tensor, out_dtype=U32):
         raise ValueError(f"planes {tuple(planes.shape)} exceed the "
                          f"{SHARED_BYTES} B of shared memory of a block")
     out = torch.empty(idx.shape, dtype=out_dtype, device=idx.device)
-    kernels.launch("gather_onehot", idx.device, planes.data_ptr(), rows,
+    kernels.launch("gather_onehot", idx.device, pptr, rows,
                    cols4, idx.data_ptr(), idx.shape[0], out.data_ptr(), 0, 0)
     return out
 
@@ -219,10 +231,16 @@ def gather_rows(table: torch.Tensor, idx: torch.Tensor):
     """(N, cols) uint32 rows T[idx mod rows]. CUDA: K8."""
     if not kernels.on_cuda(table):
         return gather_rows_plain(table, idx)
-    _check(table, idx, U32, (2,))
-    out = torch.empty((idx.shape[0], table.shape[1]), dtype=U32,
-                      device=idx.device)
-    kernels.launch("gather_rows", idx.device, table.data_ptr(),
-                   table.shape[0], table.shape[1], idx.data_ptr(),
-                   idx.shape[0], out.data_ptr())
+    tptr, (rows, cols), n = _check(table, idx, U32, (2,))
+    if n * cols >= 1 << 31:
+        raise ValueError(f"{n} rows of {cols} words: 2^31 words or more")
+    dev = table.device
+    out = torch.empty(n, cols, dtype=U32, device=dev)
+    if n == 0 or cols == 0:
+        return out
+    optr = out.data_ptr()
+    if optr % 16:
+        raise ValueError("the output must start on a 16-byte boundary")
+    kernels.launch("gather_rows", dev, tptr, rows, cols, idx.data_ptr(), n,
+                   optr)
     return out

@@ -6,12 +6,14 @@ nearest samplers with the semantics of `sample_clouds`/`sample_skybox`
 (:243-330). The blocked texture tables (:337-548) are a TPU gather layout
 and are not ported: on the GPU a lookup reads the plain texture.
 
-What bounds the kernels on an H100: arithmetic. Each texel evaluates the
-closed-form single-scattering sky (five optical depths, exp/sqrt/pow) and,
-for clouds, five octaves of simplex noise; the outputs are 4.7 MB. One
-thread per texel keeps every intermediate in registers. The textures
-depend only on (sun, time), so the renderer rebuilds them once per
-0.25 s bucket and they are off the per-frame path.
+What bounds the kernel on an H100: instruction issue. Each texel evaluates
+the closed-form single-scattering sky (optical depths through IEEE sqrt,
+exp and division) and, for clouds, five octaves of simplex noise; the
+outputs are 4.7 MB. One thread per texel keeps every intermediate in
+registers; a warp takes a tile of one face, and what every texel of a
+launch shares is computed once per block. The textures depend only on
+(sun, time), so the renderer rebuilds them once per 0.25 s bucket, both
+from one launch (`write_sky`), off the per-frame path.
 """
 
 from __future__ import annotations
@@ -263,30 +265,58 @@ def _host_sun(sun):
     return tuple(float(c) for c in s), s
 
 
+def _launch_sky(sun, time, r_sky, r_clouds, device):
+    """K3 on a CUDA `device`: one launch that writes the textures whose
+    resolution is not None; (skybox or None, clouds or None)."""
+    (sx, sy, sz), _ = _host_sun(sun)
+    for r in (r_sky, r_clouds):
+        if r is not None and r < 1:
+            raise ValueError(f"sky texture resolution {r}")
+    skybox = clouds = None
+    if r_sky is not None:
+        skybox = torch.empty((6, r_sky, r_sky, 3), dtype=F32, device=device)
+    if r_clouds is not None:
+        clouds = torch.empty((r_clouds, r_clouds, 4), dtype=F32,
+                             device=device)
+        if clouds.data_ptr() % 16:
+            raise ValueError("clouds must be 16-byte aligned (float4)")
+    out = skybox if skybox is not None else clouds
+    kernels.launch("write_sky", out.device, sx, sy, sz, float(time),
+                   r_sky or 0, r_clouds or 0,
+                   0 if skybox is None else skybox.data_ptr(),
+                   0 if clouds is None else clouds.data_ptr())
+    return skybox, clouds
+
+
+def write_sky(sun, time, r_sky: int = 256, r_clouds: int = 512,
+              device="cuda"):
+    """(skybox (6, r_sky, r_sky, 3), clouds (r_clouds, r_clouds, 4)) on
+    `device`: write_skybox and write_clouds at one (sun, time). CUDA: K3,
+    one launch for both."""
+    if not kernels.on_cuda(device):
+        s = _host_sun(sun)[1].to(device)
+        return (write_skybox_plain(s, r_sky),
+                write_clouds_plain(s, time, r_clouds))
+    return _launch_sky(sun, time, r_sky, r_clouds, device)
+
+
 def write_skybox(sun, time=0.0, resolution: int = 256,
                  device="cuda"):
     """(6, R, R, 3) cubemap on `device`; `time` is accepted for the JAX
-    signature (the sky does not depend on it). CUDA: K3 `write_skybox`."""
-    (sx, sy, sz), s = _host_sun(sun)
+    signature (the sky does not depend on it). CUDA: K3, the skybox
+    only."""
     if not kernels.on_cuda(device):
-        return write_skybox_plain(s.to(device), resolution)
-    out = torch.empty((6, resolution, resolution, 3), dtype=F32,
-                      device=device)
-    kernels.launch("write_skybox", out.device, sx, sy, sz, resolution,
-                   out.data_ptr())
-    return out
+        return write_skybox_plain(_host_sun(sun)[1].to(device), resolution)
+    return _launch_sky(sun, 0.0, resolution, None, device)[0]
 
 
 def write_clouds(sun, time, resolution: int = 512, device="cuda"):
     """(R, R, 4) cloud texture on `device` at `time` (seconds, taken as
-    float32). CUDA: K3 `write_clouds`."""
-    (sx, sy, sz), s = _host_sun(sun)
+    float32). CUDA: K3, the clouds only."""
     if not kernels.on_cuda(device):
-        return write_clouds_plain(s.to(device), time, resolution)
-    out = torch.empty((resolution, resolution, 4), dtype=F32, device=device)
-    kernels.launch("write_clouds", out.device, sx, sy, sz, float(time),
-                   resolution, out.data_ptr())
-    return out
+        return write_clouds_plain(_host_sun(sun)[1].to(device), time,
+                                  resolution)
+    return _launch_sky(sun, time, None, resolution, device)[1]
 
 
 # ---------------------------------------------------------------------------

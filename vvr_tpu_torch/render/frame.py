@@ -83,8 +83,8 @@ def render_frame(grid: JumpGrid, o, d, sun, time: float, cfg: RenderConfig,
         return _post(torch.zeros((4, rh, rw), dtype=F32, device=dev), cfg)
     sun3 = torch.as_tensor(sun, dtype=F32).cpu().reshape(-1)[:3]
     if sky is None:
-        skybox = sky_ops.write_skybox(sun3, time, cfg.skybox_resolution, dev)
-        clouds = sky_ops.write_clouds(sun3, time, cfg.clouds_resolution, dev)
+        skybox, clouds = sky_ops.write_sky(sun3, time, cfg.skybox_resolution,
+                                           cfg.clouds_resolution, dev)
     else:
         skybox, clouds = sky
     max_steps = cfg.traversal_max_steps * 8

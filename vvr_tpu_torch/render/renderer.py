@@ -122,12 +122,9 @@ class Renderer:
         tq = float(int(t / q) * q)
         key = (self.sun[:3].tobytes(), tq)
         if self._sky_cache is None or self._sky_cache[0] != key:
-            sky = (sky_ops.write_skybox(self.sun[:3], tq,
-                                        self.cfg.skybox_resolution,
-                                        self.device),
-                   sky_ops.write_clouds(self.sun[:3], tq,
-                                        self.cfg.clouds_resolution,
-                                        self.device))
+            sky = sky_ops.write_sky(self.sun[:3], tq,
+                                    self.cfg.skybox_resolution,
+                                    self.cfg.clouds_resolution, self.device)
             self._sky_cache = (key, sky)
         return self._sky_cache[1]
 

@@ -10,12 +10,17 @@ in three configurations: 1920x1080 with bloom, without bloom, and
 3840x2160 composited from a 1920x1080 render (the compositor's integer
 upscale); and beside them the DDA frame (`primary_raster="off",
 sun_mask="off"`: K1 traces the primary and the shadow rays) at 1920x1080.
-It prints one JSON line: for each configuration the SHA-256 of the frame's
-HDR image and of its u8 image. The calls are those of
-`Renderer.render`, which earlier checkouts of the port share, so running
-the script once with --root at an unpacked `git archive` of another commit
-and once without, in one call on one card, shows whether the two trees'
-kernels give the same bytes. It exits non-zero without a CUDA device.
+Beside the frames it digests the sky textures (the 256^2 skybox and the
+512^2 clouds) at two (sun, time) pairs, the default sun at t = 0 and a
+low sun at t = 1.75 s, and the second at odd sizes (7^2 and 13^2), each
+built through the renderer's sky cache (`Renderer._sky`). It prints one
+JSON line: for each configuration the SHA-256 of the frame's HDR image
+and of its u8 image, and for each sky the SHA-256 of its skybox and its
+clouds. The calls are those of `Renderer.render` and `Renderer._sky`,
+which earlier checkouts of the port share, so running the script once
+with --root at an unpacked `git archive` of another commit and once
+without, in one call on one card, shows whether the two trees' kernels
+give the same bytes. It exits non-zero without a CUDA device.
 """
 
 from __future__ import annotations
@@ -26,12 +31,19 @@ import json
 import pathlib
 import sys
 
+import numpy as np
+
 CAMERA = ([128.0, 100.0, 20.0], [128.0, 20.0, 180.0], 85.0)  # bench.py:33
 CONFIGS = {"bloom": dict(width=1920, height=1080),
            "no bloom": dict(width=1920, height=1080, bloom_enabled=False),
            "upscale 2": dict(width=3840, height=2160, downscale_factor=2),
            "dda": dict(width=1920, height=1080, primary_raster="off",
                        sun_mask="off")}
+# (sun direction before normalization, or None for the renderer's, time,
+# skybox and cloud resolutions)
+SKIES = {"sky default sun t 0": (None, 0.0, 256, 512),
+         "sky low sun t 1.75": ((0.6, 0.05, 0.8), 1.75, 256, 512),
+         "sky low sun t 1.75 at 7/13": ((0.6, 0.05, 0.8), 1.75, 7, 13)}
 
 
 def digest(t) -> str:
@@ -79,6 +91,18 @@ def main(argv=None) -> int:
         torch.cuda.synchronize()
         out[name] = {"hdr": digest(hdr), "u8": digest(img),
                      "shape": list(img.shape)}
+    for name, (sun, t, r_sky, r_clouds) in SKIES.items():
+        r = Renderer(WorldConfig(depth=4), RenderConfig(
+            skybox_resolution=r_sky, clouds_resolution=r_clouds),
+            device=dev, scene=scene)
+        if sun is not None:
+            s = np.asarray(sun, np.float32)
+            r.sun = np.concatenate([s / np.linalg.norm(s), [0.0]]).astype(
+                np.float32)
+        skybox, clouds = r._sky(t)
+        torch.cuda.synchronize()
+        out[name] = {"skybox": digest(skybox), "clouds": digest(clouds),
+                     "shapes": [list(skybox.shape), list(clouds.shape)]}
     print(json.dumps(out))
     return 0
 

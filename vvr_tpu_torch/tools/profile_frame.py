@@ -4,7 +4,8 @@
 
 Renders the frames that chip_smoke.py drives (256^3 world, 1920x1080, one
 hard shadow ray per lit pixel, the bench camera, a fixed time so no sky
-rebuild falls in a window): the default-knob frame (face rasterizer and
+rebuild falls in a frame window; the K3 window below holds the
+rebuilds): the default-knob frame (face rasterizer and
 sun classifier) and the DDA frame (`primary_raster="off", sun_mask="off"`),
 over one scene, and prints, each from this run:
 
@@ -26,6 +27,11 @@ over one scene, and prints, each from this run:
    of the trace, both on the trace's clock. The profiler's own overhead
    stretches the window on the host, so this share is most likely below
    the unprofiled one;
+   then a K3 window: default frames in pairs, the first of each pair at a
+   new 0.25 s sky bucket (the sky is rebuilt) and the second in the same
+   bucket, with K3's device time per bucket and its launches per bucket,
+   and the two kinds of frame on the host clock without the profiler; and
+   a K11 window: sun-grid builds, device time per sun direction;
 5. the work counters at this camera (K9's fragments in its tight boxes
    and in the JAX boxes, its binned (face, tile) pairs and big faces).
 
@@ -59,6 +65,7 @@ DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
 # torch ops (ray generation, the sun expand, the host-to-device copies).
 PORT_KERNELS = ("vvr_jump_trace_kernel", "vvr_shade_surface_kernel",
                 "vvr_shade_pixel_kernel", "skybox_kernel", "clouds_kernel",
+                "vvr_sky_kernel",
                 "vvr_bloom_pyramid_kernel", "composite_kernel",
                 "vvr_raster_", "vvr_scan_", "vvr_sun_",
                 "vvr_masked_shadow_kernel")
@@ -73,6 +80,9 @@ ENTRY_KERNELS = {
     "K12 masked_shadow": ("vvr_masked_shadow_kernel",),
     "K2 shade_surface": ("vvr_shade_surface_kernel",),
 }
+# K3's device kernels: one per texture in earlier checkouts, one for both
+K3_KERNELS = ("skybox_kernel", "clouds_kernel", "vvr_sky_kernel")
+SKY_BUCKETS = 8  # sky rebuilds in the K3 window
 
 
 def union_us(intervals) -> float:
@@ -180,6 +190,82 @@ def window(label, renderer, cam, trace_path) -> None:
         primary, shadow = (sum(u for _, u in k1[k::2]) / n for k in (0, 1))
         print(f"  K1 per call: primary rays {primary:.2f} us/frame, shadow "
               f"rays {shadow:.2f} us/frame")
+
+
+def trace_events(trace_path: pathlib.Path, run):
+    """run() under torch.profiler with CUDA activity only; the trace's
+    complete device events (kernels, copies, sets)."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        run()
+    prof.export_chrome_trace(str(trace_path))
+    events = json.loads(trace_path.read_text())["traceEvents"]
+    return [e for e in events if e.get("ph") == "X" and "dur" in e
+            and e.get("cat") in DEVICE_CATS]
+
+
+def sky_window(renderer, cam, trace_path) -> None:
+    """K3 per sky bucket: SKY_BUCKETS pairs of synchronized frames, the
+    first of each at a new 0.25 s bucket (the sky is rebuilt), the second
+    1/60 s later in the same bucket, under the profiler; then the same
+    frames on the host clock without it."""
+    q = renderer.cfg.sky_cache_quantum
+    times = [(q * k, q * k + 1.0 / 60.0) for k in range(1, SKY_BUCKETS + 1)]
+
+    def run():
+        for pair in times:
+            for t in pair:
+                renderer.render(cam, time=t)
+                torch.cuda.synchronize()
+
+    events = trace_events(trace_path, run)
+    per_name: dict[str, list[float]] = {}
+    for e in events:
+        if any(p in e["name"] for p in K3_KERNELS):
+            s = per_name.setdefault(e["name"], [0, 0.0])
+            s[0] += 1
+            s[1] += e["dur"]
+    total = sum(v[1] for v in per_name.values())
+    print(f"K3 window: {SKY_BUCKETS} sky rebuilds in {2 * SKY_BUCKETS} "
+          f"synchronized frames; K3 device {total / SKY_BUCKETS:.2f} us per "
+          f"bucket in "
+          f"{sum(v[0] for v in per_name.values()) / SKY_BUCKETS:.1f} "
+          f"launches per bucket")
+    for k, (cnt, us) in sorted(per_name.items(), key=lambda kv: -kv[1][1]):
+        print(f"  device {us / SKY_BUCKETS:9.2f} us/bucket  "
+              f"{cnt / SKY_BUCKETS:4.1f} calls/bucket  {k[:100]}")
+    host = ([], [])
+    for pair in times:
+        for k, t in enumerate(pair):
+            t0 = time.perf_counter()
+            renderer.render(cam, time=t + q * (SKY_BUCKETS + 1))
+            torch.cuda.synchronize()
+            host[k].append((time.perf_counter() - t0) * 1e3)
+    print(f"K3 window, host clock without the profiler: frames that rebuild "
+          f"the sky median {statistics.median(host[0]):.4f} ms, max "
+          f"{max(host[0]):.4f}; the frames after them median "
+          f"{statistics.median(host[1]):.4f} ms, max {max(host[1]):.4f}")
+
+
+def k11_window(faces, basis, size: int, trace_path, calls: int = 10) -> None:
+    """K11 per sun direction: `calls` sun-grid builds under the profiler;
+    device time per build, in total and per device kernel."""
+    from vvr_tpu_torch.ops import sunshadow as ss
+
+    def run():
+        for _ in range(calls):
+            ss.sun_grids(faces, *basis, size)
+        torch.cuda.synchronize()
+
+    events = trace_events(trace_path, run)
+    per_name: dict[str, float] = {}
+    for e in events:
+        per_name[e["name"]] = per_name.get(e["name"], 0.0) + e["dur"]
+    print(f"K11 window: {calls} sun-grid builds ({ss.GRID}^2), device "
+          f"{sum(per_name.values()) / calls:.2f} us per sun direction")
+    for k, us in sorted(per_name.items(), key=lambda kv: -kv[1]):
+        print(f"  device {us / calls:9.2f} us/build  {k[:100]}")
 
 
 def main(argv=None) -> int:
@@ -339,6 +425,9 @@ def main(argv=None) -> int:
         path.parent.mkdir(parents=True, exist_ok=True)
         window("default knobs", renderer, cam, path)
         window("DDA", dda, cam, pathlib.Path(tmp) / "dda_trace.json")
+        sky_window(renderer, cam, pathlib.Path(tmp) / "sky_trace.json")
+        k11_window(faces, (e1, e2, s), wcfg.size,
+                   pathlib.Path(tmp) / "k11_trace.json")
 
     # ---- 5. work at this camera
     st = {}
