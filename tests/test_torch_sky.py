@@ -148,3 +148,40 @@ def test_renderer_builds_the_sky_through_write_sky(tmp_path, monkeypatch):
     for t in (0.0, 0.1, 0.3, 0.45, 0.6):
         assert r.render(cam, time=t, fetch=True).shape == (24, 32, 3)
     assert calls == [0.0, 0.25, 0.5]
+
+
+@pytest.mark.parametrize("sun,time", [("day", 0.25), ("low", 1.75)])
+def test_rounding_bound_covers_exp_and_pow_ulps(sun, time, monkeypatch):
+    """chip_smoke.py holds K3 to the plain sky on the CPU within rtol 1e-4,
+    atol 1e-5 plus sky_rounding_bound: the first-order effect of every exp
+    and pow result moving by its allowed ulps. The plain sky with each exp
+    and pow result moved by a random -2..2 ulps (the card's expf is within
+    2) stays inside that allowance at every texel channel, though not
+    inside rtol 1e-4, atol 1e-5 alone for the day sun."""
+    import chip_smoke
+    st = torch.from_numpy(_sun(sun))
+    bounds = chip_smoke.sky_rounding_bound(sky, st, time, 16, 32)
+    ref = (sky.write_skybox_plain(st, 16), sky.write_clouds_plain(st, time,
+                                                                  32))
+    gen = torch.Generator().manual_seed(5)
+    exp, pow_ = torch.exp, torch.pow
+
+    def moved(y):
+        steps = torch.randint(-2, 3, y.shape, generator=gen,
+                              dtype=torch.int32)
+        return torch.where(y > 0, (y.view(torch.int32) + steps)
+                           .view(torch.float32), y)
+
+    monkeypatch.setattr(torch, "exp", lambda x: moved(exp(x)))
+    monkeypatch.setattr(torch, "pow", lambda x, e: moved(pow_(x, e)))
+    got = (sky.write_skybox_plain(st, 16), sky.write_clouds_plain(st, time,
+                                                                  32))
+    monkeypatch.undo()
+    beyond = 0
+    for g, r, b in zip(got, ref, bounds):
+        diff = (g.double() - r.double()).abs()
+        tol = 1e-5 + 1e-4 * r.double().abs()
+        assert bool((diff <= tol + b).all())
+        beyond += int((diff > tol).sum())
+    if sun == "day":
+        assert beyond > 0

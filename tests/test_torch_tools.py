@@ -14,7 +14,7 @@ from vvr_tpu_torch.ops.jump import trace_jump_plain
 from vvr_tpu_torch.ops.raygen import camera_rays
 from vvr_tpu_torch.render.scene import build_scene
 from vvr_tpu_torch.tools import (frame_digest, lane_use, profile_frame,
-                                 profile_gather, sass_count, sky_variants)
+                                 profile_gather, sass_count)
 from vvr_tpu_torch.utils.camera import Camera
 
 # one intra-op thread: the suite runs six pytest workers on eight cores
@@ -47,8 +47,7 @@ def test_frame_digest_needs_cuda(capsys, monkeypatch):
     assert "no CUDA device" in capsys.readouterr().err
 
 
-@pytest.mark.parametrize("tool", [profile_gather, sky_variants],
-                         ids=["profile_gather", "sky_variants"])
+@pytest.mark.parametrize("tool", [profile_gather], ids=["profile_gather"])
 def test_measuring_tools_need_cuda(tool, capsys, monkeypatch):
     monkeypatch.setattr(sys, "path", list(sys.path))
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
@@ -74,6 +73,33 @@ def test_sass_count_reads_the_listing():
     assert got == {"_ZN12_GLOBAL__N_114vvr_sky_kernelEv": {
         "instructions": 6, "mufu": {"EX2": 1, "RSQ": 1}, "local_loads": 1,
         "local_stores": 1, "calls": 1}}
+
+
+def test_sass_count_probe_fast_path():
+    """A probe's fast path ends at its first unconditional EXIT (a
+    predicated EXIT does not end it); an FFMA counts two float32
+    operations, other F-class instructions one, conversions none."""
+    listing = """
+        Function : probe_1
+        /*0000*/                   LDC R1, c[0x0][0x28] ;   /* 0x0000 */
+        /*0010*/                   FFMA.SAT R0, R2, R3, 0.5 ;
+        /*0020*/              @!P0 EXIT ;                   /* 0x0000 */
+        /*0030*/                   MUFU.EX2 R5, R4 ;        /* 0x0000 */
+        /*0040*/                   F2I.TRUNC R6, R5 ;       /* 0x0000 */
+        /*0050*/                   FSETP.GT.AND P0, PT, R5, RZ, PT ;
+        /*0060*/                   EXIT ;                   /* 0x0000 */
+        /*0070*/                   FADD R5, R4, R3 ;        /* 0x0000 */
+        Function : probe_0
+        /*0000*/                   LDC R1, c[0x0][0x28] ;   /* 0x0000 */
+        /*0010*/                   EXIT ;                   /* 0x0000 */
+"""
+    paths = sass_count.fast_path(listing)
+    assert paths["probe_1"] == {"LDC": 1, "FFMA.SAT": 1, "EXIT": 1,
+                                "MUFU.EX2": 1, "F2I.TRUNC": 1,
+                                "FSETP.GT.AND": 1}
+    assert paths["probe_0"] == {"LDC": 1}
+    assert sass_count.fp32_ops(paths["probe_1"]) == 3
+    assert "probe_8(" in sass_count.probe_source()
 
 
 def test_frame_digest_hashes_the_bytes():

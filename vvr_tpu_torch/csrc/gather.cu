@@ -8,8 +8,9 @@
 //   K6 gather_chain_shared  pallas_vreg (:133); the table in shared memory
 //   K7 gather_onehot_mma    pallas_onehot (:177), pallas_onehot (gather2
 //                           :112); the one-hot product on the tensor cores
-//   K8 gather_rows          pallas_scalar (:228), un-chained; a warp
-//                           moves 32 rows as 16-byte vectors
+//   K8 gather_rows          pallas_scalar (:228), un-chained; a thread
+//                           or a warp moves rows as 16-, 8- or 4-byte
+//                           vectors
 //
 // K5-K7 run the reference's chain of kChain dependent gathers per lane:
 // r = T[idx, 0]; acc += r; idx = (int32(r) ^ idx) mod rows, with a floor
@@ -278,13 +279,16 @@ onehot_kernel(const uint16_t* __restrict__ planes, int rows,
 }
 
 // K8: out[i, :] = T[floor_mod(idx[i], rows), :], moved as vectors V of
-// 16, 8 or 4 bytes (vpr of them a row). A warp takes 32 rows at a time:
-// lane l loads idx[base + l] and takes its floor mod, once per row; then
-// the lanes walk the group's 32 * vpr vectors in order (vector k is vector
-// k % vpr of row k / vpr, a shift where vpr is a power of two), each lane
-// taking its row's offset from the row's lane by a shuffle, so neighbouring
-// lanes load neighbouring pieces of a row and store neighbouring pieces of
-// the output. A lane issues kRowBatch loads before its first store. All
+// 16, 8 or 4 bytes (vpr of them a row). Where a row is one vector (1, 2
+// or 4 columns) a thread takes a row (rows_kernel_by_thread), in blocks
+// of kRowThreads, so the grid covers the rows densely. Wider rows
+// (rows_kernel_by_warp): a warp takes 32 rows at a time: lane l loads
+// idx[base + l] and takes its floor mod, once per row; then the lanes walk
+// the group's 32 * vpr vectors in order (vector k is vector k % vpr of row
+// k / vpr, a shift where vpr is a power of two), each lane taking its
+// row's offset from the row's lane by a shuffle, so neighbouring lanes
+// load neighbouring pieces of a row and store neighbouring pieces of the
+// output. A lane issues kRowBatch loads before its first store. All
 // offsets are 32-bit: the wrapper checks rows * cols and n * cols < 2^31.
 //
 // What bounds it on the H100: the reference's tables (2.1 MB and 2 MB) sit
@@ -292,11 +296,22 @@ onehot_kernel(const uint16_t* __restrict__ planes, int rows,
 // waits two dependent L2 round trips (the index, then the row), so a call
 // is its launch, that latency and the grid's tail (PERF.md, K8 row).
 constexpr int kRowBatch = 4;
+constexpr int kRowThreads = 128;
+
+template <typename V>
+__global__ void __launch_bounds__(kRowThreads)
+rows_kernel_by_thread(const V* __restrict__ table, int rows,
+                      const int* __restrict__ idx, int n,
+                      V* __restrict__ out) {
+    const int i = blockIdx.x * kRowThreads + threadIdx.x;
+    if (i < n) out[i] = table[floor_mod(idx[i], rows)];
+}
 
 template <typename V>
 __global__ void __launch_bounds__(kThreads)
-rows_kernel(const V* __restrict__ table, int rows, int vpr, int shift,
-            const int* __restrict__ idx, int n, V* __restrict__ out) {
+rows_kernel_by_warp(const V* __restrict__ table, int rows, int vpr,
+                    int shift, const int* __restrict__ idx, int n,
+                    V* __restrict__ out) {
     const int lane = threadIdx.x & 31;
     const int warp = blockIdx.x * (kThreads / 32) + threadIdx.x / 32;
     const int stride = gridDim.x * kThreads;
@@ -350,6 +365,12 @@ int launch_rows(const void* table, int rows, int cols, const void* idx,
                 int n, void* out, cudaStream_t stream) {
     constexpr int words = (int)(sizeof(V) / sizeof(uint32_t));
     const int vpr = cols / words;
+    if (vpr == 1) {
+        rows_kernel_by_thread<V><<<(n + kRowThreads - 1) / kRowThreads,
+                                   kRowThreads, 0, stream>>>(
+            (const V*)table, rows, (const int*)idx, n, (V*)out);
+        return (int)cudaGetLastError();
+    }
     const int shift = (vpr & (vpr - 1)) == 0 ? __builtin_ctz(vpr) : -1;
     int sms = 0;
     const int err = sm_count(&sms);
@@ -359,8 +380,8 @@ int launch_rows(const void* table, int rows, int cols, const void* idx,
     const long long groups = (n + 31LL) / 32;
     const long long need = (groups + kThreads / 32 - 1) / (kThreads / 32);
     const long long cap = 8LL * sms;
-    rows_kernel<V><<<(unsigned)(need < cap ? need : cap), kThreads, 0,
-                     stream>>>(
+    rows_kernel_by_warp<V><<<(unsigned)(need < cap ? need : cap), kThreads,
+                             0, stream>>>(
         (const V*)table, rows, vpr, shift, (const int*)idx, n, (V*)out);
     return (int)cudaGetLastError();
 }

@@ -64,19 +64,11 @@ constexpr double kAbsorbLinearB = -0.66667;
 constexpr double kAbsorbConstB = 2.666667;
 constexpr double kPi = 3.14159265358979;
 
-// a warp's tile of texels (kTileW x kTileH = 32) and the block size;
-// overridable at build time (-D) to measure other shapes
-#ifndef VVR_SKY_TILE_W
-#define VVR_SKY_TILE_W 4
-#endif
-#ifndef VVR_SKY_THREADS
-#define VVR_SKY_THREADS 256
-#endif
-constexpr int kTileW = VVR_SKY_TILE_W;
+// a warp's tile of texels (kTileW x kTileH = 32) and the block size
+// (tile shapes measured equal; 256 threads beat 64, 128 and 512: PERF.md)
+constexpr int kTileW = 4;
 constexpr int kTileH = 32 / kTileW;
-constexpr int kSkyThreads = VVR_SKY_THREADS;
-static_assert(kTileW * kTileH == 32 && kSkyThreads % 32 == 0,
-              "a tile is one warp; a block whole warps");
+constexpr int kSkyThreads = 256;
 
 __constant__ float kRayScattering[3] = {0.005802f, 0.013558f, 0.033100f};
 __constant__ float kMieScattering[3] = {0.003996f, 0.003996f, 0.003996f};

@@ -24,9 +24,10 @@ them, on one design for an H100:
                            decoded back to the 32-bit word.
   gather_rows          K8  pallas_scalar (tools/microbench_gather.py:228):
                            one un-chained row gather, out[i] = T[idx[i]];
-                           a warp moves 32 rows as 16-byte vectors (8- or
-                           4-byte where 4 or 2 does not divide cols), the
-                           index and its floor mod once per row.
+                           a thread a row where the row is one 16-, 8- or
+                           4-byte vector, else a warp per 32 rows moving
+                           them as such vectors; the index and its floor
+                           mod once per row.
 
 What bounds them on an H100: K5, K6 and K8 move a few MB (the indices, the
 outputs, the table once), a few microseconds at 3.35 TB/s; what they
@@ -159,10 +160,7 @@ def _check(table: torch.Tensor, idx: torch.Tensor, dtype, dims):
         raise ValueError(f"table must be {dtype} with {dims} dims and idx "
                          f"(N,) int32, got {table.dtype} {tuple(shape)} and "
                          f"{idx.dtype} {tuple(idx.shape)}")
-    if table.get_device() != idx.get_device():
-        raise ValueError(f"idx on {idx.device}, the table on {table.device}")
-    if not (table.is_contiguous() and idx.is_contiguous()):
-        raise ValueError("kernel inputs must be contiguous")
+    kernels.check_cuda(table, idx)
     ptr = table.data_ptr()
     if ptr % 16:
         raise ValueError("the table must start on a 16-byte boundary")

@@ -201,10 +201,18 @@ def _face_dirs(face: int, u, v):
                         4: (-u, -v, -one), 5: (u, -v, one)}[face], -1)
 
 
+def _texel_grid(r: int):
+    """arange(r) / r in float32, divided on the CPU: torch's CUDA division
+    by a Python scalar multiplies by its rounded reciprocal, which moves
+    texels by an ulp where r is not a power of two, and the sky amplifies
+    that (the kernel and the JAX package divide)."""
+    return torch.arange(r, dtype=F32) / r
+
+
 def write_skybox_plain(sun, resolution: int = 256):
     """(6, R, R, 3) cubemap of sky radiance (sky_compute.slang:100-110)."""
     r = resolution
-    g = (torch.arange(r, dtype=F32, device=sun.device) / r) * 2.0 - 1.0
+    g = _texel_grid(r).to(sun.device) * 2.0 - 1.0
     vv, uu = torch.meshgrid(g, g, indexing="ij")      # [row=v, col=u]
     faces = []
     for f in range(6):
@@ -218,7 +226,7 @@ def write_skybox_plain(sun, resolution: int = 256):
 def write_clouds_plain(sun, time, resolution: int = 512):
     """(R, R, 4) f32 rgba cloud texture (sky_compute.slang:17-59)."""
     r = resolution
-    ij = torch.arange(r, dtype=F32, device=sun.device) / r
+    ij = _texel_grid(r).to(sun.device)
     uvy, uvx = torch.meshgrid(ij, ij, indexing="ij")  # [row, col] = (y, x)
     px = (uvx - 0.5) * CLOUD_EXTENT
     pz = (uvy - 0.5) * CLOUD_EXTENT

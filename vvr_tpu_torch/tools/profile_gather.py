@@ -21,12 +21,12 @@ commit and on this one in turns. Prints, each from this run:
 4. host microseconds per call (time.perf_counter_ns at a 64x2 table and
    32 indices, where device time is negligible; HOST_CALLS calls of each
    piece in ROUNDS rounds, the pieces in turns, and the median round) of
-   each piece of K8's path: the wrapper's checks, the output's
-   allocation (a size tuple, and sizes as arguments), the device context
-   and the current device, the stream lookup (a torch.cuda.Stream object
-   and the raw handle), the ctypes symbol lookup, the package's launcher
-   for K8 beside a ctypes call of the same entry point, and whole:
-   kernels.launch, gather_rows, and index_select beside them.
+   the pieces of K8's path: the output's allocation (torch.empty with
+   sizes as arguments, as the wrapper takes it, and idx.new_empty), the
+   current device and raw stream reads, three data_ptr() reads,
+   kernels.launch (the binding's call and the CUDA launch), and
+   gather_rows whole (the checks are what it costs beyond the pieces),
+   with index_select beside it.
 
 It exits non-zero without a CUDA device.
 """
@@ -34,7 +34,6 @@ It exits non-zero without a CUDA device.
 from __future__ import annotations
 
 import argparse
-import ctypes
 import json
 import pathlib
 import statistics
@@ -177,50 +176,19 @@ def main(argv=None) -> int:
     idx = torch.randint(0, 64, (32,), generator=gen, device=dev,
                         dtype=torch.int32)
     t32 = table.view(torch.int32)
-    k = kernels.KERNELS["gather_rows"]
     out = torch.empty((32, 2), dtype=torch.uint32, device=dev)
     cargs = (table.data_ptr(), 64, 2, idx.data_ptr(), 32, out.data_ptr())
-    stream = torch.cuda.current_stream().cuda_stream
-    # the package's own launcher for K8 (a CPython binding where the
-    # package has kernels._entry_points, else its typed ctypes function),
-    # and the entry point called by ctypes from the same library
-    entry = getattr(kernels, "_entry_points", None)
-    fn = (entry()["gather_rows"] if entry
-          else getattr(kernels._library(), k.symbol))
-    lib = ctypes.CDLL(str(kernels.library_path()))
-    by_ctypes = lib[k.symbol]
-    by_ctypes.argtypes = list(k.argtypes)
-    by_ctypes.restype = ctypes.c_int
-
-    def checks():
-        kernels.on_cuda(table)
-        gather._check(table, idx, gather.U32, (2,))
-
-    def device_context():
-        with torch.cuda.device(dev):
-            pass
-
     pieces = {
-        "on_cuda + _check": checks,
-        "torch.empty, a size tuple (the output)": lambda: torch.empty(
-            (32, 2), dtype=torch.uint32, device=dev),
-        "torch.empty, sizes as arguments": lambda: torch.empty(
+        "torch.empty, sizes as arguments (the output)": lambda: torch.empty(
             32, 2, dtype=torch.uint32, device=dev),
+        "idx.new_empty, a size tuple": lambda: idx.new_empty(
+            (32, 2), dtype=torch.uint32),
         "torch._C._cuda_getDevice()": torch._C._cuda_getDevice,
-        "three data_ptr()": lambda: (table.data_ptr(), idx.data_ptr(),
-                                     out.data_ptr()),
-        "with torch.cuda.device(...)": device_context,
-        "torch.cuda.current_device()": torch.cuda.current_device,
-        "torch.cuda.current_stream().cuda_stream":
-            lambda: torch.cuda.current_stream().cuda_stream,
         "torch._C._cuda_getCurrentRawStream(index)":
             lambda: torch._C._cuda_getCurrentRawStream(0),
-        "getattr(lib, symbol)": lambda: getattr(lib, k.symbol),
-        "the package's launcher for K8 (launches K8)":
-            lambda: fn(*cargs, stream),
-        "ctypes call of the entry point (launches K8)":
-            lambda: by_ctypes(*cargs, stream),
-        "kernels.launch (whole)": lambda: kernels.launch(
+        "three data_ptr()": lambda: (table.data_ptr(), idx.data_ptr(),
+                                     out.data_ptr()),
+        "kernels.launch (launches K8)": lambda: kernels.launch(
             "gather_rows", dev, *cargs),
         "gather.gather_rows (whole)": lambda: gather.gather_rows(table, idx),
         "torch.index_select (whole)": lambda: torch.index_select(t32, 0, idx),
