@@ -4,7 +4,9 @@
     python3 chip_smoke.py
 
 1. prints the card's name and power limit and builds the port's CUDA
-   kernels from vvr_tpu_torch/csrc (timed);
+   kernels from vvr_tpu_torch/csrc (timed); fails if K11's kernels hold a
+   global atomic (ATOMG, RED or ATOM in their SASS, tools/sass_count.py)
+   or a fill or decode pass;
 2. the main path: with every launch counter reset, builds the 256^3 world
    on the card from cold (timed) and renders frames of bench.py's
    default-knob configuration (1920x1080, face rasterizer for primary
@@ -22,7 +24,14 @@
    scene, counters reset before it and read after, checked and printed the
    same way, its median printed beside the default frame's; fails unless
    each of its K1 launches traced by 8x4 tiles without the counters, the
-   shadow trace with the one sun direction (no (N, 3) copy);
+   shadow trace with the one sun direction (no (N, 3) copy); then the
+   dragged sun: default-knob frames with `set_sun_dragging(True)`, the sun
+   turned by a small step about the vertical every frame (as the app's
+   middle-mouse drag turns it), counters reset before and read after;
+   fails unless K11 (512^2 grids) and K3 launch once in every frame beside
+   the per-frame kernels, or unless the last dragged frame's bytes equal a
+   full-grid (2048^2) frame's at the same sun; prints the median and the
+   slowest frame and K11's device time per dragged frame (torch.profiler);
 4. holds each kernel against its plain torch version on the card at the
    main path's shapes; K1 with and without its counters, flat and by 8x4
    tiles, on the primary and the shadow rays (one sun direction, and the
@@ -37,7 +46,12 @@
    the bloom pyramid's mip 2 against the plain pass-by-pass chain, at the
    main path's shape and at small odd shapes; the composite with bloom,
    without it and at an integer upscale of 2; the default frame against
-   the DDA frame, and the kernel frame against the plain-torch frame; K3
+   the DDA frame, and the kernel frame against the plain-torch frame; K11
+   (written texels equal, values within 1e-4; prints whether value-equal)
+   at 2048^2 and 512^2 under the frame's sun and a low one, at 509^2, and
+   for a face set without occluders and one without faces (every texel
+   NEG), once each, with the busiest tile's (face, texel) pairs against
+   the mean; K3
    (one launch) bit-equal to a launch per texture, at 256/512 and 7/13
    and two suns within rtol 1e-4, atol 1e-5 of the plain versions run on
    the card, and within that plus the first-order effect of the card's
@@ -62,7 +76,9 @@
 Any failed check raises and the script exits non-zero. Without a CUDA
 device it exits non-zero before printing any result. Before the last line
 it prints {"kernels": [...]}, one row per kernel with its launches (from
-the path that runs it), error against its plain version, times and bound;
+the path that runs it), error against its plain version, times and bound
+(K11 twice: `sun_grids` at 2048^2 with the main path's launches,
+`sun_grids_512` with the dragged frames');
 the last line of stdout is {"ok": true, "device": {...}}.
 """
 
@@ -138,6 +154,11 @@ BLOOM_UP_OPS = 40
 # floor, which can take an exact x/z crossing tie the other way); more than
 # this many fails the run
 K1_ORACLE_SLACK = 16
+# K11's rows: the 2048^2 build (once per sun direction) and the 512^2 one
+# (every frame while the sun is dragged), both of the sun_grids kernel
+ROW_KERNEL = {"sun_grids_512": "sun_grids"}
+# name parts of K11's device kernels (and the scans it shares with K9)
+K11_SASS = ("vvr_sun_", "vvr_scan_")
 # the gather experiment whose times stand in each kernel's row (the first
 # line of that name: pallas_onehot:R4096xC2 is the u32 one)
 GATHER_ROW = {"gather_chain": "pallas_take:R32768xC16",
@@ -283,7 +304,8 @@ def main() -> int:
     from vvr_tpu_torch.render.frame import render_frame
     from vvr_tpu_torch.render.oracle import trace_dense
     from vvr_tpu_torch.render.renderer import Renderer
-    from vvr_tpu_torch.tools import microbench_gather
+    from vvr_tpu_torch.tools import (microbench_gather, profile_frame,
+                                     sass_count)
     from vvr_tpu_torch.tools.microbench_gather import bound_ms, cuda_ms
     from vvr_tpu_torch.utils.camera import Camera
     from vvr_tpu_torch.world.generator import assemble_dense
@@ -299,6 +321,24 @@ def main() -> int:
     t0 = time.perf_counter()
     lib = kernels.build()
     print(f"build: {time.perf_counter() - t0:.2f} s -> {lib.name}")
+    # K11's kernels: no fill or decode pass, no atomic on device memory
+    k11_sass = sass_count.count(
+        sass_count.disassemble(lib, pathlib.Path(kernels._nvcc())),
+        K11_SASS)
+    k11_atomics = {k: v["global_atomics"] for k, v in k11_sass.items()}
+    check(any("vvr_sun_tile_kernel" in k for k in k11_sass),
+          f"K11's tile kernel missing from the SASS: {sorted(k11_sass)}")
+    check(not any(("fill" in k or "decode" in k) for k in k11_sass),
+          f"K11 has a fill or decode kernel: {sorted(k11_sass)}")
+    check(sum(k11_atomics.values()) == 0,
+          f"K11's kernels hold global atomics (ATOMG, RED, ATOM): "
+          f"{k11_atomics}")
+    print(f"K11 SASS (sass_count.py): global atomic instructions (ATOMG, "
+          f"RED, ATOM) {sum(k11_atomics.values())} in its "
+          f"{len(k11_sass)} kernels {sorted(k11_sass)}")
+    for name, regs, st, ld in kernels.ptxas_usage("vvr_sun_"):
+        print(f"ptxas: {name}: {regs} registers, spill stores {st} B, "
+              f"spill loads {ld} B")
 
     # ---- 2. the main path: scene from cold, then frames, counters reset
     # before the Renderer is built (K11 runs once, in the first frame)
@@ -436,6 +476,58 @@ def main() -> int:
     print(f"frame median: default knobs {med:.3f} ms, DDA {med_dda:.3f} ms "
           f"(same call, same card)")
 
+    # ---- 3b. the dragged sun: default knobs with set_sun_dragging(True),
+    # the sun turned every frame as the app's middle-mouse drag turns it
+    # (vvr_tpu/app.py:80-85), so each frame builds 512^2 sun grids (K11)
+    # and the sky (K3, whose key holds the sun)
+    drag = Renderer(wcfg, cfg, device=dev, scene=renderer.scene)
+    drag.set_sun_dragging(True)
+    start = drag.sun.copy()
+    kernels.reset_launches()
+    ms = []
+    for i in range(n_frames):   # frame 0 warms up
+        drag.sun = profile_frame.dragged_sun(start, i)
+        t0 = time.perf_counter()
+        img = drag.render(cam, time=i / 60.0)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    ms = ms[1:]
+    drag_launches = frame_launches(
+        "dragged-sun", frame_kernels, per_frame + ["sun_grids", "write_sky"])
+    check(drag_launches["shade_surface"] == 0
+          and drag_launches["jump_trace"] == 0,
+          "the dragged-sun frame launched K1 or K2 shade_surface")
+    check(drag._sunmask_cache[1][2][0].shape[0] == ss.GRID_DRAGGING ** 2,
+          "the dragged-sun frame did not build 512^2 grids")
+    slow = max(range(FRAMES), key=ms.__getitem__)
+    print(f"frames (dragged sun, {profile_frame.DRAG_STEP} degrees a "
+          f"frame): {FRAMES} at {cfg.width}x{cfg.height}, median "
+          f"{sorted(ms)[FRAMES // 2]:.3f} ms, slowest {ms[slow]:.3f} ms "
+          f"(frame {slow + 1}), min {min(ms):.3f} ms (host clock, "
+          f"synchronized); per frame K11 (512^2) "
+          f"{drag_launches['sun_grids'] / n_frames:.2f} and K3 "
+          f"{drag_launches['write_sky'] / n_frames:.2f} launches")
+    # the dragged frame against a full-grid frame at the same sun
+    full = Renderer(wcfg, cfg, device=dev, scene=renderer.scene)
+    full.sun = drag.sun.copy()
+    img_full = full.render(cam, time=(n_frames - 1) / 60.0)
+    check(full._sunmask_cache[1][2][0].shape[0] == ss.GRID ** 2,
+          "the full-grid frame did not build 2048^2 grids")
+    check(torch.equal(img, img_full),
+          f"dragged-sun frame (512^2 grids) differs from the full-grid frame "
+          f"at the same sun on {int((img != img_full).any(-1).sum())} pixels")
+    print(f"dragged-sun frame (512^2 grids) equal to the full-grid frame "
+          f"(2048^2) at the same sun, byte for byte")
+    launches["sun_grids_512"] = drag_launches["sun_grids"]
+    trace = repo / "build" / "vvr_tpu_torch" / "k11_trace.json"
+    k11_us = {g: profile_frame.k11_window(faces, ss.sun_basis(drag.sun[:3]),
+                                          wcfg.size, g, trace)
+              for g in (ss.GRID_DRAGGING, ss.GRID)}
+    print(f"K11 device time per dragged frame (512^2): "
+          f"{k11_us[ss.GRID_DRAGGING]:.2f} us; per sun direction at "
+          f"2048^2: {k11_us[ss.GRID]:.2f} us; 1 launch (kernels.launch) per "
+          f"build")
+
     # ---- 4. each kernel against its plain version, main-path shapes
     sun3 = torch.from_numpy(renderer.sun[:3].copy())
     sun_np = renderer.sun[:3].copy()
@@ -531,24 +623,68 @@ def main() -> int:
           f"{k1_wrong[:8].tolist()} the numpy oracle agrees with the raster "
           f"(K1 wrong); {ORACLE_RAYS} rays bit-exact vs the oracle")
 
-    # K11 against its plain version
+    # K11 against its plain version: at 2048^2 and 512^2 (the dragged
+    # sun's grid) under the frame's sun and frame_digest's low sun, at an
+    # odd grid, and for a face set without occluders and one without faces
+    # (every texel NEG); written texels equal, values within 1e-4
+    low3 = np.asarray(profile_frame.LOW_SUN, np.float32)
+    low3 = (low3 / np.linalg.norm(low3)).astype(np.float32)
     e1, e2, s_basis = ss.sun_basis(sun_np)
+    errs["sun_grids"] = errs["sun_grids_512"] = 0.0
+    fs0 = ss.face_setup(faces, e1, e2, s_basis,
+                        *ss.grid_frame(e1, e2, wcfg.size, ss.GRID), ss.GRID)
+    no_occl = tuple(a[~fs0["occl"]].contiguous() for a in faces[:8])
+    no_faces = tuple(a[:0].contiguous() for a in faces[:8])
+    k11_cases = [(f"{lbl} sun", sun_, g_, faces)
+                 for lbl, sun_ in (("frame", sun_np), ("low", low3))
+                 for g_ in (ss.GRID, ss.GRID_DRAGGING)]
+    k11_cases += [("frame sun", sun_np, 509, faces),
+                  ("no occluder", sun_np, ss.GRID, no_occl),
+                  ("no face", sun_np, ss.GRID_DRAGGING, no_faces)]
+    for label, sun_, g_, faces_ in k11_cases:
+        basis = ss.sun_basis(sun_)
+        before = kernels.LAUNCHES["sun_grids"]
+        grids_k = ss.sun_grids(faces_, *basis, wcfg.size, g_)
+        torch.cuda.synchronize()
+        check(kernels.LAUNCHES["sun_grids"] == before + 1,
+              f"K11 ({label}, {g_}^2) did not launch once")
+        grids_p = ss.sun_grids_plain(faces_, *basis, wcfg.size, g_)
+        gk, gp = grids_k[0], grids_p[0]
+        check(tuple(grids_k[1:]) == tuple(grids_p[1:]),
+              "K11 grid frame differs")
+        check(bool(((gk <= -3e38) == (gp <= -3e38)).all()),
+              f"K11 vs plain ({label}, {g_}^2): written texels differ")
+        fin = gk > -3e38
+        err = float((gk[fin] - gp[fin]).abs().max()) if bool(fin.any()) \
+            else 0.0
+        check(err <= 1e-4, f"K11 vs plain ({label}, {g_}^2): max |diff| "
+              f"{err}")
+        if faces_ is not faces:
+            check(not bool(fin.any()) and torch.equal(gk, gp),
+                  f"K11 ({label}): a texel is not NEG")
+            print(f"K11 {label} ({faces_[0].shape[0]} faces, {g_}^2): "
+                  f"every texel NEG, equal to plain")
+            continue
+        key = "sun_grids_512" if g_ == ss.GRID_DRAGGING else "sun_grids"
+        errs[key] = max(errs[key], err)
+        tile = ss.sun_tiling(g_)[0]
+        per = profile_frame.tile_pairs(
+            ss.face_setup(faces, *basis, *grids_k[1:], g_), g_,
+            tile).flatten().double()
+        print(f"K11 {label}, {g_}^2: value-equal vs plain: "
+              f"{bool(torch.equal(gk, gp))}, max |diff| {err}; written share "
+              f"B {float(fin[:, 0].float().mean()):.4f}, C "
+              f"{float(fin[:, 1].float().mean()):.4f}; depths "
+              f"{float(gk[fin].min()):.3f}..{float(gk[fin].max()):.3f}; "
+              f"{tile}^2-texel tiles: busiest {float(per.max()):.0f} (face, "
+              f"texel) pairs, mean {float(per.mean()):.1f} (over the tiles "
+              f"with pairs {float(per[per > 0].mean()):.1f}), busiest / mean "
+              f"{float(per.max() / per.mean()):.2f}")
     grids_k = ss.sun_grids(faces, e1, e2, s_basis, wcfg.size)
-    grids_p = ss.sun_grids_plain(faces, e1, e2, s_basis, wcfg.size)
-    gk, gp = grids_k[0], grids_p[0]
-    check(tuple(grids_k[1:]) == tuple(grids_p[1:]), "K11 grid frame differs")
-    check(bool(((gk <= -3e38) == (gp <= -3e38)).all()),
-          "K11 vs plain: written texels differ")
-    fin = gk > -3e38
-    errs["sun_grids"] = float((gk[fin] - gp[fin]).abs().max())
-    check(errs["sun_grids"] <= 1e-4,
-          f"K11 vs plain: max |diff| {errs['sun_grids']}")
-    check(bool((gk[fin] < 0).any()), "no negative depths exercised")
-    print(f"K11: {gk.shape[0]} texels, value-equal vs plain: "
-          f"{bool((gk == gp).all())}, max |diff| {errs['sun_grids']}; "
-          f"written share B {float(fin[:, 0].float().mean()):.4f}, C "
-          f"{float(fin[:, 1].float().mean()):.4f}; depths "
-          f"{float(gk[fin].min()):.3f}..{float(gk[fin].max()):.3f}")
+    gk = grids_k[0]
+    check(bool((gk[gk > -3e38] < 0).any()), "no negative depths exercised")
+    grids_512 = ss.sun_grids(faces, e1, e2, s_basis, wcfg.size,
+                             ss.GRID_DRAGGING)
 
     # K12 on the raster hits (the main path's entry, which computes the
     # starts itself) against its plain version (K2 surface, then the
@@ -833,6 +969,12 @@ def main() -> int:
             lambda: ss.sun_grids(faces, e1, e2, s_basis, wcfg.size),
             lambda: ss.sun_grids_plain(faces, e1, e2, s_basis, wcfg.size),
             10, 1),
+        "sun_grids_512": (
+            lambda: ss.sun_grids(faces, e1, e2, s_basis, wcfg.size,
+                                 ss.GRID_DRAGGING),
+            lambda: ss.sun_grids_plain(faces, e1, e2, s_basis, wcfg.size,
+                                       ss.GRID_DRAGGING),
+            20, 3),
         "masked_shadow": (
             lambda: ss.masked_shadow_from_hits(grid, *hits, sun_np, e1, e2,
                                                grids_k, max_steps),
@@ -870,9 +1012,13 @@ def main() -> int:
                                  0).sum())
 
     fragments, jax_fragments = box_fragments(True), box_fragments(False)
-    fs = ss.face_setup(faces, e1, e2, s_basis, *grids_k[1:], ss.GRID)
-    pairs = float(torch.where(fs["occl"], (fs["oi1"] - fs["oi0"] + 1)
-                              * (fs["oj1"] - fs["oj0"] + 1), 0).sum())
+    def k11_pairs(grids_, g_):
+        fs = ss.face_setup(faces, e1, e2, s_basis, *grids_[1:], g_)
+        return float(torch.where(fs["occl"], (fs["oi1"] - fs["oi0"] + 1)
+                                 * (fs["oj1"] - fs["oj0"] + 1), 0).sum())
+
+    pairs = k11_pairs(grids_k, ss.GRID)
+    pairs_512 = k11_pairs(grids_512, ss.GRID_DRAGGING)
     res_it = jump.trace_jump(grid, so_k, sun_d, max_steps,
                              active=residue).iterations[residue].float()
     res_steps = float(res_it.sum())
@@ -886,6 +1032,7 @@ def main() -> int:
         "raster_resolve": (nbytes(keys_k, d, ras_k.hit, ras_k.face,
                                   ras_k.axis_coord, ras_k.t), n),
         "sun_grids": (nbytes(*faces[:8], gk), pairs),
+        "sun_grids_512": (nbytes(*faces[:8], grids_512[0]), pairs_512),
         # the starts of every hit (K2 shade_surface's operations), the
         # lit lanes' tests, the residue's DDA sub-steps
         "masked_shadow": (nbytes(*hits, gk, grid.rows, ms_k),
@@ -930,8 +1077,9 @@ def main() -> int:
             if sfu_ms > b_ms:
                 b_ms, b_by = sfu_ms, "operations"
         else:
-            b_ms, b_by = bound_ms(moved, OPS_PER_ITEM[name] * count, "fp32")
-        k = kernels.KERNELS[name]
+            b_ms, b_by = bound_ms(moved, OPS_PER_ITEM[ROW_KERNEL.get(
+                name, name)] * count, "fp32")
+        k = kernels.KERNELS[ROW_KERNEL.get(name, name)]
         rows.append({"name": name, "route": "cuda", "source": k.source,
                      "replaces": k.replaces, "launches": launches[name],
                      "max_abs_err": errs[name], "ms": ms,
@@ -966,7 +1114,8 @@ def main() -> int:
           f" ms vs K1 {by_name['jump_trace']['ms']:.4f} ms; K9 tests "
           f"{fragments:.0f} fragments ({fragments / n:.2f} per pixel; "
           f"{jax_fragments:.0f} in the JAX boxes of its plain version); K11 "
-          f"{pairs:.0f} (face, texel) pairs")
+          f"{pairs:.0f} (face, texel) pairs at {ss.GRID}^2, {pairs_512:.0f} "
+          f"at {ss.GRID_DRAGGING}^2")
 
     # the host's cost of one launch through kernels.launch (K8 on a 64x2
     # table, 32 lanes: the device's part is negligible), beside K8's whole

@@ -265,7 +265,8 @@ def test_renderer_renders_and_caches_sky(tmp_path, grids):
 def test_renderer_default_knobs_cache_sun_grids(tmp_path, grids):
     """At the default knobs the Renderer rasterizes and classifies; it
     builds the sun grids once per sun direction (and at 512^2 while the sun
-    is dragged), and its frames equal the DDA Renderer's."""
+    is dragged), and its frames equal the DDA Renderer's, the dragged ones
+    too."""
     cfg = {k: v for k, v in SLICE.items()
            if k not in ("primary_raster", "sun_mask")}
     r = Renderer(WorldConfig(depth=3), RenderConfig(**cfg), device="cpu",
@@ -282,8 +283,16 @@ def test_renderer_default_knobs_cache_sun_grids(tmp_path, grids):
     assert r._sunmask_cache is cache           # same sun: no rebuild
     np.testing.assert_array_equal(img, dda.render(cam, time=0.0,
                                                   fetch=True))
+    # while the sun is dragged: 512^2 grids, and the DDA frame's bytes,
+    # also after the sun turns (as the app turns it every frame)
     r.set_sun_dragging(True)
-    r.render(cam, time=0.0)
+    np.testing.assert_array_equal(r.render(cam, time=0.0, fetch=True), img)
+    assert r._sunmask_cache[1][2][0].shape == (512 * 512, 2)
+    turned = np.array([-0.35, 0.65, -0.67], np.float32)
+    r.sun = dda.sun = np.append(turned / np.linalg.norm(turned),
+                                0.0).astype(np.float32)
+    np.testing.assert_array_equal(r.render(cam, time=0.0, fetch=True),
+                                  dda.render(cam, time=0.0, fetch=True))
     assert r._sunmask_cache[1][2][0].shape == (512 * 512, 2)
     r.set_sun_dragging(False)
     sun = np.array([0.6, 0.5, 0.6], np.float32)

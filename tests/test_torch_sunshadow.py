@@ -115,10 +115,29 @@ def _boundary_faces(fs, tex, grid, a0, b0, ts, eps=1e-4):
     return False
 
 
-@pytest.mark.parametrize("name", ["default", "low"])
-def test_grids_equal_jax(name, grids, world):
-    (e1, e2, s), ref, port = grids[name]
+@pytest.fixture(scope="module")
+def grids_200(world):
+    """The default sun's (basis, JAX grids as numpy, port grids) at 200^2,
+    a side that is no multiple of K11's tiles."""
+    e1, e2, s = sunshadow.sun_basis(SUNS["default"])
+    ref, ok = jax_build_sun_grids(world[3].device_tuple(), jnp.asarray(e1),
+                                  jnp.asarray(e2), jnp.asarray(s), 64,
+                                  grid=200)
+    assert bool(ok)
+    return ((e1, e2, s), tuple(np.asarray(a) for a in ref),
+            sunshadow.sun_grids(world[4].device_tuple("cpu"), e1, e2, s, 64,
+                                200))
+
+
+@pytest.mark.parametrize("name, grid", [("default", 2048), ("low", 2048),
+                                        ("default", 200)],
+                         ids=["default", "low", "default-200"])
+def test_grids_equal_jax(name, grid, request, world):
+    (e1, e2, s), ref, port = (request.getfixturevalue("grids")[name]
+                              if grid == 2048
+                              else request.getfixturevalue("grids_200"))
     gbc, a0, b0, ts = port
+    assert gbc.shape == (grid * grid, 2)
     assert (a0, b0, ts) == tuple(np.float32(v) for v in ref[2:])
     g, r = gbc.numpy(), ref[0]
     neg_p, neg_r = g <= -3e38, r <= -3e38
@@ -129,13 +148,41 @@ def test_grids_equal_jax(name, grids, world):
                      | (fin & (np.abs(g - r) > 1e-4)).any(1))[0]
     assert len(odd) <= 16, f"{len(odd)} texels differ"
     fs = sunshadow.face_setup(world[4].device_tuple("cpu"), e1, e2, s, a0,
-                               b0, ts, 2048)
+                               b0, ts, grid)
     for tex in odd:
-        assert _boundary_faces(fs, tex, 2048, a0, b0, ts), (
+        assert _boundary_faces(fs, tex, grid, a0, b0, ts), (
             f"texel {tex}: port {g[tex]}, JAX {r[tex]}, no face on a "
             "decision boundary")
     close = fin & (np.abs(g - r) <= 1e-4)
     assert close.sum() >= fin.sum() - 2 * len(odd)
+
+
+@pytest.mark.parametrize("grid, tiling", [
+    (2048, (32, 64)), (1024, (32, 32)), (1023, (16, 32)), (512, (16, 16)),
+    (509, (16, 16)), (200, (16, 16)), (1, (16, 16)), (4096, (32, 128))])
+def test_sun_tiling(grid, tiling):
+    """K11's (tile, bin) sides: 32-texel tiles from 1024^2 up, 16 below,
+    the bins a whole number of tiles and at most SUN_MAX_BINS of them."""
+    assert sunshadow.sun_tiling(grid) == tiling
+    tile, side = tiling
+    assert side % tile == 0
+    assert (-(-grid // side)) ** 2 <= sunshadow.SUN_MAX_BINS
+
+
+@pytest.mark.parametrize("n_faces, grid, nbytes", [
+    # 32^2 bins of 64 texels, 4^2 coarse bins and the global list: 1041
+    # lists, for 68 blocks of faces; a job per bin; 22 int4 per face
+    (68923, 2048, 16 * 68923 * 22 + 32 * 32 ** 2 + 8 * (1041 * 68 + 70 + 1)),
+    # no faces: one block of zero counts (two scan blocks), the 32^2 jobs,
+    # nothing per face
+    (0, 512, 32 * 32 ** 2 + 8 * (1041 + 2 + 1)),
+    (0, 509, 32 * 32 ** 2 + 8 * (1041 + 2 + 1)),
+    # 13^2 bins of 16 texels, 2^2 coarse bins, the global list
+    (5, 200, 16 * 5 * 22 + 32 * 13 ** 2 + 8 * (174 + 1 + 1))])
+def test_sun_scratch_bytes(n_faces, grid, nbytes):
+    """K11's scratch, sized from the face count and the grid alone (the
+    layout of csrc/sunshadow.cu vvr_sun_grids)."""
+    assert sunshadow.sun_scratch_bytes(n_faces, grid) == nbytes
 
 
 @pytest.mark.parametrize("name", ["default", "low"])

@@ -10,12 +10,14 @@ import pytest
 import torch
 
 from vvr_tpu_torch.config import WorldConfig
+from vvr_tpu_torch.ops import sunshadow
 from vvr_tpu_torch.ops.jump import trace_jump_plain
 from vvr_tpu_torch.ops.raygen import camera_rays
 from vvr_tpu_torch.render.scene import build_scene
 from vvr_tpu_torch.tools import (frame_digest, lane_use, profile_frame,
                                  profile_gather, sass_count)
 from vvr_tpu_torch.utils.camera import Camera
+from vvr_tpu_torch.world.faces import extract_merged_faces
 
 # one intra-op thread: the suite runs six pytest workers on eight cores
 torch.set_num_threads(1)
@@ -57,7 +59,8 @@ def test_measuring_tools_need_cuda(tool, capsys, monkeypatch):
 
 def test_sass_count_reads_the_listing():
     """Per kernel: every instruction once, MUFU by kind, local loads and
-    stores, calls; other kernels are left out."""
+    stores, calls, atomics that may reach device memory (not the shared
+    ATOMS, nor the warp reduction REDUX); other kernels are left out."""
     listing = """
         Function : _ZN12_GLOBAL__N_114vvr_sky_kernelEv
         /*0000*/                   LDC R1, c[0x0][0x28] ;   /* 0x0000 */
@@ -66,13 +69,19 @@ def test_sass_count_reads_the_listing():
         /*0030*/               @P1 CALL.REL.NOINC 0x100 ;  /* 0x0000 */
         /*0040*/                   STL [R1], R2 ;           /* 0x0000 */
         /*0050*/                   LDL R3, [R1] ;           /* 0x0000 */
+        /*0060*/                   ATOMS.MAX RZ, [R3], R4 ; /* 0x0000 */
+        /*0070*/                   ATOMG.E.ADD.STRONG.GPU PT, R2, [R4.64], R5 ;
+        /*0080*/               @P0 RED.E.ADD.STRONG.GPU [R4.64], R5 ;
+        /*0090*/                   ATOM.E.MAX.STRONG.GPU PT, R2, [R4.64], R5 ;
+        /*00a0*/                   REDUX.SUM UR4, R5 ;      /* 0x0000 */
         Function : _Z5otherv
         /*0000*/                   MUFU.RCP R5, R4 ;        /* 0x0000 */
+        /*0010*/                   RED.E.ADD.STRONG.GPU [R4.64], R5 ;
 """
     got = sass_count.count(listing, ["vvr_sky_kernel"])
     assert got == {"_ZN12_GLOBAL__N_114vvr_sky_kernelEv": {
-        "instructions": 6, "mufu": {"EX2": 1, "RSQ": 1}, "local_loads": 1,
-        "local_stores": 1, "calls": 1}}
+        "instructions": 11, "mufu": {"EX2": 1, "RSQ": 1}, "local_loads": 1,
+        "local_stores": 1, "calls": 1, "global_atomics": 3}}
 
 
 def test_sass_count_probe_fast_path():
@@ -110,6 +119,30 @@ def test_frame_digest_hashes_the_bytes():
         x.permute(2, 0, 1).numpy()).tobytes()).hexdigest()
     assert frame_digest.digest(x.permute(2, 0, 1)) == want
     assert frame_digest.digest(x) != want
+
+
+def test_frame_digest_grid_digests():
+    """A sun grid's digest is that of sun_grids' gBC for its sun and grid
+    side, a sun of None being the default one (a few voxels of an 8^3
+    world, so the plain build runs)."""
+    occ = np.zeros((8, 8, 8), bool)
+    occ[1:3, 2, 1:5] = True
+    occ[4, 1:4, 3] = True
+    faces = extract_merged_faces(occ).device_tuple("cpu")
+    default = np.array([-0.28, 0.65, -0.71], np.float32)
+    grids = {"a": (None, 16), "b": ((0.6, 0.05, 0.8), 9)}
+    got = frame_digest.grid_digests(sunshadow, faces, 8, default, grids)
+    assert sorted(got) == ["a", "b"]
+    for name, (sun, grid) in grids.items():
+        s = np.asarray(default if sun is None else sun, np.float32)
+        gbc = sunshadow.sun_grids_plain(
+            faces, *sunshadow.sun_basis(s / np.linalg.norm(s)), 8, grid)[0]
+        assert (gbc > -3e38).any()
+        assert got[name] == {"gbc": frame_digest.digest(gbc),
+                             "shape": [grid * grid, 2]}
+    assert set(frame_digest.GRIDS.values()) == {
+        (sun, grid) for sun in (None, (0.6, 0.05, 0.8))
+        for grid in (2048, 512)}
 
 
 @pytest.mark.parametrize("tiled", [False, True], ids=["32x1", "8x4"])

@@ -1,15 +1,9 @@
-// Work items over a face set, for K11 (sunshadow.cu): the face table, an
-// exclusive scan of the per-face item counts, and the lookup from an item
-// to its face. K9 (raster.cu) takes the face table, the float-to-int
-// helpers and the one-block scan (of its tile counts).
-//
-// A face that covers a large area (a wall next to the camera, a long
-// merged rectangle in sun space) makes many items, a small one few. Each
-// face's count goes through an in-place exclusive scan, and a persistent
-// grid of warps then walks the items 0..total-1, one warp per item; a
-// warp finds its face by a binary search over the offsets. No face is
-// ever given to one thread whole, and no capacity is fixed: the scan runs
-// in int64 and the item loop reads the total on the device.
+// What K9 (raster.cu) and K11 (sunshadow.cu) share over a face set: the
+// face table, the float-to-int helpers, their tile CTAs' scan, and an
+// exclusive scan in int64 of counts into offsets (K9 scans its tile counts
+// in one block, K11 its (list, block) counts in two launches whose users
+// add each block's carry), whose total stays on the device, so no
+// capacity is fixed and nothing is read back.
 #pragma once
 
 #include "common.cuh"
@@ -64,6 +58,22 @@ static __device__ long long vvr_block_scan(long long x, long long* ws) {
     return r;
 }
 
+// inclusive sum of x over the CTA's threads (K9's and K11's tile CTAs);
+// `ws` holds one int per warp
+static __device__ int vvr_tile_scan(int x, int* ws) {
+    const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
+    int s = x;
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+        const int y = __shfl_up_sync(0xffffffffu, s, o);
+        if (lane >= o) s += y;
+    }
+    if (lane == 31) ws[w] = s;
+    __syncthreads();
+    for (int k = 0; k < w; ++k) s += ws[k];
+    return s;
+}
+
 static __global__ void vvr_scan_blocks_kernel(long long* v, int n,
                                               long long* bsum) {
     __shared__ long long ws[32];
@@ -93,42 +103,12 @@ static __global__ void vvr_scan_top_kernel(long long* bsum, int nb,
     if (threadIdx.x == 0) *total = carry;
 }
 
-static __global__ void vvr_scan_add_kernel(long long* v, int n,
-                                           const long long* bsum) {
-    const int i = blockIdx.x * 1024 + threadIdx.x;
-    if (i < n && blockIdx.x > 0) v[i] += bsum[blockIdx.x];
-}
-
-// v[0..n) counts -> exclusive offsets in place; *total = their sum.
-// `bsum` holds ceil(n / 1024) words.
-static inline void vvr_exclusive_scan(long long* v, int n, long long* bsum,
-                                      long long* total, cudaStream_t st) {
+// v[0..n) counts -> partial sums: v[i] + bsum[i / 1024] is the exclusive
+// prefix of count i, and *total their sum (the users add the carry, so the
+// scan takes two launches). `bsum` holds ceil(n / 1024) words.
+static inline void vvr_scan_partial(long long* v, int n, long long* bsum,
+                                    long long* total, cudaStream_t st) {
     const int nb = (n + 1023) / 1024;
     if (nb > 0) vvr_scan_blocks_kernel<<<nb, 1024, 0, st>>>(v, n, bsum);
     vvr_scan_top_kernel<<<1, 1024, 0, st>>>(bsum, nb, total);
-    if (nb > 1) vvr_scan_add_kernel<<<nb, 1024, 0, st>>>(v, n, bsum);
-}
-
-// the face whose items hold `item`: the last f with off[f] <= item (a face
-// with no items shares its offset with the next face and is never found)
-static __device__ __forceinline__ int vvr_item_face(
-        const long long* __restrict__ off, int n, long long item) {
-    int lo = 0, hi = n;
-    while (lo < hi) {
-        const int mid = (lo + hi) >> 1;
-        if (__ldg(off + mid) <= item) {
-            lo = mid + 1;
-        } else {
-            hi = mid;
-        }
-    }
-    return lo - 1;
-}
-
-// blocks of 256 threads for a persistent warp loop over the items
-static inline unsigned vvr_item_blocks() {
-    int dev = 0, sms = 132;
-    cudaGetDevice(&dev);
-    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    return (unsigned)(sms * 8);
 }

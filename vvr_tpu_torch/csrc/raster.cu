@@ -286,22 +286,6 @@ static __device__ __forceinline__ unsigned vvr_face_t_key(
     return t > 0.0f ? vvr_axis_key(t, 0) : 0u;
 }
 
-// inclusive sum of x over the CTA's VVR_TILE_THREADS threads; `ws` holds
-// one int per warp
-static __device__ int vvr_tile_scan(int x, int* ws) {
-    const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
-    int s = x;
-#pragma unroll
-    for (int o = 1; o < 32; o <<= 1) {
-        const int y = __shfl_up_sync(0xffffffffu, s, o);
-        if (lane >= o) s += y;
-    }
-    if (lane == 31) ws[w] = s;
-    __syncthreads();
-    for (int k = 0; k < w; ++k) s += ws[k];
-    return s;
-}
-
 static __global__ void __launch_bounds__(VVR_TILE_THREADS)
 vvr_raster_tile_kernel(VvrRasterCam c, const float* __restrict__ d,
                        const int4* __restrict__ boxes,

@@ -2,20 +2,47 @@
 // Replace vvr_tpu/ops/sunshadow.py:112 `build_sun_grids` (with cone_tan 0)
 // and :654 `masked_shadow_hits` (ops/sunshadow.py wraps them).
 //
-// K11 builds, once per sun direction, two conservative depth grids over the
-// world's projection along the sun s, from the anti-sun faces (the only
-// faces a sun-bound ray can enter solid through): gridB, the max over faces
-// that fully cover a texel (quad shrunk by SAFE, extended across internal v
-// edges, FaceSet.einfo) of the face's affine min depth there, and gridC, the
-// max over faces that may touch it (bbox grown by SAFE) of its affine max
-// depth plus the growth margin. A per-face kernel computes each occluder's
-// texel bbox and its count of 8x4-texel tiles, the counts go through an
-// exclusive scan (items.cuh), and one warp per (face, tile) item evaluates
-// its 32 texels (sunshadow.py:143-241, :340-442). Depths along s are
-// negative over part of the world, so the float max goes through an
-// order-preserving u32 map (negative floats bit-inverted) and atomicMax;
-// the grids start at NEG = -3e38 and are decoded in place at the end,
-// interleaved as gBC (G^2, 2).
+// K11 builds, once per sun direction (every frame while the sun is
+// dragged, at 512^2), two conservative depth grids over the world's
+// projection along the sun s, from the anti-sun faces (the only faces a
+// sun-bound ray can enter solid through): gridB, the max over faces that
+// fully cover a texel (quad shrunk by SAFE, extended across internal v
+// edges, FaceSet.einfo) of the face's affine min depth there, and gridC,
+// the max over faces that may touch it (bbox grown by SAFE) of its affine
+// max depth plus the growth margin (sunshadow.py:143-241, :340-442),
+// interleaved as gBC (G^2, 2). One C entry point, five kernels, no atomic
+// on device memory:
+//  1. setup, one thread per face: vvr_sun_face once, into the face's texel
+//     box and, for an occluder, the 64-byte record its texel test reads;
+//     each block counts in shared memory its faces' entries per list. A
+//     face goes on each bin (a square of bin_side texels) its box spans,
+//     or, past VVR_SUN_BIN_MAX bins, on each coarse bin (VVR_SUN_COARSE
+//     bins a side) it spans, or, past that, on the global list that every
+//     tile reads.
+//  2. a scan of the counts, list-major (items.cuh, two launches), gives
+//     each (list, block) its place: each list is contiguous;
+//  3. bin, the same blocks over the same faces: each entry (face, box) at
+//     its block's place plus a slot taken with a shared-memory atomic (the
+//     order within a list is free: the grids are maxima); one more block
+//     orders the bins for the tile CTAs, those whose tiles read the most
+//     entries first, so the busiest tiles start in the first wave;
+//  4. tile, one CTA per tile of texels, which it owns in shared memory:
+//     it starts every texel at NEG, stages the entries of its bin, coarse
+//     bin and the global list whose boxes meet the tile, flattens their
+//     (face, texel) pairs over the CTA (a CTA scan), evaluates each
+//     thread's equal run of them with shared-memory atomicMax on each
+//     pair's two values, then writes each texel once, coalesced, including
+//     those no face touched.
+// Depths along s are negative over part of the world, so the float max goes
+// through an order-preserving u32 map (negative floats bit-inverted): a
+// total order on bits, so the grids do not depend on the order in which
+// faces are taken, and each (face, texel) value keeps the expressions of
+// the per-texel build it replaces, bit for bit (-fmad=false). No capacity
+// can overflow: a face takes at most VVR_SUN_BIN_MAX + 1 list entries and
+// the wrapper sizes the scratch from the face count and the grid alone,
+// reading nothing back. The JAX build's fixed entry capacity, its
+// overflow flag and retry and the coarse level cBC that no query reads
+// are not ported.
 //
 // K12 answers one shadow lane per thread. On the frame's path it takes the
 // primary hits and computes the lane's start (surface + 0.05 along the sun)
@@ -36,8 +63,13 @@
 // lax.cond overflow net, the build's fixed entry capacity with its retry
 // flag, and the coarse level cBC that no query reads are not ported.
 //
-// What bounds them on an H100: K11 is a scatter of about 8 B of atomics per
-// covered texel into a 32 MiB table that sits in L2. K12 reads 33 B of
+// What bounds them on an H100: K11 must write its G^2 x 8 B table once
+// (32 MiB at 2048^2) and evaluate each (face, texel) pair (about 90
+// operations, 3.76 million pairs at 2048^2 on the bench world), but its
+// time goes to the tile CTAs' chains of dependent loads (job, entries,
+// records) and to the busiest tiles (up to 17,000 pairs in one 32^2
+// tile), which run for most of the kernel even when they start first;
+// the setup, scan and bin launches cost about a third. K12 reads 33 B of
 // primary hit per lane (o, d, hit, face, axis_coord) and writes 1 B, plus
 // one 8 B gBC row and a brick word per lit lane; a lane of the residue
 // (0.4% at the bench view) runs the DDA, which is latency-bound like K1 and
@@ -51,8 +83,18 @@
 
 #define VVR_SAFE 0.02f
 #define VVR_NEG (-3e38f)
-#define VVR_STX 8
-#define VVR_STY 4
+// K11 (ops/sunshadow.py SUN_FPB, SUN_MAX_BINS, SUN_COARSE, SUN_BIN_MAX):
+// faces per block (one a thread) of its setup and bin kernels; the most
+// bins; bins a side of a coarse bin; the most lists (the bins, the coarse
+// bins, at most 4 x 4 when the bins are at most 32 x 32, and the global
+// list); the most bins, or coarse bins, a face's entries span; threads of
+// a tile's CTA
+#define VVR_SUN_FPB 1024
+#define VVR_SUN_MAX_BINS 1024
+#define VVR_SUN_COARSE 8
+#define VVR_SUN_MAX_LISTS (VVR_SUN_MAX_BINS + 16 + 1)
+#define VVR_SUN_BIN_MAX 16
+#define VVR_SUN_TILE_THREADS 256
 #define VVR_NEAR_K 6
 
 struct VvrSunBasis {
@@ -78,6 +120,7 @@ static __device__ __forceinline__ int vvr_texel(float x, float lo, float ts,
     return min(max(vvr_floor_int((x - lo) / ts), 0), grid - 1);
 }
 
+// the rest is computed for an occluder only
 static __device__ VvrSunFace vvr_sun_face(const VvrFaces& F, int f,
                                           const VvrSunBasis& B,
                                           const VvrSunFrame& G) {
@@ -88,6 +131,7 @@ static __device__ VvrSunFace vvr_sun_face(const VvrFaces& F, int f,
               vz = __ldg(F.vz + f), einfo = __ldg(F.einfo + f);
     const float s_a = ax == 0 ? B.sx : (ax == 1 ? B.sy : B.sz);
     r.occl = (sg == 1 ? s_a < 0.0f : s_a > 0.0f) && eu > 0;
+    if (!r.occl) return r;
     const float pc = (float)((ax == 0 ? vx : (ax == 1 ? vy : vz)) + sg);
     const float euf = (float)eu, evf = (float)ev;
     float ca[4], cb[4], cz[4];
@@ -137,7 +181,7 @@ static __device__ VvrSunFace vvr_sun_face(const VvrFaces& F, int f,
     return r;
 }
 
-// order-preserving float <-> u32 map for atomicMax on signed floats
+// order-preserving float <-> u32 map for the max on signed floats
 static __device__ __forceinline__ unsigned vvr_ord(float x) {
     const unsigned u = __float_as_uint(x);
     return (u & 0x80000000u) ? ~u : (u | 0x80000000u);
@@ -147,100 +191,425 @@ static __device__ __forceinline__ float vvr_unord(unsigned u) {
     return __uint_as_float((u & 0x80000000u) ? (u & 0x7FFFFFFFu) : ~u);
 }
 
-static __global__ void vvr_sun_fill_kernel(unsigned* __restrict__ g,
-                                           long long n) {
-    const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-    if (i < n) g[i] = vvr_ord(VVR_NEG);
+// The face lists: n_bins bins, squares of bin_side texels (bins_x a side),
+// then the coarse bins, squares of VVR_SUN_COARSE bins (coarse_x a side),
+// then the global list that every tile reads
+struct VvrSunLists {
+    int bin_side, bins_x, n_bins, coarse_x;
+};
+
+static __device__ __forceinline__ int vvr_sun_n_lists(const VvrSunLists& L) {
+    return L.n_bins + L.coarse_x * L.coarse_x + 1;
 }
 
-static __global__ void vvr_sun_decode_kernel(unsigned* __restrict__ g,
-                                             long long n) {
-    const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-    if (i < n) g[i] = __float_as_uint(vvr_unord(g[i]));
-}
+// A face's entries: none for an empty box; else one on each bin its box
+// spans, if at most VVR_SUN_BIN_MAX; else one on each coarse bin, if at
+// most VVR_SUN_BIN_MAX; else one on the global list. Entry k = kx + ky * w
+// goes on list base + ky * stride + kx.
+struct VvrSunEntries {
+    int base, stride, w, n;
+};
 
-static __global__ void vvr_sun_count_kernel(VvrFaces F, VvrSunBasis B,
-                                            VvrSunFrame G,
-                                            long long* __restrict__ cnt) {
-    const int f = blockIdx.x * blockDim.x + threadIdx.x;
-    if (f >= F.n) return;
-    const VvrSunFace s = vvr_sun_face(F, f, B, G);
-    cnt[f] = s.occl ? (long long)((s.oi1 - s.oi0) / VVR_STX + 1)
-                          * (long long)((s.oj1 - s.oj0) / VVR_STY + 1)
-                    : 0;
-}
-
-static __global__ void vvr_sun_texel_kernel(
-        VvrFaces F, VvrSunBasis B, VvrSunFrame G,
-        const long long* __restrict__ off,
-        const long long* __restrict__ total_p, unsigned* __restrict__ gbc) {
-    const long long total = *total_p;
-    const int lane = threadIdx.x & 31;
-    const long long nwarps = ((long long)gridDim.x * blockDim.x) >> 5;
-    for (long long item = ((long long)blockIdx.x * blockDim.x + threadIdx.x)
-                          >> 5;
-         item < total; item += nwarps) {
-        const int f = vvr_item_face(off, F.n, item);
-        const VvrSunFace s = vvr_sun_face(F, f, B, G);
-        const long long li = item - off[f];
-        const int tw = (s.oi1 - s.oi0) / VVR_STX + 1;
-        const int i = s.oi0 + VVR_STX * (int)(li % tw) + (lane & 7);
-        const int j = s.oj0 + VVR_STY * (int)(li / tw) + (lane >> 3);
-        if (i > s.oi1 || j > s.oj1) continue;
-        const float ta0 = G.a0 + (float)i * G.ts;
-        const float tb0 = G.b0 + (float)j * G.ts;
-        bool fully = !s.deg;
-        float zc_min = 3e38f, zc_max = VVR_NEG;
-#pragma unroll
-        for (int k = 0; k < 4; ++k) {  // the texel's corners
-            const float da = (ta0 + (float)(k >> 1) * G.ts) - s.p0a;
-            const float db = (tb0 + (float)(k & 1) * G.ts) - s.p0b;
-            const float uu = (da * s.vb - db * s.va) * s.inv_det;
-            const float vv = (s.ua * db - s.ub * da) * s.inv_det;
-            fully = fully && uu > s.mu && uu < 1.0f - s.mu
-                    && vv > s.mv - s.xv0 && vv < 1.0f - s.mv + s.xv1;
-            const float zc = (s.z00 + da * s.g_a) + db * s.g_b;
-            zc_min = fminf(zc_min, zc);
-            zc_max = fmaxf(zc_max, zc);
+static __device__ VvrSunEntries vvr_sun_entries(int4 box,
+                                                const VvrSunLists& L) {
+    VvrSunEntries r = {0, 0, 1, 0};
+    if (box.x > box.y) return r;
+    for (int level = 0; level < 2; ++level) {
+        const int side = level == 0 ? L.bin_side
+                                    : L.bin_side * VVR_SUN_COARSE;
+        const int x0 = box.x / side, y0 = box.z / side;
+        const int w = box.y / side - x0 + 1;
+        const int n = w * (box.w / side - y0 + 1);
+        if (n <= VVR_SUN_BIN_MAX) {
+            const int stride = level == 0 ? L.bins_x : L.coarse_x;
+            r.base = (level == 0 ? 0 : L.n_bins) + y0 * stride + x0;
+            r.stride = stride;
+            r.w = w;
+            r.n = n;
+            return r;
         }
-        const long long tex = (long long)j * G.grid + i;
-        // gridC: possibly touching -> affine max over the grown texel,
-        // capped by the face's max; edge-on faces use the face's max
-        const float zc_val = s.deg ? s.zmax : fminf(s.zmax, zc_max + s.g_m);
-        atomicMax(gbc + 2 * tex + 1, vvr_ord(zc_val));
-        // gridB: fully covered -> affine min over the texel, capped
-        if (fully) atomicMax(gbc + 2 * tex, vvr_ord(fminf(zc_min, s.zmax)));
+    }
+    r.base = vvr_sun_n_lists(L) - 1;
+    r.n = 1;
+    return r;
+}
+
+// The place of (list k, block b) in the lists: the scan's partial sum at
+// k * nb + b plus its block's carry (vvr_scan_partial)
+static __device__ __forceinline__ long long vvr_sun_place(
+        const long long* __restrict__ cnt, const long long* __restrict__ bsum,
+        long long i) {
+    return cnt[i] + bsum[i >> 10];
+}
+
+// Per face f: its texel box boxes[f] = (oi0, oi1, oj0, oj1), empty (0, -1,
+// 0, -1) for a face that occludes nothing, and for an occluder
+// recs[4f..4f+3], the 16 floats of its texel test (with the comparisons'
+// bounds 1 - mu, mv - xv0 and 1 - mv + xv1 formed as the texel test formed
+// them). Per block: cnt[k * nb + block], its faces' entries in list k
+// (VvrSunLists); a warp adds once per list its lanes share (neighbouring
+// faces lie close together).
+static __global__ void __launch_bounds__(VVR_SUN_FPB)
+vvr_sun_setup_kernel(VvrFaces F, VvrSunBasis B, VvrSunFrame G, VvrSunLists L,
+                     int nb, int4* __restrict__ boxes,
+                     float4* __restrict__ recs, long long* __restrict__ cnt) {
+    __shared__ unsigned s_cnt[VVR_SUN_MAX_LISTS];
+    const int n_lists = vvr_sun_n_lists(L);
+    for (int k = threadIdx.x; k < n_lists; k += blockDim.x) s_cnt[k] = 0;
+    __syncthreads();
+    const int f = blockIdx.x * VVR_SUN_FPB + threadIdx.x;
+    const int lane = threadIdx.x & 31;
+    int4 box = make_int4(0, -1, 0, -1);
+    if (f < F.n) {
+        const VvrSunFace s = vvr_sun_face(F, f, B, G);
+        if (s.occl) {
+            box = make_int4(s.oi0, s.oi1, s.oj0, s.oj1);
+            float4* r = recs + 4 * (size_t)f;
+            r[0] = make_float4(s.p0a, s.p0b, s.ua, s.ub);
+            r[1] = make_float4(s.va, s.vb, s.inv_det, s.mu);
+            r[2] = make_float4(1.0f - s.mu, s.mv - s.xv0,
+                               1.0f - s.mv + s.xv1, s.z00);
+            r[3] = make_float4(s.g_a, s.g_b, s.zmax, s.g_m);
+        }
+        boxes[f] = box;
+    }
+    const VvrSunEntries en = vvr_sun_entries(box, L);
+    const int n_max = __reduce_max_sync(0xffffffffu, en.n);
+    for (int k = 0, kx = 0, ky = 0; k < n_max; ++k) {
+        const int l = k < en.n ? en.base + ky * en.stride + kx : -1;
+        const unsigned peers = __match_any_sync(0xffffffffu, l);
+        if (l >= 0 && lane == __ffs(peers) - 1) {
+            atomicAdd(s_cnt + l, (unsigned)__popc(peers));
+        }
+        if (++kx == en.w) {
+            kx = 0;
+            ++ky;
+        }
+    }
+    __syncthreads();
+    for (int k = threadIdx.x; k < n_lists; k += blockDim.x) {
+        cnt[(long long)k * nb + blockIdx.x] = s_cnt[k];
     }
 }
 
+// The bins in the order their tiles' CTAs start: for each, two int4, (bin,
+// its list's place, its length, its coarse bin's list's place) and (that
+// one's length, the global list's place, its length, 0), by the number of
+// entries their tiles read, most first (in classes of equal bit length;
+// within a class in any order, as the grids do not depend on it), so the
+// busiest tiles start in the first wave rather than the last. One thread
+// per bin finds its place, with one shared-memory atomic per warp and
+// class; the jobs are then written in order, coalesced.
+static __device__ void vvr_sun_order(const VvrSunLists& L, int nb,
+                                     const long long* __restrict__ cnt,
+                                     const long long* __restrict__ bsum,
+                                     const long long* __restrict__ total,
+                                     int4* __restrict__ jobs) {
+    __shared__ int s_lo[VVR_SUN_MAX_LISTS], s_len[VVR_SUN_MAX_LISTS];
+    __shared__ unsigned s_n[33];   // bins per class, then each one's place
+    __shared__ short s_ord[VVR_SUN_MAX_BINS];   // the bins in order
+    const int n_lists = vvr_sun_n_lists(L);
+    for (int k = threadIdx.x; k < n_lists; k += blockDim.x) {
+        const long long lo = vvr_sun_place(cnt, bsum, (long long)k * nb);
+        s_lo[k] = (int)lo;
+        const long long hi =
+            k + 1 < n_lists
+                ? vvr_sun_place(cnt, bsum, (long long)(k + 1) * nb)
+                : *total;
+        s_len[k] = (int)(hi - lo);
+    }
+    if (threadIdx.x < 33) s_n[threadIdx.x] = 0;
+    __syncthreads();
+    const int g = n_lists - 1, lane = threadIdx.x & 31;
+    for (int pass = 0; pass < 2; ++pass) {
+        // whole warps, so that a warp takes one slot per class it holds
+        for (int b0 = threadIdx.x & ~31; b0 < L.n_bins; b0 += blockDim.x) {
+            const int bin = b0 + lane;
+            const int bx = bin % L.bins_x, by = bin / L.bins_x;
+            const int cb = L.n_bins + by / VVR_SUN_COARSE * L.coarse_x
+                           + bx / VVR_SUN_COARSE;
+            const int c = bin < L.n_bins
+                              ? __clz(s_len[bin] + s_len[cb] + s_len[g])
+                              : -1;
+            const unsigned peers = __match_any_sync(0xffffffffu, c);
+            const int leader = __ffs(peers) - 1;
+            unsigned i = 0;
+            if (c >= 0 && lane == leader) {
+                i = atomicAdd(s_n + c, (unsigned)__popc(peers));
+            }
+            i = __shfl_sync(0xffffffffu, i, leader)
+                + __popc(peers & ((1u << lane) - 1u));
+            if (pass == 1 && c >= 0) s_ord[i] = (short)bin;
+        }
+        __syncthreads();
+        if (pass == 0 && threadIdx.x == 0) {
+            unsigned run = 0;
+            for (int c = 0; c < 33; ++c) {
+                const unsigned k = s_n[c];
+                s_n[c] = run;
+                run += k;
+            }
+        }
+        __syncthreads();
+    }
+    for (int q = threadIdx.x; q < L.n_bins; q += blockDim.x) {
+        const int bin = s_ord[q];
+        const int bx = bin % L.bins_x, by = bin / L.bins_x;
+        const int cb = L.n_bins + by / VVR_SUN_COARSE * L.coarse_x
+                       + bx / VVR_SUN_COARSE;
+        jobs[2 * q] = make_int4(bin, s_lo[bin], s_len[bin], s_lo[cb]);
+        jobs[2 * q + 1] = make_int4(s_len[cb], s_lo[g], s_len[g], 0);
+    }
+}
+
+// Blocks 0..nb-1: each occluder's entry (f, oi0 | oi1 << 16, oj0 | oj1 <<
+// 16) in its lists, at its block's place (read into shared memory first)
+// plus a slot in the block's part of the list, one shared-memory atomic per
+// warp and list. Block nb: the tiles' jobs (vvr_sun_order).
+static __global__ void __launch_bounds__(VVR_SUN_FPB)
+vvr_sun_bin_kernel(int n_faces, VvrSunLists L, int nb,
+                   const int4* __restrict__ boxes,
+                   const long long* __restrict__ cnt,
+                   const long long* __restrict__ bsum,
+                   const long long* __restrict__ total,
+                   int4* __restrict__ list, int4* __restrict__ jobs) {
+    if (blockIdx.x == nb) {
+        vvr_sun_order(L, nb, cnt, bsum, total, jobs);
+        return;
+    }
+    __shared__ unsigned s_cnt[VVR_SUN_MAX_LISTS];
+    __shared__ long long s_off[VVR_SUN_MAX_LISTS];
+    const int f = blockIdx.x * VVR_SUN_FPB + threadIdx.x;
+    const int lane = threadIdx.x & 31;
+    const int4 box = f < n_faces ? boxes[f] : make_int4(0, -1, 0, -1);
+    const int n_lists = vvr_sun_n_lists(L);
+    for (int k = threadIdx.x; k < n_lists; k += blockDim.x) {
+        s_cnt[k] = 0;
+        s_off[k] = vvr_sun_place(cnt, bsum, (long long)k * nb + blockIdx.x);
+    }
+    __syncthreads();
+    const int4 entry = make_int4(f, box.x | (box.y << 16),
+                                 box.z | (box.w << 16), 0);
+    const VvrSunEntries en = vvr_sun_entries(box, L);
+    const int n_max = __reduce_max_sync(0xffffffffu, en.n);
+    for (int k = 0, kx = 0, ky = 0; k < n_max; ++k) {
+        const int l = k < en.n ? en.base + ky * en.stride + kx : -1;
+        const unsigned peers = __match_any_sync(0xffffffffu, l);
+        const int leader = __ffs(peers) - 1;
+        unsigned base = 0;
+        if (l >= 0 && lane == leader) {
+            base = atomicAdd(s_cnt + l, (unsigned)__popc(peers));
+        }
+        base = __shfl_sync(0xffffffffu, base, leader);
+        if (l >= 0) {
+            list[s_off[l] + base + __popc(peers & ((1u << lane) - 1u))] =
+                entry;
+        }
+        if (++kx == en.w) {
+            kx = 0;
+            ++ky;
+        }
+    }
+}
+
+// One CTA owns a TILE x TILE tile of texels in shared memory, as (B, C)
+// u32 pairs in the order map. It takes the entries of its bin's list, its
+// coarse bin's and the global list in batches of THREADS, one per thread
+// (the CTA's tile and lists come from its bin's job): the thread clips
+// the entry's box to the tile and, where they meet, stages the face's
+// record and clipped box in its slot; a CTA scan of the clipped texel
+// counts flattens the batch's (face, texel) pairs, and thread t then
+// evaluates the t-th of THREADS equal runs of them, walking its slots'
+// boxes row by row with the record of the slot in registers, as the
+// per-texel build evaluated each texel. All the CTA's threads thus share
+// a tile's pairs, however few faces hold them.
+template <int TILE, int THREADS>
+static __global__ void __launch_bounds__(THREADS)
+vvr_sun_tile_kernel(VvrSunFrame G, int bins_x, int tiles_per_bin,
+                    const int4* __restrict__ jobs,
+                    const float4* __restrict__ recs,
+                    const int4* __restrict__ list, float2* __restrict__ gbc) {
+    // a slot: the record (4 float4) and the clipped box (i0, j0, i1, j1)
+    // in the tile
+    __shared__ float4 s_slot[THREADS][5];
+    __shared__ int s_pre[THREADS];
+    __shared__ int s_ws[THREADS / 32];
+    __shared__ unsigned s_tex[2 * TILE * TILE];
+    const int tid = threadIdx.x;
+    const int tiles_x = (G.grid + TILE - 1) / TILE;
+    // the bin's job (vvr_sun_order) and this CTA's tile of the bin's
+    const int per_bin = tiles_per_bin * tiles_per_bin;
+    const int q = blockIdx.x / per_bin, sub = blockIdx.x - q * per_bin;
+    const int4 job = jobs[2 * q], job2 = jobs[2 * q + 1];
+    const int tx = job.x % bins_x * tiles_per_bin + sub % tiles_per_bin;
+    const int ty = job.x / bins_x * tiles_per_bin + sub / tiles_per_bin;
+    if (tx >= tiles_x || ty >= tiles_x) return;   // past the grid's edge
+    const int x0 = tx * TILE, y0 = ty * TILE;
+    const int x1 = min(x0 + TILE, G.grid) - 1, y1 = min(y0 + TILE, G.grid) - 1;
+    const unsigned neg = vvr_ord(VVR_NEG);
+    for (int k = tid; k < 2 * TILE * TILE; k += THREADS) s_tex[k] = neg;
+    // the entries: the bin list's, the coarse list's, the global list's
+    const int n_bin = job.z, n_two = job.z + job2.x;
+    const int n_all = n_two + job2.z;
+    const float ts0 = 0.0f * G.ts, ts1 = 1.0f * G.ts;   // the corners' steps
+    for (int base = 0; base < n_all; base += THREADS) {
+        __syncthreads();   // the tile's start, or the last batch, is done
+        const int e = base + tid;
+        int cnt = 0;
+        if (e < n_all) {
+            const int4 ent = list[e < n_bin   ? job.y + e
+                                  : e < n_two ? job.w + (e - n_bin)
+                                              : job2.y + (e - n_two)];
+            const int i0 = max(ent.y & 0xFFFF, x0), i1 = min(ent.y >> 16, x1);
+            const int j0 = max(ent.z & 0xFFFF, y0), j1 = min(ent.z >> 16, y1);
+            if (i0 <= i1 && j0 <= j1) {
+                const float4* r = recs + 4 * (size_t)ent.x;
+#pragma unroll
+                for (int k = 0; k < 4; ++k) s_slot[tid][k] = __ldg(r + k);
+                s_slot[tid][4] = make_float4(
+                    __int_as_float(i0 - x0), __int_as_float(j0 - y0),
+                    __int_as_float(i1 - x0), __int_as_float(j1 - y0));
+                cnt = (i1 - i0 + 1) * (j1 - j0 + 1);
+            }
+        }
+        s_pre[tid] = vvr_tile_scan(cnt, s_ws);
+        __syncthreads();
+        const int pairs = s_pre[THREADS - 1];
+        const int per = (pairs + THREADS - 1) / THREADS;
+        int q = tid * per;
+        const int q_end = min(q + per, pairs);
+        if (q >= q_end) continue;
+        int a = 0, z = min(n_all - base, THREADS) - 1;
+        // the slot of pair q: the first whose prefix passes q
+        while (a < z) {
+            const int mid = (a + z) >> 1;
+            if (s_pre[mid] > q) {
+                z = mid;
+            } else {
+                a = mid + 1;
+            }
+        }
+        float4 r0 = s_slot[a][0], r1 = s_slot[a][1];
+        float4 r2 = s_slot[a][2], r3 = s_slot[a][3], geo = s_slot[a][4];
+        int bi0 = __float_as_int(geo.x), bi1 = __float_as_int(geo.z);
+        int a_end = s_pre[a];   // the pairs before the slot's end
+        const int idx = q - (a > 0 ? s_pre[a - 1] : 0);
+        const int bw = bi1 - bi0 + 1;
+        int lj = __float_as_int(geo.y) + idx / bw;
+        int li = bi0 + idx % bw;
+        for (;;) {
+            // the texel test of the per-texel build: r0 = (p0a, p0b, ua,
+            // ub), r1 = (va, vb, inv_det, mu), r2 = (1 - mu, mv - xv0,
+            // 1 - mv + xv1, z00), r3 = (g_a, g_b, zmax, g_m); an edge-on
+            // face (deg) is the one whose inv_det is 0. Corner k lies at
+            // (ta0 + (k >> 1) * ts, tb0 + (k & 1) * ts), each offset
+            // rounded as there; the comparisons are combined without
+            // branches.
+            const bool deg = r1.z == 0.0f;
+            const float ta0 = G.a0 + (float)(x0 + li) * G.ts;
+            const float tb0 = G.b0 + (float)(y0 + lj) * G.ts;
+            const float da[2] = {(ta0 + ts0) - r0.x, (ta0 + ts1) - r0.x};
+            const float db[2] = {(tb0 + ts0) - r0.y, (tb0 + ts1) - r0.y};
+            bool fully = !deg;
+            float zc_min = 3e38f, zc_max = VVR_NEG;
+#pragma unroll
+            for (int k = 0; k < 4; ++k) {  // the texel's corners
+                const float a_ = da[k >> 1], b_ = db[k & 1];
+                const float uu = (a_ * r1.y - b_ * r1.x) * r1.z;
+                const float vv = (r0.z * b_ - r0.w * a_) * r1.z;
+                fully = fully & (uu > r1.w) & (uu < r2.x) & (vv > r2.y)
+                        & (vv < r2.z);
+                const float zc = (r2.w + a_ * r3.x) + b_ * r3.y;
+                zc_min = fminf(zc_min, zc);
+                zc_max = fmaxf(zc_max, zc);
+            }
+            unsigned* t = s_tex + 2 * (lj * TILE + li);
+            // gridC: possibly touching -> affine max over the grown texel,
+            // capped by the face's max; edge-on faces use the face's max
+            atomicMax(t + 1, vvr_ord(deg ? r3.z : fminf(r3.z, zc_max + r3.w)));
+            // gridB: fully covered -> affine min over the texel, capped
+            if (fully) atomicMax(t, vvr_ord(fminf(zc_min, r3.z)));
+            if (++q == q_end) break;
+            if (q < a_end) {   // the next texel of this box
+                if (++li > bi1) {
+                    li = bi0;
+                    ++lj;
+                }
+                continue;
+            }
+            do {   // the next slot with pairs
+                a_end = s_pre[++a];
+            } while (a_end <= q);
+            r0 = s_slot[a][0];
+            r1 = s_slot[a][1];
+            r2 = s_slot[a][2];
+            r3 = s_slot[a][3];
+            geo = s_slot[a][4];
+            bi0 = li = __float_as_int(geo.x);
+            lj = __float_as_int(geo.y);
+            bi1 = __float_as_int(geo.z);
+        }
+    }
+    __syncthreads();
+    for (int k = tid; k < TILE * TILE; k += THREADS) {
+        const int li = k % TILE, lj = k / TILE;
+        if (x0 + li <= x1 && y0 + lj <= y1) {
+            gbc[(long long)(y0 + lj) * G.grid + x0 + li] = make_float2(
+                vvr_unord(s_tex[2 * k]), vvr_unord(s_tex[2 * k + 1]));
+        }
+    }
+}
+
+// scratch (ops/sunshadow.py sun_scratch_bytes): boxes (n_faces int4),
+// records (4 n_faces float4), the lists (n_faces * (VVR_SUN_BIN_MAX + 1)
+// int4), the tiles' jobs (int4 each), the counts ((n_bins + 1) * nb int64)
+// and the scan's block sums and total
 extern "C" int vvr_sun_grids(
         const void* vx, const void* vy, const void* vz, const void* axis,
         const void* sgn, const void* eu, const void* ev, const void* einfo,
         int n_faces, float e1x, float e1y, float e1z, float e2x, float e2y,
         float e2z, float sx, float sy, float sz, float a0, float b0, float ts,
-        int grid, void* scratch, void* gbc, void* stream) {
+        int grid, int tile, int bin_side, void* scratch, void* gbc,
+        void* stream) {
     cudaStream_t st = (cudaStream_t)stream;
     const VvrFaces F = {(const int*)vx, (const int*)vy, (const int*)vz,
                         (const int*)axis, (const int*)sgn, (const int*)eu,
                         (const int*)ev, (const int*)einfo, n_faces};
     const VvrSunBasis B = {e1x, e1y, e1z, e2x, e2y, e2z, sx, sy, sz};
     const VvrSunFrame G = {a0, b0, ts, grid};
-    // scratch: offsets (n_faces), block sums (ceil(n_faces/1024)), total
-    long long* off = (long long*)scratch;
-    long long* bsum = off + n_faces;
-    long long* total = bsum + (n_faces + 1023) / 1024;
-    const long long words = 2LL * grid * grid;
-    vvr_sun_fill_kernel<<<vvr_blocks(words, 256), 256, 0, st>>>(
-        (unsigned*)gbc, words);
-    if (n_faces > 0) {
-        vvr_sun_count_kernel<<<vvr_blocks(n_faces, 256), 256, 0, st>>>(
-            F, B, G, off);
+    const int bins_x = (grid + bin_side - 1) / bin_side;
+    const VvrSunLists L = {bin_side, bins_x, bins_x * bins_x,
+                           (bins_x + VVR_SUN_COARSE - 1) / VVR_SUN_COARSE};
+    if ((tile != 16 && tile != 32) || bin_side % tile != 0
+        || L.n_bins > VVR_SUN_MAX_BINS || grid <= 0 || grid > 65535) {
+        return (int)cudaErrorInvalidValue;
     }
-    vvr_exclusive_scan(off, n_faces, bsum, total, st);
-    vvr_sun_texel_kernel<<<vvr_item_blocks(), 256, 0, st>>>(
-        F, B, G, off, total, (unsigned*)gbc);
-    vvr_sun_decode_kernel<<<vvr_blocks(words, 256), 256, 0, st>>>(
-        (unsigned*)gbc, words);
+    const int nb = max((n_faces + VVR_SUN_FPB - 1) / VVR_SUN_FPB, 1);
+    const int n_lists = L.n_bins + L.coarse_x * L.coarse_x + 1;
+    const int n_cnt = n_lists * nb;
+    // a CTA per tile of each bin, including the tiles past the grid's edge
+    const int n_ctas = L.n_bins * (bin_side / tile) * (bin_side / tile);
+    int4* boxes = (int4*)scratch;
+    float4* recs = (float4*)(boxes + n_faces);
+    int4* list = (int4*)(recs + 4 * (size_t)n_faces);
+    int4* jobs = list + (size_t)n_faces * (VVR_SUN_BIN_MAX + 1);
+    long long* cnt = (long long*)(jobs + 2 * (size_t)L.n_bins);
+    long long* bsum = cnt + n_cnt;
+    long long* total = bsum + (n_cnt + 1023) / 1024;
+    vvr_sun_setup_kernel<<<nb, VVR_SUN_FPB, 0, st>>>(F, B, G, L, nb, boxes,
+                                                      recs, cnt);
+    vvr_scan_partial(cnt, n_cnt, bsum, total, st);
+    vvr_sun_bin_kernel<<<nb + 1, VVR_SUN_FPB, 0, st>>>(
+        n_faces, L, nb, boxes, cnt, bsum, total, list, jobs);
+    if (tile == 16) {
+        vvr_sun_tile_kernel<16, VVR_SUN_TILE_THREADS>
+            <<<n_ctas, VVR_SUN_TILE_THREADS, 0, st>>>(
+                G, bins_x, bin_side / 16, jobs, recs, list, (float2*)gbc);
+    } else {
+        vvr_sun_tile_kernel<32, VVR_SUN_TILE_THREADS>
+            <<<n_ctas, VVR_SUN_TILE_THREADS, 0, st>>>(
+                G, bins_x, bin_side / 32, jobs, recs, list, (float2*)gbc);
+    }
     return (int)cudaGetLastError();
 }
 

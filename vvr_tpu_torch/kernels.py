@@ -90,7 +90,8 @@ KERNELS = {
         (_P, _P, _F, _F, _F, _I, _I, _I, _P, _P, _P, _P, _P),
         "vvr_tpu_torch/csrc/raster.cu", "vvr_tpu/ops/rastertrace.py:190"),
     "sun_grids": Kernel(
-        "vvr_sun_grids", (_P,) * 8 + (_I,) + (_F,) * 12 + (_I, _P, _P, _P),
+        "vvr_sun_grids",
+        (_P,) * 8 + (_I,) + (_F,) * 12 + (_I, _I, _I, _P, _P, _P),
         "vvr_tpu_torch/csrc/sunshadow.cu", "vvr_tpu/ops/sunshadow.py:112"),
     "masked_shadow": Kernel(
         "vvr_masked_shadow",

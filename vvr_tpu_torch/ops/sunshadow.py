@@ -63,6 +63,14 @@ NEAR_K = 6      # near-segment length in voxel crossings
 MASK32 = 0xFFFFFFFF
 # (face, texel) pairs per chunk of the plain build (bounds its memory)
 PLAIN_CHUNK = 1 << 22
+# K11: faces per block of its setup and bin kernels, the most bins, the
+# bins a side of a coarse bin, the most bins (or coarse bins) a face's
+# entries span (csrc/sunshadow.cu VVR_SUN_FPB, VVR_SUN_MAX_BINS,
+# VVR_SUN_COARSE, VVR_SUN_BIN_MAX)
+SUN_FPB = 1024
+SUN_MAX_BINS = 1024
+SUN_COARSE = 8
+SUN_BIN_MAX = 16
 
 
 def sun_basis(sun3):
@@ -218,6 +226,33 @@ def sun_grids_plain(faces, e1, e2, s, size: int, grid: int = GRID):
     return torch.stack([g_b, g_c], 1), a0, b0, ts
 
 
+def sun_tiling(grid: int) -> tuple[int, int]:
+    """K11's (tile side, bin side) in texels at `grid`^2: a CTA owns a
+    tile, and a bin (a square of tiles) holds one face list; the bins are
+    as small as SUN_MAX_BINS allows. 32-texel tiles at 1024^2 and above,
+    16 below, so the 512^2 build of a dragged sun still has a CTA for each
+    of 1024 tiles."""
+    tile = 32 if grid >= 1024 else 16
+    tiles_x = -(-grid // tile)
+    return tile, tile * -(-tiles_x // math.isqrt(SUN_MAX_BINS))
+
+
+def sun_scratch_bytes(n_faces: int, grid: int) -> int:
+    """Bytes of K11's scratch (csrc/sunshadow.cu vvr_sun_grids): per face
+    a texel box (int4), a record (4 float4) and room for SUN_BIN_MAX + 1
+    list entries (int4); a job (2 int4) per bin; a count per (list, block
+    of SUN_FPB faces), int64, the lists being the bins, the coarse bins
+    (SUN_COARSE bins a side) and the global list, with the scan's block
+    sums and total."""
+    bin_side = sun_tiling(grid)[1]
+    bins_x = -(-grid // bin_side)
+    n_lists = bins_x ** 2 + (-(-bins_x // SUN_COARSE)) ** 2 + 1
+    n_cnt = n_lists * max(-(-n_faces // SUN_FPB), 1)
+    return (16 * n_faces * (5 + SUN_BIN_MAX + 1)
+            + 32 * bins_x ** 2
+            + 8 * (n_cnt + -(-n_cnt // 1024) + 1))
+
+
 def sun_grids(faces, e1, e2, s, size: int, grid: int = GRID):
     """Conservative hard-shadow grids (gBC, a0, b0, ts) for sun basis
     (e1, e2, s) from the merged faces (FaceSet.device_tuple()). CUDA:
@@ -226,17 +261,19 @@ def sun_grids(faces, e1, e2, s, size: int, grid: int = GRID):
         return sun_grids_plain(faces, e1, e2, s, size, grid)
     if len(faces) < 8 or any(a.dtype != torch.int32 for a in faces[:8]):
         raise ValueError("faces must be FaceSet.device_tuple()")
+    if not 1 <= grid <= 65535:
+        raise ValueError(f"grid must lie in 1..65535, got {grid}")
     kernels.check_cuda(*faces[:8])
     dev = faces[0].device
     a0, b0, ts = grid_frame(e1, e2, size, grid)
     nf = faces[0].shape[0]
-    scratch = torch.empty(nf + (nf + 1023) // 1024 + 1, dtype=torch.int64,
+    scratch = torch.empty(sun_scratch_bytes(nf, grid), dtype=torch.uint8,
                           device=dev)
     gbc = torch.empty((grid * grid, 2), dtype=F32, device=dev)
     kernels.launch("sun_grids", dev, *(a.data_ptr() for a in faces[:8]), nf,
                    *(float(c) for v in (e1, e2, s) for c in v), float(a0),
-                   float(b0), float(ts), grid, scratch.data_ptr(),
-                   gbc.data_ptr())
+                   float(b0), float(ts), grid, *sun_tiling(grid),
+                   scratch.data_ptr(), gbc.data_ptr())
     return gbc, a0, b0, ts
 
 

@@ -13,11 +13,14 @@ sun_mask="off"`: K1 traces the primary and the shadow rays) at 1920x1080.
 Beside the frames it digests the sky textures (the 256^2 skybox and the
 512^2 clouds) at two (sun, time) pairs, the default sun at t = 0 and a
 low sun at t = 1.75 s, and the second at odd sizes (7^2 and 13^2), each
-built through the renderer's sky cache (`Renderer._sky`). It prints one
-JSON line: for each configuration the SHA-256 of the frame's HDR image
-and of its u8 image, and for each sky the SHA-256 of its skybox and its
-clouds. The calls are those of `Renderer.render` and `Renderer._sky`,
-which earlier checkouts of the port share, so running the script once
+built through the renderer's sky cache (`Renderer._sky`), and the sun
+grids gBC (K11 `sun_grids`) at 2048^2 and 512^2 (the dragged sun's) for
+the default sun and that low sun. It prints one JSON line: for each
+configuration the SHA-256 of the frame's HDR image and of its u8 image,
+for each sky the SHA-256 of its skybox and its clouds, and for each sun
+grid the SHA-256 of gBC. The calls are those of `Renderer.render`,
+`Renderer._sky` and `sun_grids`, which earlier checkouts of the port
+share, so running the script once
 with --root at an unpacked `git archive` of another commit and once
 without, in one call on one card, shows whether the two trees' kernels
 give the same bytes. It exits non-zero without a CUDA device.
@@ -44,10 +47,29 @@ CONFIGS = {"bloom": dict(width=1920, height=1080),
 SKIES = {"sky default sun t 0": (None, 0.0, 256, 512),
          "sky low sun t 1.75": ((0.6, 0.05, 0.8), 1.75, 256, 512),
          "sky low sun t 1.75 at 7/13": ((0.6, 0.05, 0.8), 1.75, 7, 13)}
+# the sun grids: (sun direction before normalization, or None for the
+# renderer's, grid side)
+GRIDS = {f"gbc {name} sun {grid}": (sun, grid)
+         for name, sun in (("default", None), ("low", (0.6, 0.05, 0.8)))
+         for grid in (2048, 512)}
 
 
 def digest(t) -> str:
     return hashlib.sha256(t.contiguous().cpu().numpy().tobytes()).hexdigest()
+
+
+def grid_digests(sunshadow, faces, size: int, default_sun, grids=GRIDS):
+    """{name: SHA-256 of gBC} of `sunshadow.sun_grids` (the module of the
+    package under test) for each entry of `grids`, a sun of None being
+    `default_sun`."""
+    out = {}
+    for name, (sun, grid) in grids.items():
+        s = np.asarray(default_sun if sun is None else sun, np.float32)
+        s = (s / np.linalg.norm(s)).astype(np.float32)
+        gbc = sunshadow.sun_grids(faces, *sunshadow.sun_basis(s), size,
+                                  grid)[0]
+        out[name] = {"gbc": digest(gbc), "shape": list(gbc.shape)}
+    return out
 
 
 def main(argv=None) -> int:
@@ -63,6 +85,7 @@ def main(argv=None) -> int:
         print("frame_digest: no CUDA device", file=sys.stderr)
         return 1
     from vvr_tpu_torch.config import RenderConfig, WorldConfig
+    from vvr_tpu_torch.ops import sunshadow
     from vvr_tpu_torch.ops.rastertrace import raster_camera
     from vvr_tpu_torch.ops.raygen import camera_rays
     from vvr_tpu_torch.render.frame import render_frame
@@ -91,6 +114,7 @@ def main(argv=None) -> int:
         torch.cuda.synchronize()
         out[name] = {"hdr": digest(hdr), "u8": digest(img),
                      "shape": list(img.shape)}
+    default_sun = r.sun[:3].copy()
     for name, (sun, t, r_sky, r_clouds) in SKIES.items():
         r = Renderer(WorldConfig(depth=4), RenderConfig(
             skybox_resolution=r_sky, clouds_resolution=r_clouds),
@@ -103,6 +127,9 @@ def main(argv=None) -> int:
         torch.cuda.synchronize()
         out[name] = {"skybox": digest(skybox), "clouds": digest(clouds),
                      "shapes": [list(skybox.shape), list(clouds.shape)]}
+    out.update(grid_digests(sunshadow, scene.ensure_faces(),
+                            scene.cfg.size, default_sun))
+    torch.cuda.synchronize()
     print(json.dumps(out))
     return 0
 

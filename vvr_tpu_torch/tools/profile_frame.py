@@ -30,10 +30,19 @@ over one scene, and prints, each from this run:
    then a K3 window: default frames in pairs, the first of each pair at a
    new 0.25 s sky bucket (the sky is rebuilt) and the second in the same
    bucket, with K3's device time per bucket and its launches per bucket,
-   and the two kinds of frame on the host clock without the profiler; and
-   a K11 window: sun-grid builds, device time per sun direction;
+   and the two kinds of frame on the host clock without the profiler; K11
+   windows: sun-grid builds at 2048^2 and at 512^2, device time per sun
+   direction and per device kernel; and a drag window: default frames
+   while the sun is dragged (`set_sun_dragging(True)`, the sun turned
+   DRAG_STEP degrees about the vertical every frame, as the app's
+   middle-mouse drag turns it, so each frame builds the 512^2 sun grids
+   and the sky), device time per kernel per frame under the profiler and
+   the median and slowest frame on the host clock without it;
 5. the work counters at this camera (K9's fragments in its tight boxes
-   and in the JAX boxes, its binned (face, tile) pairs and big faces).
+   and in the JAX boxes, its binned (face, tile) pairs and big faces);
+6. K11's work per tile: for the default sun and frame_digest's low sun,
+   at 2048^2 and 512^2, the (face, texel) pairs of the busiest tile
+   against the mean, at tiles of 16, 32 and 64 texels a side.
 
 It measures the vvr_tpu_torch package found under DIR (default: this
 checkout), so one call can run it on an unpacked `git archive` of another
@@ -48,6 +57,7 @@ from __future__ import annotations
 import argparse
 import inspect
 import json
+import math
 import pathlib
 import statistics
 import subprocess
@@ -55,6 +65,7 @@ import sys
 import tempfile
 import time
 
+import numpy as np
 import torch
 
 CAMERA = ([128.0, 100.0, 20.0], [128.0, 20.0, 180.0], 85.0)  # bench.py:33
@@ -83,6 +94,20 @@ ENTRY_KERNELS = {
 # K3's device kernels: one per texture in earlier checkouts, one for both
 K3_KERNELS = ("skybox_kernel", "clouds_kernel", "vvr_sky_kernel")
 SKY_BUCKETS = 8  # sky rebuilds in the K3 window
+LOW_SUN = (0.6, 0.05, 0.8)   # frame_digest.py's low sun
+DRAG_STEP = 0.5   # degrees the dragged sun turns about the vertical a frame
+
+
+def dragged_sun(sun, k: int):
+    """The sun (x, y, z, w) turned k steps of DRAG_STEP degrees about the
+    vertical: a sun dragged along the sky at a fixed height above the
+    horizon, as the app's middle-mouse drag moves it every frame
+    (vvr_tpu/app.py:80-85), as float32 (x, y, z, 0) of unit length."""
+    a = math.radians(DRAG_STEP * k)
+    x, y, z = (float(c) for c in sun[:3])
+    v = np.array([x * math.cos(a) + z * math.sin(a), y,
+                  -x * math.sin(a) + z * math.cos(a)])
+    return np.append(v / np.linalg.norm(v), 0.0).astype(np.float32)
 
 
 def union_us(intervals) -> float:
@@ -248,24 +273,124 @@ def sky_window(renderer, cam, trace_path) -> None:
           f"{statistics.median(host[1]):.4f} ms, max {max(host[1]):.4f}")
 
 
-def k11_window(faces, basis, size: int, trace_path, calls: int = 10) -> None:
-    """K11 per sun direction: `calls` sun-grid builds under the profiler;
-    device time per build, in total and per device kernel."""
+def k11_window(faces, basis, size: int, grid: int, trace_path,
+               calls: int = 10) -> float:
+    """K11 per sun direction at `grid`^2: `calls` sun-grid builds under
+    the profiler; prints the device time per build, in total and per
+    device kernel, and returns the total in us."""
     from vvr_tpu_torch.ops import sunshadow as ss
 
     def run():
         for _ in range(calls):
-            ss.sun_grids(faces, *basis, size)
+            ss.sun_grids(faces, *basis, size, grid)
         torch.cuda.synchronize()
 
     events = trace_events(trace_path, run)
-    per_name: dict[str, float] = {}
+    per_name: dict[str, list[float]] = {}
     for e in events:
-        per_name[e["name"]] = per_name.get(e["name"], 0.0) + e["dur"]
-    print(f"K11 window: {calls} sun-grid builds ({ss.GRID}^2), device "
-          f"{sum(per_name.values()) / calls:.2f} us per sun direction")
-    for k, us in sorted(per_name.items(), key=lambda kv: -kv[1]):
-        print(f"  device {us / calls:9.2f} us/build  {k[:100]}")
+        s = per_name.setdefault(e["name"], [0, 0.0])
+        s[0] += 1
+        s[1] += e["dur"]
+    us = sum(v[1] for v in per_name.values()) / calls
+    print(f"K11 window: {calls} sun-grid builds ({grid}^2), device "
+          f"{us:.2f} us per sun direction in "
+          f"{sum(v[0] for v in per_name.values()) / calls:.1f} device "
+          f"kernels, copies and sets per build")
+    for k, (cnt, t) in sorted(per_name.items(), key=lambda kv: -kv[1][1]):
+        print(f"  device {t / calls:9.2f} us/build  {cnt / calls:4.1f} "
+              f"calls/build  {k[:100]}")
+    return us
+
+
+def tile_pairs(fs, grid: int, tile: int):
+    """(tile, tile)-texel tiles' (face, texel) pairs of K11 at `grid`^2:
+    (tiles per side)^2 int64 counts, from the per-face setup `fs`
+    (sunshadow.face_setup) as the sum over each tile of the number of
+    occluder boxes that cover each texel (a 2D difference array)."""
+    occ = fs["occl"]
+    i0, i1, j0, j1 = (fs[k][occ] for k in ("oi0", "oi1", "oj0", "oj1"))
+    n = grid + 1
+    diff = torch.zeros(n * n, dtype=torch.int64, device=i0.device)
+    for ii, jj, sign in ((i0, j0, 1), (i1 + 1, j0, -1), (i0, j1 + 1, -1),
+                         (i1 + 1, j1 + 1, 1)):
+        diff.index_add_(0, jj * n + ii, torch.full_like(ii, sign))
+    cover = diff.view(n, n).cumsum(0).cumsum(1)[:grid, :grid]
+    t = -(-grid // tile)
+    cover = torch.nn.functional.pad(cover, (0, t * tile - grid,
+                                            0, t * tile - grid))
+    return cover.view(t, tile, t, tile).sum((1, 3))
+
+
+def k11_balance(faces, size: int, suns: dict) -> None:
+    """K11's work per tile: for each sun and grid, the (face, texel) pairs
+    of the busiest tile against the mean over all tiles and over the tiles
+    with work, at tiles of 16, 32 and 64 texels a side, and the occluders'
+    spans in 64-texel bins."""
+    from vvr_tpu_torch.ops import sunshadow as ss
+    for label, sun in suns.items():
+        e1, e2, s = ss.sun_basis(sun)
+        for grid in (ss.GRID, ss.GRID_DRAGGING):
+            a0, b0, ts = ss.grid_frame(e1, e2, size, grid)
+            fs = ss.face_setup(faces, e1, e2, s, a0, b0, ts, grid)
+            occ = fs["occl"]
+            spans = ((fs["oi1"] // 64 - fs["oi0"] // 64 + 1)
+                     * (fs["oj1"] // 64 - fs["oj0"] // 64 + 1))[occ]
+            parts = []
+            for tile in (16, 32, 64):
+                per = tile_pairs(fs, grid, tile).flatten().double()
+                busy = per[per > 0]
+                parts.append(
+                    f"{tile}^2 tiles: {per.numel()}, with work "
+                    f"{busy.numel()}, pairs {float(per.sum()):.0f}, busiest "
+                    f"{float(per.max()):.0f}, mean {float(per.mean()):.1f} "
+                    f"(with work {float(busy.mean()):.1f}), busiest / mean "
+                    f"{float(per.max() / per.mean()):.2f}")
+            print(f"K11 balance, {label} sun, {grid}^2: {int(occ.sum())} "
+                  f"occluders of {occ.numel()} faces, their spans in 64^2 "
+                  f"bins: max {int(spans.max())}, over 16: "
+                  f"{int((spans > 16).sum())}, over 4: "
+                  f"{int((spans > 4).sum())}; " + "; ".join(parts))
+
+
+def drag_window(renderer, cam, trace_path, frames: int) -> None:
+    """Frames while the sun is dragged (`set_sun_dragging(True)`, the sun
+    turned by `dragged_sun` every frame): device time per frame by kernel
+    under the profiler, then the host clock without it."""
+    start = renderer.sun.copy()
+    renderer.set_sun_dragging(True)
+
+    def run(k0):
+        for k in range(frames):
+            renderer.sun = dragged_sun(start, k0 + k + 1)
+            renderer.render(cam, time=0.0)
+            torch.cuda.synchronize()
+
+    run(0)   # the first dragged builds
+    events = trace_events(trace_path, lambda: run(frames))
+    per_name: dict[str, list[float]] = {}
+    for e in events:
+        s = per_name.setdefault(e["name"], [0, 0.0])
+        s[0] += 1
+        s[1] += e["dur"]
+    busy = union_us((e["ts"], e["ts"] + e["dur"]) for e in events)
+    print(f"drag window: {frames} synchronized frames, the sun turned "
+          f"{DRAG_STEP} degrees a frame; device busy "
+          f"{busy / frames / 1e3:.4f} ms per frame")
+    for k, (cnt, us) in sorted(per_name.items(), key=lambda kv: -kv[1][1]):
+        print(f"  device {us / frames:9.2f} us/frame  {cnt / frames:5.1f} "
+              f"calls/frame  {k[:100]}")
+    host = []
+    for k in range(frames):
+        renderer.sun = dragged_sun(start, 2 * frames + k + 1)
+        t0 = time.perf_counter()
+        renderer.render(cam, time=0.0)
+        torch.cuda.synchronize()
+        host.append((time.perf_counter() - t0) * 1e3)
+    print(f"drag window, host clock without the profiler: median "
+          f"{statistics.median(host):.4f} ms, max {max(host):.4f} ms over "
+          f"{frames} dragged frames")
+    renderer.set_sun_dragging(False)
+    renderer.sun = start
 
 
 def main(argv=None) -> int:
@@ -426,8 +551,11 @@ def main(argv=None) -> int:
         window("default knobs", renderer, cam, path)
         window("DDA", dda, cam, pathlib.Path(tmp) / "dda_trace.json")
         sky_window(renderer, cam, pathlib.Path(tmp) / "sky_trace.json")
-        k11_window(faces, (e1, e2, s), wcfg.size,
-                   pathlib.Path(tmp) / "k11_trace.json")
+        for g in (ss.GRID, ss.GRID_DRAGGING):
+            k11_window(faces, (e1, e2, s), wcfg.size, g,
+                       pathlib.Path(tmp) / f"k11_{g}_trace.json")
+        drag_window(renderer, cam, pathlib.Path(tmp) / "drag_trace.json",
+                    FRAMES // 2)
 
     # ---- 5. work at this camera
     st = {}
@@ -475,6 +603,9 @@ def main(argv=None) -> int:
           f"the DDA, their sub-steps mean {float(rit.mean()):.2f} max "
           f"{float(rit.max()):.0f}; lanes by branch "
           f"{dict(zip(ss.BRANCHES, counts))}")
+
+    # ---- 6. K11's work per tile
+    k11_balance(faces, wcfg.size, {"default": sun_np, "low": LOW_SUN})
     return 0
 
 

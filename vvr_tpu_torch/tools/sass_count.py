@@ -9,10 +9,12 @@ this checkout), disassembles it with the toolkit's cuobjdump, and prints
 one JSON line per kernel whose mangled name contains one of the PARTs
 (default: K3's and K8's kernels): its instructions in all, the
 special-function (MUFU) instructions by kind, local-memory loads and
-stores (LDL, STL), and calls (CALL: the slow paths of IEEE division and
-square root). The counts are static: every instruction of the kernel's
-code once, taken or not, so they bound the work of one thread's path
-from above and say which MUFU kinds a source line becomes.
+stores (LDL, STL), calls (CALL: the slow paths of IEEE division and
+square root) and atomics that may reach device memory (ATOMG, RED and
+the generic ATOM; not ATOMS, shared memory). The counts are static:
+every instruction of the kernel's code once, taken or not, so they bound
+the work of one thread's path from above and say which MUFU kinds a
+source line becomes.
 
 --probe compiles, with the package's flags, one small kernel per device
 function that K3's texels call (PROBES: expf, sqrtf, the IEEE division,
@@ -37,6 +39,9 @@ import subprocess
 import sys
 
 PARTS = ("rows_kernel", "skybox_kernel", "clouds_kernel", "vvr_sky_kernel")
+# opcodes of atomics that may reach device memory: ATOMG and RED (global)
+# and ATOM (generic address); ATOMS is shared memory
+GLOBAL_ATOMICS = ("ATOMG", "RED", "ATOM")
 _INSN = re.compile(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)")
 
 
@@ -66,6 +71,8 @@ def count(sass: str, parts) -> dict[str, dict]:
             "local_stores": sum(v for k, v in ops.items()
                                 if k.startswith("STL")),
             "calls": sum(v for k, v in ops.items() if k.startswith("CALL")),
+            "global_atomics": sum(v for k, v in ops.items()
+                                  if k.split(".")[0] in GLOBAL_ATOMICS),
         }
     return result
 
@@ -160,6 +167,13 @@ def probe(kernels, nvcc: pathlib.Path) -> list[dict]:
     return rows
 
 
+def disassemble(lib: pathlib.Path, nvcc: pathlib.Path) -> str:
+    """cuobjdump -sass of the built library, with the toolkit of `nvcc`."""
+    return subprocess.run([str(nvcc.parent / "cuobjdump"), "-sass",
+                           str(lib)], capture_output=True, text=True,
+                          check=True, timeout=300).stdout
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--root", type=pathlib.Path,
@@ -184,9 +198,7 @@ def main(argv=None) -> int:
             print(json.dumps(row))
         return 0
     lib = kernels.build()
-    sass = subprocess.run([str(nvcc.parent / "cuobjdump"), "-sass",
-                           str(lib)], capture_output=True, text=True,
-                          check=True, timeout=300).stdout
+    sass = disassemble(lib, nvcc)
     print(f"SASS of {lib.name} (the vvr_tpu_torch of {root})")
     for name, counts in count(sass, args.parts).items():
         print(json.dumps({"kernel": name, **counts}))
