@@ -6,7 +6,8 @@
 1. prints the card's name and power limit and builds the port's CUDA
    kernels from vvr_tpu_torch/csrc (timed); fails if K11's kernels hold a
    global atomic (ATOMG, RED or ATOM in their SASS, tools/sass_count.py)
-   or a fill or decode pass;
+   or a fill or decode pass, if a K7 kernel's SASS has no HGMMA (wgmma) or
+   any HMMA (mma.sync), or if a K5 kernel spills (`-Xptxas -v`);
 2. the main path: with every launch counter reset, builds the 256^3 world
    on the card from cold (timed) and renders frames of bench.py's
    default-knob configuration (1920x1080, face rasterizer for primary
@@ -58,7 +59,11 @@
    and the CPU's exp and pow rounding of the plain versions run on the
    CPU; K8
    bit-exact against its plain version at odd shapes (1, 2, 3, 4, 16 and 17
-   columns, 1000 and 33 lanes, indices negative and past the rows); prints
+   columns, 1000 and 33 lanes, indices negative and past the rows); K5, K6
+   and K7 (u32 and int32 output) bit-exact against their plain versions at
+   odd shapes (K5_ODD, K7_ODD: K6 where the table fits in a block's shared
+   memory, K7 where the planes do; 1, 33, 1000 and 2^21 + 17 lanes, table
+   words of 2^31 and more, indices negative and past the rows); prints
    the registers and spills of K3 and K8;
 5. times each kernel beside its plain version (CUDA events) and computes
    its bound: the larger of the bytes it must move over 3.35 TB/s and its
@@ -145,6 +150,14 @@ SKY_ULPS = {"exp": 2 + 1, "pow": 4 + 1}
 # K8 against its plain version at odd shapes: (rows, cols), lanes
 K8_ODD = [(4099, c) for c in (1, 2, 3, 4, 16, 17)]
 K8_ODD_LANES = (1000, 33)
+# the chain kernels' odd shapes: lanes, K5's and K6's (rows, cols) (K6 where
+# the table fits in a block's shared memory) and K7's (rows, cols) (where
+# the planes fit with their alignment, ops/gather.py onehot_plan)
+CHAIN_ODD_LANES = (1, 33, 1000, (1 << 21) + 17)
+K5_ODD = [(r, c) for r in (1000, 1024, 266305) for c in (1, 2, 3, 4, 16, 17)]
+K7_ODD = [(r, c) for r in (16, 48, 64, 4096) for c in (2, 4, 8, 16)]
+# name parts of K5's and K7's device kernels
+K5_KERNEL, K7_KERNEL = "chain_kernel", "onehot_kernel"
 LAUNCH_CALLS = 10_000   # host timing of kernels.launch
 # the bloom pyramid's items are its downsampled texels (220 operations
 # each) and its upsampled ones, at this many operations
@@ -285,6 +298,59 @@ def check(cond: bool, what: str) -> None:
         raise AssertionError(what)
 
 
+def chain_odd(gather, dev) -> None:
+    """K5, K6 and K7 bit for bit against their plain versions at odd shapes:
+    CHAIN_ODD_LANES lanes, tables of full-range words (2^31 and more are
+    negative int32 words, whose next index is their floor mod), starting
+    indices negative and past the rows."""
+    import torch
+    shared, onehot, skipped = 0, 0, []
+    for (rows, cols), lanes in ((rc, n) for rc in K5_ODD + K7_ODD
+                                for n in CHAIN_ODD_LANES):
+        gen = torch.Generator(device=dev).manual_seed(rows * 31 + cols * 7
+                                                      + lanes)
+        shape = (rows, cols) if cols > 1 else (rows,)
+        tab = torch.randint(-2 ** 31, 2 ** 31 - 1, shape, generator=gen,
+                            device=dev, dtype=torch.int32).view(torch.uint32)
+        ix = torch.randint(-3 * rows, 3 * rows, (lanes,), generator=gen,
+                           device=dev, dtype=torch.int32)
+        check(bool((tab.view(torch.int32) < 0).any()),
+              "chain odd shapes: no table word of 2^31 or more")
+        check(lanes < 33 or bool((ix < 0).any() and (ix >= rows).any()),
+              "chain odd shapes: no negative or out-of-range index")
+        want = gather.gather_chain_plain(tab, ix)
+        runs = []
+        if (rows, cols) in K5_ODD:
+            runs.append(("K5", lambda: gather.gather_chain(tab, ix)))
+            if tab.numel() * 4 <= gather.SHARED_BYTES:
+                shared += 1
+                runs.append(("K6", lambda: gather.gather_chain_shared(
+                    tab, ix)))
+        else:
+            try:
+                gather.onehot_plan(rows, 4 * cols)
+            except ValueError:
+                skipped.append((rows, cols))
+                continue
+            onehot += 1
+            planes = gather.u8_planes(tab.view(rows, cols))
+            want = gather.gather_onehot_plain(planes, ix)
+            runs.append(("K7", lambda: gather.gather_onehot(planes, ix)))
+            runs.append(("K7 int32", lambda: gather.gather_onehot(
+                planes, ix, torch.int32).view(torch.uint32)))
+        for what, fn in runs:
+            got = fn()
+            check(torch.equal(got.view(torch.int32), want.view(torch.int32)),
+                  f"{what} at {rows}x{cols}, {lanes} lanes: differs from "
+                  "plain")
+    print(f"K5: bit-exact vs plain at rows x cols {K5_ODD} and K6 at the "
+          f"{shared // len(CHAIN_ODD_LANES)} of them that fit in shared "
+          f"memory; K7 (u32 and int32) at {onehot // len(CHAIN_ODD_LANES)} "
+          f"of {K7_ODD} (planes too large for a block: "
+          f"{sorted(set(skipped))}); lanes {list(CHAIN_ODD_LANES)}, words "
+          f"of 2^31 and more, indices negative and past the rows")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -337,6 +403,30 @@ def main() -> int:
           f"RED, ATOM) {sum(k11_atomics.values())} in its "
           f"{len(k11_sass)} kernels {sorted(k11_sass)}")
     for name, regs, st, ld in kernels.ptxas_usage("vvr_sun_"):
+        print(f"ptxas: {name}: {regs} registers, spill stores {st} B, "
+              f"spill loads {ld} B")
+    # K7 multiplies with wgmma (HGMMA), never the per-warp mma.sync (HMMA);
+    # K5 spills nothing
+    k7_sass = sass_count.count(
+        sass_count.disassemble(lib, pathlib.Path(kernels._nvcc())),
+        (K7_KERNEL,))
+    check(bool(k7_sass), "K7's kernels missing from the SASS")
+    for name, counts in k7_sass.items():
+        check(counts["tensor"]["HGMMA"] > 0 and counts["tensor"]["HMMA"] == 0,
+              f"K7 {name}: tensor instructions {counts['tensor']}, expected "
+              "HGMMA and no HMMA")
+    k7_counts = list(k7_sass.values())
+    print(f"K7 SASS (sass_count.py): {len(k7_counts)} kernels, HGMMA "
+          f"{sorted(c['tensor']['HGMMA'] for c in k7_counts)}, HMMA "
+          f"{sum(c['tensor']['HMMA'] for c in k7_counts)}, instructions "
+          f"{sorted(c['instructions'] for c in k7_counts)}")
+    k5_usage = kernels.ptxas_usage(K5_KERNEL)
+    check(bool(k5_usage), "K5's kernels missing from the ptxas report")
+    spills = [(n, st, ld) for n, _, st, ld in k5_usage if st or ld]
+    check(not spills, f"K5 spills: {spills}")
+    print(f"ptxas: K5 {len(k5_usage)} kernels, registers "
+          f"{sorted({r for _, r, _, _ in k5_usage})}, no spills")
+    for name, regs, st, ld in kernels.ptxas_usage(K7_KERNEL):
         print(f"ptxas: {name}: {regs} registers, spill stores {st} B, "
               f"spill loads {ld} B")
 
@@ -836,6 +926,7 @@ def main() -> int:
     print(f"K8: bit-exact vs plain at {rows_} rows x "
           f"{[c for _, c in K8_ODD]} columns, {list(K8_ODD_LANES)} lanes, "
           f"indices negative and past the rows")
+    chain_odd(gather, dev)
 
     sun_col = sky.sun_colour_final(sun3)
     args = (o, d, res_k.hit, res_k.face, res_k.axis_coord, sh_k.hit,

@@ -12,6 +12,7 @@ tolerance). The card holds each kernel against these plain versions at
 N = 2^21 (chip_smoke.py).
 """
 
+import dataclasses
 import importlib.util
 import inspect
 import pathlib
@@ -264,3 +265,103 @@ def test_cuda_default_does_not_fall_back():
         raygen.camera_rays(cam, 4, 4)
     with pytest.raises((AssertionError, RuntimeError)):
         sky.write_skybox(np.array([0.0, 1.0, 0.0], np.float32), 0.0, 4)
+
+
+# The floor mod of K5 and K7 without a division (csrc/gather.cu FloorMod):
+# its host-side twin against torch.remainder, for every rows the
+# microbenchmark and chip_smoke.py's odd shapes use, rows 1-64 and primes
+# near 2^31, on the int32 edge values and 10^4 seeded random int32 values.
+PRIMES_NEAR_2_31 = (2147483647, 2147483629, 2147483587)
+MOD_ROWS = {
+    "experiments": sorted({e.rows for e in bench.EXPERIMENTS}),
+    "1-64": list(range(1, 65)),
+    "odd-shapes": [16, 48, 1000, 1024, 266305],
+    "primes-near-2^31": list(PRIMES_NEAR_2_31),
+}
+
+
+@pytest.mark.parametrize("group", sorted(MOD_ROWS))
+def test_floor_mod_twin_matches_remainder(group):
+    rng = np.random.default_rng(11)
+    rand = rng.integers(-2 ** 31, 2 ** 31, 10_000, dtype=np.int64)
+    for rows in MOD_ROWS[group]:
+        edge = np.array([-2 ** 31, -2 ** 31 + 1, -1, 0, rows - 1,
+                         min(rows, 2 ** 31 - 1), 2 ** 31 - 1], np.int64)
+        x = np.concatenate([edge, rand])
+        want = torch.remainder(torch.from_numpy(x), rows).numpy()
+        got = gather.floor_mod_twin(x.astype(np.int32), rows)
+        np.testing.assert_array_equal(got, want, err_msg=f"rows {rows}")
+        magic = gather.floor_mod_magic(rows)
+        assert 0 <= magic < 1 << 64
+        assert magic == (0 if rows == 1 else -(-(1 << 64) // rows))
+
+
+def _fake_cuda(monkeypatch):
+    """The wrappers' CUDA path on CPU tensors: every tensor counts as on
+    the card and each launch's arguments are recorded, not run."""
+    launches = []
+    monkeypatch.setattr(kernels, "on_cuda", lambda where: True)
+    monkeypatch.setattr(kernels, "check_cuda", lambda *tensors: None)
+    monkeypatch.setattr(kernels, "launch",
+                        lambda name, dev, *args: launches.append((name, args)))
+    return launches
+
+
+@pytest.mark.parametrize("rows", [4096, 1000, 266305, 1])
+def test_chain_wrapper_passes_the_magic(rows, monkeypatch):
+    launches = _fake_cuda(monkeypatch)
+    table = torch.zeros((rows, 2), dtype=torch.uint32)
+    gather.gather_chain(table, torch.zeros(5, dtype=torch.int32))
+    (name, args), = launches
+    assert name == "gather_chain"
+    assert args[1:3] == (rows, 2) and args[4] == 5
+    assert args[-1] == gather.floor_mod_magic(rows)
+
+
+# K7's launch plan at each experiment shape of the microbenchmark (u8 planes
+# of 4 * cols columns) and two odd ones: k tiles a batch, rows a TMA box and
+# shared memory (the planes, their 1024-byte alignment and the mbarrier)
+ONEHOT_PLANS = {
+    (4096, 8): dict(kb=8, box_rows=256, smem=4096 * 16 + 1032),
+    (64, 8): dict(kb=4, box_rows=64, smem=64 * 16 + 1032),
+    (512, 64): dict(kb=2, box_rows=256, smem=512 * 128 + 1032),
+    (48, 16): dict(kb=1, box_rows=16, smem=48 * 32 + 1032),
+    (4096, 16): dict(kb=4, box_rows=256, smem=4096 * 32 + 1032),
+}
+
+
+@pytest.mark.parametrize("shape", sorted(ONEHOT_PLANS),
+                         ids=[f"R{r}xC4{c}" for r, c in sorted(ONEHOT_PLANS)])
+def test_onehot_plan(shape, monkeypatch):
+    plan = gather.onehot_plan(*shape)
+    assert dataclasses.asdict(plan) == ONEHOT_PLANS[shape]
+    # the wrapper passes the plan and the magic number, in this order
+    launches = _fake_cuda(monkeypatch)
+    planes = torch.zeros(shape, dtype=torch.bfloat16)
+    gather.gather_onehot(planes, torch.zeros(3, dtype=torch.int32))
+    (name, args), = launches
+    assert name == "gather_onehot" and args[1:3] == shape
+    assert args[-4:] == (plan.kb, plan.box_rows, plan.smem,
+                         gather.floor_mod_magic(shape[0]))
+
+
+def test_onehot_plans_cover_the_experiments():
+    shapes = {(e.rows, 4 * e.cols) for e in bench.EXPERIMENTS
+              if e.kernel == "gather_onehot"}
+    assert shapes <= set(ONEHOT_PLANS)
+
+
+@pytest.mark.parametrize("shape", [(40, 8), (4096, 12), (4096, 128),
+                                   (2048, 64), (14528, 8), (0, 8)],
+                         ids=["rows-40", "cols4-12", "cols4-128",
+                              "planes-256KiB", "planes-with-alignment",
+                              "no-rows"])
+def test_onehot_wrapper_raises(shape, monkeypatch):
+    """Rows not a multiple of 16, plane columns outside 8, 16, 32, 64, and
+    planes that with their alignment exceed a block's shared memory raise
+    before any launch (14528 x 8 planes fill SHARED_BYTES exactly)."""
+    launches = _fake_cuda(monkeypatch)
+    planes = torch.zeros(shape, dtype=torch.bfloat16)
+    with pytest.raises(ValueError):
+        gather.gather_onehot(planes, torch.zeros(3, dtype=torch.int32))
+    assert launches == []

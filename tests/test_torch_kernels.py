@@ -121,7 +121,8 @@ def test_the_binding_has_a_launcher_per_kernel():
     src = kernels.binding_source()
     spell = {ctypes.c_void_p: ("void*", "as_ptr"),
              ctypes.c_int: ("int", "as_int"),
-             ctypes.c_float: ("float", "as_float")}
+             ctypes.c_float: ("float", "as_float"),
+             ctypes.c_uint64: ("unsigned long long", "as_u64")}
     for name, k in kernels.KERNELS.items():
         c = [spell[t] for t in k.argtypes]
         assert (f'extern "C" int {k.symbol}({", ".join(t for t, _ in c)});'

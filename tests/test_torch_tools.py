@@ -60,7 +60,9 @@ def test_measuring_tools_need_cuda(tool, capsys, monkeypatch):
 def test_sass_count_reads_the_listing():
     """Per kernel: every instruction once, MUFU by kind, local loads and
     stores, calls, atomics that may reach device memory (not the shared
-    ATOMS, nor the warp reduction REDUX); other kernels are left out."""
+    ATOMS, nor the warp reduction REDUX), tensor-core instructions by
+    opcode (HGMMA apart from the per-warp HMMA); other kernels are left
+    out."""
     listing = """
         Function : _ZN12_GLOBAL__N_114vvr_sky_kernelEv
         /*0000*/                   LDC R1, c[0x0][0x28] ;   /* 0x0000 */
@@ -74,14 +76,25 @@ def test_sass_count_reads_the_listing():
         /*0080*/               @P0 RED.E.ADD.STRONG.GPU [R4.64], R5 ;
         /*0090*/                   ATOM.E.MAX.STRONG.GPU PT, R2, [R4.64], R5 ;
         /*00a0*/                   REDUX.SUM UR4, R5 ;      /* 0x0000 */
+        /*00b0*/                   HGMMA.64x8x16.F32.BF16 R24, R24, gdesc[UR4] ;
+        /*00c0*/                   HGMMA.64x8x16.F32.BF16 R24, R28, gdesc[UR4] ;
+        /*00d0*/                   HMMA.16816.F32.BF16 R4, R8, R12, R4 ;
         Function : _Z5otherv
         /*0000*/                   MUFU.RCP R5, R4 ;        /* 0x0000 */
         /*0010*/                   RED.E.ADD.STRONG.GPU [R4.64], R5 ;
+        /*0020*/                   HMMA.16816.F32.BF16 R4, R8, R12, R4 ;
 """
     got = sass_count.count(listing, ["vvr_sky_kernel"])
+    tensor = dict.fromkeys(sass_count.TENSOR_OPS, 0)
+    tensor.update(HGMMA=2, HMMA=1)
     assert got == {"_ZN12_GLOBAL__N_114vvr_sky_kernelEv": {
-        "instructions": 11, "mufu": {"EX2": 1, "RSQ": 1}, "local_loads": 1,
-        "local_stores": 1, "calls": 1, "global_atomics": 3}}
+        "instructions": 14, "mufu": {"EX2": 1, "RSQ": 1}, "local_loads": 1,
+        "local_stores": 1, "calls": 1, "global_atomics": 3,
+        "tensor": tensor}}
+    ops = sass_count.opcodes(listing, ["vvr_sky_kernel"])
+    assert list(ops) == ["_ZN12_GLOBAL__N_114vvr_sky_kernelEv"]
+    assert sum(v for k, v in ops["_ZN12_GLOBAL__N_114vvr_sky_kernelEv"]
+               .items() if k.split(".")[0] == "HGMMA") == 2
 
 
 def test_sass_count_probe_fast_path():

@@ -6,8 +6,9 @@
 //   K5 gather_chain         pallas_take (:92), pallas_tala (gather2 :69);
 //                           the table stays in device memory (L2)
 //   K6 gather_chain_shared  pallas_vreg (:133); the table in shared memory
-//   K7 gather_onehot_mma    pallas_onehot (:177), pallas_onehot (gather2
+//   K7 gather_onehot        pallas_onehot (:177), pallas_onehot (gather2
 //                           :112); the one-hot product on the tensor cores
+//                           with wgmma
 //   K8 gather_rows          pallas_scalar (:228), un-chained; a thread
 //                           or a warp moves rows as 16-, 8- or 4-byte
 //                           vectors
@@ -20,14 +21,18 @@
 // passes 0, but the compiler cannot know it, so the whole-row loads (K5,
 // K6) and every tile's product (K7) are not dropped although only word 0
 // feeds the chain. What bounds each kernel and what its design does about
-// it: ops/gather.py.
+// it: ops/gather.py and the notes above K5 and K7 below.
+#include <cuda.h>
+
 #include "common.cuh"
 
 namespace {
 
 constexpr int kChain = 8;
 constexpr int kThreads = 256;
+constexpr unsigned kFull = 0xffffffffu;
 
+// K6 and K8: the floor mod through the compiler's 32-bit division
 __device__ __forceinline__ int floor_mod(int x, int rows) {
     const int m = x % rows;
     return m < 0 ? m + rows : m;
@@ -36,6 +41,133 @@ __device__ __forceinline__ int floor_mod(int x, int rows) {
 // the chain's next index: (int32(r) ^ idx) mod rows, floor mod
 __device__ __forceinline__ int next_index(uint32_t r, int idx, int rows) {
     return floor_mod((int)r ^ idx, rows);
+}
+
+// ---- K5 and K7: the floor mod without a division ----
+//
+// A power-of-two `rows` takes x & (rows - 1), exact for a negative int32 in
+// two's complement. Any other `rows` in [1, 2^31) takes the direct
+// remainder of Lemire, Kaser & Kurz ("Faster Remainder by Direct
+// Computation", 2019, Theorem 1 with N = 32, F = 64): with M = ceil(2^64 /
+// rows) (mod 2^64, from the host: ops/gather.py floor_mod_magic), a u32
+// value a has a mod rows = hi64((M * a mod 2^64) * rows), exact for every
+// a and rows below 2^32. The signed x is shifted to u = x + 2^31 (the sign
+// bit flipped), so x mod rows = (u mod rows) - (2^31 mod rows), plus rows
+// where that is negative. ops/gather.py floor_mod_twin is this arithmetic
+// in numpy, held to torch.remainder in the CPU tests.
+__device__ __forceinline__ uint32_t mod_u32(uint32_t a,
+                                            unsigned long long magic,
+                                            uint32_t rows) {
+    return (uint32_t)__umul64hi(magic * a, (unsigned long long)rows);
+}
+
+template <bool kPow2>
+struct FloorMod {
+    int rows;
+    unsigned long long magic;
+    int bias;   // 2^31 mod rows
+
+    __device__ __forceinline__ FloorMod(int rows_, unsigned long long m)
+        : rows(rows_), magic(m),
+          bias(kPow2 ? 0 : (int)mod_u32(0x80000000u, m, (uint32_t)rows_)) {}
+
+    __device__ __forceinline__ int operator()(int x) const {
+        if (kPow2) return x & (rows - 1);
+        const int r = (int)mod_u32((uint32_t)x ^ 0x80000000u, magic,
+                                   (uint32_t)rows) - bias;
+        return r < 0 ? r + rows : r;
+    }
+};
+
+// ---- K5: the chain with the table in device memory ----
+//
+// Each thread walks L lanes' chains interleaved (lanes t, t + S, ..., S the
+// grid's threads), so it holds L independent row fetches in flight. Each
+// step fetches every lane's whole row, as the TPU kernel's row take does,
+// through the read-only path in the widest vectors the row allows (V:
+// 16-, 8- or 4-byte; NV vectors a row, 0 when only the run time knows it):
+// all L rows' loads issue before any is used, word 0 feeds the chain and
+// the rest is folded into the sink's value. The floor mod is the
+// division-free FloorMod, so nothing but the fetch is on a lane's chain.
+//
+// What bounds it on the H100: the dependent fetches. The reference's tables
+// up to 266305 rows sit in L2; at 2 and 4 columns a step is a round trip
+// to L2, and two lanes a thread keep two in flight (chain_lanes); from 8
+// columns on the whole rows move 8 * lanes * 4 cols bytes through L1 and
+// L2 (1.07 GB a call at 16 columns, which the HBM-bytes bound does not
+// count), and one lane a thread measured fastest (PERF.md, K5 row).
+template <typename V>
+__device__ __forceinline__ uint32_t xor_words(V v);
+template <>
+__device__ __forceinline__ uint32_t xor_words(uint4 v) {
+    return v.x ^ v.y ^ v.z ^ v.w;
+}
+template <>
+__device__ __forceinline__ uint32_t xor_words(uint2 v) { return v.x ^ v.y; }
+template <>
+__device__ __forceinline__ uint32_t xor_words(uint32_t v) { return v; }
+
+__device__ __forceinline__ uint32_t first_word(uint4 v) { return v.x; }
+__device__ __forceinline__ uint32_t first_word(uint2 v) { return v.x; }
+__device__ __forceinline__ uint32_t first_word(uint32_t v) { return v; }
+
+template <int L, int NV, typename V, bool kPow2>
+__global__ void __launch_bounds__(kThreads)
+chain_kernel(const V* __restrict__ table, int rows, int nv,
+             const int* __restrict__ idx0, int n, uint32_t* __restrict__ out,
+             int keep, uint32_t* __restrict__ sink,
+             unsigned long long magic) {
+    const FloorMod<kPow2> mod(rows, magic);
+    const int vpr = NV > 0 ? NV : nv;
+    const int t = blockIdx.x * kThreads + threadIdx.x;
+    const int stride = gridDim.x * kThreads;
+    int idx[L];
+    uint32_t acc[L];
+#pragma unroll
+    for (int l = 0; l < L; ++l) {
+        const long long i = t + (long long)l * stride;
+        idx[l] = i < n ? mod(__ldg(idx0 + i)) : 0;
+        acc[l] = 0;
+    }
+    uint32_t fold = 0;
+#pragma unroll 1
+    for (int s = 0; s < kChain; ++s) {
+        V head[L];
+#pragma unroll
+        for (int l = 0; l < L; ++l) head[l] = __ldg(table + idx[l] * vpr);
+        if (NV > 1) {
+            V rest[L][NV > 1 ? NV - 1 : 1];
+#pragma unroll
+            for (int l = 0; l < L; ++l)
+#pragma unroll
+                for (int j = 1; j < NV; ++j)
+                    rest[l][j - 1] = __ldg(table + idx[l] * vpr + j);
+#pragma unroll
+            for (int l = 0; l < L; ++l)
+#pragma unroll
+                for (int j = 1; j < NV; ++j) fold ^= xor_words(rest[l][j - 1]);
+        } else if (NV == 0) {
+#pragma unroll
+            for (int l = 0; l < L; ++l) {
+                const V* row = table + idx[l] * vpr;
+#pragma unroll 4
+                for (int j = 1; j < vpr; ++j) fold ^= xor_words(__ldg(row + j));
+            }
+        }
+#pragma unroll
+        for (int l = 0; l < L; ++l) {
+            const uint32_t r = first_word(head[l]);
+            fold ^= xor_words(head[l]);
+            acc[l] += r;
+            idx[l] = mod((int)r ^ idx[l]);
+        }
+    }
+#pragma unroll
+    for (int l = 0; l < L; ++l) {
+        const long long i = t + (long long)l * stride;
+        if (i < n) out[i] = acc[l];
+    }
+    if (keep) sink[t] = fold;
 }
 
 // One whole table row of `cols` words, fetched as the TPU kernel's row take
@@ -86,18 +218,6 @@ __device__ __forceinline__ uint32_t chain(const uint32_t* table, int rows,
     return acc;
 }
 
-// K5: one thread per lane, the table in device memory
-__global__ void __launch_bounds__(kThreads)
-chain_kernel(const uint32_t* __restrict__ table, int rows, int cols,
-             const int* __restrict__ idx0, int n, uint32_t* __restrict__ out,
-             int keep, uint32_t* __restrict__ sink) {
-    const int i = blockIdx.x * blockDim.x + threadIdx.x;
-    if (i >= n) return;
-    uint32_t fold = 0;
-    out[i] = chain(table, rows, cols, idx0[i], fold);
-    if (keep) sink[i] = fold;
-}
-
 // K6: each block copies the table into shared memory once, then walks the
 // lanes with a grid-stride loop (the grid is a few blocks per SM, so the
 // copies stay few)
@@ -125,152 +245,393 @@ chain_shared_kernel(const uint32_t* __restrict__ table, int rows, int cols,
     if (keep) sink[blockIdx.x * blockDim.x + threadIdx.x] = fold;
 }
 
-// ---- K7: the one-hot product on the tensor cores ----
+// ---- K7: the one-hot product on the tensor cores, with wgmma ----
 //
-// Per chain step, G = onehot(idx) (lanes x rows, bf16) . P (rows x 4*cols,
-// bf16 u8 planes) in f32 with mma.sync m16n8k16: M = 16 lanes, K = 16
-// table rows, N = 8 plane columns. Every k tile and every n tile is
-// multiplied, as the MXU product is. A warp holds kMT M tiles, so each B
-// fragment read from shared memory feeds kMT products.
+// Per chain step, G = onehot(idx) (lanes x rows, bf16) . P (rows x C4,
+// bf16 u8 planes, C4 = 4 * cols = 8 NT) in f32, as wgmma.mma_async
+// m64nC4k16: M = 64 lanes, K = 16 table rows, N = C4. Every k tile of
+// every row is multiplied, as the MXU product is. The one-hot A comes from
+// registers; P is B, read from shared memory through a matrix descriptor.
 //
-// Fragment layouts (PTX ISA, mma.m16n8k16 .bf16): with g = lane / 4 and
-// q = lane % 4, a thread's A registers hold rows g and g + 8 at k = 2q,
-// 2q + 1 (and + 8); its B registers hold column g at k = 2q, 2q + 1 (and
-// + 8); its C registers hold rows g and g + 8 at columns 2q, 2q + 1. So
-// the thread that builds a lane's one-hot row also receives that lane's
-// product row: plane columns 0-3, the bytes of table word 0, sit in the
-// C registers of q = 0 (bytes 0, 1) and q = 1 (bytes 2, 3) of the
-// n tile 0, and two shuffles give all four threads of the group the
-// decoded word for the next step.
-constexpr int kMT = 2;
-constexpr unsigned kFull = 0xffffffffu;
-constexpr uint32_t kBf16One = 0x3F80u;
+// The planes. One thread loads them once per CTA with TMA
+// (cp.async.bulk.tensor, boxes of box_rows rows completing on one
+// mbarrier) into wgmma's canonical MN-major layout: rows of C4 bf16, 8
+// rows a core-matrix group; C4 = 8 is the layout without swizzle (a 16-byte
+// row, core matrices of 128 contiguous bytes), C4 = 16, 32, 64 the 32-,
+// 64- and 128-byte swizzled layouts that TMA writes. The k-group stride is
+// 8 rows; the other stride is unused (N is one swizzle width), so both
+// descriptor strides carry it. A k tile's descriptor is the first one plus
+// 16 rows.
+//
+// The A operand. A thread's fragment (PTX ISA, wgmma .m64nNk16 A from
+// registers) holds, for lanes g = lane / 4 and g + 8 of its warp's 16,
+// the k pairs 2q, 2q + 1 and 2q + 8, 2q + 9 (q = lane % 4). Each lane's
+// one-hot value at k tile kt is 1 where idx == 16 kt + k. With
+// x = idx - 2q - (first row of the batch) packed as bf16x2 (x, x), one
+// set.eq.bf16x2 against the constant pair (16 kk, 16 kk + 1) or
+// (16 kk + 8, 16 kk + 9) gives a register of the fragment: 1.0 (0x3F80)
+// or 0 in each half. So a fragment register is one instruction, x two a
+// lane per batch of KB k tiles. The compare is exact: bf16 holds every
+// integer up to 256 in magnitude, the targets are below 16 KB + 10 <= 138,
+// and a larger |x| rounds to 256 or more.
+//
+// The pipeline. A CTA is kWarpgroups warpgroups; each walks pairs of
+// 64-lane tiles (kTilesInFlight, one accumulator each). Per step, the k
+// tiles go in batches of KB: the batch's fragments of both tiles are
+// built, fenced (wgmma.fence), multiplied (2 KB wgmma, alternating the two
+// accumulators), committed as one group and waited for before the next
+// batch is built. ptxas serializes every wgmma of a kernel in which a
+// fragment register is written while a wgmma is in flight (C7513), so a
+// warpgroup cannot build its next batch under its own; the other
+// warpgroups of the SM fill the tensor cores meanwhile. After the last
+// batch the step decodes word 0 from the accumulator fragment: rows g and
+// g + 8 hold plane columns 2q, 2q + 1 of n tile 0, so q = 0 has bytes 0-1
+// and q = 1 bytes 2-3, and two shuffles give the quad the word (exact: each
+// is one plane value 0-255 times 1.0). CTAs are persistent, as many as fit
+// on the card (resident_blocks).
+//
+// What bounds it. At C4 = 64 a wgmma is 32 clocks of an SM's tensor cores
+// and its fragment 4 instructions: the tensor cores set the pace. At C4 =
+// 8 a wgmma is 4 tensor clocks, but its fragment is still 4 set.eq.bf16x2
+// (HSET2, as many clocks as 4 LOP3 or more), a warpgroup waits for
+// each batch before building the next, and registers leave room for 4
+// warpgroups an SM: the wgmma issue and those waits, not the tensor cores,
+// set K7's pace at 2 table columns (PERF.md, K7 row).
+constexpr int kWarpgroups = 2;
+constexpr int kOnehotThreads = 128 * kWarpgroups;
+constexpr int kTilesInFlight = 2;
 
-// bf16x2 register of a one-hot row: 1.0 in the half at k offset d (0 is
-// the low half), or 0 when d is not 0 or 1
-__device__ __forceinline__ uint32_t onehot_pair(int d) {
-    return (unsigned)d < 2u ? (kBf16One << (16 * d)) : 0u;
-}
-
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t a[4],
-                                         uint32_t b0, uint32_t b1) {
-    asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-        "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
-        "{%0, %1, %2, %3};\n"
-        : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// NT = n tiles = 4*cols / 8. Shared memory holds P once per block in B
-// fragment order: [k tile][n tile][lane][2 registers] of bf16x2, so a warp
-// reads each fragment as one conflict-free 8-byte load per thread.
 template <int NT>
-__global__ void __launch_bounds__(kThreads)
-onehot_kernel(const uint16_t* __restrict__ planes, int rows,
-              const int* __restrict__ idx0, int n, uint32_t* __restrict__ out,
-              int keep, uint32_t* __restrict__ sink) {
-    extern __shared__ uint4 smem4[];
-    uint16_t* b16 = reinterpret_cast<uint16_t*>(smem4);
-    const uint2* bfrag = reinterpret_cast<const uint2*>(smem4);
-    constexpr int C4 = NT * 8;
-    for (int e = threadIdx.x; e < rows * C4; e += blockDim.x) {
-        const int k = e / C4, col = e % C4;
-        const int kk = k & 15;
-        const int lane = (col & 7) * 4 + ((kk & 7) >> 1);
-        const int slot = (((k >> 4) * NT + (col >> 3)) * 32 + lane) * 2
-                         + (kk >> 3);
-        b16[slot * 2 + (kk & 1)] = planes[e];
-    }
-    __syncthreads();
+struct Wgmma;
 
-    const int lane = threadIdx.x & 31, g = lane >> 2, q = lane & 3;
-    const int warp = (blockIdx.x * blockDim.x + threadIdx.x) >> 5;
-    const int nwarps = (gridDim.x * blockDim.x) >> 5;
-    const int kt_count = rows >> 4;
-    const int tiles = (n + 16 * kMT - 1) / (16 * kMT);
-    uint32_t fold = 0;
-    for (int tile = warp; tile < tiles; tile += nwarps) {
-        // this thread's lanes: rows g (h = 0) and g + 8 (h = 1) of each
-        // M tile; lanes past n run index 0 and are not stored
-        int idx[kMT][2];
-        uint32_t acc[kMT][2];
+template <>
+struct Wgmma<1> {
+    static __device__ __forceinline__ void mma(
+            float (&d)[4], const uint32_t (&a)[4], uint64_t desc,
+            int scale_d) {
+        asm volatile(
+            "{\n.reg .pred p;\nsetp.ne.b32 p, %9, 0;\n"
+            "wgmma.mma_async.sync.aligned.m64n8k16.f32.bf16.bf16 "
+            "{%0, %1, %2, %3}, "
+            "{%4, %5, %6, %7}, %8, p, 1, 1, 1;\n}\n"
+            : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+            : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc),
+              "r"(scale_d));
+    }
+};
+template <>
+struct Wgmma<2> {
+    static __device__ __forceinline__ void mma(
+            float (&d)[8], const uint32_t (&a)[4], uint64_t desc,
+            int scale_d) {
+        asm volatile(
+            "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+            "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+            "{%0, %1, %2, %3, %4, %5, %6, %7}, "
+            "{%8, %9, %10, %11}, %12, p, 1, 1, 1;\n}\n"
+            : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+              "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+            : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc),
+              "r"(scale_d));
+    }
+};
+template <>
+struct Wgmma<4> {
+    static __device__ __forceinline__ void mma(
+            float (&d)[16], const uint32_t (&a)[4], uint64_t desc,
+            int scale_d) {
+        asm volatile(
+            "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+            "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+            "{%0, %1, %2, %3, %4, %5, %6, %7,\n"
+            "%8, %9, %10, %11, %12, %13, %14, %15}, "
+            "{%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
+            : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+              "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+              "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+              "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+            : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc),
+              "r"(scale_d));
+    }
+};
+template <>
+struct Wgmma<8> {
+    static __device__ __forceinline__ void mma(
+            float (&d)[32], const uint32_t (&a)[4], uint64_t desc,
+            int scale_d) {
+        asm volatile(
+            "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+            "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+            "{%0, %1, %2, %3, %4, %5, %6, %7,\n"
+            "%8, %9, %10, %11, %12, %13, %14, %15,\n"
+            "%16, %17, %18, %19, %20, %21, %22, %23,\n"
+            "%24, %25, %26, %27, %28, %29, %30, %31}, "
+            "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+            : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+              "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+              "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+              "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+              "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+              "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+              "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+              "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+            : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc),
+              "r"(scale_d));
+    }
+};
+
+
+__device__ __forceinline__ void wgmma_fence() {
+    asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+    asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+    asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+// pin a register at this point of the program for the compiler: the
+// fragments are defined before the fence, the accumulators read after the
+// wait
+__device__ __forceinline__ void pin(uint32_t& r) {
+    asm volatile("" : "+r"(r)::"memory");
+}
+__device__ __forceinline__ void pin(float& r) {
+    asm volatile("" : "+f"(r)::"memory");
+}
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+    return (uint32_t)__cvta_generic_to_shared(p);
+}
+
+// wgmma matrix descriptor: start address, leading and stride byte offsets
+// in 16-byte units, layout (0 no swizzle, 1 128-byte, 2 64-byte, 3
+// 32-byte swizzle) in bits 62-63
+__device__ __forceinline__ uint64_t b_descriptor(uint32_t addr,
+                                                 uint32_t stride,
+                                                 uint32_t layout) {
+    return (uint64_t)((addr & 0x3FFFF) >> 4)
+           | ((uint64_t)(stride >> 4) << 16)
+           | ((uint64_t)(stride >> 4) << 32) | ((uint64_t)layout << 62);
+}
+
+// bf16 of a small non-negative integer (exact below 256)
+__host__ __device__ constexpr uint32_t bf16_int(int v) {
+    int e = 0;
+    while ((v >> (e + 1)) != 0) ++e;
+    return v == 0 ? 0u
+                  : (uint32_t)(((127 + e) << 7) | ((v << (7 - e)) & 0x7F));
+}
+// the pair (v, v + 1), low half first
+__host__ __device__ constexpr uint32_t bf16_pair(int v) {
+    return bf16_int(v) | (bf16_int(v + 1) << 16);
+}
+
+__device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
+    uint32_t d;
+    asm("cvt.rn.bf16x2.f32 %0, %1, %2;\n" : "=r"(d) : "f"(hi), "f"(lo));
+    return d;
+}
+__device__ __forceinline__ uint32_t eq_bf16x2(uint32_t x, uint32_t y) {
+    uint32_t d;
+    asm("set.eq.bf16x2.bf16x2 %0, %1, %2;\n" : "=r"(d) : "r"(x), "r"(y));
+    return d;
+}
+
+// the fragments of KB k tiles, for the two tiles in flight, from x of each
+// (tile, row) at the batch's first table row
+template <int KB>
+__device__ __forceinline__ void build_a(uint32_t (&a)[kTilesInFlight][KB][4],
+                                        const float (&x)[kTilesInFlight][2],
+                                        float first) {
 #pragma unroll
-        for (int m = 0; m < kMT; ++m) {
+    for (int t = 0; t < kTilesInFlight; ++t) {
 #pragma unroll
-            for (int h = 0; h < 2; ++h) {
-                const int i = tile * 16 * kMT + m * 16 + g + 8 * h;
-                idx[m][h] = i < n ? floor_mod(idx0[i], rows) : 0;
-                acc[m][h] = 0;
+        for (int h = 0; h < 2; ++h) {
+            const float v = x[t][h] - first;
+            const uint32_t vv = pack_bf16x2(v, v);
+#pragma unroll
+            for (int kk = 0; kk < KB; ++kk) {
+                a[t][kk][h] = eq_bf16x2(vv, bf16_pair(16 * kk));
+                a[t][kk][h + 2] = eq_bf16x2(vv, bf16_pair(16 * kk + 8));
             }
         }
+    }
+#pragma unroll
+    for (int t = 0; t < kTilesInFlight; ++t)
+#pragma unroll
+        for (int kk = 0; kk < KB; ++kk)
+#pragma unroll
+            for (int j = 0; j < 4; ++j) pin(a[t][kk][j]);
+}
+
+// one batch: fence, the KB k tiles of both tiles, commit. The first batch
+// of a step writes the accumulators (scale-d 0 at its first k tile). The
+// descriptor comes as its two words: the low one (start address, leading
+// offset) advances by 16 rows a k tile, the high one is constant.
+template <int NT, int KB, bool kFirst>
+__device__ __forceinline__ void mma_batch(
+        float (&d)[kTilesInFlight][4 * NT],
+        const uint32_t (&a)[kTilesInFlight][KB][4], uint32_t lo,
+        uint32_t hi) {
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < KB; ++kk) {
+        // 16 rows of 16 NT bytes further, in the descriptor's 16-byte units
+        const uint64_t dk = ((uint64_t)hi << 32) | (lo + kk * 16 * NT);
+#pragma unroll
+        for (int t = 0; t < kTilesInFlight; ++t)
+            Wgmma<NT>::mma(d[t], a[t][kk], dk, kFirst && kk == 0 ? 0 : 1);
+    }
+    wgmma_commit();
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+    asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
+                 "r"(count)
+                 : "memory");
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+__device__ __forceinline__ void mbar_expect(uint32_t bar, uint32_t bytes) {
+    asm volatile(
+        "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
+        "r"(bytes)
+        : "memory");
+}
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t phase) {
+    uint32_t done = 0;
+    do {
+        asm volatile(
+            "{\n.reg .pred p;\n"
+            "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+            "selp.u32 %0, 1, 0, p;\n}\n"
+            : "=r"(done)
+            : "r"(bar), "r"(phase)
+            : "memory");
+    } while (!done);
+}
+__device__ __forceinline__ void tma_load_rows(uint32_t dst,
+                                              const CUtensorMap* map,
+                                              int row, uint32_t bar) {
+    asm volatile(
+        "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::"
+        "complete_tx::bytes [%0], [%1, {%2, %3}], [%4];\n" ::"r"(dst),
+        "l"((uint64_t)map), "r"(0), "r"(row), "r"(bar)
+        : "memory");
+}
+
+// the descriptor layout of rows of 16 NT bytes: no swizzle for 16, else
+// the swizzle as wide as the row (the one TMA writes)
+template <int NT>
+__host__ __device__ constexpr uint32_t b_layout() {
+    return NT == 1 ? 0u : NT == 2 ? 3u : NT == 4 ? 2u : 1u;
+}
+
+template <int NT, int KB>
+__global__ void __launch_bounds__(kOnehotThreads, 2)
+onehot_kernel(const __grid_constant__ CUtensorMap planes, int rows,
+              int box_rows, const int* __restrict__ idx0, int n,
+              uint32_t* __restrict__ out, int keep,
+              uint32_t* __restrict__ sink, unsigned long long magic) {
+    extern __shared__ __align__(1024) unsigned char smem_raw[];
+    constexpr int kRowBytes = 16 * NT;
+    // the planes from the first 1024-byte boundary (the 128-byte swizzle's
+    // period), the mbarrier after them
+    const uint32_t raw = smem_addr(smem_raw);
+    const uint32_t base = (raw + 1023u) & ~1023u;
+    const uint32_t bytes = (uint32_t)rows * kRowBytes;
+    const uint32_t bar = base + bytes;
+    if (threadIdx.x == 0) mbar_init(bar, 1);
+    __syncthreads();
+    if (threadIdx.x == 0) {
+        mbar_expect(bar, bytes);
+        for (int r = 0; r < rows; r += box_rows)
+            tma_load_rows(base + (uint32_t)r * kRowBytes, &planes, r, bar);
+    }
+
+    const int wg = threadIdx.x >> 7;
+    const int warp = (threadIdx.x >> 5) & 3;
+    const int lane = threadIdx.x & 31, g = lane >> 2, q = lane & 3;
+    const uint64_t desc = b_descriptor(base, 8 * kRowBytes, b_layout<NT>());
+    const uint32_t desc_lo = (uint32_t)desc, desc_hi = (uint32_t)(desc >> 32);
+    // one past the last batch: rows / 16 k tiles of 16 NT units each
+    const uint32_t desc_end = desc_lo + (uint32_t)(rows >> 4) * 16 * NT;
+    const bool pow2 = (rows & (rows - 1)) == 0;
+    const FloorMod<false> magic_mod(rows, magic);
+    auto mod = [&](int x) { return pow2 ? x & (rows - 1) : magic_mod(x); };
+    const long long pairs = (n + 64LL * kTilesInFlight - 1)
+                            / (64 * kTilesInFlight);
+    uint32_t fold = 0;
+    mbar_wait(bar, 0);
+
+    for (long long p = (long long)blockIdx.x * kWarpgroups + wg; p < pairs;
+         p += (long long)gridDim.x * kWarpgroups) {
+        // this thread's lanes: rows g (h = 0) and g + 8 (h = 1) of its
+        // warp's 16 in each tile; lanes past n run index 0, not stored
+        int idx[kTilesInFlight][2];
+        uint32_t acc[kTilesInFlight][2];
+        float d[kTilesInFlight][4 * NT];
+#pragma unroll
+        for (int t = 0; t < kTilesInFlight; ++t) {
+#pragma unroll
+            for (int h = 0; h < 2; ++h) {
+                const long long i = (p * kTilesInFlight + t) * 64
+                                    + warp * 16 + g + 8 * h;
+                idx[t][h] = i < n ? mod(__ldg(idx0 + i)) : 0;
+                acc[t][h] = 0;
+            }
+#pragma unroll
+            for (int j = 0; j < 4 * NT; ++j) d[t][j] = 0.0f;
+        }
+#pragma unroll 1
         for (int s = 0; s < kChain; ++s) {
-            // each row's one non-zero k tile, and its A registers there
-            int hot[kMT][2];
-            uint32_t lo[kMT][2], hi[kMT][2];
+            float x[kTilesInFlight][2];
 #pragma unroll
-            for (int m = 0; m < kMT; ++m) {
+            for (int t = 0; t < kTilesInFlight; ++t)
+#pragma unroll
+                for (int h = 0; h < 2; ++h)
+                    x[t][h] = (float)(idx[t][h] - 2 * q);
+            // each batch is built with no wgmma of this warpgroup in flight
+            uint32_t a[kTilesInFlight][KB][4];
+            build_a<KB>(a, x, 0.0f);
+            mma_batch<NT, KB, true>(d, a, desc_lo, desc_hi);
+            float first = 0.0f;
+            for (uint32_t lo = desc_lo + KB * 16 * NT; lo != desc_end;
+                 lo += KB * 16 * NT) {
+                first += 16.0f * KB;
+                wgmma_wait<0>();
+                build_a<KB>(a, x, first);
+                mma_batch<NT, KB, false>(d, a, lo, desc_hi);
+            }
+            wgmma_wait<0>();
+#pragma unroll
+            for (int t = 0; t < kTilesInFlight; ++t) {
+#pragma unroll
+                for (int j = 0; j < 4 * NT; ++j) {
+                    pin(d[t][j]);
+                    fold ^= __float_as_uint(d[t][j]);
+                }
 #pragma unroll
                 for (int h = 0; h < 2; ++h) {
-                    hot[m][h] = idx[m][h] >> 4;
-                    const int d = (idx[m][h] & 15) - 2 * q;
-                    lo[m][h] = onehot_pair(d);
-                    hi[m][h] = onehot_pair(d - 8);
-                }
-            }
-            float c[kMT][NT][4];
-#pragma unroll
-            for (int m = 0; m < kMT; ++m)
-#pragma unroll
-                for (int nt = 0; nt < NT; ++nt)
-#pragma unroll
-                    for (int j = 0; j < 4; ++j) c[m][nt][j] = 0.0f;
-#pragma unroll 2
-            for (int kt = 0; kt < kt_count; ++kt) {
-                uint32_t a[kMT][4];
-#pragma unroll
-                for (int m = 0; m < kMT; ++m) {
-                    const bool h0 = kt == hot[m][0], h1 = kt == hot[m][1];
-                    a[m][0] = h0 ? lo[m][0] : 0u;
-                    a[m][1] = h1 ? lo[m][1] : 0u;
-                    a[m][2] = h0 ? hi[m][0] : 0u;
-                    a[m][3] = h1 ? hi[m][1] : 0u;
-                }
-#pragma unroll
-                for (int nt = 0; nt < NT; ++nt) {
-                    const uint2 b = bfrag[(kt * NT + nt) * 32 + lane];
-#pragma unroll
-                    for (int m = 0; m < kMT; ++m)
-                        mma_bf16(c[m][nt], a[m], b.x, b.y);
-                }
-            }
-            // decode word 0 of each row from plane columns 0-3 (exact:
-            // each is one plane value 0-255 times 1.0), then step the chain
-#pragma unroll
-            for (int m = 0; m < kMT; ++m) {
-#pragma unroll
-                for (int h = 0; h < 2; ++h) {
-                    uint32_t part = (uint32_t)c[m][0][2 * h]
-                                    | ((uint32_t)c[m][0][2 * h + 1] << 8);
+                    uint32_t part = (uint32_t)d[t][2 * h]
+                                    | ((uint32_t)d[t][2 * h + 1] << 8);
                     part = q < 2 ? part << (16 * q) : 0u;
                     part |= __shfl_xor_sync(kFull, part, 1);
                     const uint32_t r = __shfl_sync(kFull, part, lane & ~3);
-                    acc[m][h] += r;
-                    idx[m][h] = next_index(r, idx[m][h], rows);
+                    acc[t][h] += r;
+                    idx[t][h] = mod((int)r ^ idx[t][h]);
                 }
-#pragma unroll
-                for (int nt = 0; nt < NT; ++nt)
-#pragma unroll
-                    for (int j = 0; j < 4; ++j)
-                        fold ^= __float_as_uint(c[m][nt][j]);
             }
         }
         if (q == 0) {
 #pragma unroll
-            for (int m = 0; m < kMT; ++m) {
+            for (int t = 0; t < kTilesInFlight; ++t) {
 #pragma unroll
                 for (int h = 0; h < 2; ++h) {
-                    const int i = tile * 16 * kMT + m * 16 + g + 8 * h;
-                    if (i < n) out[i] = acc[m][h];
+                    const long long i = (p * kTilesInFlight + t) * 64
+                                        + warp * 16 + g + 8 * h;
+                    if (i < n) out[i] = acc[t][h];
                 }
             }
         }
@@ -386,11 +747,11 @@ int launch_rows(const void* table, int rows, int cols, const void* idx,
     return (int)cudaGetLastError();
 }
 
-// blocks for a grid-stride kernel: as many as fit on the card at once, no
-// more than the work needs
+// blocks for a grid-stride kernel of `threads` threads: as many as fit on
+// the card at once, no more than the work needs
 template <typename K>
-cudaError_t resident_blocks(K kernel, size_t smem, long long needed,
-                            unsigned* blocks) {
+cudaError_t resident_blocks(K kernel, int threads, size_t smem,
+                            long long needed, unsigned* blocks) {
     cudaError_t err = cudaSuccess;
     if (smem > 48 * 1024) {
         err = cudaFuncSetAttribute(
@@ -402,7 +763,7 @@ cudaError_t resident_blocks(K kernel, size_t smem, long long needed,
     err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
     if (err != cudaSuccess) return err;
     err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
-                                                        kThreads, smem);
+                                                        threads, smem);
     if (err != cudaSuccess) return err;
     if (per_sm < 1) return cudaErrorInvalidConfiguration;
     const long long fit = (long long)sms * per_sm;
@@ -410,33 +771,135 @@ cudaError_t resident_blocks(K kernel, size_t smem, long long needed,
     return cudaSuccess;
 }
 
-template <int NT>
-cudaError_t launch_onehot(const void* planes, int rows, const void* idx,
-                          int n, void* out, int keep, void* sink,
+// K5's lanes per thread, by vectors a row: two where a row is one vector,
+// one where a row is already several loads (1, 2 and 4 lanes measured on
+// the H100: PERF.md, K5 row)
+constexpr int chain_lanes(int nv) { return nv == 1 ? 2 : 1; }
+
+template <int NV, typename V, bool kPow2>
+cudaError_t launch_chain(const void* table, int rows, int nv,
+                         const void* idx, int n, void* out, int keep,
+                         void* sink, unsigned long long magic,
+                         cudaStream_t stream) {
+    constexpr int L = chain_lanes(NV);
+    const long long threads = (n + L - 1LL) / L;
+    chain_kernel<L, NV, V, kPow2>
+        <<<vvr_blocks(threads, kThreads), kThreads, 0, stream>>>(
+            (const V*)table, rows, nv, (const int*)idx, n, (uint32_t*)out,
+            keep, (uint32_t*)sink, magic);
+    return cudaGetLastError();
+}
+
+template <typename V, bool kPow2>
+cudaError_t launch_chain_v(const void* table, int rows, int nv,
+                           const void* idx, int n, void* out, int keep,
+                           void* sink, unsigned long long magic,
+                           cudaStream_t s) {
+    switch (nv) {
+        case 1: return launch_chain<1, V, kPow2>(table, rows, nv, idx, n,
+                                                  out, keep, sink, magic, s);
+        case 2: return launch_chain<2, V, kPow2>(table, rows, nv, idx, n,
+                                                  out, keep, sink, magic, s);
+        case 4: return launch_chain<4, V, kPow2>(table, rows, nv, idx, n,
+                                                  out, keep, sink, magic, s);
+        case 8: return launch_chain<8, V, kPow2>(table, rows, nv, idx, n,
+                                                  out, keep, sink, magic, s);
+        case 16: return launch_chain<16, V, kPow2>(table, rows, nv, idx, n,
+                                                    out, keep, sink, magic,
+                                                    s);
+        default: return launch_chain<0, V, kPow2>(table, rows, nv, idx, n,
+                                                   out, keep, sink, magic,
+                                                   s);
+    }
+}
+
+template <bool kPow2>
+cudaError_t launch_chain_rows(const void* table, int rows, int cols,
+                              const void* idx, int n, void* out, int keep,
+                              void* sink, unsigned long long magic,
+                              cudaStream_t s) {
+    if ((cols & 3) == 0)
+        return launch_chain_v<uint4, kPow2>(table, rows, cols / 4, idx, n,
+                                            out, keep, sink, magic, s);
+    if ((cols & 1) == 0)
+        return launch_chain_v<uint2, kPow2>(table, rows, cols / 2, idx, n,
+                                            out, keep, sink, magic, s);
+    return launch_chain_v<uint32_t, kPow2>(table, rows, cols, idx, n, out,
+                                           keep, sink, magic, s);
+}
+
+// cuTensorMapEncodeTiled, from the driver through the runtime (the
+// library links the runtime only)
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType,
+                                cuuint32_t, void*, const cuuint64_t*,
+                                const cuuint64_t*, const cuuint32_t*,
+                                const cuuint32_t*, CUtensorMapInterleave,
+                                CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                CUtensorMapFloatOOBfill);
+
+cudaError_t encode_planes(CUtensorMap* map, const void* planes, int rows,
+                          int cols4, int box_rows) {
+    static EncodeTiled encode = nullptr;
+    if (encode == nullptr) {
+        void* fn = nullptr;
+        cudaDriverEntryPointQueryResult found;
+        const cudaError_t err = cudaGetDriverEntryPoint(
+            "cuTensorMapEncodeTiled", &fn, cudaEnableDefault, &found);
+        if (err != cudaSuccess) return err;
+        if (found != cudaDriverEntryPointSuccess || fn == nullptr)
+            return cudaErrorNotSupported;
+        encode = (EncodeTiled)fn;
+    }
+    const cuuint64_t dims[2] = {(cuuint64_t)cols4, (cuuint64_t)rows};
+    const cuuint64_t strides[1] = {(cuuint64_t)cols4 * 2};
+    const cuuint32_t box[2] = {(cuuint32_t)cols4, (cuuint32_t)box_rows};
+    const cuuint32_t steps[2] = {1, 1};
+    const CUtensorMapSwizzle swizzle =
+        cols4 == 8 ? CU_TENSOR_MAP_SWIZZLE_NONE
+        : cols4 == 16 ? CU_TENSOR_MAP_SWIZZLE_32B
+        : cols4 == 32 ? CU_TENSOR_MAP_SWIZZLE_64B
+                      : CU_TENSOR_MAP_SWIZZLE_128B;
+    const CUresult r = encode(
+        map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(planes),
+        dims, strides, box, steps, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
+        CU_TENSOR_MAP_L2_PROMOTION_NONE, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+    return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+template <int NT, int KB>
+cudaError_t launch_onehot(const void* planes, int rows, int box_rows,
+                          const void* idx, int n, void* out, int keep,
+                          void* sink, int smem, unsigned long long magic,
                           cudaStream_t stream) {
-    const size_t smem = (size_t)rows * NT * 8 * sizeof(uint16_t);
-    const int warps = kThreads / 32;
-    const long long tiles = (n + 16LL * kMT - 1) / (16 * kMT);
-    unsigned blocks = 0;
-    cudaError_t err = resident_blocks(onehot_kernel<NT>, smem,
-                                      (tiles + warps - 1) / warps, &blocks);
+    CUtensorMap map;
+    cudaError_t err = encode_planes(&map, planes, rows, 8 * NT, box_rows);
     if (err != cudaSuccess) return err;
-    onehot_kernel<NT><<<blocks, kThreads, smem, stream>>>(
-        (const uint16_t*)planes, rows, (const int*)idx, n, (uint32_t*)out,
-        keep, (uint32_t*)sink);
+    const long long pairs = (n + 64LL * kTilesInFlight - 1)
+                            / (64 * kTilesInFlight);
+    unsigned blocks = 0;
+    err = resident_blocks(onehot_kernel<NT, KB>, kOnehotThreads,
+                          (size_t)smem,
+                          (pairs + kWarpgroups - 1) / kWarpgroups, &blocks);
+    if (err != cudaSuccess) return err;
+    onehot_kernel<NT, KB><<<blocks, kOnehotThreads, smem, stream>>>(
+        map, rows, box_rows, (const int*)idx, n, (uint32_t*)out, keep,
+        (uint32_t*)sink, magic);
     return cudaGetLastError();
 }
 
 }  // namespace
 
+// magic: ceil(2^64 / rows) mod 2^64 (ops/gather.py floor_mod_magic)
 extern "C" int vvr_gather_chain(const void* table, int rows, int cols,
                                 const void* idx, int n, void* out, int keep,
-                                void* sink, void* stream) {
-    chain_kernel<<<vvr_blocks(n, kThreads), kThreads, 0,
-                   (cudaStream_t)stream>>>(
-        (const uint32_t*)table, rows, cols, (const int*)idx, n,
-        (uint32_t*)out, keep, (uint32_t*)sink);
-    return (int)cudaGetLastError();
+                                void* sink, unsigned long long magic,
+                                void* stream) {
+    const cudaStream_t s = (cudaStream_t)stream;
+    if ((rows & (rows - 1)) == 0)
+        return (int)launch_chain_rows<true>(table, rows, cols, idx, n, out,
+                                            keep, sink, magic, s);
+    return (int)launch_chain_rows<false>(table, rows, cols, idx, n, out,
+                                         keep, sink, magic, s);
 }
 
 extern "C" int vvr_gather_chain_shared(const void* table, int rows, int cols,
@@ -444,7 +907,7 @@ extern "C" int vvr_gather_chain_shared(const void* table, int rows, int cols,
                                        int keep, void* sink, void* stream) {
     const size_t smem = (size_t)rows * cols * sizeof(uint32_t);
     unsigned blocks = 0;
-    cudaError_t err = resident_blocks(chain_shared_kernel, smem,
+    cudaError_t err = resident_blocks(chain_shared_kernel, kThreads, smem,
                                       vvr_blocks(n, kThreads), &blocks);
     if (err != cudaSuccess) return (int)err;
     chain_shared_kernel<<<blocks, kThreads, smem, (cudaStream_t)stream>>>(
@@ -453,22 +916,37 @@ extern "C" int vvr_gather_chain_shared(const void* table, int rows, int cols,
     return (int)cudaGetLastError();
 }
 
-// cols4 = 4 * table columns = plane columns; 8, 16, 32 or 64
+// cols4 = 4 * table columns = plane columns: 8, 16, 32 or 64. kb (k tiles
+// a batch), box_rows (rows a TMA box) and smem (bytes of shared memory)
+// come from ops/gather.py onehot_plan; they are checked here.
 extern "C" int vvr_gather_onehot(const void* planes, int rows, int cols4,
                                  const void* idx, int n, void* out, int keep,
-                                 void* sink, void* stream) {
+                                 void* sink, int kb, int box_rows, int smem,
+                                 unsigned long long magic, void* stream) {
     const cudaStream_t s = (cudaStream_t)stream;
-    switch (cols4) {
-        case 8: return (int)launch_onehot<1>(planes, rows, idx, n, out, keep,
-                                              sink, s);
-        case 16: return (int)launch_onehot<2>(planes, rows, idx, n, out, keep,
-                                               sink, s);
-        case 32: return (int)launch_onehot<4>(planes, rows, idx, n, out, keep,
-                                               sink, s);
-        case 64: return (int)launch_onehot<8>(planes, rows, idx, n, out, keep,
-                                               sink, s);
+    const int tiles = rows / 16;
+    if (rows <= 0 || rows % 16 != 0 || box_rows < 16 || box_rows > 256
+        || rows % box_rows != 0 || kb < 1 || tiles % kb != 0
+        || (long long)smem < (long long)rows * cols4 * 2 + 1024 + 8)
+        return (int)cudaErrorInvalidValue;
+#define VVR_ONEHOT(NT, KB)                                                  \
+    return (int)launch_onehot<NT, KB>(planes, rows, box_rows, idx, n, out,  \
+                                      keep, sink, smem, magic, s)
+    switch (cols4 * 16 + kb) {
+        case 8 * 16 + 8: VVR_ONEHOT(1, 8);
+        case 8 * 16 + 4: VVR_ONEHOT(1, 4);
+        case 8 * 16 + 2: VVR_ONEHOT(1, 2);
+        case 8 * 16 + 1: VVR_ONEHOT(1, 1);
+        case 16 * 16 + 4: VVR_ONEHOT(2, 4);
+        case 16 * 16 + 2: VVR_ONEHOT(2, 2);
+        case 16 * 16 + 1: VVR_ONEHOT(2, 1);
+        case 32 * 16 + 2: VVR_ONEHOT(4, 2);
+        case 32 * 16 + 1: VVR_ONEHOT(4, 1);
+        case 64 * 16 + 2: VVR_ONEHOT(8, 2);
+        case 64 * 16 + 1: VVR_ONEHOT(8, 1);
         default: return (int)cudaErrorInvalidValue;
     }
+#undef VVR_ONEHOT
 }
 
 // table and out 16-byte aligned (the wrapper checks both); n > 0

@@ -46,13 +46,14 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 PTXAS_VERBOSE = ("-Xptxas", "-v")
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_U64 = ctypes.c_uint64
 
 
 @dataclasses.dataclass(frozen=True)
 class Kernel:
     symbol: str        # C entry point
-    argtypes: tuple    # its argument types (pointer, int, float as ctypes
-    #                    types), the stream last
+    argtypes: tuple    # its argument types (pointer, int, float, uint64 as
+    #                    ctypes types), the stream last
     source: str        # file in the repository
     replaces: str      # JAX pass or Pallas kernel it ports, file:line
     path: str = "frame"  # the entry point that runs it: frame or gather
@@ -99,7 +100,7 @@ KERNELS = {
         + (_I, _P, _P),
         "vvr_tpu_torch/csrc/sunshadow.cu", "vvr_tpu/ops/sunshadow.py:654"),
     "gather_chain": Kernel(
-        "vvr_gather_chain", (_P, _I, _I, _P, _I, _P, _I, _P, _P),
+        "vvr_gather_chain", (_P, _I, _I, _P, _I, _P, _I, _P, _U64, _P),
         "vvr_tpu_torch/csrc/gather.cu",
         "tools/microbench_gather.py:92, tools/microbench_gather2.py:69",
         "gather"),
@@ -108,7 +109,8 @@ KERNELS = {
         "vvr_tpu_torch/csrc/gather.cu", "tools/microbench_gather.py:133",
         "gather"),
     "gather_onehot": Kernel(
-        "vvr_gather_onehot", (_P, _I, _I, _P, _I, _P, _I, _P, _P),
+        "vvr_gather_onehot",
+        (_P, _I, _I, _P, _I, _P, _I, _P, _I, _I, _I, _U64, _P),
         "vvr_tpu_torch/csrc/gather.cu",
         "tools/microbench_gather.py:177, tools/microbench_gather2.py:112",
         "gather"),
@@ -145,7 +147,8 @@ def _nvcc() -> str:
 
 # the CPython binding's C spelling and converter of each argument type
 _C_ARGS = {_P: ("void*", "as_ptr"), _I: ("int", "as_int"),
-           _F: ("float", "as_float")}
+           _F: ("float", "as_float"),
+           _U64: ("unsigned long long", "as_u64")}
 MODULE = "vvr_launch"
 _BINDING_HEAD = """// generated by vvr_tpu_torch/kernels.py from KERNELS
 #define PY_SSIZE_T_CLEAN
@@ -167,6 +170,10 @@ static int as_int(PyObject* o, int* v) {
     *v = (int)x;
     return 1;
 }
+static int as_u64(PyObject* o, unsigned long long* v) {
+    *v = PyLong_AsUnsignedLongLong(o);
+    return !(*v == (unsigned long long)-1 && PyErr_Occurred());
+}
 static int as_float(PyObject* o, float* v) {
     const double x = PyFloat_AsDouble(o);
     if (x == -1.0 && PyErr_Occurred()) return 0;
@@ -185,8 +192,8 @@ static PyObject* error_string(PyObject*, PyObject* arg) {
 def binding_source() -> str:
     """C++ of the CPython binding: for each kernel a METH_FASTCALL function
     `name(*args, stream)` that converts each argument as its ctypes type
-    would (a pointer from an int, a C int with a range check, a float) and
-    returns the entry point's error code."""
+    would (a pointer from an int, a C int with a range check, a float, an
+    unsigned 64-bit int) and returns the entry point's error code."""
     out = [_BINDING_HEAD]
     table = []
     for name, k in KERNELS.items():

@@ -7,17 +7,19 @@ It measures the vvr_tpu_torch package found under DIR (default: this
 checkout), so one call can run it on an unpacked `git archive` of another
 commit and on this one in turns. Prints, each from this run:
 
-1. the registers and spills of K8's and K3's kernels (`-Xptxas -v`, from
-   the library's build report);
+1. the registers and spills of K3's, K5's, K7's and K8's kernels
+   (`-Xptxas -v`, from the library's build report);
 2. K8 and torch.index_select at the two pallas_scalar shapes through the
    microbenchmark's own harness (microbench_gather.run: `ms` is CUDA
    events over back-to-back Python calls, so it carries the host's path),
    HARNESS_RUNS times;
-3. device time per call from torch.profiler with CUDA activity only, in
-   one window: K8 and index_select at both pallas_scalar shapes, and K5
+3. device time per call from torch.profiler with CUDA activity only (and
+   for K5 the bytes of the whole rows its chain fetches, 8 * lanes * row
+   bytes, over that time: its rate through L1 and L2), a profiled window
+   per experiment: K8 and index_select at both pallas_scalar shapes, and K5
    (pallas_take R32768xC16), K6 (pallas_vreg R1024) and K7 (pallas_onehot
-   R4096xC2, u32) at the shapes of PERF.md's kernel table; the window's
-   device events are taken in launch order, CALLS per experiment;
+   R4096xC2, u32) at the shapes of PERF.md's kernel table, and K7 at the
+   other two one-hot shapes (R512xC16, R64xC2), CALLS calls each;
 4. host microseconds per call (time.perf_counter_ns at a 64x2 table and
    32 indices, where device time is negligible; HOST_CALLS calls of each
    piece in ROUNDS rounds, the pieces in turns, and the median round) of
@@ -49,15 +51,18 @@ HOST_CALLS = 10_000   # calls per piece of the host path, over all rounds
 ROUNDS = 5            # the pieces in turns, this many times; the median
 HARNESS_RUNS = 3      # runs of the harness per pallas_scalar shape
 SCALAR = ("pallas_scalar:R266305xC2", "pallas_scalar:R32768xC16")
-# (experiment, kernel) rows of PERF.md's kernel table for K5-K7
+# (experiment, kernel) rows of PERF.md's kernel table for K5-K7, and K7's
+# other two shapes
 OTHERS = (("pallas_take:R32768xC16", "gather_chain"),
           ("pallas_vreg:R1024", "gather_chain_shared"),
-          ("pallas_onehot:R4096xC2", "gather_onehot"))
+          ("pallas_onehot:R4096xC2", "gather_onehot"),
+          ("pallas_onehot:R512xC16", "gather_onehot"),
+          ("pallas_onehot:R64xC2", "gather_onehot"))
 # K8's kernel in the profiler's trace (index_select's kernel depends on
 # the shape: any name)
 K8_NAME = "rows_kernel"
 PTXAS_PARTS = ("rows_kernel", "skybox_kernel", "clouds_kernel",
-               "vvr_sky_kernel")
+               "vvr_sky_kernel", "chain_kernel", "onehot_kernel")
 
 
 def host_us(fn, calls: int = HOST_CALLS) -> float:
@@ -74,38 +79,37 @@ def host_us(fn, calls: int = HOST_CALLS) -> float:
     return (t1 - t0) / calls / 1e3
 
 
-def device_window(plan, calls: int):
+def device_window(plan, calls: int, tries: int = 3):
     """Run each (label, fn, name part) of `plan` `calls` times under
-    torch.profiler (CUDA activity only) and return {label: device us per
-    call}; the trace's device kernels are taken in launch order, `calls`
-    per label, and each must carry its name part."""
+    torch.profiler (CUDA activity only), one profiled window per label,
+    and return {label: device us per call}; each window must hold `calls`
+    device kernels, each carrying its name part. The trace now and then
+    misses a kernel event: such a window is run again, up to `tries`
+    times, before it raises."""
     from torch.profiler import ProfilerActivity, profile
-    for _, fn, _ in plan:
-        fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _, fn, _ in plan:
-            for _ in range(calls):
-                fn()
-            torch.cuda.synchronize()
-    with tempfile.TemporaryDirectory() as tmp:
-        path = pathlib.Path(tmp) / "trace.json"
-        prof.export_chrome_trace(str(path))
-        events = json.loads(path.read_text())["traceEvents"]
-    kern = sorted((e for e in events if e.get("ph") == "X"
-                   and e.get("cat") == "kernel"), key=lambda e: e["ts"])
-    if len(kern) != calls * len(plan):
-        raise AssertionError(f"{len(kern)} device kernels in the window, "
-                             f"expected {calls * len(plan)}: "
-                             f"{sorted({e['name'] for e in kern})}")
     out = {}
-    for k, (label, _, part) in enumerate(plan):
-        seg = kern[k * calls:(k + 1) * calls]
-        names = {e["name"] for e in seg}
-        if not all(part in n for n in names):
-            raise AssertionError(f"{label}: kernels {names}, expected "
-                                 f"'{part}'")
-        out[label] = sum(e["dur"] for e in seg) / calls
+    for label, fn, part in plan:
+        for attempt in range(tries):
+            fn()
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                for _ in range(calls):
+                    fn()
+                torch.cuda.synchronize()
+            with tempfile.TemporaryDirectory() as tmp:
+                path = pathlib.Path(tmp) / "trace.json"
+                prof.export_chrome_trace(str(path))
+                events = json.loads(path.read_text())["traceEvents"]
+            kern = [e for e in events
+                    if e.get("ph") == "X" and e.get("cat") == "kernel"]
+            names = {e["name"] for e in kern}
+            if len(kern) == calls and all(part in n for n in names):
+                break
+            if attempt == tries - 1:
+                raise AssertionError(f"{label}: {len(kern)} device kernels "
+                                     f"{sorted(names)}, expected {calls} "
+                                     f"of '{part}'")
+        out[label] = sum(e["dur"] for e in kern) / calls
     return out
 
 
@@ -160,14 +164,21 @@ def main(argv=None) -> int:
         plan.append((f"index_select {name}",
                      lambda t=t32, i=idx: torch.index_select(t, 0, i),
                      ""))
+    row_bytes = {}
     for name, kernel in OTHERS:
         table, idx = mb.make_inputs(exps[name], 0, dev)
         arg = gather.u8_planes(table) if kernel == "gather_onehot" else table
         fn = getattr(gather, kernel)
-        plan.append((f"{kernel} {name}", lambda f=fn, a=arg, i=idx: f(a, i),
-                     ""))
+        label = f"{kernel} {name}"
+        plan.append((label, lambda f=fn, a=arg, i=idx: f(a, i), ""))
+        if kernel == "gather_chain":
+            row_bytes[label] = mb.CHAIN * idx.numel() * table[0].nbytes
     for label, us in device_window(plan, CALLS).items():
-        print(f"device {label}: {us:.3f} us per call")
+        extra = ""
+        if label in row_bytes:   # the whole rows the chain fetches
+            extra = (f"; rows fetched {row_bytes[label]} B, "
+                     f"{row_bytes[label] / us / 1e6:.3f} TB/s")
+        print(f"device {label}: {us:.3f} us per call{extra}")
 
     # ---- 4. host microseconds per piece of K8's path, a tiny shape
     gen = torch.Generator(device=dev).manual_seed(0)

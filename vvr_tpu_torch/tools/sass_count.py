@@ -1,7 +1,8 @@
 """Static instruction counts of the port's compiled kernels, from their
 SASS, on the machine with the CUDA toolkit.
 
-    python3 vvr_tpu_torch/tools/sass_count.py [--root DIR] [PART ...]
+    python3 vvr_tpu_torch/tools/sass_count.py [--root DIR] [--opcodes]
+        [PART ...]
     python3 vvr_tpu_torch/tools/sass_count.py --probe [--root DIR]
 
 Builds the library of the vvr_tpu_torch package found under DIR (default:
@@ -10,11 +11,15 @@ one JSON line per kernel whose mangled name contains one of the PARTs
 (default: K3's and K8's kernels): its instructions in all, the
 special-function (MUFU) instructions by kind, local-memory loads and
 stores (LDL, STL), calls (CALL: the slow paths of IEEE division and
-square root) and atomics that may reach device memory (ATOMG, RED and
-the generic ATOM; not ATOMS, shared memory). The counts are static:
+square root), atomics that may reach device memory (ATOMG, RED and
+the generic ATOM; not ATOMS, shared memory) and tensor-core instructions
+by opcode (HGMMA: wgmma; HMMA, IMMA, DMMA: the per-warp mma.sync of earlier
+architectures; IGMMA, QGMMA, BGMMA: Hopper's integer, fp8 and binary
+warpgroup products). The counts are static:
 every instruction of the kernel's code once, taken or not, so they bound
 the work of one thread's path from above and say which MUFU kinds a
 source line becomes.
+With --opcodes it also prints each kernel's instructions by opcode.
 
 --probe compiles, with the package's flags, one small kernel per device
 function that K3's texels call (PROBES: expf, sqrtf, the IEEE division,
@@ -42,13 +47,17 @@ PARTS = ("rows_kernel", "skybox_kernel", "clouds_kernel", "vvr_sky_kernel")
 # opcodes of atomics that may reach device memory: ATOMG and RED (global)
 # and ATOM (generic address); ATOMS is shared memory
 GLOBAL_ATOMICS = ("ATOMG", "RED", "ATOM")
+# tensor-core opcodes: warpgroup (HGMMA, IGMMA, QGMMA, BGMMA) and per-warp
+# (HMMA, IMMA, DMMA) products
+TENSOR_OPS = ("HGMMA", "IGMMA", "QGMMA", "BGMMA", "HMMA", "IMMA", "DMMA")
 _INSN = re.compile(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)")
 
 
-def count(sass: str, parts) -> dict[str, dict]:
-    """{mangled kernel name: counts} for the kernels of `sass` (cuobjdump
-    -sass output) whose name contains one of `parts`."""
-    out, name, ops = {}, None, None
+def opcodes(sass: str, parts) -> dict[str, collections.Counter]:
+    """{mangled kernel name: instructions by opcode with its modifiers}
+    for the kernels of `sass` (cuobjdump -sass output) whose name contains
+    one of `parts`."""
+    out, ops = {}, None
     for line in sass.splitlines():
         if "Function :" in line:
             name = line.split("Function :")[1].strip()
@@ -60,8 +69,14 @@ def count(sass: str, parts) -> dict[str, dict]:
         m = _INSN.search(line) if ops is not None else None
         if m:
             ops[m.group(1)] += 1
+    return out
+
+
+def count(sass: str, parts) -> dict[str, dict]:
+    """{mangled kernel name: counts} for the kernels of `sass` (cuobjdump
+    -sass output) whose name contains one of `parts`."""
     result = {}
-    for name, ops in out.items():
+    for name, ops in opcodes(sass, parts).items():
         result[name] = {
             "instructions": sum(ops.values()),
             "mufu": {k.split(".", 1)[1]: v for k, v in sorted(ops.items())
@@ -73,6 +88,9 @@ def count(sass: str, parts) -> dict[str, dict]:
             "calls": sum(v for k, v in ops.items() if k.startswith("CALL")),
             "global_atomics": sum(v for k, v in ops.items()
                                   if k.split(".")[0] in GLOBAL_ATOMICS),
+            "tensor": {op: sum(v for k, v in ops.items()
+                               if k.split(".")[0] == op)
+                       for op in sorted(TENSOR_OPS)},
         }
     return result
 
@@ -181,6 +199,9 @@ def main(argv=None) -> int:
                     help="the checkout whose vvr_tpu_torch is compiled")
     ap.add_argument("--probe", action="store_true",
                     help="count the fast path of K3's device functions")
+    ap.add_argument("--opcodes", action="store_true",
+                    help="also print each kernel's instructions by opcode "
+                         "(modifiers dropped)")
     ap.add_argument("parts", nargs="*", default=list(PARTS))
     args = ap.parse_args(argv)
     root = args.root.resolve()
@@ -202,6 +223,13 @@ def main(argv=None) -> int:
     print(f"SASS of {lib.name} (the vvr_tpu_torch of {root})")
     for name, counts in count(sass, args.parts).items():
         print(json.dumps({"kernel": name, **counts}))
+    if args.opcodes:
+        for name, ops in opcodes(sass, args.parts).items():
+            by_base = collections.Counter()
+            for k, v in ops.items():
+                by_base[k.split(".")[0]] += v
+            print(json.dumps({"kernel": name,
+                              "opcodes": dict(by_base.most_common())}))
     return 0
 
 
