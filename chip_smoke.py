@@ -7,7 +7,8 @@
    kernels from vvr_tpu_torch/csrc (timed); fails if K11's kernels hold a
    global atomic (ATOMG, RED or ATOM in their SASS, tools/sass_count.py)
    or a fill or decode pass, if a K7 kernel's SASS has no HGMMA (wgmma) or
-   any HMMA (mma.sync), or if a K5 kernel spills (`-Xptxas -v`);
+   any HMMA (mma.sync), if a K5 or K6 kernel spills (`-Xptxas -v`), or if
+   a K6 kernel's SASS holds MUFU.RCP (the reciprocal of a division);
 2. the main path: with every launch counter reset, builds the 256^3 world
    on the card from cold (timed) and renders frames of bench.py's
    default-knob configuration (1920x1080, face rasterizer for primary
@@ -61,10 +62,12 @@
    bit-exact against its plain version at odd shapes (1, 2, 3, 4, 16 and 17
    columns, 1000 and 33 lanes, indices negative and past the rows); K5, K6
    and K7 (u32 and int32 output) bit-exact against their plain versions at
-   odd shapes (K5_ODD, K7_ODD: K6 where the table fits in a block's shared
-   memory, K7 where the planes do; 1, 33, 1000 and 2^21 + 17 lanes, table
-   words of 2^31 and more, indices negative and past the rows); prints
-   the registers and spills of K3 and K8;
+   odd shapes (K5_ODD, K6_ODD, K7_ODD: K6 also where a K5_ODD table fits in
+   a block's shared memory, K7 where the planes do; 1, 33, 1000 and
+   2^21 + 17 lanes, table words of 2^31 and more, indices negative and past
+   the rows); K6 and K7 bit-exact again with one kernel instance called at
+   two sizes above 48 KB of shared memory in the order A, B, A
+   (SHARED_IN_TURN); prints the registers and spills of K3 and K8;
 5. times each kernel beside its plain version (CUDA events) and computes
    its bound: the larger of the bytes it must move over 3.35 TB/s and its
    operations over the peak for their type (K3: its float32 and MUFU
@@ -151,13 +154,25 @@ SKY_ULPS = {"exp": 2 + 1, "pow": 4 + 1}
 K8_ODD = [(4099, c) for c in (1, 2, 3, 4, 16, 17)]
 K8_ODD_LANES = (1000, 33)
 # the chain kernels' odd shapes: lanes, K5's and K6's (rows, cols) (K6 where
-# the table fits in a block's shared memory) and K7's (rows, cols) (where
-# the planes fit with their alignment, ops/gather.py onehot_plan)
+# the table fits in a block's shared memory), K6's own (one row, a prime
+# and a power of two near 4096 rows, and a 1-D table of SHARED_WORDS, which
+# fills a block's shared memory) and K7's (rows, cols) (where the planes
+# fit with their alignment, ops/gather.py onehot_plan)
 CHAIN_ODD_LANES = (1, 33, 1000, (1 << 21) + 17)
 K5_ODD = [(r, c) for r in (1000, 1024, 266305) for c in (1, 2, 3, 4, 16, 17)]
+SHARED_WORDS = 58112
+K6_ODD = [(r, c) for r in (1, 4093, 4096) for c in (1, 2)] + [
+    (SHARED_WORDS, 1)]
 K7_ODD = [(r, c) for r in (16, 48, 64, 4096) for c in (2, 4, 8, 16)]
-# name parts of K5's and K7's device kernels
-K5_KERNEL, K7_KERNEL = "chain_kernel", "onehot_kernel"
+# one K6 instance (a 1-D table, rows not a power of two) and one K7
+# instance (8 plane columns, 8 k tiles a batch) each called at a larger,
+# a smaller and again the larger size, all above 48 KB of shared memory:
+# the per-kernel shared-memory limit the launch sets must follow each call
+SHARED_IN_TURN = (("K6", [(SHARED_WORDS, 1), (20000, 1), (SHARED_WORDS, 1)]),
+                  ("K7", [(8192, 2), (4096, 2), (8192, 2)]))
+# name parts of K5's, K6's and K7's device kernels
+K5_KERNEL, K6_KERNEL, K7_KERNEL = ("chain_kernel", "chain_shared_kernel",
+                                   "onehot_kernel")
 LAUNCH_CALLS = 10_000   # host timing of kernels.launch
 # the bloom pyramid's items are its downsampled texels (220 operations
 # each) and its upsampled ones, at this many operations
@@ -301,17 +316,23 @@ def check(cond: bool, what: str) -> None:
 def chain_odd(gather, dev) -> None:
     """K5, K6 and K7 bit for bit against their plain versions at odd shapes:
     CHAIN_ODD_LANES lanes, tables of full-range words (2^31 and more are
-    negative int32 words, whose next index is their floor mod), starting
-    indices negative and past the rows."""
+    negative int32 words, whose next index is their floor mod; the last
+    word always is), starting indices negative and past the rows."""
     import torch
+    check(SHARED_WORDS * 4 == gather.SHARED_BYTES,
+          f"SHARED_WORDS {SHARED_WORDS} does not fill SHARED_BYTES")
     shared, onehot, skipped = 0, 0, []
-    for (rows, cols), lanes in ((rc, n) for rc in K5_ODD + K7_ODD
-                                for n in CHAIN_ODD_LANES):
+    cases = [(kind, rc, n) for kind, shapes in (("chain", K5_ODD + K6_ODD),
+                                                ("onehot", K7_ODD))
+             for rc in shapes for n in CHAIN_ODD_LANES]
+    for kind, (rows, cols), lanes in cases:
         gen = torch.Generator(device=dev).manual_seed(rows * 31 + cols * 7
                                                       + lanes)
         shape = (rows, cols) if cols > 1 else (rows,)
-        tab = torch.randint(-2 ** 31, 2 ** 31 - 1, shape, generator=gen,
-                            device=dev, dtype=torch.int32).view(torch.uint32)
+        t32 = torch.randint(-2 ** 31, 2 ** 31 - 1, shape, generator=gen,
+                            device=dev, dtype=torch.int32)
+        t32.view(-1)[-1] |= -2 ** 31    # a one-row table has a word too
+        tab = t32.view(torch.uint32)
         ix = torch.randint(-3 * rows, 3 * rows, (lanes,), generator=gen,
                            device=dev, dtype=torch.int32)
         check(bool((tab.view(torch.int32) < 0).any()),
@@ -320,8 +341,9 @@ def chain_odd(gather, dev) -> None:
               "chain odd shapes: no negative or out-of-range index")
         want = gather.gather_chain_plain(tab, ix)
         runs = []
-        if (rows, cols) in K5_ODD:
-            runs.append(("K5", lambda: gather.gather_chain(tab, ix)))
+        if kind == "chain":
+            if (rows, cols) in K5_ODD:
+                runs.append(("K5", lambda: gather.gather_chain(tab, ix)))
             if tab.numel() * 4 <= gather.SHARED_BYTES:
                 shared += 1
                 runs.append(("K6", lambda: gather.gather_chain_shared(
@@ -343,12 +365,49 @@ def chain_odd(gather, dev) -> None:
             check(torch.equal(got.view(torch.int32), want.view(torch.int32)),
                   f"{what} at {rows}x{cols}, {lanes} lanes: differs from "
                   "plain")
-    print(f"K5: bit-exact vs plain at rows x cols {K5_ODD} and K6 at the "
-          f"{shared // len(CHAIN_ODD_LANES)} of them that fit in shared "
-          f"memory; K7 (u32 and int32) at {onehot // len(CHAIN_ODD_LANES)} "
+    check(shared == len(CHAIN_ODD_LANES) * (len(K6_ODD) + sum(
+        r * c * 4 <= gather.SHARED_BYTES for r, c in K5_ODD)),
+          "K6 skipped an odd shape")
+    print(f"K5: bit-exact vs plain at rows x cols {K5_ODD}; K6 at the "
+          f"{shared // len(CHAIN_ODD_LANES) - len(K6_ODD)} of them that fit "
+          f"in shared memory and at {K6_ODD}; K7 (u32 and int32) at "
+          f"{onehot // len(CHAIN_ODD_LANES)} "
           f"of {K7_ODD} (planes too large for a block: "
           f"{sorted(set(skipped))}); lanes {list(CHAIN_ODD_LANES)}, words "
           f"of 2^31 and more, indices negative and past the rows")
+
+
+def shared_in_turn(gather, dev) -> None:
+    """K6 and K7 bit for bit against their plain versions with one kernel
+    instance called at two shared-memory sizes above 48 KB, in the order
+    A, B, A (SHARED_IN_TURN), at 4099 lanes."""
+    import torch
+    lanes = 4099
+    for what, shapes in SHARED_IN_TURN:
+        for rows, cols in shapes:
+            gen = torch.Generator(device=dev).manual_seed(rows + cols)
+            shape = (rows, cols) if cols > 1 else (rows,)
+            tab = torch.randint(-2 ** 31, 2 ** 31 - 1, shape, generator=gen,
+                                device=dev, dtype=torch.int32
+                                ).view(torch.uint32)
+            ix = torch.randint(-3 * rows, 3 * rows, (lanes,), generator=gen,
+                               device=dev, dtype=torch.int32)
+            if what == "K6":
+                check(tab.numel() * 4 > 48 * 1024,
+                      f"K6 at {rows}x{cols} is not above 48 KB")
+                got = gather.gather_chain_shared(tab, ix)
+                want = gather.gather_chain_plain(tab, ix)
+            else:
+                check(gather.onehot_plan(rows, 4 * cols).smem > 48 * 1024,
+                      f"K7 at {rows}x{cols} is not above 48 KB")
+                planes = gather.u8_planes(tab.view(rows, cols))
+                got = gather.gather_onehot(planes, ix)
+                want = gather.gather_onehot_plain(planes, ix)
+            check(torch.equal(got.view(torch.int32), want.view(torch.int32)),
+                  f"{what} at {rows}x{cols} in turn: differs from plain")
+    print("K6 and K7: bit-exact vs plain with one instance called at two "
+          "shared-memory sizes above 48 KB in turn: "
+          + "; ".join(f"{what} {shapes}" for what, shapes in SHARED_IN_TURN))
 
 
 def main() -> int:
@@ -388,9 +447,8 @@ def main() -> int:
     lib = kernels.build()
     print(f"build: {time.perf_counter() - t0:.2f} s -> {lib.name}")
     # K11's kernels: no fill or decode pass, no atomic on device memory
-    k11_sass = sass_count.count(
-        sass_count.disassemble(lib, pathlib.Path(kernels._nvcc())),
-        K11_SASS)
+    sass = sass_count.disassemble(lib, pathlib.Path(kernels._nvcc()))
+    k11_sass = sass_count.count(sass, K11_SASS)
     k11_atomics = {k: v["global_atomics"] for k, v in k11_sass.items()}
     check(any("vvr_sun_tile_kernel" in k for k in k11_sass),
           f"K11's tile kernel missing from the SASS: {sorted(k11_sass)}")
@@ -406,10 +464,8 @@ def main() -> int:
         print(f"ptxas: {name}: {regs} registers, spill stores {st} B, "
               f"spill loads {ld} B")
     # K7 multiplies with wgmma (HGMMA), never the per-warp mma.sync (HMMA);
-    # K5 spills nothing
-    k7_sass = sass_count.count(
-        sass_count.disassemble(lib, pathlib.Path(kernels._nvcc())),
-        (K7_KERNEL,))
+    # K5 and K6 spill nothing
+    k7_sass = sass_count.count(sass, (K7_KERNEL,))
     check(bool(k7_sass), "K7's kernels missing from the SASS")
     for name, counts in k7_sass.items():
         check(counts["tensor"]["HGMMA"] > 0 and counts["tensor"]["HMMA"] == 0,
@@ -420,12 +476,22 @@ def main() -> int:
           f"{sorted(c['tensor']['HGMMA'] for c in k7_counts)}, HMMA "
           f"{sum(c['tensor']['HMMA'] for c in k7_counts)}, instructions "
           f"{sorted(c['instructions'] for c in k7_counts)}")
-    k5_usage = kernels.ptxas_usage(K5_KERNEL)
-    check(bool(k5_usage), "K5's kernels missing from the ptxas report")
-    spills = [(n, st, ld) for n, _, st, ld in k5_usage if st or ld]
-    check(not spills, f"K5 spills: {spills}")
-    print(f"ptxas: K5 {len(k5_usage)} kernels, registers "
-          f"{sorted({r for _, r, _, _ in k5_usage})}, no spills")
+    for what, part in (("K5", K5_KERNEL), ("K6", K6_KERNEL)):
+        usage = kernels.ptxas_usage(part)
+        check(bool(usage), f"{what}'s kernels missing from the ptxas report")
+        spills = [(n, st, ld) for n, _, st, ld in usage if st or ld]
+        check(not spills, f"{what} spills: {spills}")
+        print(f"ptxas: {what} {len(usage)} kernels, registers "
+              f"{sorted({r for _, r, _, _ in usage})}, no spills")
+    # K6's floor mod is a mask or a multiply-high, never a division
+    k6_ops = sass_count.opcodes(sass, (K6_KERNEL,))
+    check(bool(k6_ops), "K6's kernels missing from the SASS")
+    rcp = {k: sum(v for op, v in ops.items() if op.startswith("MUFU.RCP"))
+           for k, ops in k6_ops.items()}
+    check(sum(rcp.values()) == 0, f"K6 kernels with MUFU.RCP: "
+          f"{ {k: v for k, v in rcp.items() if v} }")
+    print(f"K6 SASS (sass_count.py): {len(k6_ops)} kernels, MUFU.RCP 0, "
+          f"instructions {sorted(sum(o.values()) for o in k6_ops.values())}")
     for name, regs, st, ld in kernels.ptxas_usage(K7_KERNEL):
         print(f"ptxas: {name}: {regs} registers, spill stores {st} B, "
               f"spill loads {ld} B")
@@ -927,6 +993,7 @@ def main() -> int:
           f"{[c for _, c in K8_ODD]} columns, {list(K8_ODD_LANES)} lanes, "
           f"indices negative and past the rows")
     chain_odd(gather, dev)
+    shared_in_turn(gather, dev)
 
     sun_col = sky.sun_colour_final(sun3)
     args = (o, d, res_k.hit, res_k.face, res_k.axis_coord, sh_k.hit,

@@ -267,7 +267,7 @@ def test_cuda_default_does_not_fall_back():
         sky.write_skybox(np.array([0.0, 1.0, 0.0], np.float32), 0.0, 4)
 
 
-# The floor mod of K5 and K7 without a division (csrc/gather.cu FloorMod):
+# The floor mod of K5, K6 and K7 without a division (csrc/gather.cu FloorMod):
 # its host-side twin against torch.remainder, for every rows the
 # microbenchmark and chip_smoke.py's odd shapes use, rows 1-64 and primes
 # near 2^31, on the int32 edge values and 10^4 seeded random int32 values.
@@ -307,15 +307,48 @@ def _fake_cuda(monkeypatch):
     return launches
 
 
-@pytest.mark.parametrize("rows", [4096, 1000, 266305, 1])
-def test_chain_wrapper_passes_the_magic(rows, monkeypatch):
+# K5 at rows 4096, 1000, 266305 and 1; K6 (the same launch arguments) at
+# tables that fit in a block's shared memory
+CHAIN_LAUNCHES = [("gather_chain", r) for r in (4096, 1000, 266305, 1)] + [
+    ("gather_chain_shared", r) for r in (4096, 1000, 4093, 1)]
+
+
+@pytest.mark.parametrize(
+    "wrapper, rows", CHAIN_LAUNCHES,
+    ids=[str(r) if w == "gather_chain" else f"shared-{r}"
+         for w, r in CHAIN_LAUNCHES])
+def test_chain_wrapper_passes_the_magic(wrapper, rows, monkeypatch):
     launches = _fake_cuda(monkeypatch)
     table = torch.zeros((rows, 2), dtype=torch.uint32)
-    gather.gather_chain(table, torch.zeros(5, dtype=torch.int32))
+    getattr(gather, wrapper)(table, torch.zeros(5, dtype=torch.int32))
     (name, args), = launches
-    assert name == "gather_chain"
+    assert name == wrapper
     assert args[1:3] == (rows, 2) and args[4] == 5
+    assert args[6:8] == (0, 0)          # keep 0, no sink
     assert args[-1] == gather.floor_mod_magic(rows)
+    assert len(args) + 1 == len(kernels.KERNELS[wrapper].argtypes)
+
+
+@pytest.mark.parametrize("shape, fits", [
+    ((gather.SHARED_BYTES // 4,), True), ((gather.SHARED_BYTES // 4 + 1,),
+                                         False),
+    ((gather.SHARED_BYTES // 8, 2), True), ((29057, 2), False),
+    ((1, 1), True)], ids=["1d-full", "1d-one-word-over", "2-cols-full",
+                          "2-cols-over", "one-word"])
+def test_shared_wrapper_takes_what_fits(shape, fits, monkeypatch):
+    """K6 takes a table of up to SHARED_BYTES (a 1-D one of exactly 58,112
+    words fills a block's shared memory) and raises, before any launch, on
+    a larger one."""
+    launches = _fake_cuda(monkeypatch)
+    table = torch.zeros(shape, dtype=torch.uint32)
+    idx = torch.zeros(3, dtype=torch.int32)
+    if fits:
+        gather.gather_chain_shared(table, idx)
+        assert [name for name, _ in launches] == ["gather_chain_shared"]
+    else:
+        with pytest.raises(ValueError, match="use gather_chain"):
+            gather.gather_chain_shared(table, idx)
+        assert launches == []
 
 
 # K7's launch plan at each experiment shape of the microbenchmark (u8 planes

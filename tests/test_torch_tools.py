@@ -11,11 +11,12 @@ import torch
 
 from vvr_tpu_torch.config import WorldConfig
 from vvr_tpu_torch.ops import sunshadow
+from vvr_tpu_torch.ops.gather import gather_chain_plain
 from vvr_tpu_torch.ops.jump import trace_jump_plain
 from vvr_tpu_torch.ops.raygen import camera_rays
 from vvr_tpu_torch.render.scene import build_scene
-from vvr_tpu_torch.tools import (frame_digest, lane_use, profile_frame,
-                                 profile_gather, sass_count)
+from vvr_tpu_torch.tools import (bank_model, frame_digest, lane_use,
+                                 profile_frame, profile_gather, sass_count)
 from vvr_tpu_torch.utils.camera import Camera
 from vvr_tpu_torch.world.faces import extract_merged_faces
 
@@ -185,3 +186,82 @@ def test_lane_use_warps_cover_each_ray_once():
         w = lane_use.warps(33 * 67, 33, tiled)
         counts = torch.bincount(w)
         assert counts.sum() == 33 * 67 and counts.max() <= 32
+
+
+# The shared-memory bank model of K6's row reads (tools/bank_model.py): one
+# warp-step of 32 lanes, rows of a (rows, cols) table
+@pytest.mark.parametrize("rows_read, cols, want", [
+    ([5] * 32, 1, 1),                       # one word: a broadcast
+    (list(range(32)), 1, 1),                # 32 distinct banks
+    ([32 * i for i in range(32)], 1, 32),   # one bank, 32 words
+    ([0] * 32, 2, 2),                       # one 8-byte row, two phases
+    (list(range(32)), 2, 2),                # 16 rows a phase, 16 groups
+    ([16 * i for i in range(32)], 2, 32),   # 16 rows a phase in one group
+], ids=["one-word", "distinct-banks", "rows-32-apart", "one-8-byte-row",
+        "consecutive-8-byte-rows", "8-byte-rows-16-apart"])
+def test_bank_model_counts_wavefronts(rows_read, cols, want):
+    assert bank_model.wavefronts(np.array(rows_read), cols) == want
+
+
+def test_bank_model_16_byte_rows_take_four_phases():
+    rng = np.random.default_rng(3)
+    for rows_read in ([0] * 32, list(range(32)),
+                      rng.integers(0, 1024, 32)):
+        assert bank_model.wavefronts(np.array(rows_read), 4) >= 4
+
+
+def _brute_force(rows_read, cols, order):
+    """Wavefronts of one warp-step, lane by lane, phase by phase."""
+    vw = bank_model.vector_words(cols)
+    nv, per = cols // vw, 32 // vw
+    total = 0
+    for j in range(nv):
+        for first in range(0, 32, per):
+            groups = {}
+            for lane in range(first, first + per):
+                r = int(rows_read[lane])
+                slot = {"row": j, "spread": (j + lane) % nv}[order]
+                addr = r * nv + slot
+                groups.setdefault(addr % per, set()).add(addr)
+            total += max(len(a) for a in groups.values())
+    return total
+
+
+@pytest.mark.parametrize("cols", [1, 2, 3, 4, 8, 16])
+def test_bank_model_matches_brute_force(cols):
+    rng = np.random.default_rng(cols)
+    rows_read = rng.integers(0, 64, (3, 64))
+    nv = cols // bank_model.vector_words(cols)
+    orders = [o for o in bank_model.ORDERS if o == "row" or nv > 1]
+    for order in orders:
+        want = sum(_brute_force(r[w:w + 32], cols, order)
+                   for r in rows_read for w in (0, 32)) / 6
+        assert bank_model.wavefronts(rows_read, cols, order) == want
+
+
+def test_bank_model_spread_order_beats_row_order():
+    """At pallas_tala's 1024x8 table (two 16-byte vectors a row), lanes that
+    alternate their first vector take fewer wavefronts than row order, on
+    the chain's own index stream from a seeded table."""
+    rng = np.random.default_rng(0)
+    table = rng.integers(0, 1 << 32, (1024, 8), dtype=np.uint32)
+    stream = bank_model.chain_rows(table, rng.integers(0, 1024, 4096))
+    assert stream.shape == (8, 4096)
+    row = bank_model.wavefronts(stream, 8, "row")
+    spread = bank_model.wavefronts(stream, 8, "spread")
+    assert spread < 0.8 * row
+    assert bank_model.floor_us(1.0, 1 << 21, 132, 1.98e9) == pytest.approx(
+        8 * (1 << 21) / 32 / (132 * 1.98e9) * 1e6)
+
+
+def test_bank_model_chain_rows_walks_the_plain_chain():
+    rng = np.random.default_rng(5)
+    table = rng.integers(0, 1 << 32, (1000, 3), dtype=np.uint32)
+    idx = rng.integers(-5000, 5000, 257).astype(np.int32)
+    stream = bank_model.chain_rows(table, idx)
+    col0 = table[:, 0].view(np.int32).astype(np.int64)
+    got = sum(col0[stream[s]] for s in range(8)) & 0xFFFFFFFF
+    want = gather_chain_plain(torch.from_numpy(table),
+                              torch.from_numpy(idx))
+    np.testing.assert_array_equal(got, want.view(torch.int32).numpy()
+                                  .astype(np.int64) & 0xFFFFFFFF)

@@ -5,7 +5,9 @@
 //
 //   K5 gather_chain         pallas_take (:92), pallas_tala (gather2 :69);
 //                           the table stays in device memory (L2)
-//   K6 gather_chain_shared  pallas_vreg (:133); the table in shared memory
+//   K6 gather_chain_shared  pallas_vreg (:133); the table in shared
+//                           memory, each lane's row vectors read in an
+//                           order that spreads them over the bank groups
 //   K7 gather_onehot        pallas_onehot (:177), pallas_onehot (gather2
 //                           :112); the one-hot product on the tensor cores
 //                           with wgmma
@@ -21,7 +23,7 @@
 // passes 0, but the compiler cannot know it, so the whole-row loads (K5,
 // K6) and every tile's product (K7) are not dropped although only word 0
 // feeds the chain. What bounds each kernel and what its design does about
-// it: ops/gather.py and the notes above K5 and K7 below.
+// it: ops/gather.py and the notes above K5, K6 and K7 below.
 #include <cuda.h>
 
 #include "common.cuh"
@@ -32,18 +34,13 @@ constexpr int kChain = 8;
 constexpr int kThreads = 256;
 constexpr unsigned kFull = 0xffffffffu;
 
-// K6 and K8: the floor mod through the compiler's 32-bit division
+// K8: the floor mod through the compiler's 32-bit division
 __device__ __forceinline__ int floor_mod(int x, int rows) {
     const int m = x % rows;
     return m < 0 ? m + rows : m;
 }
 
-// the chain's next index: (int32(r) ^ idx) mod rows, floor mod
-__device__ __forceinline__ int next_index(uint32_t r, int idx, int rows) {
-    return floor_mod((int)r ^ idx, rows);
-}
-
-// ---- K5 and K7: the floor mod without a division ----
+// ---- K5, K6 and K7: the floor mod without a division ----
 //
 // A power-of-two `rows` takes x & (rows - 1), exact for a negative int32 in
 // two's complement. Any other `rows` in [1, 2^31) takes the direct
@@ -168,81 +165,6 @@ chain_kernel(const V* __restrict__ table, int rows, int nv,
         if (i < n) out[i] = acc[l];
     }
     if (keep) sink[t] = fold;
-}
-
-// One whole table row of `cols` words, fetched as the TPU kernel's row take
-// does: 16-byte loads where cols is a multiple of 4, 8-byte where it is
-// even. Returns word 0 and folds every word into `fold`.
-__device__ __forceinline__ uint32_t fetch_row(const uint32_t* row, int cols,
-                                              uint32_t& fold) {
-    uint32_t w0, f;
-    if ((cols & 3) == 0) {
-        const uint4* v = reinterpret_cast<const uint4*>(row);
-        uint4 q = v[0];
-        w0 = q.x;
-        f = q.x ^ q.y ^ q.z ^ q.w;
-#pragma unroll 4
-        for (int j = 1; j < cols / 4; ++j) {
-            q = v[j];
-            f ^= q.x ^ q.y ^ q.z ^ q.w;
-        }
-    } else if ((cols & 1) == 0) {
-        const uint2* v = reinterpret_cast<const uint2*>(row);
-        uint2 q = v[0];
-        w0 = q.x;
-        f = q.x ^ q.y;
-        for (int j = 1; j < cols / 2; ++j) {
-            q = v[j];
-            f ^= q.x ^ q.y;
-        }
-    } else {
-        w0 = row[0];
-        f = w0;
-        for (int j = 1; j < cols; ++j) f ^= row[j];
-    }
-    fold ^= f;
-    return w0;
-}
-
-__device__ __forceinline__ uint32_t chain(const uint32_t* table, int rows,
-                                          int cols, int idx,
-                                          uint32_t& fold) {
-    idx = floor_mod(idx, rows);
-    uint32_t acc = 0;
-#pragma unroll
-    for (int s = 0; s < kChain; ++s) {
-        const uint32_t r = fetch_row(table + (size_t)idx * cols, cols, fold);
-        acc += r;
-        idx = next_index(r, idx, rows);
-    }
-    return acc;
-}
-
-// K6: each block copies the table into shared memory once, then walks the
-// lanes with a grid-stride loop (the grid is a few blocks per SM, so the
-// copies stay few)
-__global__ void __launch_bounds__(kThreads)
-chain_shared_kernel(const uint32_t* __restrict__ table, int rows, int cols,
-                    const int* __restrict__ idx0, int n,
-                    uint32_t* __restrict__ out, int keep,
-                    uint32_t* __restrict__ sink) {
-    extern __shared__ uint4 smem4[];
-    uint32_t* t = reinterpret_cast<uint32_t*>(smem4);
-    const int words = rows * cols;
-    if ((words & 3) == 0) {
-        const uint4* src = reinterpret_cast<const uint4*>(table);
-        for (int w = threadIdx.x; w < words / 4; w += blockDim.x)
-            smem4[w] = src[w];
-    } else {
-        for (int w = threadIdx.x; w < words; w += blockDim.x) t[w] = table[w];
-    }
-    __syncthreads();
-    uint32_t fold = 0;
-    for (int i = blockIdx.x * blockDim.x + threadIdx.x; i < n;
-         i += gridDim.x * blockDim.x) {
-        out[i] = chain(t, rows, cols, idx0[i], fold);
-    }
-    if (keep) sink[blockIdx.x * blockDim.x + threadIdx.x] = fold;
 }
 
 // ---- K7: the one-hot product on the tensor cores, with wgmma ----
@@ -639,6 +561,135 @@ onehot_kernel(const __grid_constant__ CUtensorMap planes, int rows,
     if (keep) sink[blockIdx.x * blockDim.x + threadIdx.x] = fold;
 }
 
+// ---- K6: the chain with the table in shared memory ----
+//
+// It replaces pallas_vreg (tools/microbench_gather.py:133, pallas_call at
+// :157), the chain on a table held in one vreg, and runs K5's chain on
+// any table that fits in a block's shared memory (SHARED_BYTES). Each
+// block of kSharedThreads first issues its threads' first indices, then
+// copies the table into shared memory (16-byte vectors, the tail as
+// words), then walks L lanes a thread in a grid-stride loop, each round's
+// next indices loaded before its chain starts. A step fetches each lane's
+// whole row as NV vectors V (template parameters, as K5's), all L rows'
+// loads issued before any is used; word 0 feeds the chain, every word
+// the sink's fold. The floor mod is K5's FloorMod: no division on a
+// lane's chain.
+//
+// What bounds it on the H100: the shared-memory banks, and the 16 MB of
+// indices in and sums out over 3.35 TB/s (5.0 us at 2^21 lanes). A warp's
+// load is served in phases (LDS.32 one of 32 lanes, LDS.64 two of 16,
+// LDS.128 four of 8), each in as many wavefronts as the most distinct
+// addresses one bank group takes (tools/bank_model.py): random rows give
+// 3.3 wavefronts a warp-step at 1024 words, 6.1 at 4096x2 and 27.8 at
+// 1024x8 in row order (6.6, 12.2 and 56 us at 2^21 lanes, one wavefront
+// a clock on 132 SMs at 1.98 GHz). A 32-byte row fills only 4 of a
+// phase's 8 16-byte bank groups when every lane reads vector 0 first, so
+// lane l reads its row's vectors in the order (j + l) mod NV (19.0
+// wavefronts at 1024x8; the fold is an XOR, so the order changes no
+// bit). The table is copied once per block: 512 threads a block keeps
+// four copies an SM. K6 runs at 73-91% of the banks' floor on an H100
+// 80GB HBM3 at 700 W (9.1, 15.6 and 41.9 us). An XOR swizzle of the
+// rows, one bulk copy (TMA) on an mbarrier per block and 256 threads a
+// block measured slower; 1024 threads a block within 2% (PERF.md, K6
+// rows).
+constexpr int kSharedThreads = 512;
+
+template <int L, int NV, typename V, bool kPow2>
+__global__ void __launch_bounds__(kSharedThreads)
+chain_shared_kernel(const V* __restrict__ table, int rows, int nv,
+                    const int* __restrict__ idx0, int n,
+                    uint32_t* __restrict__ out, int keep,
+                    uint32_t* __restrict__ sink, unsigned long long magic) {
+    extern __shared__ uint4 smem4[];
+    const FloorMod<kPow2> mod(rows, magic);
+    const int vpr = NV > 0 ? NV : nv;
+    const int t = blockIdx.x * kSharedThreads + threadIdx.x;
+    const long long stride = (long long)gridDim.x * kSharedThreads;
+    const long long round = stride * L;
+    // the first round's indices, in flight while the table is copied
+    int raw[L];
+#pragma unroll
+    for (int l = 0; l < L; ++l) {
+        const long long i = t + l * stride;
+        raw[l] = i < n ? __ldg(idx0 + i) : 0;
+    }
+    const int words = rows * vpr * (int)(sizeof(V) / sizeof(uint32_t));
+    const int vec4 = words >> 2;
+    const uint4* src4 = reinterpret_cast<const uint4*>(table);
+#pragma unroll 4
+    for (int w = threadIdx.x; w < vec4; w += kSharedThreads)
+        smem4[w] = __ldg(src4 + w);
+    const uint32_t* src = reinterpret_cast<const uint32_t*>(table);
+    uint32_t* dst = reinterpret_cast<uint32_t*>(smem4);
+    for (int w = 4 * vec4 + threadIdx.x; w < words; w += kSharedThreads)
+        dst[w] = __ldg(src + w);
+    __syncthreads();
+    const V* tab = reinterpret_cast<const V*>(smem4);
+    // this lane's k-th load of a row is vector (k + lane) mod NV, so word 0
+    // arrives as its load number (NV - lane) mod NV
+    const int lane = threadIdx.x & 31;
+    const int head = NV > 1 ? (NV - lane) & (NV - 1) : 0;
+    uint32_t fold = 0;
+    for (long long base = t; base < n; base += round) {
+        int idx[L];
+        uint32_t acc[L];
+#pragma unroll
+        for (int l = 0; l < L; ++l) {
+            idx[l] = mod(raw[l]);
+            acc[l] = 0;
+        }
+#pragma unroll
+        for (int l = 0; l < L; ++l) {   // the next round's indices
+            const long long i = base + round + l * stride;
+            raw[l] = i < n ? __ldg(idx0 + i) : 0;
+        }
+#pragma unroll
+        for (int s = 0; s < kChain; ++s) {
+            uint32_t w0[L];
+            if constexpr (NV > 0) {
+                V v[L][NV];
+#pragma unroll
+                for (int l = 0; l < L; ++l)
+#pragma unroll
+                    for (int k = 0; k < NV; ++k)
+                        v[l][k] = tab[idx[l] * NV + ((k + lane) & (NV - 1))];
+#pragma unroll
+                for (int l = 0; l < L; ++l) {
+                    w0[l] = first_word(v[l][0]);
+#pragma unroll
+                    for (int k = 1; k < NV; ++k)
+                        if (k == head) w0[l] = first_word(v[l][k]);
+#pragma unroll
+                    for (int k = 0; k < NV; ++k) fold ^= xor_words(v[l][k]);
+                }
+            } else {   // a row width only the run time knows: row order
+                V v[L];
+#pragma unroll
+                for (int l = 0; l < L; ++l) v[l] = tab[idx[l] * vpr];
+#pragma unroll
+                for (int l = 0; l < L; ++l) {
+                    const V* row = tab + idx[l] * vpr;
+#pragma unroll 4
+                    for (int j = 1; j < vpr; ++j) fold ^= xor_words(row[j]);
+                    w0[l] = first_word(v[l]);
+                    fold ^= xor_words(v[l]);
+                }
+            }
+#pragma unroll
+            for (int l = 0; l < L; ++l) {
+                acc[l] += w0[l];
+                idx[l] = mod((int)w0[l] ^ idx[l]);
+            }
+        }
+#pragma unroll
+        for (int l = 0; l < L; ++l) {
+            const long long i = base + l * stride;
+            if (i < n) out[i] = acc[l];
+        }
+    }
+    if (keep) sink[t] = fold;
+}
+
 // K8: out[i, :] = T[floor_mod(idx[i], rows), :], moved as vectors V of
 // 16, 8 or 4 bytes (vpr of them a row). Where a row is one vector (1, 2
 // or 4 columns) a thread takes a row (rows_kernel_by_thread), in blocks
@@ -771,61 +822,75 @@ cudaError_t resident_blocks(K kernel, int threads, size_t smem,
     return cudaSuccess;
 }
 
-// K5's lanes per thread, by vectors a row: two where a row is one vector,
-// one where a row is already several loads (1, 2 and 4 lanes measured on
-// the H100: PERF.md, K5 row)
+// K5's and K6's lanes per thread, by vectors a row: two where a row is one
+// vector, one where a row is already several loads (1, 2 and 4 lanes
+// measured on the H100 for each: PERF.md, K5 and K6 rows)
 constexpr int chain_lanes(int nv) { return nv == 1 ? 2 : 1; }
 
-template <int NV, typename V, bool kPow2>
+// K5 (kShared false) or K6 (kShared true) with NV vectors V a row
+template <bool kShared, int NV, typename V, bool kPow2>
 cudaError_t launch_chain(const void* table, int rows, int nv,
                          const void* idx, int n, void* out, int keep,
                          void* sink, unsigned long long magic,
                          cudaStream_t stream) {
     constexpr int L = chain_lanes(NV);
     const long long threads = (n + L - 1LL) / L;
-    chain_kernel<L, NV, V, kPow2>
-        <<<vvr_blocks(threads, kThreads), kThreads, 0, stream>>>(
-            (const V*)table, rows, nv, (const int*)idx, n, (uint32_t*)out,
-            keep, (uint32_t*)sink, magic);
+    if constexpr (kShared) {
+        const size_t smem = (size_t)rows * nv * sizeof(V);
+        unsigned blocks = 0;
+        const cudaError_t err = resident_blocks(
+            chain_shared_kernel<L, NV, V, kPow2>, kSharedThreads, smem,
+            vvr_blocks(threads, kSharedThreads), &blocks);
+        if (err != cudaSuccess) return err;
+        chain_shared_kernel<L, NV, V, kPow2>
+            <<<blocks, kSharedThreads, smem, stream>>>(
+                (const V*)table, rows, nv, (const int*)idx, n,
+                (uint32_t*)out, keep, (uint32_t*)sink, magic);
+    } else {
+        chain_kernel<L, NV, V, kPow2>
+            <<<vvr_blocks(threads, kThreads), kThreads, 0, stream>>>(
+                (const V*)table, rows, nv, (const int*)idx, n,
+                (uint32_t*)out, keep, (uint32_t*)sink, magic);
+    }
     return cudaGetLastError();
 }
 
-template <typename V, bool kPow2>
+template <bool kShared, typename V, bool kPow2>
 cudaError_t launch_chain_v(const void* table, int rows, int nv,
                            const void* idx, int n, void* out, int keep,
                            void* sink, unsigned long long magic,
                            cudaStream_t s) {
+#define VVR_CHAIN(NV)                                                       \
+    return launch_chain<kShared, NV, V, kPow2>(table, rows, nv, idx, n,    \
+                                               out, keep, sink, magic, s)
     switch (nv) {
-        case 1: return launch_chain<1, V, kPow2>(table, rows, nv, idx, n,
-                                                  out, keep, sink, magic, s);
-        case 2: return launch_chain<2, V, kPow2>(table, rows, nv, idx, n,
-                                                  out, keep, sink, magic, s);
-        case 4: return launch_chain<4, V, kPow2>(table, rows, nv, idx, n,
-                                                  out, keep, sink, magic, s);
-        case 8: return launch_chain<8, V, kPow2>(table, rows, nv, idx, n,
-                                                  out, keep, sink, magic, s);
-        case 16: return launch_chain<16, V, kPow2>(table, rows, nv, idx, n,
-                                                    out, keep, sink, magic,
-                                                    s);
-        default: return launch_chain<0, V, kPow2>(table, rows, nv, idx, n,
-                                                   out, keep, sink, magic,
-                                                   s);
+        case 1: VVR_CHAIN(1);
+        case 2: VVR_CHAIN(2);
+        case 4: VVR_CHAIN(4);
+        case 8: VVR_CHAIN(8);
+        case 16: VVR_CHAIN(16);
+        default: VVR_CHAIN(0);
     }
+#undef VVR_CHAIN
 }
 
-template <bool kPow2>
+// the widest vector V a row's width allows, and whether rows is a power
+// of two (a mask for the floor mod)
+template <bool kShared>
 cudaError_t launch_chain_rows(const void* table, int rows, int cols,
                               const void* idx, int n, void* out, int keep,
                               void* sink, unsigned long long magic,
                               cudaStream_t s) {
-    if ((cols & 3) == 0)
-        return launch_chain_v<uint4, kPow2>(table, rows, cols / 4, idx, n,
-                                            out, keep, sink, magic, s);
-    if ((cols & 1) == 0)
-        return launch_chain_v<uint2, kPow2>(table, rows, cols / 2, idx, n,
-                                            out, keep, sink, magic, s);
-    return launch_chain_v<uint32_t, kPow2>(table, rows, cols, idx, n, out,
-                                           keep, sink, magic, s);
+#define VVR_CHAIN_V(V, W)                                                   \
+    return (rows & (rows - 1)) == 0                                         \
+        ? launch_chain_v<kShared, V, true>(table, rows, cols / W, idx, n,   \
+                                           out, keep, sink, magic, s)       \
+        : launch_chain_v<kShared, V, false>(table, rows, cols / W, idx, n,  \
+                                            out, keep, sink, magic, s)
+    if ((cols & 3) == 0) VVR_CHAIN_V(uint4, 4);
+    if ((cols & 1) == 0) VVR_CHAIN_V(uint2, 2);
+    VVR_CHAIN_V(uint32_t, 1);
+#undef VVR_CHAIN_V
 }
 
 // cuTensorMapEncodeTiled, from the driver through the runtime (the
@@ -894,26 +959,21 @@ extern "C" int vvr_gather_chain(const void* table, int rows, int cols,
                                 const void* idx, int n, void* out, int keep,
                                 void* sink, unsigned long long magic,
                                 void* stream) {
-    const cudaStream_t s = (cudaStream_t)stream;
-    if ((rows & (rows - 1)) == 0)
-        return (int)launch_chain_rows<true>(table, rows, cols, idx, n, out,
-                                            keep, sink, magic, s);
     return (int)launch_chain_rows<false>(table, rows, cols, idx, n, out,
-                                         keep, sink, magic, s);
+                                         keep, sink, magic,
+                                         (cudaStream_t)stream);
 }
 
+// the same arguments; the table fits in a block's shared memory (the
+// wrapper checks it)
 extern "C" int vvr_gather_chain_shared(const void* table, int rows, int cols,
                                        const void* idx, int n, void* out,
-                                       int keep, void* sink, void* stream) {
-    const size_t smem = (size_t)rows * cols * sizeof(uint32_t);
-    unsigned blocks = 0;
-    cudaError_t err = resident_blocks(chain_shared_kernel, kThreads, smem,
-                                      vvr_blocks(n, kThreads), &blocks);
-    if (err != cudaSuccess) return (int)err;
-    chain_shared_kernel<<<blocks, kThreads, smem, (cudaStream_t)stream>>>(
-        (const uint32_t*)table, rows, cols, (const int*)idx, n,
-        (uint32_t*)out, keep, (uint32_t*)sink);
-    return (int)cudaGetLastError();
+                                       int keep, void* sink,
+                                       unsigned long long magic,
+                                       void* stream) {
+    return (int)launch_chain_rows<true>(table, rows, cols, idx, n, out,
+                                        keep, sink, magic,
+                                        (cudaStream_t)stream);
 }
 
 // cols4 = 4 * table columns = plane columns: 8, 16, 32 or 64. kb (k tiles

@@ -105,7 +105,8 @@ KERNELS = {
         "tools/microbench_gather.py:92, tools/microbench_gather2.py:69",
         "gather"),
     "gather_chain_shared": Kernel(
-        "vvr_gather_chain_shared", (_P, _I, _I, _P, _I, _P, _I, _P, _P),
+        "vvr_gather_chain_shared", (_P, _I, _I, _P, _I, _P, _I, _P, _U64,
+                                    _P),
         "vvr_tpu_torch/csrc/gather.cu", "tools/microbench_gather.py:133",
         "gather"),
     "gather_onehot": Kernel(

@@ -17,7 +17,11 @@ them, on one design for an H100:
   gather_chain_shared  K6  pallas_vreg (tools/microbench_gather.py:133): the
                            same chain with the table in shared memory, the
                            counterpart of VMEM or of one vreg; each block
-                           copies the table once and walks many lanes.
+                           of 512 threads copies the table once and walks
+                           one or two lanes a thread; K5's vectors and
+                           floor mod; lane l reads its row's vectors from
+                           vector l mod NV on, so a warp's 16-byte loads
+                           spread over the bank groups.
   gather_onehot        K7  pallas_onehot (tools/microbench_gather.py:177,
                            u32; tools/microbench_gather2.py:112, i32): the
                            chain where each gather is a one-hot bf16 product
@@ -36,7 +40,10 @@ them, on one design for an H100:
 What bounds them on an H100: K5, K6 and K8 move a few MB (the indices, the
 outputs, the table once), a few microseconds at 3.35 TB/s; what they
 measure is the latency of dependent fetches from L2 or shared memory, which
-no bandwidth bound sees, so their roofline shares are low by design. K5's
+no bandwidth bound sees, so their roofline shares are low by design. K6's
+pace is its shared-memory bank wavefronts (tools/bank_model.py): random
+rows conflict in a bank group, a modelled floor of 6.7 us at 1024 words
+and 38 us at 1024x8 for 2^21 lanes (132 SMs at 1.98 GHz). K5's
 whole-row fetches move 8 * lanes * 4*cols bytes through L2 (1.07 GB a call
 at 16 columns), which the bound of its HBM bytes does not count either.
 K8's single gather is a microsecond of device work, so a call is bound by
@@ -55,8 +62,8 @@ starting index is taken mod rows the same way, in the plain versions and
 the kernels alike, so no index reads outside the table. The plain versions
 do the arithmetic in int64 masked to 32 bits (torch's uint32 has no add,
 mod or shift).
-K5 and K7 take that floor mod without a division: a mask where rows is a
-power of two, else Lemire, Kaser and Kurz's direct remainder with the
+K5, K6 and K7 take that floor mod without a division: a mask where rows is
+a power of two, else Lemire, Kaser and Kurz's direct remainder with the
 magic number floor_mod_magic(rows) passed from here; floor_mod_twin is
 the same arithmetic in numpy, which the CPU tests hold to torch.remainder.
 
@@ -105,14 +112,14 @@ def _start(idx: torch.Tensor, rows: int) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------------
-# the floor mod of K5 and K7 (csrc/gather.cu FloorMod), host side
+# the floor mod of K5, K6 and K7 (csrc/gather.cu FloorMod), host side
 # ---------------------------------------------------------------------------
 
 MASK64 = (1 << 64) - 1
 
 
 def floor_mod_magic(rows: int) -> int:
-    """M = ceil(2^64 / rows) mod 2^64, the launch argument of K5 and K7
+    """M = ceil(2^64 / rows) mod 2^64, the launch argument of K5, K6 and K7
     (rows in [1, 2^31)); rows 1 gives 0."""
     if not 1 <= rows < 1 << 31:
         raise ValueError(f"rows {rows} outside [1, 2^31)")
@@ -295,7 +302,8 @@ def gather_chain_shared(table: torch.Tensor, idx: torch.Tensor):
                          f"{table.numel() * 4} B, more than the "
                          f"{SHARED_BYTES} B of shared memory of a block: "
                          "use gather_chain")
-    return _chain("gather_chain_shared", table, idx, tptr)
+    return _chain("gather_chain_shared", table, idx, tptr,
+                  floor_mod_magic(table.shape[0]))
 
 
 def gather_onehot(planes: torch.Tensor, idx: torch.Tensor, out_dtype=U32):

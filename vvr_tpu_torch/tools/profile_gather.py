@@ -7,19 +7,24 @@ It measures the vvr_tpu_torch package found under DIR (default: this
 checkout), so one call can run it on an unpacked `git archive` of another
 commit and on this one in turns. Prints, each from this run:
 
-1. the registers and spills of K3's, K5's, K7's and K8's kernels
+1. the registers and spills of K3's, K5's, K6's, K7's and K8's kernels
    (`-Xptxas -v`, from the library's build report);
-2. K8 and torch.index_select at the two pallas_scalar shapes through the
-   microbenchmark's own harness (microbench_gather.run: `ms` is CUDA
-   events over back-to-back Python calls, so it carries the host's path),
-   HARNESS_RUNS times;
+2. K8 and torch.index_select at the two pallas_scalar shapes, and K6 at
+   pallas_vreg R1024, through the microbenchmark's own harness
+   (microbench_gather.run: `ms` is CUDA events over back-to-back Python
+   calls, so it carries the host's path), HARNESS_RUNS times;
 3. device time per call from torch.profiler with CUDA activity only (and
    for K5 the bytes of the whole rows its chain fetches, 8 * lanes * row
    bytes, over that time: its rate through L1 and L2), a profiled window
    per experiment: K8 and index_select at both pallas_scalar shapes, and K5
    (pallas_take R32768xC16), K6 (pallas_vreg R1024) and K7 (pallas_onehot
-   R4096xC2, u32) at the shapes of PERF.md's kernel table, and K7 at the
-   other two one-hot shapes (R512xC16, R64xC2), CALLS calls each;
+   R4096xC2, u32) at the shapes of PERF.md's kernel table, K6 at its other
+   two experiment shapes (pallas_take R4096xC2, pallas_tala R1024xC8) and
+   K7 at the other two one-hot shapes (R512xC16, R64xC2), CALLS calls
+   each; beside each K6 time, the floor of its shared-memory bank
+   wavefronts (tools/bank_model.py, in K6's vector order, on the chain's
+   own index stream from the same inputs, one wavefront a clock on every
+   SM at the card's maximum SM clock);
 4. host microseconds per call (time.perf_counter_ns at a 64x2 table and
    32 indices, where device time is negligible; HOST_CALLS calls of each
    piece in ROUNDS rounds, the pieces in turns, and the median round) of
@@ -28,7 +33,8 @@ commit and on this one in turns. Prints, each from this run:
    current device and raw stream reads, three data_ptr() reads,
    kernels.launch (the binding's call and the CUDA launch), and
    gather_rows whole (the checks are what it costs beyond the pieces),
-   with index_select beside it.
+   with index_select beside it, and K6's wrapper whole on a 64-word table
+   (its launcher sizes a grid of resident blocks).
 
 It exits non-zero without a CUDA device.
 """
@@ -36,6 +42,7 @@ It exits non-zero without a CUDA device.
 from __future__ import annotations
 
 import argparse
+import importlib.util
 import json
 import pathlib
 import statistics
@@ -49,12 +56,15 @@ import torch
 CALLS = 20            # launches per experiment in the profiled window
 HOST_CALLS = 10_000   # calls per piece of the host path, over all rounds
 ROUNDS = 5            # the pieces in turns, this many times; the median
-HARNESS_RUNS = 3      # runs of the harness per pallas_scalar shape
+HARNESS_RUNS = 3      # runs of the harness per HARNESS shape
 SCALAR = ("pallas_scalar:R266305xC2", "pallas_scalar:R32768xC16")
+HARNESS = SCALAR + ("pallas_vreg:R1024",)
 # (experiment, kernel) rows of PERF.md's kernel table for K5-K7, and K7's
 # other two shapes
 OTHERS = (("pallas_take:R32768xC16", "gather_chain"),
           ("pallas_vreg:R1024", "gather_chain_shared"),
+          ("pallas_take:R4096xC2", "gather_chain_shared"),
+          ("pallas_tala:R1024xC8", "gather_chain_shared"),
           ("pallas_onehot:R4096xC2", "gather_onehot"),
           ("pallas_onehot:R512xC16", "gather_onehot"),
           ("pallas_onehot:R64xC2", "gather_onehot"))
@@ -62,7 +72,8 @@ OTHERS = (("pallas_take:R32768xC16", "gather_chain"),
 # the shape: any name)
 K8_NAME = "rows_kernel"
 PTXAS_PARTS = ("rows_kernel", "skybox_kernel", "clouds_kernel",
-               "vvr_sky_kernel", "chain_kernel", "onehot_kernel")
+               "vvr_sky_kernel", "chain_kernel", "chain_shared_kernel",
+               "onehot_kernel")
 
 
 def host_us(fn, calls: int = HOST_CALLS) -> float:
@@ -113,6 +124,17 @@ def device_window(plan, calls: int, tries: int = 3):
     return out
 
 
+def _bank_model():
+    """tools/bank_model.py of this checkout, loaded by path: with --root at
+    another commit, the package imported is that commit's, which may not
+    have it."""
+    path = pathlib.Path(__file__).with_name("bank_model.py")
+    spec = importlib.util.spec_from_file_location("bank_model", path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--root", type=pathlib.Path,
@@ -135,7 +157,9 @@ def main(argv=None) -> int:
          "--format=csv,noheader", "-i", "0"],
         capture_output=True, text=True, timeout=60, check=True).stdout.strip()
     print(f"nvidia-smi (name, power limit, SM clock, max SM clock): {smi}")
+    max_hz = float(smi.split(",")[-1].split()[0]) * 1e6
     dev = torch.device("cuda", 0)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
     kernels.build()
 
     # ---- 1. registers and spills
@@ -147,7 +171,7 @@ def main(argv=None) -> int:
     # ---- 2. the microbenchmark's harness
     exps = {e.name: e for e in mb.EXPERIMENTS}
     for _ in range(HARNESS_RUNS):
-        for name in SCALAR:
+        for name in HARNESS:
             line = mb.run(exps[name], 0, dev)
             print("harness " + json.dumps(
                 {k: line[k] for k in ("name", "ms", "library_ms",
@@ -164,7 +188,8 @@ def main(argv=None) -> int:
         plan.append((f"index_select {name}",
                      lambda t=t32, i=idx: torch.index_select(t, 0, i),
                      ""))
-    row_bytes = {}
+    row_bytes, floors = {}, {}
+    banks = _bank_model()
     for name, kernel in OTHERS:
         table, idx = mb.make_inputs(exps[name], 0, dev)
         arg = gather.u8_planes(table) if kernel == "gather_onehot" else table
@@ -173,11 +198,21 @@ def main(argv=None) -> int:
         plan.append((label, lambda f=fn, a=arg, i=idx: f(a, i), ""))
         if kernel == "gather_chain":
             row_bytes[label] = mb.CHAIN * idx.numel() * table[0].nbytes
+        if kernel == "gather_chain_shared":
+            cols = 1 if table.dim() == 1 else table.shape[1]
+            stream = banks.chain_rows(table.cpu().numpy(), idx.cpu().numpy())
+            w = banks.wavefronts(stream, cols, "spread")
+            floors[label] = (w, banks.floor_us(w, idx.numel(), sms, max_hz))
     for label, us in device_window(plan, CALLS).items():
         extra = ""
         if label in row_bytes:   # the whole rows the chain fetches
             extra = (f"; rows fetched {row_bytes[label]} B, "
                      f"{row_bytes[label] / us / 1e6:.3f} TB/s")
+        if label in floors:      # the banks alone
+            w, floor = floors[label]
+            extra = (f"; bank model {w:.4f} wavefronts a warp-step, floor "
+                     f"{floor:.3f} us ({sms} SMs at {max_hz / 1e6:.0f} MHz),"
+                     f" {floor / us:.1%} of the time")
         print(f"device {label}: {us:.3f} us per call{extra}")
 
     # ---- 4. host microseconds per piece of K8's path, a tiny shape
@@ -187,6 +222,7 @@ def main(argv=None) -> int:
     idx = torch.randint(0, 64, (32,), generator=gen, device=dev,
                         dtype=torch.int32)
     t32 = table.view(torch.int32)
+    t1d = table.view(-1)[:64]
     out = torch.empty((32, 2), dtype=torch.uint32, device=dev)
     cargs = (table.data_ptr(), 64, 2, idx.data_ptr(), 32, out.data_ptr())
     pieces = {
@@ -203,6 +239,8 @@ def main(argv=None) -> int:
             "gather_rows", dev, *cargs),
         "gather.gather_rows (whole)": lambda: gather.gather_rows(table, idx),
         "torch.index_select (whole)": lambda: torch.index_select(t32, 0, idx),
+        "gather.gather_chain_shared (whole, 64 words)":
+            lambda: gather.gather_chain_shared(t1d, idx),
     }
     times = {label: [] for label in pieces}
     for _ in range(ROUNDS):
