@@ -15,8 +15,9 @@
    visibility, one hard shadow ray per lit pixel answered by the sun
    classifier, sky textures cached per 0.25 s bucket, bloom, ACES) through
    `Renderer.render`; reads the counters and fails unless each kernel of
-   that path (K2 shade_pixel, K3, K4, K9, K10, K11, K12; K12 computes the
-   shadow rays' starts, so K2 shade_surface and K1 must not run) was
+   that path (K13 for the rays, K2 shade_pixel, K3, K4, K9, K10, K11, K12;
+   K12 computes the shadow rays' starts, so K2 shade_surface and K1 must
+   not run) was
    launched, each per-frame kernel once in every frame and K3 once per
    sky bucket (both textures in one launch); prints the port's kernel
    launches per frame and the slowest frame, with whether it rebuilt the
@@ -34,6 +35,14 @@
    the per-frame kernels, or unless the last dragged frame's bytes equal a
    full-grid (2048^2) frame's at the same sun; prints the median and the
    slowest frame and K11's device time per dragged frame (torch.profiler);
+   then soft and pixelated shadows (SOFT_FRAMES), each configuration's
+   counters reset before its frames and read after: four jittered samples
+   a lit pixel with the cone classifier (K11's cone grids once, K14 in its
+   gate mode), the same through every sample's DDA (K14's DDA mode),
+   pixelated shadows with four samples (K14) and with one (K2
+   shade_surface from the quarter-voxel floor, then K1); fails unless
+   each per-frame kernel, K13 included, launched once in every frame, or
+   unless the cone frame equals the per-sample DDA frame byte for byte;
 4. holds each kernel against its plain torch version on the card at the
    main path's shapes; K1 with and without its counters, flat and by 8x4
    tiles, on the primary and the shadow rays (one sun direction, and the
@@ -68,6 +77,16 @@
    the rows); K6 and K7 bit-exact again with one kernel instance called at
    two sizes above 48 KB of shared memory in the order A, B, A
    (SHARED_IN_TURN); prints the registers and spills of K3 and K8;
+   K13's rays bit-exact against the plain version run on the CPU at
+   1920x1080 and 33x67, and camera_rays on the card one K13 launch with no
+   host-to-device copy (torch.profiler); K11's cone grids against the
+   plain cone build (written texels equal, values within 1e-4) at 2048^2
+   and 512^2 under two suns; K14 at 1920x1080 with four samples in its
+   DDA mode, its cone-gate mode and pixelated (and pixelated with one
+   sample): every sample's hit equal to the plain version's on the card,
+   the factor within SOFT_FACTOR_TOL of the plain factor computed on the
+   CPU from those hits, and the gate mode's hits and factor equal to the
+   DDA mode's on every lane;
 5. times each kernel beside its plain version (CUDA events) and computes
    its bound: the larger of the bytes it must move over 3.35 TB/s and its
    operations over the peak for their type (K3: its float32 and MUFU
@@ -85,8 +104,11 @@ Any failed check raises and the script exits non-zero. Without a CUDA
 device it exits non-zero before printing any result. Before the last line
 it prints {"kernels": [...]}, one row per kernel with its launches (from
 the path that runs it), error against its plain version, times and bound
-(K11 twice: `sun_grids` at 2048^2 with the main path's launches,
-`sun_grids_512` with the dragged frames');
+(K11 three times: `sun_grids` at 2048^2 with the main path's launches,
+`sun_grids_512` with the dragged frames', `sun_grids_cone` at 2048^2 with
+the cone frames'; K14 three times: `soft_shadow` in its DDA mode,
+`soft_shadow_cone`, `soft_shadow_pixelated`, each with its frames'
+launches; K14's bound counts this run's DDA sub-steps of its samples);
 the last line of stdout is {"ok": true, "device": {...}}.
 """
 
@@ -111,7 +133,16 @@ CAMERA = ([128.0, 100.0, 20.0], [128.0, 20.0, 180.0], 85.0)  # bench.py:33
 OPS_PER_ITEM = {"jump_trace": 30, "shade_surface": 40, "shade_pixel": 250,
                 "bloom_pyramid": 220, "composite": 190,
                 "raster_fragments": 70,
-                "raster_resolve": 45, "sun_grids": 90, "masked_shadow": 60}
+                "raster_resolve": 45, "sun_grids": 90, "masked_shadow": 60,
+                "generate_rays": 75, "soft_shadow": 140}
+# K13's 75 per pixel: two IEEE divisions (11 each), a correctly rounded
+# sqrtf (6) and three more divisions, and the sums and products of u, v
+# and the direction. K14's 140 per (lit pixel, sample): the jitter (two
+# hash chains, three divisions, a sqrtf, powf about 30), the start and the
+# cloud texel; each DDA sub-step of its samples, and each near-walk step,
+# at jump_trace's rate. K11's support pass: 25 per (face, coarse texel)
+# pair (four affine corners, their least, the clamp).
+SUN_SUPPORT_OPS = 25
 # K3's work per texel (sky_work), from csrc/sky.cu. SKY_LEAF: the fast path
 # of each device function a texel calls, (float32 operations, MUFU
 # operations), from `python3 vvr_tpu_torch/tools/sass_count.py --probe`
@@ -174,6 +205,7 @@ SHARED_IN_TURN = (("K6", [(SHARED_WORDS, 1), (20000, 1), (SHARED_WORDS, 1)]),
 K5_KERNEL, K6_KERNEL, K7_KERNEL = ("chain_kernel", "chain_shared_kernel",
                                    "onehot_kernel")
 LAUNCH_CALLS = 10_000   # host timing of kernels.launch
+RAY_CALLS = 20          # camera_rays calls under the profiler
 # the bloom pyramid's items are its downsampled texels (220 operations
 # each) and its upsampled ones, at this many operations
 BLOOM_UP_OPS = 40
@@ -184,7 +216,23 @@ BLOOM_UP_OPS = 40
 K1_ORACLE_SLACK = 16
 # K11's rows: the 2048^2 build (once per sun direction) and the 512^2 one
 # (every frame while the sun is dragged), both of the sun_grids kernel
-ROW_KERNEL = {"sun_grids_512": "sun_grids"}
+ROW_KERNEL = {"sun_grids_512": "sun_grids", "sun_grids_cone": "sun_grids",
+              "soft_shadow_cone": "soft_shadow",
+              "soft_shadow_pixelated": "soft_shadow"}
+# the soft-shadow frames (phase 3c): four jittered samples a lit pixel with
+# the cone classifier, the same through every sample's DDA, pixelated
+# shadows with four samples and with one
+SOFT_FRAMES = {"soft, cone": dict(shadow_samples=4),
+               "soft, DDA": dict(shadow_samples=4, sun_mask="off"),
+               "pixelated, 4 samples": dict(shadow_samples=4,
+                                            pixelated_shadows=True),
+               "pixelated, 1 sample": dict(shadow_samples=1,
+                                           pixelated_shadows=True)}
+SOFT_SAMPLES = 4
+# K14's factor against its plain version on the CPU (from the same
+# per-sample hits): the strength powf(cos, 40) on the card and pow on the
+# CPU may differ by a few ulps, within this
+SOFT_FACTOR_TOL = 1e-5
 # name parts of K11's device kernels (and the scans it shares with K9)
 K11_SASS = ("vvr_sun_", "vvr_scan_")
 # the gather experiment whose times stand in each kernel's row (the first
@@ -422,8 +470,9 @@ def main() -> int:
 
     from vvr_tpu_torch import kernels
     from vvr_tpu_torch.config import RenderConfig, WorldConfig
-    from vvr_tpu_torch.ops import gather, jump, post, shade, sky
+    from vvr_tpu_torch.ops import gather, jump, post, shade, sky, softshadow
     from vvr_tpu_torch.ops import rastertrace as rt
+    from vvr_tpu_torch.ops import raygen
     from vvr_tpu_torch.ops import sunshadow as ss
     from vvr_tpu_torch.ops.raygen import camera_rays
     from vvr_tpu_torch.render.frame import render_frame
@@ -553,15 +602,16 @@ def main() -> int:
     # the kernels of each frame, and those launched once in every frame (K3
     # only per sky bucket, K11 per sun); K12 computes the shadow rays'
     # starts itself, so K2 shade_surface runs only in the DDA frame
-    frame_kernels = ["shade_pixel", "write_sky",
+    frame_kernels = ["generate_rays", "shade_pixel", "write_sky",
                      "bloom_pyramid", "composite", "raster_fragments",
                      "raster_resolve", "sun_grids", "masked_shadow"]
-    per_frame = ["shade_pixel", "bloom_pyramid", "composite",
-                 "raster_fragments", "raster_resolve", "masked_shadow"]
-    dda_kernels = ["jump_trace", "shade_surface", "shade_pixel",
-                   "bloom_pyramid", "composite"]
-    dda_per_frame = ["shade_surface", "shade_pixel", "bloom_pyramid",
-                     "composite"]
+    per_frame = ["generate_rays", "shade_pixel", "bloom_pyramid",
+                 "composite", "raster_fragments", "raster_resolve",
+                 "masked_shadow"]
+    dda_kernels = ["generate_rays", "jump_trace", "shade_surface",
+                   "shade_pixel", "bloom_pyramid", "composite"]
+    dda_per_frame = ["generate_rays", "shade_surface", "shade_pixel",
+                     "bloom_pyramid", "composite"]
     n_frames = FRAMES + 1  # with the warm-up frame
     # K3: one launch per sky bucket of the frames' times (the warm-up's
     # t = 0 is in the first)
@@ -683,6 +733,46 @@ def main() -> int:
           f"{k11_us[ss.GRID_DRAGGING]:.2f} us; per sun direction at "
           f"2048^2: {k11_us[ss.GRID]:.2f} us; 1 launch (kernels.launch) per "
           f"build")
+
+    # ---- 3c. soft and pixelated shadows over the same scene, each
+    # configuration's counters reset before its frames and read after:
+    # K13, K9, K10, K14, K2 shade_pixel and K4 once in every frame (with
+    # one pixelated sample, K2 shade_surface and K1's shadow trace in place
+    # of K14), K3 once a sky bucket, the cone grids (K11) once
+    soft_per_frame = ["generate_rays", "raster_fragments", "raster_resolve",
+                      "soft_shadow", "shade_pixel", "bloom_pyramid",
+                      "composite"]
+    pix1_per_frame = ["generate_rays", "raster_fragments", "raster_resolve",
+                      "shade_surface", "jump_trace", "shade_pixel",
+                      "bloom_pyramid", "composite"]
+    soft_r, soft_launches, soft_med = {}, {}, {}
+    for label, extra in SOFT_FRAMES.items():
+        r = Renderer(wcfg, RenderConfig(width=cfg.width, height=cfg.height,
+                                        max_ray_iterations=3, **extra),
+                     device=dev, scene=renderer.scene)
+        kernels.reset_launches()
+        soft_med[label] = frames(r, label)
+        every = (soft_per_frame if extra["shadow_samples"] > 1
+                 else pix1_per_frame)
+        got = frame_launches(label, every + ["write_sky"], every)
+        check(got["write_sky"] == buckets, f"the {label} frames launched K3 "
+              f"{got['write_sky']} times over {buckets} sky buckets")
+        check(got["masked_shadow"] == 0 and got["raster_fragments"]
+              == n_frames, f"the {label} frame launched K12, or no K9")
+        if r.use_sunmask:
+            check(got["sun_grids"] == 1 and r._sunmask_cache[0][3],
+                  f"the {label} frames did not build the cone grids once")
+        else:
+            check(got["sun_grids"] == 0, f"the {label} frames built sun "
+                  "grids")
+        soft_r[label], soft_launches[label] = r, got
+    print(f"frame medians (same call, same card): "
+          + ", ".join(f"{k} {v:.3f} ms" for k, v in soft_med.items()))
+    launches["soft_shadow"] = soft_launches["soft, DDA"]["soft_shadow"]
+    launches["soft_shadow_cone"] = soft_launches["soft, cone"]["soft_shadow"]
+    launches["soft_shadow_pixelated"] = \
+        soft_launches["pixelated, 4 samples"]["soft_shadow"]
+    launches["sun_grids_cone"] = soft_launches["soft, cone"]["sun_grids"]
 
     # ---- 4. each kernel against its plain version, main-path shapes
     sun3 = torch.from_numpy(renderer.sun[:3].copy())
@@ -995,6 +1085,173 @@ def main() -> int:
     chain_odd(gather, dev)
     shared_in_turn(gather, dev)
 
+    # K13: the rays bit-exact against the plain version run on the CPU,
+    # at 1920x1080 and 33x67, one launch each; on the card camera_rays is
+    # one K13 kernel and copies nothing from the host: it captures into a
+    # CUDA graph (a copy from host memory cannot be captured) whose replay
+    # gives the same rays, and under torch.profiler RAY_CALLS calls show
+    # RAY_CALLS K13 kernels and no other device work
+    for w_, h_ in ((cfg.width, cfg.height), (33, 67)):
+        before = kernels.LAUNCHES["generate_rays"]
+        ko, kd = camera_rays(cam, w_, h_, dev)
+        check(kernels.LAUNCHES["generate_rays"] == before + 1,
+              f"K13 at {w_}x{h_} did not launch once")
+        po, pd = camera_rays(cam, w_, h_, "cpu")
+        check(torch.equal(ko.cpu(), po) and torch.equal(kd.cpu(), pd),
+              f"K13 at {w_}x{h_}: {int((ko.cpu() != po).sum())} origin and "
+              f"{int((kd.cpu() != pd).sum())} direction components differ "
+              "from the plain version")
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        go, gd = camera_rays(cam, cfg.width, cfg.height, dev)
+    graph.replay()
+    torch.cuda.synchronize()
+    check(torch.equal(go, o) and torch.equal(gd, d),
+          "K13 replayed from a CUDA graph differs")
+
+    def rays_calls():
+        for _ in range(RAY_CALLS):
+            camera_rays(cam, cfg.width, cfg.height, dev)
+        torch.cuda.synchronize()
+
+    ray_dev = profile_frame.trace_events(
+        repo / "build" / "vvr_tpu_torch" / "k13_trace.json", rays_calls)
+    other = sorted({e["name"][:40] for e in ray_dev
+                    if "vvr_generate_rays_kernel" not in e["name"]})
+    check(not other, f"camera_rays on the card ran {other} beside K13")
+    k13_us = [e["dur"] for e in ray_dev]
+    print(f"K13: rays bit-exact vs plain on the CPU at {cfg.width}x"
+          f"{cfg.height} and 33x67; camera_rays captured into a CUDA graph "
+          f"and replayed equal (no host-to-device copy); under the "
+          f"profiler {RAY_CALLS} calls ran {len(k13_us)} device events, all "
+          f"K13"
+          + (f", median {sorted(k13_us)[len(k13_us) // 2]:.2f} us"
+             if k13_us else " (the profiler recorded none)"))
+    errs["generate_rays"] = 0.0
+
+    # K11's cone grids (soft shadows) against the plain cone build at
+    # 2048^2 and 512^2, the frame's sun and the low sun: written texels
+    # equal, values within 1e-4
+    errs["sun_grids_cone"] = 0.0
+    for lbl, sun_ in (("frame", sun_np), ("low", low3)):
+        basis = ss.sun_basis(sun_)
+        for g_ in (ss.GRID, ss.GRID_DRAGGING):
+            before = kernels.LAUNCHES["sun_grids"]
+            gk_ = ss.sun_grids(faces, *basis, wcfg.size, g_, ss.CONE_TAN)[0]
+            check(kernels.LAUNCHES["sun_grids"] == before + 1,
+                  "K11 (cone) did not launch once")
+            gp_ = ss.sun_grids_plain(faces, *basis, wcfg.size, g_,
+                                     ss.CONE_TAN)[0]
+            check(bool(((gk_ <= -3e38) == (gp_ <= -3e38)).all()),
+                  f"K11 cone vs plain ({lbl} sun, {g_}^2): written texels "
+                  "differ")
+            fin = gk_ > -3e38
+            err = float((gk_[fin] - gp_[fin]).abs().max())
+            check(err <= 1e-4, f"K11 cone vs plain ({lbl} sun, {g_}^2): "
+                  f"max |diff| {err}")
+            errs["sun_grids_cone"] = max(errs["sun_grids_cone"], err)
+            print(f"K11 cone, {lbl} sun, {g_}^2: value-equal vs plain: "
+                  f"{bool(torch.equal(gk_, gp_))}, max |diff| {err}; "
+                  f"written share B {float(fin[:, 0].float().mean()):.4f}, "
+                  f"C {float(fin[:, 1].float().mean()):.4f}")
+    cone_k = ss.sun_grids(faces, e1, e2, s_basis, wcfg.size, ss.GRID,
+                          ss.CONE_TAN)
+    cone_gate = (e1, e2, cone_k)
+
+    # K14 at 1920x1080 on the raster hits, four samples, in each mode:
+    # every sample's hit exactly that of its plain version on the card,
+    # and the factor within SOFT_FACTOR_TOL of the plain factor computed
+    # on the CPU from those hits (the plain version's cloud lookup on the
+    # card divides by multiplying with a reciprocal)
+    soft_modes = {"soft_shadow": (SOFT_SAMPLES, False, None),
+                  "soft_shadow_cone": (SOFT_SAMPLES, False, cone_gate),
+                  "soft_shadow_pixelated": (SOFT_SAMPLES, True, None),
+                  "pixelated, 1 sample": (1, True, None)}
+    soft_hits, soft_out = {}, {}
+    cl_cpu = cl_k.cpu()
+    for name, (ns, pix, gate) in soft_modes.items():
+        before = kernels.LAUNCHES["soft_shadow"]
+        fk, hk = softshadow.soft_shadow(grid, *hits, sun_np, ns, cl_k,
+                                        max_steps, pix, gate, with_hits=True)
+        check(kernels.LAUNCHES["soft_shadow"] == before + 1,
+              f"K14 ({name}) did not launch once")
+        hp = softshadow.sample_hits_plain(grid, *hits, sun_np, ns, max_steps,
+                                          pix, gate)
+        check(torch.equal(hk, hp), f"K14 ({name}): {int((hk != hp).sum())} "
+              "sample hits differ from the plain version")
+        fp = softshadow.shadow_factor_plain(
+            *(t.cpu() for t in hits), sun_np, hk.cpu(), cl_cpu, pix)
+        err = float((fk.cpu() - fp).abs().max())
+        check(err <= SOFT_FACTOR_TOL, f"K14 ({name}): factor differs from "
+              f"the plain factor by {err}")
+        errs[name] = err
+        soft_hits[name], soft_out[name] = hk, fk
+        lit = int(hp.any(0).sum())
+        print(f"K14 ({name}): {ns} sample hits of {n} lanes equal to plain "
+              f"({int(hk.sum())} hits; {lit} lanes with one or more); factor "
+              f"max |diff| {err:.3e} vs plain on the CPU")
+    # the cone gate's sample hits against the DDA mode's on every lane:
+    # where they differ, the sample ray must cross an exact tie that the
+    # jump-grid DDA takes the other way (ROADMAP C8), the numpy oracle
+    # agreeing with the gate's near walk
+    h_dda, h_cone = soft_hits["soft_shadow"], soft_hits["soft_shadow_cone"]
+    ties = torch.nonzero(h_cone != h_dda).cpu().numpy()
+    p_q = softshadow.query_points(*hits, sun_d, False)[0]
+    for k, lane in ties:
+        q = p_q[lane:lane + 1].unbind(1)
+        dirs = softshadow.sample_dir(int(k), *q, sun_d)[:3]
+        start = torch.stack(softshadow.ray_start(*q, *dirs, sun_d), -1)
+        ora = trace_dense(occ, start.cpu().numpy(),
+                          torch.stack(dirs, -1).cpu().numpy())
+        check(bool(ora["hit"][0]) == bool(h_cone[k, lane]),
+              f"K14: sample {k} of lane {lane}: the cone gate says "
+              f"{'hit' if h_cone[k, lane] else 'miss'}, the DDA and the "
+              "oracle the other")
+        print(f"K14: sample {k} of lane {lane} (pixel {lane % cfg.width}, "
+              f"{lane // cfg.width}), start {start[0].tolist()}: the DDA "
+              f"{'hits' if h_dda[k, lane] else 'misses'}, the cone gate "
+              f"and the numpy oracle say "
+              f"{'hit' if h_cone[k, lane] else 'miss'} (an exact tie)")
+    tie_lanes = sorted({int(lane) for _, lane in ties})
+    check(len(tie_lanes) <= K1_ORACLE_SLACK,
+          f"K14: the cone gate and the DDA differ on {len(tie_lanes)} lanes")
+    other = torch.ones(n, dtype=torch.bool, device=dev)
+    other[tie_lanes] = False
+    check(torch.equal(soft_out["soft_shadow"][other],
+                      soft_out["soft_shadow_cone"][other]),
+          "K14: the cone gate's factor differs from the DDA's off the ties")
+    print(f"K14: the cone gate's sample hits and factor equal the per-sample "
+          f"DDA's on every lane but {len(tie_lanes)} {tie_lanes}, where the "
+          f"oracle agrees with the gate")
+
+    # the soft frames: the cone frame against the per-sample DDA frame, one
+    # sky: HDR equal on every pixel but those lanes
+    soft_sky = renderer._sky(0.25)
+    hdr_soft = {}
+    for label in ("soft, cone", "soft, DDA"):
+        r = soft_r[label]
+        hdr_soft[label] = render_frame(
+            grid, o, d, renderer.sun, 0.25, r.cfg, sky=soft_sky,
+            raster=(faces, rt.raster_camera(cam), probe),
+            sunmask=r._sunmask() if r.use_sunmask else None)
+    (img_c, hdr_c), (img_s, hdr_s) = hdr_soft.values()
+    hdr_off = (hdr_c != hdr_s).any(-1).reshape(-1)
+    check(not bool((hdr_off & other).any()), f"soft frames: the cone frame's "
+          f"HDR differs from the DDA frame's on "
+          f"{int((hdr_off & other).sum())} pixels off the ties")
+    u8_off = int((img_c != img_s).any(-1).sum())
+    if not tie_lanes:
+        check(u8_off == 0, f"soft frames: {u8_off} pixels differ")
+    print(f"soft frames ({cfg.width}x{cfg.height}, {SOFT_SAMPLES} "
+          f"samples): the cone frame's HDR equals the per-sample DDA "
+          f"frame's on every pixel but the {int(hdr_off.sum())} tie lanes; "
+          f"u8 pixels that differ: {u8_off}"
+          f"{' (byte for byte)' if u8_off == 0 else ' (bloom spreads them)'}")
+    for name, regs, st, ld in (kernels.ptxas_usage("vvr_soft_shadow")
+                               + kernels.ptxas_usage("vvr_generate_rays")):
+        print(f"ptxas: {name}: {regs} registers, spill stores {st} B, "
+              f"spill loads {ld} B")
+
     sun_col = sky.sun_colour_final(sun3)
     args = (o, d, res_k.hit, res_k.face, res_k.axis_coord, sh_k.hit,
             wcfg.size, sb_k, cl_k, sun3, sun_col, cfg.height, cfg.width)
@@ -1104,6 +1361,11 @@ def main() -> int:
           f"more than 2 u8 levels (bar 0.005)")
 
     # ---- 5. times, kernel beside plain, main-path shapes
+    right, up, forward = cam.basis()
+    ray_args = tuple(torch.as_tensor(np.asarray(v, np.float32), device=dev)
+                     for v in (cam.position, right, up, forward)) + (
+        torch.tensor(np.float32(np.tan(np.radians(cam.fov) / 2.0)),
+                     device=dev), w, h)
     timed = {  # K1 as the DDA frame calls it, on the primary rays
         "jump_trace": (lambda: jump.trace_jump(grid, o, d, max_steps,
                                                width=w, stats=False),
@@ -1146,6 +1408,34 @@ def main() -> int:
             lambda: (sky.write_skybox_plain(sun_d, rs),
                      sky.write_clouds_plain(sun_d, 0.25, rc)),
             20, 3),
+        "generate_rays": (
+            lambda: camera_rays(cam, w, h, dev),
+            lambda: raygen.generate_rays(*ray_args), 50, 5),
+        "soft_shadow": (
+            lambda: softshadow.soft_shadow(grid, *hits, sun_np,
+                                           SOFT_SAMPLES, cl_k, max_steps),
+            lambda: softshadow.soft_shadow_plain(grid, *hits, sun_np,
+                                                 SOFT_SAMPLES, cl_k,
+                                                 max_steps), 20, 1),
+        "soft_shadow_cone": (
+            lambda: softshadow.soft_shadow(grid, *hits, sun_np,
+                                           SOFT_SAMPLES, cl_k, max_steps,
+                                           gate=cone_gate),
+            lambda: softshadow.soft_shadow_plain(
+                grid, *hits, sun_np, SOFT_SAMPLES, cl_k, max_steps,
+                gate=cone_gate), 20, 1),
+        "soft_shadow_pixelated": (
+            lambda: softshadow.soft_shadow(grid, *hits, sun_np,
+                                           SOFT_SAMPLES, cl_k, max_steps,
+                                           True),
+            lambda: softshadow.soft_shadow_plain(grid, *hits, sun_np,
+                                                 SOFT_SAMPLES, cl_k,
+                                                 max_steps, True), 20, 1),
+        "sun_grids_cone": (
+            lambda: ss.sun_grids(faces, e1, e2, s_basis, wcfg.size, ss.GRID,
+                                 ss.CONE_TAN),
+            lambda: ss.sun_grids_plain(faces, e1, e2, s_basis, wcfg.size,
+                                       ss.GRID, ss.CONE_TAN), 10, 1),
         "bloom_pyramid": (lambda: post.bloom_pyramid_p(hdr_k),
                           lambda: post.bloom_pyramid_plain(hdr_k), 50, 5),
         "composite": (lambda: post.composite_p(hdr_k, bloom_k, h, w),
@@ -1177,6 +1467,53 @@ def main() -> int:
 
     pairs = k11_pairs(grids_k, ss.GRID)
     pairs_512 = k11_pairs(grids_512, ss.GRID_DRAGGING)
+    # the cone build's (face, texel) pairs, and its support pass's (face,
+    # coarse texel) pairs in units of a main pair's operations
+    fs_c = ss.face_setup(faces, e1, e2, s_basis, *cone_k[1:], ss.GRID,
+                         ss.CONE_TAN, wcfg.size)
+    pairs_cone = float(torch.where(
+        fs_c["occl"], (fs_c["oi1"] - fs_c["oi0"] + 1)
+        * (fs_c["oj1"] - fs_c["oj0"] + 1), 0).sum())
+    pairs_support = float(((fs_c["si1"] - fs_c["si0"] + 1)
+                           * (fs_c["sj1"] - fs_c["sj0"] + 1)).sum())
+
+    def soft_work(pix, gate):
+        """K14's items at this run's data, in units of its per-(lit pixel,
+        sample) operations: those items plus the near walk's steps and the
+        DDA sub-steps (K1 with counters on the same starts and directions,
+        bit-equal to K14's) at jump_trace's rate."""
+        p_, act = softshadow.query_points(*hits, sun_d, pix)
+        traced = act
+        if gate is not None:
+            kh, km = ss.soft_shadow_gate(p_, sun_np, e1, e2, cone_k, act,
+                                         wcfg.size)
+            traced = act & ~kh & ~km
+            row_c = ss.surface_row_c(p_, sun_np, e1, e2, cone_k, wcfg.size)
+        steps = 0.0
+        for k in range(SOFT_SAMPLES):
+            dirs = softshadow.sample_dir(k, *p_.unbind(1), sun_d)[:3]
+            start = torch.stack(softshadow.ray_start(*p_.unbind(1), *dirs,
+                                                     sun_d), -1)
+            dirs = torch.stack(dirs, -1)
+            run = traced
+            if gate is not None:
+                steps += float(traced.sum()) * ss.NEAR_K
+                wh, wm = ss.near_walk_classify(grid, start, dirs, row_c,
+                                               sun_np, wcfg.size)
+                run = traced & ~wh & ~wm
+            it = jump.trace_jump(grid, start, dirs, max_steps,
+                                 active=run).iterations
+            steps += float(it[run].sum())
+        print(f"K14 work ({'pixelated' if pix else 'surface'}, "
+              f"{'cone gate' if gate is not None else 'every sample'}): "
+              f"{int(act.sum())} lit lanes, {int(traced.sum())} traced, "
+              f"{steps:.0f} walk and DDA sub-steps")
+        return (float(act.sum()) * SOFT_SAMPLES + steps
+                * OPS_PER_ITEM["jump_trace"] / OPS_PER_ITEM["soft_shadow"])
+
+    soft_items = {"soft_shadow": soft_work(False, None),
+                  "soft_shadow_cone": soft_work(False, cone_gate),
+                  "soft_shadow_pixelated": soft_work(True, None)}
     res_it = jump.trace_jump(grid, so_k, sun_d, max_steps,
                              active=residue).iterations[residue].float()
     res_steps = float(res_it.sum())
@@ -1213,6 +1550,19 @@ def main() -> int:
                           / OPS_PER_ITEM["bloom_pyramid"]),
         # three of the four channels of the HDR image and of mip 2
         "composite": (nbytes(hdr_k[:3], bloom_k[:3], img_k), h * w),
+        "generate_rays": (nbytes(o, d), n),
+        "soft_shadow": (nbytes(*hits, grid.rows, cl_k,
+                               soft_out["soft_shadow"]),
+                        soft_items["soft_shadow"]),
+        "soft_shadow_cone": (nbytes(*hits, grid.rows, cl_k, cone_k[0],
+                                    soft_out["soft_shadow_cone"]),
+                             soft_items["soft_shadow_cone"]),
+        "soft_shadow_pixelated": (nbytes(*hits, grid.rows, cl_k,
+                                         soft_out["soft_shadow_pixelated"]),
+                                  soft_items["soft_shadow_pixelated"]),
+        "sun_grids_cone": (nbytes(*faces[:8], cone_k[0]),
+                           pairs_cone + pairs_support * SUN_SUPPORT_OPS
+                           / OPS_PER_ITEM["sun_grids"]),
     }
     rows = []
     for name, (kfn, pfn, kreps, preps) in timed.items():

@@ -315,9 +315,103 @@ def test_config_fields_equal_jax(pair):
     assert port == ref
 
 
+def test_timed_clock_spans_the_frame_call(tmp_path, grids, monkeypatch):
+    """`render(timed=True)` starts its clock after the rays, the sun grids
+    and the sky, just before the frame call, as the JAX renderer does
+    (vvr_tpu/render/renderer.py:188), stops it after the synchronize, and
+    pushes one timing a frame: on a frame that rebuilds the sky and on one
+    that does not."""
+    from vvr_tpu_torch.render import renderer as rmod
+    cfg = {**SLICE, "primary_raster": "auto", "sun_mask": "auto"}
+    r = Renderer(WorldConfig(depth=3), RenderConfig(**cfg), device="cpu",
+                 cache_path=tmp_path / "map_64.npz")
+    events = []
+
+    def logged(name, fn):
+        def call(*args, **kwargs):
+            events.append(name)
+            return fn(*args, **kwargs)
+        return call
+
+    def clock():
+        events.append("clock")
+        return float(len(events))
+
+    monkeypatch.setattr(rmod, "_time", type("Clock", (), {
+        "monotonic": staticmethod(clock)}))
+    for name in ("camera_rays", "render_frame"):
+        monkeypatch.setattr(rmod, name, logged(name, getattr(rmod, name)))
+    for name in ("_sky", "_sunmask", "_sync"):
+        monkeypatch.setattr(r, name, logged(name, getattr(r, name)))
+    pushed = []
+    monkeypatch.setattr(r.stats, "push_timing", pushed.append)
+    cam = _views()["terrain"]
+    span = ["camera_rays", "_sunmask", "_sky", "clock", "render_frame",
+            "_sync", "clock"]
+    sky = None
+    for t, rebuilds in ((0.0, True), (0.1, False), (0.3, True)):
+        events.clear()
+        r.render(cam, time=t, timed=True)
+        assert events == span
+        assert pushed == [1e3 * 3]       # the clock read at 4, then at 7
+        assert (r._sky_cache is not sky) == rebuilds
+        sky = r._sky_cache
+        pushed.clear()
+    r.render(cam, time=0.4)
+    assert pushed == []
+
+
+def test_pixelated_shadows_take_no_classifier(grids, classifier):
+    """A pixelated frame given the sun classifier raises: its quarter-voxel
+    floor can bury the query, where a certain-light claim is unsound (the
+    Renderer never passes it, use_sunmask)."""
+    o, d = camera_rays(_views()["terrain"], 96, 64, "cpu")
+    cfg = RenderConfig(**{**SLICE, "pixelated_shadows": True})
+    with pytest.raises(ValueError, match="pixelated"):
+        render_frame(grids[1], o, d, SUN, 0.0, cfg, sunmask=classifier[1])
+
+
+# the shadow knobs of soft and pixelated shadows (ROADMAP A9a, A9b)
+SHADOW_KNOBS = [
+    ("sun_mask_soft", {"sun_mask": "auto", "shadow_samples": 4}),
+    ("soft_shadows", {"shadow_samples": 4}),
+    ("pixelated", {"pixelated_shadows": True}),
+]
+
+
+@pytest.fixture(scope="module")
+def hard_renderer(tmp_path_factory):
+    path = tmp_path_factory.mktemp("frame") / "map_64.npz"
+    return Renderer(WorldConfig(depth=3), RenderConfig(**SLICE), device="cpu",
+                    cache_path=path)
+
+
+@pytest.mark.parametrize("knobs", [c[1] for c in SHADOW_KNOBS],
+                         ids=[c[0] for c in SHADOW_KNOBS])
+def test_shadow_knobs_render(knobs, hard_renderer):
+    """The knobs that raised NotImplementedError until soft and pixelated
+    shadows were ported now render: a frame of the slice's shape whose
+    shadows differ from the hard frame's on some pixels (penumbrae, or
+    the quarter-voxel floor), and the cone frame the DDA frame."""
+    cfg = RenderConfig(**{**SLICE, **knobs})
+    r = Renderer(WorldConfig(depth=3), cfg, device="cpu",
+                 scene=hard_renderer.scene)
+    assert r.use_sunmask == (knobs.get("sun_mask") == "auto")
+    cam = _views()["terrain"]
+    img = r.render(cam, time=0.0, fetch=True)
+    hard = hard_renderer.render(cam, time=0.0, fetch=True)
+    assert img.shape == (64, 96, 3) and img.dtype == np.uint8
+    assert (img != hard).any()
+    assert (img == hard).all(-1).mean() > 0.5
+    if r.use_sunmask:
+        dda = Renderer(WorldConfig(depth=3), RenderConfig(**{
+            **SLICE, **knobs, "sun_mask": "off"}), device="cpu",
+            scene=hard_renderer.scene)
+        np.testing.assert_array_equal(img, dda.render(cam, time=0.0,
+                                                      fetch=True))
+
+
 OUTSIDE = [
-    ("sun_mask_soft", {"sun_mask": "auto", "shadow_samples": 4}, {}),
-    ("soft_shadows", {"shadow_samples": 4}, {}),
     ("ao", {"ambient_occlusion": True}, {}),
     ("point_lights", {"point_lights": True}, {}),
     ("debug_iterations", {"debug_type": 1}, {}),

@@ -8,6 +8,7 @@ before it launches there."""
 
 import contextlib
 import ctypes
+import re
 
 import pytest
 import torch
@@ -133,3 +134,28 @@ def test_the_binding_has_a_launcher_per_kernel():
         assert f"    if ({conv}) return nullptr;" in src, name
         assert f'{{"{name}", (PyCFunction)' in src, name
     assert f"PyInit_{kernels.MODULE}(void)" in src
+
+
+# the C spelling of each ctypes argument type in csrc's entry points
+_C_TYPES = {"void*": ctypes.c_void_p, "int": ctypes.c_int,
+            "float": ctypes.c_float,
+            "unsigned long long": ctypes.c_uint64}
+
+
+@pytest.mark.parametrize("name", sorted(kernels.KERNELS))
+def test_the_table_matches_the_c_entry_point(name):
+    """Each kernel's argument types in KERNELS are those of its extern "C"
+    definition in csrc (read from the source), in order: the binding
+    passes them through a C declaration the compiler cannot hold to the
+    definition."""
+    k = kernels.KERNELS[name]
+    src = (kernels.CSRC.parents[1] / k.source).read_text()
+    m = re.search(r'extern "C" int ' + k.symbol + r"\((.*?)\)\s*\{", src,
+                  re.S)
+    assert m, f"{k.symbol} not defined in {k.source}"
+    types = []
+    for param in m.group(1).split(","):
+        param = " ".join(param.replace("const ", "").split())
+        types.append(_C_TYPES["void*" if "*" in param
+                              else param.rsplit(" ", 1)[0]])
+    assert types == list(k.argtypes)

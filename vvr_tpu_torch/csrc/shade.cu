@@ -3,14 +3,16 @@
 // vvr_tpu/render/frame.py:192-570 for the slice configuration, with
 // vvr_tpu/ops/shade.py `material_at_soa`, `get_face_normal_soa`,
 // `lighting_soa` and the nearest cloud/skybox lookups of
-// vvr_tpu/ops/sky.py:243-330. `shade_surface` writes the shadow rays'
-// starts for K1 in the DDA frame; the default frame's K12 computes them in
-// registers from the same surface.cuh.
+// vvr_tpu/ops/sky.py:243-330. `shade_surface` writes the hard shadow rays'
+// starts for K1 in the DDA frame (from the quarter-voxel floor of the
+// surface with pixelated shadows); the default frame's K12 computes them
+// in registers from the same surface.cuh. `shade_pixel` takes the hard
+// shadow rays' hits (the factor is then 1 - the cloud alpha toward the sun
+// from the surface, or 0), K14's soft-shadow factor, or neither.
+#include "clouds.cuh"
 #include "surface.cuh"
 
 #define VVR_PI_F 3.1415926538f
-#define VVR_CLOUD_HEIGHT 800.0f
-#define VVR_CLOUD_EXTENT 8000.0f
 
 // per_block_unique_colour (utils/hash.py): hash33 of block * k, then
 // normalized, rounded where the JAX package's jitted frame rounds (XLA
@@ -34,24 +36,6 @@ static __device__ __forceinline__ void vvr_block_colour(int bx, int by,
     *r = c0 / n;
     *g = c1 / n;
     *b = c2 / n;
-}
-
-// nearest cloud texel along (d from p) on the cloud plane
-// (sky.py:243-258); rgba = 0 where the plane is not ahead or off-texture
-static __device__ __forceinline__ float4 vvr_sample_clouds(
-        const float* __restrict__ clouds, int r, float dx, float dy, float dz,
-        float px, float py, float pz) {
-    const float denom = -dy;
-    const float t = -(VVR_CLOUD_HEIGHT - py)
-                    / (fabsf(denom) < 1e-4f ? 1.0f : denom);
-    const float u = (px + t * dx) / VVR_CLOUD_EXTENT + 0.5f;
-    const float v = (pz + t * dz) / VVR_CLOUD_EXTENT + 0.5f;
-    const bool valid = fabsf(denom) > 1e-4f && t >= 0.0f && u >= 0.0f
-                       && u <= 1.0f && v >= 0.0f && v <= 1.0f;
-    if (!valid) return make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-    const int iu = vvr_trunc_clip(u * (float)r, 0, r - 1);
-    const int iv = vvr_trunc_clip(v * (float)r, 0, r - 1);
-    return __ldg(reinterpret_cast<const float4*>(clouds) + iv * r + iu);
 }
 
 // nearest cubemap texel, the inverse of the write_skybox face mapping
@@ -118,12 +102,14 @@ __global__ void vvr_shade_surface_kernel(
         const float* __restrict__ o, const float* __restrict__ d,
         const uint8_t* __restrict__ hit, const int* __restrict__ face,
         const int* __restrict__ axis_coord, int n, float sx, float sy,
-        float sz, float* __restrict__ s_o, uint8_t* __restrict__ s_act) {
+        float sz, bool pixelated, float* __restrict__ s_o,
+        uint8_t* __restrict__ s_act) {
     const int i = blockIdx.x * blockDim.x + threadIdx.x;
     if (i >= n) return;
-    const Surface s = vvr_reconstruct(o[3 * i], o[3 * i + 1], o[3 * i + 2],
-                                      d[3 * i], d[3 * i + 1], d[3 * i + 2],
-                                      face[i], axis_coord[i]);
+    Surface s = vvr_reconstruct(o[3 * i], o[3 * i + 1], o[3 * i + 2],
+                                d[3 * i], d[3 * i + 1], d[3 * i + 2],
+                                face[i], axis_coord[i]);
+    if (pixelated) vvr_pixelate(&s);
     const VvrShadowStart st = vvr_shadow_start(s, hit[i] != 0, sx, sy, sz);
     s_o[3 * i] = st.x;
     s_o[3 * i + 1] = st.y;
@@ -135,10 +121,12 @@ __global__ void vvr_shade_pixel_kernel(
         const float* __restrict__ o, const float* __restrict__ d,
         const uint8_t* __restrict__ hit, const int* __restrict__ face,
         const int* __restrict__ axis_coord,
-        const uint8_t* __restrict__ shadow_hit, int n, int size,
+        const uint8_t* __restrict__ shadow_hit,
+        const float* __restrict__ shadow_factor, int n, int size,
         const float* __restrict__ skybox, int sky_res,
         const float* __restrict__ clouds, int cl_res, float sx, float sy,
-        float sz, float cr, float cg, float cb, float* __restrict__ out) {
+        float sz, float cr, float cg, float cb, bool pixelated,
+        float* __restrict__ out) {
     const int i = blockIdx.x * blockDim.x + threadIdx.x;
     if (i >= n) return;
     const float ox = o[3 * i], oy = o[3 * i + 1], oz = o[3 * i + 2];
@@ -150,9 +138,14 @@ __global__ void vvr_shade_pixel_kernel(
         float shadow = 1.0f;
         if (shadow_hit != nullptr) {
             // hit lanes sample the clouds toward the sun from the surface
+            // (its quarter-voxel floor with pixelated shadows)
+            Surface q = s;
+            if (pixelated) vvr_pixelate(&q);
             const float4 cl = vvr_sample_clouds(clouds, cl_res, sx, sy, sz,
-                                                s.wx, s.wy, s.wz);
+                                                q.wx, q.wy, q.wz);
             shadow = shadow_hit[i] != 0 ? 0.0f : 1.0f - cl.w;
+        } else if (shadow_factor != nullptr) {
+            shadow = shadow_factor[i];
         }
         float ar = 1.0f, ag = 1.0f, ab = 1.0f;
         if (s.bx > size / 2) {
@@ -188,33 +181,35 @@ __global__ void vvr_shade_pixel_kernel(
 extern "C" int vvr_shade_surface(const void* o, const void* d,
                                  const void* hit, const void* face,
                                  const void* axis_coord, int n, float sx,
-                                 float sy, float sz, void* s_o, void* s_act,
-                                 void* stream) {
+                                 float sy, float sz, int pixelated,
+                                 void* s_o, void* s_act, void* stream) {
     if (n > 0) {
         vvr_shade_surface_kernel<<<vvr_blocks(n, 256), 256, 0,
                                    (cudaStream_t)stream>>>(
             (const float*)o, (const float*)d, (const uint8_t*)hit,
             (const int*)face, (const int*)axis_coord, n, sx, sy, sz,
-            (float*)s_o, (uint8_t*)s_act);
+            pixelated != 0, (float*)s_o, (uint8_t*)s_act);
     }
     return (int)cudaGetLastError();
 }
 
 extern "C" int vvr_shade_pixel(const void* o, const void* d, const void* hit,
                                const void* face, const void* axis_coord,
-                               const void* shadow_hit, int n, int size,
+                               const void* shadow_hit,
+                               const void* shadow_factor, int n, int size,
                                const void* skybox, int sky_res,
                                const void* clouds, int cl_res, float sx,
                                float sy, float sz, float cr, float cg,
-                               float cb, void* out, void* stream) {
+                               float cb, int pixelated, void* out,
+                               void* stream) {
     if (n > 0) {
         vvr_shade_pixel_kernel<<<vvr_blocks(n, 256), 256, 0,
                                  (cudaStream_t)stream>>>(
             (const float*)o, (const float*)d, (const uint8_t*)hit,
             (const int*)face, (const int*)axis_coord,
-            (const uint8_t*)shadow_hit, n, size, (const float*)skybox,
-            sky_res, (const float*)clouds, cl_res, sx, sy, sz, cr, cg, cb,
-            (float*)out);
+            (const uint8_t*)shadow_hit, (const float*)shadow_factor, n,
+            size, (const float*)skybox, sky_res, (const float*)clouds,
+            cl_res, sx, sy, sz, cr, cg, cb, pixelated != 0, (float*)out);
     }
     return (int)cudaGetLastError();
 }

@@ -1,6 +1,7 @@
-// K11 sun_grids and K12 masked_shadow: the hard-shadow sun classifier.
-// Replace vvr_tpu/ops/sunshadow.py:112 `build_sun_grids` (with cone_tan 0)
-// and :654 `masked_shadow_hits` (ops/sunshadow.py wraps them).
+// K11 sun_grids and K12 masked_shadow: the sun classifier. Replace
+// vvr_tpu/ops/sunshadow.py:112 `build_sun_grids` (with cone_tan 0, and
+// with cone_tan > 0 for soft shadows) and :654 `masked_shadow_hits`
+// (ops/sunshadow.py wraps them).
 //
 // K11 builds, once per sun direction (every frame while the sun is
 // dragged, at 512^2), two conservative depth grids over the world's
@@ -33,6 +34,15 @@
 //     thread's equal run of them with shared-memory atomicMax on each
 //     pair's two values, then writes each texel once, coalesced, including
 //     those no face touched.
+// The cone grids of soft shadows (cone_tan > 0) are the same build twice
+// in one entry point: first the support grid S (cs x cs coarse texels,
+// cs = min(256, grid)), where each face of the set, occluder or not, with
+// its box grown by S_PAD, takes the least of its affine depth at a coarse
+// texel's corners (held at or above its least depth) with a shared-memory
+// atomicMin; then the cone build, whose boxes grow by the face's cone reach
+// above the world's least depth and whose tile threads grow each (face,
+// texel) pair's margins by the reach above that texel's S
+// (sunshadow.py:243-320, :373-441).
 // Depths along s are negative over part of the world, so the float max goes
 // through an order-preserving u32 map (negative floats bit-inverted): a
 // total order on bits, so the grids do not depend on the order in which
@@ -79,9 +89,9 @@
 // last lane is classified, and its longest DDA then runs alone.
 #include "items.cuh"
 #include "jump_dda.cuh"
+#include "sunmask.cuh"
 #include "surface.cuh"
 
-#define VVR_SAFE 0.02f
 #define VVR_NEG (-3e38f)
 // K11 (ops/sunshadow.py SUN_FPB, SUN_MAX_BINS, SUN_COARSE, SUN_BIN_MAX):
 // faces per block (one a thread) of its setup and bin kernels; the most
@@ -95,24 +105,30 @@
 #define VVR_SUN_MAX_LISTS (VVR_SUN_MAX_BINS + 16 + 1)
 #define VVR_SUN_BIN_MAX 16
 #define VVR_SUN_TILE_THREADS 256
-#define VVR_NEAR_K 6
 
-struct VvrSunBasis {
-    float e1x, e1y, e1z, e2x, e2y, e2z, sx, sy, sz;
+// What a build computes: the hard-shadow grids, the cone grids of soft
+// shadows (cone_tan > 0, their margins grown per texel from the support
+// grid S), or S itself (the least surface depth per coarse texel,
+// build_sun_grids :243-320)
+#define VVR_SUN_HARD 0
+#define VVR_SUN_CONE 1
+#define VVR_SUN_SUPPORT 2
+#define VVR_S_PAD 0.5f
+#define VVR_S_SLACK 0.5f
+
+struct VvrSunMode {
+    int mode;
+    float cone_tan, wzmin;   // the cone's tan, the world's least depth
+    const float* S;          // the support grid (cone), cs x cs
+    int cs, bfc;             // its side, and fine texels a side of each
 };
 
-struct VvrSunFrame {  // the grid's placement: texel (i, j) starts at
-    float a0, b0, ts;  // (a0 + i*ts, b0 + j*ts)
-    int grid;
-};
-
-// per-face quantities of the hard-shadow build (cone_tan 0, so the
-// cone's lowering of gridB is zero and is left out)
+// per-face quantities of the build
 struct VvrSunFace {
     bool occl, deg;
     int oi0, oi1, oj0, oj1;
     float p0a, p0b, ua, ub, va, vb, inv_det;
-    float z00, g_a, g_b, zmax, mu, mv, g_m, xv0, xv1;
+    float z00, g_a, g_b, zmin, zmax, mu, mv, g_m, xv0, xv1, rmu, rmv, gsum;
 };
 
 static __device__ __forceinline__ int vvr_texel(float x, float lo, float ts,
@@ -120,10 +136,14 @@ static __device__ __forceinline__ int vvr_texel(float x, float lo, float ts,
     return min(max(vvr_floor_int((x - lo) / ts), 0), grid - 1);
 }
 
-// the rest is computed for an occluder only
+// the rest is computed for an occluder only, or for every face of the
+// support pass (whose frame G is the coarse grid's and whose box grows by
+// S_PAD); the hard build's box grows by SAFE, the cone build's by SAFE
+// plus the cone's reach above the world's least depth
 static __device__ VvrSunFace vvr_sun_face(const VvrFaces& F, int f,
                                           const VvrSunBasis& B,
-                                          const VvrSunFrame& G) {
+                                          const VvrSunFrame& G,
+                                          const VvrSunMode& M) {
     VvrSunFace r;
     const int ax = __ldg(F.axis + f), sg = __ldg(F.sgn + f);
     const int eu = __ldg(F.eu + f), ev = __ldg(F.ev + f);
@@ -131,7 +151,7 @@ static __device__ VvrSunFace vvr_sun_face(const VvrFaces& F, int f,
               vz = __ldg(F.vz + f), einfo = __ldg(F.einfo + f);
     const float s_a = ax == 0 ? B.sx : (ax == 1 ? B.sy : B.sz);
     r.occl = (sg == 1 ? s_a < 0.0f : s_a > 0.0f) && eu > 0;
-    if (!r.occl) return r;
+    if (!r.occl && M.mode != VVR_SUN_SUPPORT) return r;
     const float pc = (float)((ax == 0 ? vx : (ax == 1 ? vy : vz)) + sg);
     const float euf = (float)eu, evf = (float)ev;
     float ca[4], cb[4], cz[4];
@@ -150,8 +170,14 @@ static __device__ VvrSunFace vvr_sun_face(const VvrFaces& F, int f,
     const float amax = fmaxf(fmaxf(ca[0], ca[1]), fmaxf(ca[2], ca[3]));
     const float bmin = fminf(fminf(cb[0], cb[1]), fminf(cb[2], cb[3]));
     const float bmax = fmaxf(fmaxf(cb[0], cb[1]), fmaxf(cb[2], cb[3]));
+    r.zmin = fminf(fminf(cz[0], cz[1]), fminf(cz[2], cz[3]));
     r.zmax = fmaxf(fmaxf(cz[0], cz[1]), fmaxf(cz[2], cz[3]));
-    const float grow = VVR_SAFE;
+    const float grow =
+        M.mode == VVR_SUN_SUPPORT ? VVR_S_PAD
+        : M.mode == VVR_SUN_CONE
+            ? VVR_SAFE + M.cone_tan * fmaxf((r.zmax - M.wzmin) + VVR_S_SLACK,
+                                            0.0f)
+            : VVR_SAFE;
     r.oi0 = vvr_texel(amin - grow, G.a0, G.ts, G.grid);
     r.oi1 = vvr_texel(amax + grow, G.a0, G.ts, G.grid);
     r.oj0 = vvr_texel(bmin - grow, G.b0, G.ts, G.grid);
@@ -168,14 +194,17 @@ static __device__ VvrSunFace vvr_sun_face(const VvrFaces& F, int f,
     r.deg = fabsf(det) < 1e-12f;
     r.inv_det = r.deg ? 0.0f : 1.0f / det;
     const float adet = fmaxf(fabsf(det), 1e-12f);
-    r.mu = grow * (sqrtf(r.va * r.va + r.vb * r.vb) / adet);
-    r.mv = grow * (sqrtf(r.ua * r.ua + r.ub * r.ub) / adet);
+    r.rmu = sqrtf(r.va * r.va + r.vb * r.vb) / adet;
+    r.rmv = sqrtf(r.ua * r.ua + r.ub * r.ub) / adet;
+    r.mu = grow * r.rmu;
+    r.mv = grow * r.rmv;
     // affine depth z(a, b) = z00 + g_a (a - p0a) + g_b (b - p0b)
     r.z00 = cz[0];
     const float zu = cz[2] - r.z00, zv = cz[1] - r.z00;
     r.g_a = (r.vb * zu - r.ub * zv) * r.inv_det;
     r.g_b = (r.ua * zv - r.va * zu) * r.inv_det;
-    r.g_m = grow * (fabsf(r.g_a) + fabsf(r.g_b));
+    r.gsum = fabsf(r.g_a) + fabsf(r.g_b);
+    r.g_m = grow * r.gsum;
     r.xv0 = (float)(einfo & 1) / evf;
     r.xv1 = (float)((einfo >> 1) & 1) / evf;
     return r;
@@ -243,15 +272,18 @@ static __device__ __forceinline__ long long vvr_sun_place(
 }
 
 // Per face f: its texel box boxes[f] = (oi0, oi1, oj0, oj1), empty (0, -1,
-// 0, -1) for a face that occludes nothing, and for an occluder
-// recs[4f..4f+3], the 16 floats of its texel test (with the comparisons'
-// bounds 1 - mu, mv - xv0 and 1 - mv + xv1 formed as the texel test formed
-// them). Per block: cnt[k * nb + block], its faces' entries in list k
+// 0, -1) for a face that occludes nothing (every face takes part in the
+// support pass), and recs[4f..4f+3], the 16 floats of its texel test: in
+// the hard build with the comparisons' bounds 1 - mu, mv - xv0 and
+// 1 - mv + xv1 formed as the texel test formed them; in the cone build
+// with the margins' factors rmu, rmv and gsum instead, the margins being
+// formed per texel; in the support pass the affine depth and the least
+// depth. Per block: cnt[k * nb + block], its faces' entries in list k
 // (VvrSunLists); a warp adds once per list its lanes share (neighbouring
 // faces lie close together).
 static __global__ void __launch_bounds__(VVR_SUN_FPB)
 vvr_sun_setup_kernel(VvrFaces F, VvrSunBasis B, VvrSunFrame G, VvrSunLists L,
-                     int nb, int4* __restrict__ boxes,
+                     VvrSunMode M, int nb, int4* __restrict__ boxes,
                      float4* __restrict__ recs, long long* __restrict__ cnt) {
     __shared__ unsigned s_cnt[VVR_SUN_MAX_LISTS];
     const int n_lists = vvr_sun_n_lists(L);
@@ -261,15 +293,25 @@ vvr_sun_setup_kernel(VvrFaces F, VvrSunBasis B, VvrSunFrame G, VvrSunLists L,
     const int lane = threadIdx.x & 31;
     int4 box = make_int4(0, -1, 0, -1);
     if (f < F.n) {
-        const VvrSunFace s = vvr_sun_face(F, f, B, G);
-        if (s.occl) {
+        const VvrSunFace s = vvr_sun_face(F, f, B, G, M);
+        float4* r = recs + 4 * (size_t)f;
+        if (M.mode == VVR_SUN_SUPPORT) {
             box = make_int4(s.oi0, s.oi1, s.oj0, s.oj1);
-            float4* r = recs + 4 * (size_t)f;
+            r[0] = make_float4(s.p0a, s.p0b, s.g_a, s.g_b);
+            r[1] = make_float4(s.z00, s.zmin, s.deg ? 1.0f : 0.0f, 0.0f);
+        } else if (s.occl) {
+            box = make_int4(s.oi0, s.oi1, s.oj0, s.oj1);
             r[0] = make_float4(s.p0a, s.p0b, s.ua, s.ub);
-            r[1] = make_float4(s.va, s.vb, s.inv_det, s.mu);
-            r[2] = make_float4(1.0f - s.mu, s.mv - s.xv0,
-                               1.0f - s.mv + s.xv1, s.z00);
-            r[3] = make_float4(s.g_a, s.g_b, s.zmax, s.g_m);
+            if (M.mode == VVR_SUN_CONE) {
+                r[1] = make_float4(s.va, s.vb, s.inv_det, s.rmu);
+                r[2] = make_float4(s.rmv, s.xv0, s.xv1, s.z00);
+                r[3] = make_float4(s.g_a, s.g_b, s.zmax, s.gsum);
+            } else {
+                r[1] = make_float4(s.va, s.vb, s.inv_det, s.mu);
+                r[2] = make_float4(1.0f - s.mu, s.mv - s.xv0,
+                                   1.0f - s.mv + s.xv1, s.z00);
+                r[3] = make_float4(s.g_a, s.g_b, s.zmax, s.g_m);
+            }
         }
         boxes[f] = box;
     }
@@ -422,13 +464,16 @@ vvr_sun_bin_kernel(int n_faces, VvrSunLists L, int nb,
 // evaluates the t-th of THREADS equal runs of them, walking its slots'
 // boxes row by row with the record of the slot in registers, as the
 // per-texel build evaluated each texel. All the CTA's threads thus share
-// a tile's pairs, however few faces hold them.
-template <int TILE, int THREADS>
+// a tile's pairs, however few faces hold them. MODE: the hard grids, the
+// cone grids (each texel's margins from the support grid M.S), or the
+// support grid itself (one value a texel, the least over the faces, into
+// `out` as floats; the tile kernel then takes the least, not the most).
+template <int TILE, int THREADS, int MODE>
 static __global__ void __launch_bounds__(THREADS)
-vvr_sun_tile_kernel(VvrSunFrame G, int bins_x, int tiles_per_bin,
-                    const int4* __restrict__ jobs,
+vvr_sun_tile_kernel(VvrSunFrame G, VvrSunMode M, int bins_x,
+                    int tiles_per_bin, const int4* __restrict__ jobs,
                     const float4* __restrict__ recs,
-                    const int4* __restrict__ list, float2* __restrict__ gbc) {
+                    const int4* __restrict__ list, float* __restrict__ out) {
     // a slot: the record (4 float4) and the clipped box (i0, j0, i1, j1)
     // in the tile
     __shared__ float4 s_slot[THREADS][5];
@@ -446,7 +491,7 @@ vvr_sun_tile_kernel(VvrSunFrame G, int bins_x, int tiles_per_bin,
     if (tx >= tiles_x || ty >= tiles_x) return;   // past the grid's edge
     const int x0 = tx * TILE, y0 = ty * TILE;
     const int x1 = min(x0 + TILE, G.grid) - 1, y1 = min(y0 + TILE, G.grid) - 1;
-    const unsigned neg = vvr_ord(VVR_NEG);
+    const unsigned neg = vvr_ord(MODE == VVR_SUN_SUPPORT ? 3e38f : VVR_NEG);
     for (int k = tid; k < 2 * TILE * TILE; k += THREADS) s_tex[k] = neg;
     // the entries: the bin list's, the coarse list's, the global list's
     const int n_bin = job.z, n_two = job.z + job2.x;
@@ -498,37 +543,92 @@ vvr_sun_tile_kernel(VvrSunFrame G, int bins_x, int tiles_per_bin,
         int lj = __float_as_int(geo.y) + idx / bw;
         int li = bi0 + idx % bw;
         for (;;) {
-            // the texel test of the per-texel build: r0 = (p0a, p0b, ua,
-            // ub), r1 = (va, vb, inv_det, mu), r2 = (1 - mu, mv - xv0,
-            // 1 - mv + xv1, z00), r3 = (g_a, g_b, zmax, g_m); an edge-on
-            // face (deg) is the one whose inv_det is 0. Corner k lies at
-            // (ta0 + (k >> 1) * ts, tb0 + (k & 1) * ts), each offset
-            // rounded as there; the comparisons are combined without
-            // branches.
-            const bool deg = r1.z == 0.0f;
+            // Corner k of the texel lies at (ta0 + (k >> 1) * ts, tb0 +
+            // (k & 1) * ts), each offset rounded as the per-texel build
+            // rounds it.
             const float ta0 = G.a0 + (float)(x0 + li) * G.ts;
             const float tb0 = G.b0 + (float)(y0 + lj) * G.ts;
             const float da[2] = {(ta0 + ts0) - r0.x, (ta0 + ts1) - r0.x};
             const float db[2] = {(tb0 + ts0) - r0.y, (tb0 + ts1) - r0.y};
-            bool fully = !deg;
-            float zc_min = 3e38f, zc_max = VVR_NEG;
-#pragma unroll
-            for (int k = 0; k < 4; ++k) {  // the texel's corners
-                const float a_ = da[k >> 1], b_ = db[k & 1];
-                const float uu = (a_ * r1.y - b_ * r1.x) * r1.z;
-                const float vv = (r0.z * b_ - r0.w * a_) * r1.z;
-                fully = fully & (uu > r1.w) & (uu < r2.x) & (vv > r2.y)
-                        & (vv < r2.z);
-                const float zc = (r2.w + a_ * r3.x) + b_ * r3.y;
-                zc_min = fminf(zc_min, zc);
-                zc_max = fmaxf(zc_max, zc);
-            }
             unsigned* t = s_tex + 2 * (lj * TILE + li);
-            // gridC: possibly touching -> affine max over the grown texel,
-            // capped by the face's max; edge-on faces use the face's max
-            atomicMax(t + 1, vvr_ord(deg ? r3.z : fminf(r3.z, zc_max + r3.w)));
-            // gridB: fully covered -> affine min over the texel, capped
-            if (fully) atomicMax(t, vvr_ord(fminf(zc_min, r3.z)));
+            if (MODE == VVR_SUN_SUPPORT) {
+                // r0 = (p0a, p0b, g_a, g_b), r1 = (z00, zmin, deg, 0): the
+                // affine depth's least corner, held at or above the face's
+                // least depth (that depth for an edge-on face)
+                float zmn = 3e38f;
+#pragma unroll
+                for (int k = 0; k < 4; ++k) {
+                    zmn = fminf(zmn, (r1.x + da[k >> 1] * r0.z)
+                                         + db[k & 1] * r0.w);
+                }
+                atomicMin(t, vvr_ord(r1.z != 0.0f ? r1.y
+                                                  : fmaxf(zmn, r1.y)));
+            } else {
+                // the texel test: r0 = (p0a, p0b, ua, ub), r1 = (va, vb,
+                // inv_det, mu), r2 = (1 - mu, mv - xv0, 1 - mv + xv1, z00),
+                // r3 = (g_a, g_b, zmax, g_m); in the cone build r1.w = rmu,
+                // r2 = (rmv, xv0, xv1, z00), r3.w = gsum and the margins
+                // grow with the cone's reach above the texel's support
+                // depth. An edge-on face (deg) is the one whose inv_det is
+                // 0. The comparisons are combined without branches.
+                const bool deg = r1.z == 0.0f;
+                float mu = r1.w, lo_v = r2.y, hi_v = r2.z, hi_u = r2.x;
+                float g_m = r3.w, g_bm = 0.0f, mv = 0.0f;
+                if (MODE == VVR_SUN_CONE) {
+                    const int gi = x0 + li, gj = y0 + lj;
+                    const float s_t = __ldg(
+                        M.S + min(gj / M.bfc, M.cs - 1) * M.cs
+                        + min(gi / M.bfc, M.cs - 1));
+                    const float grow_t =
+                        VVR_SAFE + M.cone_tan * fmaxf(r3.z - (s_t
+                                                              - VVR_S_SLACK),
+                                                      0.0f);
+                    mu = grow_t * r1.w;
+                    mv = grow_t * r2.x;
+                    g_m = grow_t * r3.w;
+                    g_bm = (grow_t - VVR_SAFE) * r3.w;
+                    hi_u = 1.0f - mu;
+                    lo_v = mv - r2.y;
+                    hi_v = (1.0f - mv) + r2.z;
+                }
+                bool fully = !deg;
+                float zc_min = 3e38f, zc_max = VVR_NEG;
+                float uu_min = 3e38f, uu_max = -3e38f;
+                float vv_min = 3e38f, vv_max = -3e38f;
+#pragma unroll
+                for (int k = 0; k < 4; ++k) {  // the texel's corners
+                    const float a_ = da[k >> 1], b_ = db[k & 1];
+                    const float uu = (a_ * r1.y - b_ * r1.x) * r1.z;
+                    const float vv = (r0.z * b_ - r0.w * a_) * r1.z;
+                    fully = fully & (uu > mu) & (uu < hi_u) & (vv > lo_v)
+                            & (vv < hi_v);
+                    const float zc = (r2.w + a_ * r3.x) + b_ * r3.y;
+                    zc_min = fminf(zc_min, zc);
+                    zc_max = fmaxf(zc_max, zc);
+                    if (MODE == VVR_SUN_CONE) {
+                        uu_min = fminf(uu_min, uu);
+                        uu_max = fmaxf(uu_max, uu);
+                        vv_min = fminf(vv_min, vv);
+                        vv_max = fmaxf(vv_max, vv);
+                    }
+                }
+                // gridC: possibly touching -> affine max over the grown
+                // texel, capped by the face's max; edge-on faces use the
+                // face's max. The cone build counts a face as touching
+                // only where the texel's corner interval meets its quad
+                // grown by the texel's reach.
+                const bool poss =
+                    MODE != VVR_SUN_CONE || deg
+                    || (uu_max > -mu && uu_min < 1.0f + mu && vv_max > -mv
+                        && vv_min < 1.0f + mv);
+                if (poss) {
+                    atomicMax(t + 1, vvr_ord(deg ? r3.z
+                                                 : fminf(r3.z, zc_max + g_m)));
+                }
+                // gridB: fully covered -> affine min over the texel
+                // (lowered by the cone's reach), capped
+                if (fully) atomicMax(t, vvr_ord(fminf(zc_min - g_bm, r3.z)));
+            }
             if (++q == q_end) break;
             if (q < a_end) {   // the next texel of this box
                 if (++li > bi1) {
@@ -554,41 +654,61 @@ vvr_sun_tile_kernel(VvrSunFrame G, int bins_x, int tiles_per_bin,
     for (int k = tid; k < TILE * TILE; k += THREADS) {
         const int li = k % TILE, lj = k / TILE;
         if (x0 + li <= x1 && y0 + lj <= y1) {
-            gbc[(long long)(y0 + lj) * G.grid + x0 + li] = make_float2(
-                vvr_unord(s_tex[2 * k]), vvr_unord(s_tex[2 * k + 1]));
+            const long long tex = (long long)(y0 + lj) * G.grid + x0 + li;
+            if (MODE == VVR_SUN_SUPPORT) {
+                out[tex] = vvr_unord(s_tex[2 * k]);
+            } else {
+                reinterpret_cast<float2*>(out)[tex] = make_float2(
+                    vvr_unord(s_tex[2 * k]), vvr_unord(s_tex[2 * k + 1]));
+            }
         }
     }
 }
 
-// scratch (ops/sunshadow.py sun_scratch_bytes): boxes (n_faces int4),
-// records (4 n_faces float4), the lists (n_faces * (VVR_SUN_BIN_MAX + 1)
-// int4), the tiles' jobs (int4 each), the counts ((n_bins + 1) * nb int64)
-// and the scan's block sums and total
-extern "C" int vvr_sun_grids(
-        const void* vx, const void* vy, const void* vz, const void* axis,
-        const void* sgn, const void* eu, const void* ev, const void* einfo,
-        int n_faces, float e1x, float e1y, float e1z, float e2x, float e2y,
-        float e2z, float sx, float sy, float sz, float a0, float b0, float ts,
-        int grid, int tile, int bin_side, void* scratch, void* gbc,
-        void* stream) {
-    cudaStream_t st = (cudaStream_t)stream;
-    const VvrFaces F = {(const int*)vx, (const int*)vy, (const int*)vz,
-                        (const int*)axis, (const int*)sgn, (const int*)eu,
-                        (const int*)ev, (const int*)einfo, n_faces};
-    const VvrSunBasis B = {e1x, e1y, e1z, e2x, e2y, e2z, sx, sy, sz};
-    const VvrSunFrame G = {a0, b0, ts, grid};
-    const int bins_x = (grid + bin_side - 1) / bin_side;
+template <int TILE>
+static void vvr_sun_tiles(int mode, int n_ctas, const VvrSunFrame& G,
+                          const VvrSunMode& M, int bins_x, int per,
+                          const int4* jobs, const float4* recs,
+                          const int4* list, float* out, cudaStream_t st) {
+    if (mode == VVR_SUN_SUPPORT) {
+        vvr_sun_tile_kernel<TILE, VVR_SUN_TILE_THREADS, VVR_SUN_SUPPORT>
+            <<<n_ctas, VVR_SUN_TILE_THREADS, 0, st>>>(G, M, bins_x, per, jobs,
+                                                      recs, list, out);
+    } else if (mode == VVR_SUN_CONE) {
+        vvr_sun_tile_kernel<TILE, VVR_SUN_TILE_THREADS, VVR_SUN_CONE>
+            <<<n_ctas, VVR_SUN_TILE_THREADS, 0, st>>>(G, M, bins_x, per, jobs,
+                                                      recs, list, out);
+    } else {
+        vvr_sun_tile_kernel<TILE, VVR_SUN_TILE_THREADS, VVR_SUN_HARD>
+            <<<n_ctas, VVR_SUN_TILE_THREADS, 0, st>>>(G, M, bins_x, per, jobs,
+                                                      recs, list, out);
+    }
+}
+
+// One build over grid G with the given tiling: setup, scan, bin, tiles
+// (four launches and the scan's two). scratch (ops/sunshadow.py
+// sun_scratch_bytes): boxes (n_faces int4), records (4 n_faces float4), the
+// lists (n_faces * (VVR_SUN_BIN_MAX + 1) int4), the tiles' jobs (int4
+// each), the counts ((n_bins + 1) * nb int64) and the scan's block sums
+// and total.
+static int vvr_sun_build(const VvrFaces& F, const VvrSunBasis& B,
+                         const VvrSunFrame& G, int tile, int bin_side,
+                         const VvrSunMode& M, void* scratch, float* out,
+                         cudaStream_t st) {
+    const int bins_x = (G.grid + bin_side - 1) / bin_side;
     const VvrSunLists L = {bin_side, bins_x, bins_x * bins_x,
                            (bins_x + VVR_SUN_COARSE - 1) / VVR_SUN_COARSE};
     if ((tile != 16 && tile != 32) || bin_side % tile != 0
-        || L.n_bins > VVR_SUN_MAX_BINS || grid <= 0 || grid > 65535) {
+        || L.n_bins > VVR_SUN_MAX_BINS || G.grid <= 0 || G.grid > 65535) {
         return (int)cudaErrorInvalidValue;
     }
+    const int n_faces = F.n;
     const int nb = max((n_faces + VVR_SUN_FPB - 1) / VVR_SUN_FPB, 1);
     const int n_lists = L.n_bins + L.coarse_x * L.coarse_x + 1;
     const int n_cnt = n_lists * nb;
     // a CTA per tile of each bin, including the tiles past the grid's edge
-    const int n_ctas = L.n_bins * (bin_side / tile) * (bin_side / tile);
+    const int per = bin_side / tile;
+    const int n_ctas = L.n_bins * per * per;
     int4* boxes = (int4*)scratch;
     float4* recs = (float4*)(boxes + n_faces);
     int4* list = (int4*)(recs + 4 * (size_t)n_faces);
@@ -596,74 +716,63 @@ extern "C" int vvr_sun_grids(
     long long* cnt = (long long*)(jobs + 2 * (size_t)L.n_bins);
     long long* bsum = cnt + n_cnt;
     long long* total = bsum + (n_cnt + 1023) / 1024;
-    vvr_sun_setup_kernel<<<nb, VVR_SUN_FPB, 0, st>>>(F, B, G, L, nb, boxes,
+    vvr_sun_setup_kernel<<<nb, VVR_SUN_FPB, 0, st>>>(F, B, G, L, M, nb, boxes,
                                                       recs, cnt);
     vvr_scan_partial(cnt, n_cnt, bsum, total, st);
     vvr_sun_bin_kernel<<<nb + 1, VVR_SUN_FPB, 0, st>>>(
         n_faces, L, nb, boxes, cnt, bsum, total, list, jobs);
     if (tile == 16) {
-        vvr_sun_tile_kernel<16, VVR_SUN_TILE_THREADS>
-            <<<n_ctas, VVR_SUN_TILE_THREADS, 0, st>>>(
-                G, bins_x, bin_side / 16, jobs, recs, list, (float2*)gbc);
+        vvr_sun_tiles<16>(M.mode, n_ctas, G, M, bins_x, per, jobs, recs,
+                          list, out, st);
     } else {
-        vvr_sun_tile_kernel<32, VVR_SUN_TILE_THREADS>
-            <<<n_ctas, VVR_SUN_TILE_THREADS, 0, st>>>(
-                G, bins_x, bin_side / 32, jobs, recs, list, (float2*)gbc);
+        vvr_sun_tiles<32>(M.mode, n_ctas, G, M, bins_x, per, jobs, recs,
+                          list, out, st);
     }
     return (int)cudaGetLastError();
 }
 
-// ---- K12
-
-// first K voxel crossings from p along the sun (`_near_segment`): hit =
-// entered solid; exited = left the world; t_end = entry parameter of the
-// last cell tested empty
-static __device__ void vvr_near_segment(const uint32_t* __restrict__ rows,
-                                        int size, float ox, float oy,
-                                        float oz, float dx, float dy,
-                                        float dz, bool* hit, bool* exited,
-                                        float* t_end) {
-    const int g = size >> 3;
-    const float big = 3e38f;
-    const float ix = dx == 0.0f ? big : 1.0f / dx;
-    const float iy = dy == 0.0f ? big : 1.0f / dy;
-    const float iz = dz == 0.0f ? big : 1.0f / dz;
-    const int px = dx > 0.0f, py = dy > 0.0f, pz = dz > 0.0f;
-    int vx = vvr_floor_clip(ox, 0, size - 1);
-    int vy = vvr_floor_clip(oy, 0, size - 1);
-    int vz = vvr_floor_clip(oz, 0, size - 1);
-    float t = 0.0f;
-    *hit = false;
-    *exited = false;
-    *t_end = 0.0f;
-    for (int k = 0; k < VVR_NEAR_K; ++k) {
-        const uint32_t* row = rows
-            + (size_t)((vx >> 3) + (vy >> 3) * g + (vz >> 3) * g * g) * 32;
-        if (vvr_brick_solid(row, vx & 7, vy & 7, vz & 7)) {
-            *hit = true;
-            return;
-        }
-        *t_end = t;
-        const int bx = vx + px, by = vy + py, bz = vz + pz;
-        const float tx = dx == 0.0f ? big : ((float)bx - ox) * ix;
-        const float ty = dy == 0.0f ? big : ((float)by - oy) * iy;
-        const float tz = dz == 0.0f ? big : ((float)bz - oz) * iz;
-        const float te = fminf(tx, fminf(ty, tz));
-        const int nf = tz <= te ? 2 : (ty <= te ? 1 : 0);
-        const int nvx = nf == 0 ? (px ? bx : bx - 1) : vx;
-        const int nvy = nf == 1 ? (py ? by : by - 1) : vy;
-        const int nvz = nf == 2 ? (pz ? bz : bz - 1) : vz;
-        if (nvx < 0 || nvx >= size || nvy < 0 || nvy >= size || nvz < 0
-            || nvz >= size) {
-            *exited = true;
-            return;
-        }
-        vx = nvx;
-        vy = nvy;
-        vz = nvz;
-        t = te;
+// K11: with cone_tan 0 the hard grids (one build); with cone_tan > 0 the
+// cone grids: first the support grid S over cs x cs coarse texels (cs =
+// min(256, grid), each bfc = grid / cs texels a side, a build of its own
+// with tiling (s_tile, s_bin_side)), at the front of scratch, then the
+// cone build, whose tiles read S. The two builds share the rest of
+// scratch in turn (the support build's lists are no larger).
+extern "C" int vvr_sun_grids(
+        const void* vx, const void* vy, const void* vz, const void* axis,
+        const void* sgn, const void* eu, const void* ev, const void* einfo,
+        int n_faces, float e1x, float e1y, float e1z, float e2x, float e2y,
+        float e2z, float sx, float sy, float sz, float a0, float b0, float ts,
+        int grid, int tile, int bin_side, float cone_tan, float wzmin,
+        int s_tile, int s_bin_side, void* scratch, void* gbc,
+        void* stream) {
+    cudaStream_t st = (cudaStream_t)stream;
+    const VvrFaces F = {(const int*)vx, (const int*)vy, (const int*)vz,
+                        (const int*)axis, (const int*)sgn, (const int*)eu,
+                        (const int*)ev, (const int*)einfo, n_faces};
+    const VvrSunBasis B = {e1x, e1y, e1z, e2x, e2y, e2z, sx, sy, sz};
+    const VvrSunFrame G = {a0, b0, ts, grid};
+    VvrSunMode M = {VVR_SUN_HARD, cone_tan, wzmin, nullptr, 0, 1};
+    if (cone_tan > 0.0f) {
+        if (grid <= 0) return (int)cudaErrorInvalidValue;
+        M.cs = min(256, grid);
+        M.bfc = grid / M.cs;
+        float* sgrid = (float*)scratch;
+        scratch = (char*)scratch
+                  + ((size_t)M.cs * M.cs * sizeof(float) + 15) / 16 * 16;
+        const VvrSunFrame GS = {a0, b0, ts * (float)M.bfc, M.cs};
+        VvrSunMode MS = M;
+        MS.mode = VVR_SUN_SUPPORT;
+        const int err = vvr_sun_build(F, B, GS, s_tile, s_bin_side, MS,
+                                      scratch, sgrid, st);
+        if (err != 0) return err;
+        M.mode = VVR_SUN_CONE;
+        M.S = sgrid;
     }
+    return vvr_sun_build(F, B, G, tile, bin_side, M, scratch, (float*)gbc,
+                         st);
 }
+
+// ---- K12
 
 // whether the voxel of an in-world start is solid (the DDA then hits at
 // t = 0)
@@ -728,13 +837,10 @@ static __device__ int vvr_classify_start(
     const bool inw = ox >= 0.0f && ox < fs && oy >= 0.0f && oy < fs
                      && oz >= 0.0f && oz < fs;
     if (!inw) return VVR_K12_LIGHT;           // the DDA's origin-outside rule
-    const float qa = (ox * B.e1x + oy * B.e1y) + oz * B.e1z;
-    const float qb = (ox * B.e2x + oy * B.e2y) + oz * B.e2z;
-    const float qz = (ox * B.sx + oy * B.sy) + oz * B.sz;
-    const int i = vvr_floor_int((qa - G.a0) / G.ts);
-    const int j = vvr_floor_int((qb - G.b0) / G.ts);
-    const bool inb = i >= 0 && i < G.grid && j >= 0 && j < G.grid;
-    const float2 row = gbc[inb ? (long long)j * G.grid + i : 0];
+    const VvrSunRow r = vvr_sun_row(ox, oy, oz, B, gbc, G);
+    const float qz = r.qz;
+    const bool inb = r.ing;
+    const float2 row = r.row;
     if (vvr_start_solid(rows, size, ox, oy, oz)) {
         return VVR_K12_SHADOW;                // the DDA's start-in-solid hit
     }

@@ -40,6 +40,14 @@ static __device__ __forceinline__ Surface vvr_reconstruct(
     return s;
 }
 
+// the pixelated shadows' query point: the surface point floored to a
+// quarter voxel (frame.py:283-286)
+static __device__ __forceinline__ void vvr_pixelate(Surface* s) {
+    s->wx = floorf(s->wx * 4.0f) / 4.0f;
+    s->wy = floorf(s->wy * 4.0f) / 4.0f;
+    s->wz = floorf(s->wz * 4.0f) / 4.0f;
+}
+
 // the shadow ray of a surface: its start, surface + 0.05 along the sun,
 // and whether it is traced, a hit whose face turns toward the sun
 // (frame.py:310-311, :466-467)

@@ -65,12 +65,13 @@ KERNELS = {
         + (_P,),
         "vvr_tpu_torch/csrc/jump_trace.cu", "vvr_tpu/ops/jump.py:289"),
     "shade_surface": Kernel(
-        "vvr_shade_surface", (_P, _P, _P, _P, _P, _I, _F, _F, _F, _P, _P, _P),
+        "vvr_shade_surface",
+        (_P, _P, _P, _P, _P, _I, _F, _F, _F, _I, _P, _P, _P),
         "vvr_tpu_torch/csrc/shade.cu", "vvr_tpu/render/frame.py:192"),
     "shade_pixel": Kernel(
         "vvr_shade_pixel",
-        (_P, _P, _P, _P, _P, _P, _I, _I, _P, _I, _P, _I) + (_F,) * 6
-        + (_P, _P),
+        (_P, _P, _P, _P, _P, _P, _P, _I, _I, _P, _I, _P, _I) + (_F,) * 6
+        + (_I, _P, _P),
         "vvr_tpu_torch/csrc/shade.cu", "vvr_tpu/render/frame.py:192"),
     "write_sky": Kernel(
         "vvr_write_sky", (_F, _F, _F, _F, _I, _I, _P, _P, _P),
@@ -92,13 +93,22 @@ KERNELS = {
         "vvr_tpu_torch/csrc/raster.cu", "vvr_tpu/ops/rastertrace.py:190"),
     "sun_grids": Kernel(
         "vvr_sun_grids",
-        (_P,) * 8 + (_I,) + (_F,) * 12 + (_I, _I, _I, _P, _P, _P),
+        (_P,) * 8 + (_I,) + (_F,) * 12 + (_I, _I, _I, _F, _F, _I, _I, _P,
+                                          _P, _P),
         "vvr_tpu_torch/csrc/sunshadow.cu", "vvr_tpu/ops/sunshadow.py:112"),
     "masked_shadow": Kernel(
         "vvr_masked_shadow",
         (_P, _I) + (_P,) * 7 + (_I,) + (_F,) * 9 + (_P, _I) + (_F,) * 4
         + (_I, _P, _P),
         "vvr_tpu_torch/csrc/sunshadow.cu", "vvr_tpu/ops/sunshadow.py:654"),
+    "generate_rays": Kernel(
+        "vvr_generate_rays", (_F,) * 14 + (_I, _I, _P, _P, _P),
+        "vvr_tpu_torch/csrc/raygen.cu", "vvr_tpu/ops/raygen.py:37"),
+    "soft_shadow": Kernel(
+        "vvr_soft_shadow",
+        (_P, _I, _P, _P, _P, _P, _P, _I, _F, _F, _F, _I, _I, _P, _I, _I)
+        + (_F,) * 6 + (_P, _I, _F, _F, _F, _P, _P, _P),
+        "vvr_tpu_torch/csrc/softshadow.cu", "vvr_tpu/render/frame.py:308"),
     "gather_chain": Kernel(
         "vvr_gather_chain", (_P, _I, _I, _P, _I, _P, _I, _P, _U64, _P),
         "vvr_tpu_torch/csrc/gather.cu",

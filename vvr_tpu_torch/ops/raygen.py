@@ -1,12 +1,18 @@
-"""Camera ray generation, plain torch.
+"""Camera ray generation — kernel K13 `generate_rays` (csrc/raygen.cu).
 
 Counterpart of vvr_tpu/ops/raygen.py: pinhole primary rays, row-major from
 the top-left (row 0 = top of image, +u right, +v up), with its fixed-order
 normalize, every op correctly rounded. The JAX package's jitted rays differ
 in the last ulp or two on about half of the directions: XLA folds
 `/ width * 2.0` into one multiply and contracts the direction's
-multiply-adds. Cheap next to the trace; ROADMAP B1 keeps a kernel for
-later.
+multiply-adds.
+
+On a CUDA device `camera_rays` launches K13 once, with the camera as float
+arguments: no host-to-device copy and no other launch. K13 is bit-exact
+against `generate_rays` run on the CPU (its divisions are divisions and its
+sqrtf is correctly rounded without fast math), so K9's raster keys and
+K12's starts, which come from `d`, do not depend on where the rays were
+made.
 """
 
 from __future__ import annotations
@@ -14,6 +20,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from vvr_tpu_torch import kernels
 from vvr_tpu_torch.utils.camera import Camera
 from vvr_tpu_torch.utils.hash import sqrt32
 
@@ -46,9 +53,30 @@ def generate_rays(position, right, up, forward, tan_half_h, width: int,
     return o, d.contiguous()
 
 
+def frustum(fov: float, width: int, height: int) -> tuple[float, float]:
+    """(tx, ty): the tangents of the half field of view across and up, as
+    float32 values rounded as generate_rays rounds them on the CPU."""
+    tan_half = torch.tensor(np.float32(np.tan(np.radians(fov) / 2.0)))
+    return float(tan_half), float(tan_half / (width / height))
+
+
 def camera_rays(cam: Camera, width: int, height: int,
                 device="cuda"):
+    """(o, d): the camera's (H*W, 3) float32 primary rays on `device`.
+    CUDA: K13, one launch."""
     right, up, forward = cam.basis()
+    if kernels.on_cuda(device):
+        dev = torch.device(device)
+        n = width * height
+        o = torch.empty((n, 3), dtype=F32, device=dev)
+        d = torch.empty((n, 3), dtype=F32, device=dev)
+        vecs = (cam.position, right, up, forward)
+        kernels.launch("generate_rays", dev,
+                       *(float(c) for v in vecs
+                         for c in np.asarray(v, np.float32)),
+                       *frustum(cam.fov, width, height), width, height,
+                       o.data_ptr(), d.data_ptr())
+        return o, d
     tan_half = np.float32(np.tan(np.radians(cam.fov) / 2.0))
 
     def vec(a):

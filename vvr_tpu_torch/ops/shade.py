@@ -132,33 +132,45 @@ def _reconstruct(o, d, face, axis_coord):
     return normal, world, block
 
 
-def shade_surface_plain(o, d, hit, face, axis_coord, sun):
-    """(shadow origins (N, 3), shadow mask (N,)) of the primary hits."""
+def pixelate(world):
+    """The pixelated shadows' query point: each coordinate floored to a
+    quarter voxel (frame.py:283-286)."""
+    return tuple(torch.floor(w * 4.0) / 4.0 for w in world)
+
+
+def shade_surface_plain(o, d, hit, face, axis_coord, sun,
+                        pixelated: bool = False):
+    """(shadow origins (N, 3), shadow mask (N,)) of the primary hits; with
+    `pixelated` the origin is the floored surface point's."""
     sun = sun.to(o.device)
-    (nx, ny, nz), (wx, wy, wz), _ = _reconstruct(o, d, face, axis_coord)
+    (nx, ny, nz), world, _ = _reconstruct(o, d, face, axis_coord)
+    wx, wy, wz = pixelate(world) if pixelated else world
     s_o = torch.stack([wx + sun[0] * 0.05, wy + sun[1] * 0.05,
                        wz + sun[2] * 0.05], -1)
     sun_facing = ((nx * sun[0] + ny * sun[1]) + nz * sun[2]) > 0.0
     return s_o, hit & sun_facing
 
 
-def shade_pixel_plain(o, d, hit, face, axis_coord, shadow_hit, size: int,
-                      skybox, clouds, sun, sun_col, height: int, width: int):
+def shade_pixel_plain(o, d, hit, face, axis_coord, shadow, size: int,
+                      skybox, clouds, sun, sun_col, height: int, width: int,
+                      pixelated: bool = False):
     """Planar HDR (4, H, W): shaded hits, sky plus clouds on misses,
-    alpha 10 on a miss. `shadow_hit` None means shadows off."""
+    alpha 10 on a miss. `shadow`: None (shadows off), the hard shadow
+    rays' (N,) bool hits (the factor is then 1 - the cloud alpha toward
+    the sun from the surface point, floored with `pixelated`, or 0 on a
+    hit), or a soft-shadow (N,) float32 factor."""
     n = o.shape[0]
     sun, sun_col = sun.to(o.device), sun_col.to(o.device)
     ox, oy, oz = o.unbind(1)
     dx, dy, dz = d.unbind(1)
-    (nx, ny, nz), (wx, wy, wz), (bx, by, bz) = _reconstruct(
-        o, d, face, axis_coord)
+    (nx, ny, nz), world, (bx, by, bz) = _reconstruct(o, d, face, axis_coord)
     alb = material_at_soa(bx, by, bz, size)
     miss = ~hit
-    if shadow_hit is None:
-        shadow = torch.ones(n, dtype=F32, device=o.device)
-    else:
+    hard = shadow is not None and shadow.dtype == torch.bool
+    if hard:
         # one merged cloud lookup: toward the sun from the surface on hit
         # lanes, along the camera ray on miss lanes
+        wx, wy, wz = pixelate(world) if pixelated else world
         sunv = sun.expand(n, 3)
         cl = sample_clouds(
             clouds,
@@ -166,11 +178,13 @@ def shade_pixel_plain(o, d, hit, face, axis_coord, shadow_hit, size: int,
             torch.where(hit, sunv[:, 2], dz),
             torch.where(hit, wx, ox), torch.where(hit, wy, oy),
             torch.where(hit, wz, oz))
-        shadow = torch.where(shadow_hit, 0.0, 1.0 - cl[:, 3])
-    lit = lighting_soa(alb, (nx, ny, nz), ROUGHNESS, 1.0, shadow,
-                       (-dx, -dy, -dz), sun, sun_col)
-    if shadow_hit is None:
+        factor = torch.where(shadow, 0.0, 1.0 - cl[:, 3])
+    else:
+        factor = (torch.ones(n, dtype=F32, device=o.device) if shadow is None
+                  else shadow)
         cl = sample_clouds(clouds, dx, dy, dz, ox, oy, oz)
+    lit = lighting_soa(alb, (nx, ny, nz), ROUGHNESS, 1.0, factor,
+                       (-dx, -dy, -dz), sun, sun_col)
     sb = sample_skybox(skybox, dx, dy, dz)
     out = [torch.where(miss, sb[:, c] + (cl[:, c] - sb[:, c]) * cl[:, 3],
                        lit[c]) for c in range(3)]
@@ -188,11 +202,13 @@ def check_trace_inputs(o, d, hit, face, axis_coord):
         raise ValueError("hit must be bool, face/axis_coord int32")
 
 
-def shade_surface(o, d, hit, face, axis_coord, sun):
-    """Shadow-ray origins and mask of the primary hits. CUDA: K2
+def shade_surface(o, d, hit, face, axis_coord, sun, pixelated: bool = False):
+    """Shadow-ray origins and mask of the primary hits (the origins from
+    the floored surface point with `pixelated`). CUDA: K2
     `shade_surface`."""
     if not kernels.on_cuda(o):
-        return shade_surface_plain(o, d, hit, face, axis_coord, sun)
+        return shade_surface_plain(o, d, hit, face, axis_coord, sun,
+                                   pixelated)
     check_trace_inputs(o, d, hit, face, axis_coord)
     kernels.check_cuda(o, d, hit, face, axis_coord)
     n = o.shape[0]
@@ -201,17 +217,20 @@ def shade_surface(o, d, hit, face, axis_coord, sun):
     sx, sy, sz = (float(c) for c in sun.cpu())
     kernels.launch("shade_surface", o.device, o.data_ptr(), d.data_ptr(),
                    hit.data_ptr(), face.data_ptr(), axis_coord.data_ptr(), n,
-                   sx, sy, sz, s_o.data_ptr(), s_act.data_ptr())
+                   sx, sy, sz, int(pixelated), s_o.data_ptr(),
+                   s_act.data_ptr())
     return s_o, s_act
 
 
-def shade_pixel(o, d, hit, face, axis_coord, shadow_hit, size: int, skybox,
-                clouds, sun, sun_col, height: int, width: int):
-    """Planar HDR (4, H, W) of bounce 0. CUDA: K2 `shade_pixel`."""
+def shade_pixel(o, d, hit, face, axis_coord, shadow, size: int, skybox,
+                clouds, sun, sun_col, height: int, width: int,
+                pixelated: bool = False):
+    """Planar HDR (4, H, W) of bounce 0; `shadow` as in shade_pixel_plain.
+    CUDA: K2 `shade_pixel`."""
     if not kernels.on_cuda(o):
-        return shade_pixel_plain(o, d, hit, face, axis_coord, shadow_hit,
+        return shade_pixel_plain(o, d, hit, face, axis_coord, shadow,
                                  size, skybox, clouds, sun, sun_col, height,
-                                 width)
+                                 width, pixelated)
     check_trace_inputs(o, d, hit, face, axis_coord)
     n = o.shape[0]
     if n != height * width:
@@ -223,16 +242,22 @@ def shade_pixel(o, d, hit, face, axis_coord, shadow_hit, size: int, skybox,
     if clouds.data_ptr() % 16:
         raise ValueError("clouds must be 16-byte aligned (read as float4)")
     tensors = [o, d, hit, face, axis_coord, skybox, clouds]
-    if shadow_hit is not None:
-        tensors.append(shadow_hit)
+    hits = factor = None
+    if shadow is not None:
+        if shadow.shape != (n,) or shadow.dtype not in (torch.bool, F32):
+            raise ValueError("shadow must be (N,) bool hits or a float32 "
+                             "factor")
+        tensors.append(shadow)
+        hits, factor = ((shadow, None) if shadow.dtype == torch.bool
+                        else (None, shadow))
     kernels.check_cuda(*tensors)
     out = torch.empty((4, height, width), dtype=F32, device=o.device)
     s = [float(c) for c in sun.cpu()]
     c = [float(v) for v in sun_col.cpu()]
     kernels.launch("shade_pixel", o.device, o.data_ptr(), d.data_ptr(),
                    hit.data_ptr(), face.data_ptr(), axis_coord.data_ptr(),
-                   0 if shadow_hit is None else shadow_hit.data_ptr(), n,
-                   size, skybox.data_ptr(), skybox.shape[1],
-                   clouds.data_ptr(), clouds.shape[0], *s, *c,
-                   out.data_ptr())
+                   0 if hits is None else hits.data_ptr(),
+                   0 if factor is None else factor.data_ptr(), n, size,
+                   skybox.data_ptr(), skybox.shape[1], clouds.data_ptr(),
+                   clouds.shape[0], *s, *c, int(pixelated), out.data_ptr())
     return out

@@ -1,11 +1,14 @@
-"""Sun-space hard-shadow classifier — kernels K11 `sun_grids` and K12
-`masked_shadow` (csrc/sunshadow.cu).
+"""Sun-space shadow classifier — kernels K11 `sun_grids` and K12
+`masked_shadow` (csrc/sunshadow.cu), and the cone gate K14 runs
+(csrc/softshadow.cu).
 
-Replaces vvr_tpu/ops/sunshadow.py for hard shadows: `sun_basis` (:83),
-`build_sun_grids` (:112) with cone_tan 0 and `masked_shadow_hits` (:654)
-with its `_certain` (:525) and `_near_segment` (:536). The cone grids of
-soft shadows, `classify`, `soft_shadow_gate`, `near_walk_classify` and
-`invalidate_sun_texels` wait for ROADMAP A9 and A12.
+Replaces vvr_tpu/ops/sunshadow.py: `sun_basis` (:83), `build_sun_grids`
+(:112) with cone_tan 0 (hard shadows) and CONE_TAN (the cone grids of
+soft shadows), `masked_shadow_hits` (:654) with its `_certain` (:525) and
+`_near_segment` (:536), and `soft_shadow_gate` (:771) and
+`near_walk_classify` (:617) as plain versions of K14's gate mode.
+`invalidate_sun_texels` waits for ROADMAP A12; `classify` is used only by
+the JAX package's tests and tools and is not ported.
 
 All shadow rays of a frame share the sun direction s, so occlusion is a
 property of the world's projection along s. A ray toward the sun can enter
@@ -29,6 +32,15 @@ The frame calls `masked_shadow_from_hits` with its primary hits: on the
 card K12 computes each lane's start and mask from them in registers, with
 K2 `shade_surface`'s code (csrc/surface.cuh), so the frame launches no
 `shade_surface` and the starts never reach device memory.
+
+The cone grids (soft shadows) make one classification hold for every
+jittered direction of a lane: each texel's margins grow by the cone's
+lateral reach, CONE_TAN times the face's depth above a support depth S,
+the least surface depth of the texel's coarse column (COARSE texels a
+side), so a lane whose every sample is certainly shadowed or lit traces
+nothing (`soft_shadow_gate`); a sample that is neither walks its first
+crossings and lifts above its surface texel's cone gridC
+(`near_walk_classify`) before the DDA.
 
 The grids are (gBC (G^2, 2) f32, a0, b0, ts): texel (i, j) covers
 [a0 + i*ts, a0 + (i+1)*ts) x [b0 + j*ts, ...) of the (e1, e2) plane, row
@@ -71,6 +83,16 @@ SUN_FPB = 1024
 SUN_MAX_BINS = 1024
 SUN_COARSE = 8
 SUN_BIN_MAX = 16
+# the soft-shadow cone (vvr_tpu/ops/sunshadow.py:96-108, :765): the largest
+# angle between a jittered sample direction and the sun (its tan), the
+# support grid's side (COARSE texels at most), the support pass's lateral
+# pad and depth slack, and the most a sample's start sits ahead of its
+# surface point along the sun
+CONE_TAN = 0.0087
+COARSE = 256
+S_PAD = 0.5
+S_SLACK = 0.5
+SOFT_FWD = 0.06
 
 
 def sun_basis(sun3):
@@ -86,17 +108,21 @@ def sun_basis(sun3):
     return e1, e2, s
 
 
+def _project_corners(b, size: int):
+    """The world cube's eight corners projected on b, float32, each sum in
+    the JAX order (the corner coordinates are 0 or size, so each product
+    is exact)."""
+    c = np.array([[x, y, z] for x in (0.0, size) for y in (0.0, size)
+                  for z in (0.0, size)], np.float32)
+    b = np.asarray(b, np.float32)
+    return (c[:, 0] * b[0] + c[:, 1] * b[1]) + c[:, 2] * b[2]
+
+
 def grid_frame(e1, e2, size: int, grid: int):
     """(a0, b0, ts) as float32 numpy scalars: the grid covers the world
     cube's projection with a margin of one unit (build_sun_grids
-    :134-141; the corner coordinates are 0 or size, so each product is
-    exact and the sums are taken in the JAX order)."""
-    c = np.array([[x, y, z] for x in (0.0, size) for y in (0.0, size)
-                  for z in (0.0, size)], np.float32)
-    e1 = np.asarray(e1, np.float32)
-    e2 = np.asarray(e2, np.float32)
-    pa = (c[:, 0] * e1[0] + c[:, 1] * e1[1]) + c[:, 2] * e1[2]
-    pb = (c[:, 0] * e2[0] + c[:, 1] * e2[1]) + c[:, 2] * e2[2]
+    :134-141)."""
+    pa, pb = _project_corners(e1, size), _project_corners(e2, size)
     one = np.float32(1.0)
     a0 = pa.min() - one
     b0 = pb.min() - one
@@ -113,9 +139,25 @@ def _floor_int(x):
     return torch.clamp(torch.floor(x), -1e9, 1e9).to(torch.int64)
 
 
-def face_setup(faces, e1, e2, s, a0, b0, ts, grid: int):
-    """Per-face quantities of the hard-shadow build, as a dict of (F,)
-    tensors (the CUDA copy is vvr_sun_face)."""
+def world_zmin(s, size: int) -> np.float32:
+    """The least depth along s of the world cube's corners (float32)."""
+    return np.float32(_project_corners(s, size).min())
+
+
+def coarse_side(grid: int) -> tuple[int, int]:
+    """(cs, bfc): the cone build's support grid is cs^2 texels of bfc^2
+    fine texels each (build_sun_grids :271-272)."""
+    cs = min(COARSE, grid)
+    return cs, grid // cs
+
+
+def face_setup(faces, e1, e2, s, a0, b0, ts, grid: int, cone_tan=0.0,
+               size: int | None = None):
+    """Per-face quantities of the build, as a dict of (F,) tensors (the
+    CUDA copy is vvr_sun_face). With cone_tan > 0 (the soft-shadow cone
+    grids) the texel box grows by the face-level cone reach above the
+    world's lowest depth, and the per-texel margins are formed in the
+    build from rmu, rmv and gsum; `size` is then the world's side."""
     vx, vy, vz, axis, sgn, eu, ev, einfo = faces[:8]
     dev = vx.device
 
@@ -137,19 +179,24 @@ def face_setup(faces, e1, e2, s, a0, b0, ts, grid: int):
             for out, b in ((ca, e1), (cb, e2), (cz, s)):
                 out.append((x * b[0] + y * b[1]) + z * b[2])
     ca, cb, cz = (torch.stack(v, -1) for v in (ca, cb, cz))
-    grow = torch.tensor(SAFE, dtype=F32, device=dev)
+    zmax = cz.amax(-1)
+    if cone_tan > 0.0:
+        wz = torch.tensor(world_zmin(s.cpu().numpy(), size), device=dev)
+        grow = SAFE + cone_tan * torch.clamp((zmax - wz) + S_SLACK, min=0.0)
+    else:
+        grow = torch.tensor(SAFE, dtype=F32, device=dev)
     a0, b0, ts = (torch.tensor(v, dtype=F32, device=dev)
                   for v in (a0, b0, ts))
 
     def texel(x, lo):
         return torch.clamp(_floor_int((x - lo) / ts), 0, grid - 1)
 
+    amin, amax, bmin, bmax = ca.amin(-1), ca.amax(-1), cb.amin(-1), \
+        cb.amax(-1)
     r = {"occl": occl,
-         "oi0": texel(ca.amin(-1) - grow, a0),
-         "oi1": texel(ca.amax(-1) + grow, a0),
-         "oj0": texel(cb.amin(-1) - grow, b0),
-         "oj1": texel(cb.amax(-1) + grow, b0),
-         "zmax": cz.amax(-1)}
+         "oi0": texel(amin - grow, a0), "oi1": texel(amax + grow, a0),
+         "oj0": texel(bmin - grow, b0), "oj1": texel(bmax + grow, b0),
+         "zmax": zmax, "zmin": cz.amin(-1)}
     p0a, p0b = ca[:, 0], cb[:, 0]
     ua, ub = ca[:, 2] - p0a, cb[:, 2] - p0b
     va, vb = ca[:, 1] - p0a, cb[:, 1] - p0b
@@ -161,26 +208,31 @@ def face_setup(faces, e1, e2, s, a0, b0, ts, grid: int):
     zu, zv = cz[:, 2] - z00, cz[:, 1] - z00
     g_a = (vb * zu - ub * zv) * inv_det
     g_b = (ua * zv - va * zu) * inv_det
+    rmu = sqrt32(va * va + vb * vb) / adet
+    rmv = sqrt32(ua * ua + ub * ub) / adet
+    gsum = g_a.abs() + g_b.abs()
     r.update(deg=deg, p0a=p0a, p0b=p0b, ua=ua, ub=ub, va=va, vb=vb,
-             inv_det=inv_det, z00=z00, g_a=g_a, g_b=g_b,
-             mu=grow * (sqrt32(va * va + vb * vb) / adet),
-             mv=grow * (sqrt32(ua * ua + ub * ub) / adet),
-             g_m=grow * (g_a.abs() + g_b.abs()),
+             inv_det=inv_det, z00=z00, g_a=g_a, g_b=g_b, rmu=rmu, rmv=rmv,
+             gsum=gsum, mu=grow * rmu, mv=grow * rmv, g_m=grow * gsum,
              xv0=(einfo & 1).to(F32) / evf,
              xv1=((einfo >> 1) & 1).to(F32) / evf)
+    if cone_tan > 0.0:
+        cs, bfc = coarse_side(grid)
+        tsc = ts * bfc
+
+        def coarse(x, lo):
+            return torch.clamp(_floor_int((x - lo) / tsc), 0, cs - 1)
+
+        r.update(si0=coarse(amin - S_PAD, a0), si1=coarse(amax + S_PAD, a0),
+                 sj0=coarse(bmin - S_PAD, b0), sj1=coarse(bmax + S_PAD, b0))
     return r
 
 
-def sun_grids_plain(faces, e1, e2, s, size: int, grid: int = GRID):
-    """Plain torch K11: (gBC (grid^2, 2) f32, a0, b0, ts)."""
-    dev = faces[0].device
-    a0, b0, ts = grid_frame(e1, e2, size, grid)
-    fs = face_setup(faces, e1, e2, s, a0, b0, ts, grid)
-    tsf = torch.tensor(ts, dtype=F32, device=dev)
-    bw = fs["oi1"] - fs["oi0"] + 1
-    cnt = torch.where(fs["occl"], bw * (fs["oj1"] - fs["oj0"] + 1), 0)
-    g_b = torch.full((grid * grid,), NEG, dtype=F32, device=dev)
-    g_c = torch.full((grid * grid,), NEG, dtype=F32, device=dev)
+def _pairs(cnt, lo_i, lo_j, width):
+    """The (face, i, j) triples of boxes of cnt texels, width a row, from
+    (lo_i, lo_j), in chunks of about PLAIN_CHUNK (bounds the plain build's
+    memory)."""
+    dev = cnt.device
     ends = torch.cumsum(cnt, 0)
     ends_h = ends.cpu().numpy()
     starts_h = ends_h - cnt.cpu().numpy()
@@ -196,33 +248,106 @@ def sun_grids_plain(faces, e1, e2, s, size: int, grid: int = GRID):
             continue
         local = (torch.arange(fidx.numel(), device=dev) + base
                  - (ends[fidx] - cnt[fidx]))
-        i = fs["oi0"][fidx] + local % bw[fidx]
-        j = fs["oj0"][fidx] + torch.div(local, bw[fidx],
-                                        rounding_mode="floor")
+        yield (fidx, lo_i[fidx] + local % width[fidx],
+               lo_j[fidx] + torch.div(local, width[fidx],
+                                      rounding_mode="floor"))
+
+
+def support_grid_plain(fs, a0, b0, ts, grid: int):
+    """The cone build's support grid S (cs^2 f32, build_sun_grids
+    :283-320): per coarse texel, the least depth over every face whose box
+    grown by S_PAD covers it of the face's affine depth at the texel's
+    corners, held at or above the face's own least depth (its least depth
+    for an edge-on face); 3e38 where no face reaches."""
+    dev = fs["zmin"].device
+    cs, bfc = coarse_side(grid)
+    tsc = torch.tensor(ts, dtype=F32, device=dev) * bfc
+    a0, b0 = (torch.tensor(v, dtype=F32, device=dev) for v in (a0, b0))
+    sw = fs["si1"] - fs["si0"] + 1
+    cnt = (fs["sj1"] - fs["sj0"] + 1) * sw
+    sg = torch.full((cs * cs,), 3e38, dtype=F32, device=dev)
+    for fidx, ci, cj in _pairs(cnt, fs["si0"], fs["sj0"], sw):
+        ta = a0 + ci.to(F32) * tsc
+        tb = b0 + cj.to(F32) * tsc
+        zmn = torch.full_like(ta, 3e38)
+        p0a, p0b = fs["p0a"][fidx], fs["p0b"][fidx]
+        z00, g_a, g_b = fs["z00"][fidx], fs["g_a"][fidx], fs["g_b"][fidx]
+        for da_ in (0.0, 1.0):
+            for db_ in (0.0, 1.0):
+                da = (ta + da_ * tsc) - p0a
+                db = (tb + db_ * tsc) - p0b
+                zmn = torch.minimum(zmn, (z00 + da * g_a) + db * g_b)
+        zmin = fs["zmin"][fidx]
+        zv = torch.where(fs["deg"][fidx], zmin, torch.maximum(zmn, zmin))
+        sg.scatter_reduce_(0, cj * cs + ci, zv, "amin")
+    return sg
+
+
+def sun_grids_plain(faces, e1, e2, s, size: int, grid: int = GRID,
+                    cone_tan: float = 0.0):
+    """Plain torch K11: (gBC (grid^2, 2) f32, a0, b0, ts). With cone_tan >
+    0 the cone grids of soft shadows (build_sun_grids with cone_tan): each
+    texel's margins grow by the cone's reach above the texel's support
+    depth S, and a face marks gridC only where its quad grown by that
+    reach may touch the texel."""
+    dev = faces[0].device
+    a0, b0, ts = grid_frame(e1, e2, size, grid)
+    fs = face_setup(faces, e1, e2, s, a0, b0, ts, grid, cone_tan, size)
+    cone = cone_tan > 0.0
+    if cone:
+        cs, bfc = coarse_side(grid)
+        sg = support_grid_plain(fs, a0, b0, ts, grid)
+    tsf = torch.tensor(ts, dtype=F32, device=dev)
+    bw = fs["oi1"] - fs["oi0"] + 1
+    cnt = torch.where(fs["occl"], bw * (fs["oj1"] - fs["oj0"] + 1), 0)
+    g_b = torch.full((grid * grid,), NEG, dtype=F32, device=dev)
+    g_c = torch.full((grid * grid,), NEG, dtype=F32, device=dev)
+    for fidx, i, j in _pairs(cnt, fs["oi0"], fs["oj0"], bw):
         f = {k: v[fidx] for k, v in fs.items()}
+        if cone:
+            s_t = sg[torch.clamp(j // bfc, max=cs - 1) * cs
+                     + torch.clamp(i // bfc, max=cs - 1)]
+            grow_t = SAFE + cone_tan * torch.clamp(
+                f["zmax"] - (s_t - S_SLACK), min=0.0)
+            mu, mv = grow_t * f["rmu"], grow_t * f["rmv"]
+            g_m, g_bm = grow_t * f["gsum"], (grow_t - SAFE) * f["gsum"]
+        else:
+            mu, mv, g_m = f["mu"], f["mv"], f["g_m"]
         ta0 = a0 + i.to(F32) * tsf
         tb0 = b0 + j.to(F32) * tsf
         fully = ~f["deg"]
         zc_min = torch.full_like(ta0, 3e38)
         zc_max = torch.full_like(ta0, NEG)
+        uvs = []
         for da_ in (0.0, 1.0):
             for db_ in (0.0, 1.0):
                 da = (ta0 + da_ * tsf) - f["p0a"]
                 db = (tb0 + db_ * tsf) - f["p0b"]
                 uu = (da * f["vb"] - db * f["va"]) * f["inv_det"]
                 vv = (f["ua"] * db - f["ub"] * da) * f["inv_det"]
-                fully &= ((uu > f["mu"]) & (uu < 1.0 - f["mu"])
-                          & (vv > f["mv"] - f["xv0"])
-                          & (vv < (1.0 - f["mv"]) + f["xv1"]))
+                uvs.append((uu, vv))
+                fully &= ((uu > mu) & (uu < 1.0 - mu)
+                          & (vv > mv - f["xv0"])
+                          & (vv < (1.0 - mv) + f["xv1"]))
                 zc = (f["z00"] + da * f["g_a"]) + db * f["g_b"]
                 zc_min = torch.minimum(zc_min, zc)
                 zc_max = torch.maximum(zc_max, zc)
         tex = j * grid + i
         zc_val = torch.where(f["deg"], f["zmax"],
-                             torch.minimum(f["zmax"], zc_max + f["g_m"]))
-        g_c.scatter_reduce_(0, tex, zc_val, "amax")
-        g_b.scatter_reduce_(0, tex[fully],
-                            torch.minimum(zc_min, f["zmax"])[fully], "amax")
+                             torch.minimum(f["zmax"], zc_max + g_m))
+        if cone:
+            # possibly touching: the texel's corner interval meets the
+            # quad grown by this texel's reach (build_sun_grids :426-432)
+            uu = torch.stack([u for u, _ in uvs])
+            vv = torch.stack([v for _, v in uvs])
+            poss = f["deg"] | ((uu.amax(0) > -mu) & (uu.amin(0) < 1.0 + mu)
+                               & (vv.amax(0) > -mv) & (vv.amin(0) < 1.0 + mv))
+            g_c.scatter_reduce_(0, tex[poss], zc_val[poss], "amax")
+            zb_val = torch.minimum(zc_min - g_bm, f["zmax"])
+        else:
+            g_c.scatter_reduce_(0, tex, zc_val, "amax")
+            zb_val = torch.minimum(zc_min, f["zmax"])
+        g_b.scatter_reduce_(0, tex[fully], zb_val[fully], "amax")
     return torch.stack([g_b, g_c], 1), a0, b0, ts
 
 
@@ -237,28 +362,32 @@ def sun_tiling(grid: int) -> tuple[int, int]:
     return tile, tile * -(-tiles_x // math.isqrt(SUN_MAX_BINS))
 
 
-def sun_scratch_bytes(n_faces: int, grid: int) -> int:
+def sun_scratch_bytes(n_faces: int, grid: int, cone: bool = False) -> int:
     """Bytes of K11's scratch (csrc/sunshadow.cu vvr_sun_grids): per face
     a texel box (int4), a record (4 float4) and room for SUN_BIN_MAX + 1
     list entries (int4); a job (2 int4) per bin; a count per (list, block
     of SUN_FPB faces), int64, the lists being the bins, the coarse bins
     (SUN_COARSE bins a side) and the global list, with the scan's block
-    sums and total."""
+    sums and total. The cone build adds its support grid (cs^2 floats,
+    rounded up to 16 bytes) in front; its support pass reuses the rest."""
     bin_side = sun_tiling(grid)[1]
     bins_x = -(-grid // bin_side)
     n_lists = bins_x ** 2 + (-(-bins_x // SUN_COARSE)) ** 2 + 1
     n_cnt = n_lists * max(-(-n_faces // SUN_FPB), 1)
-    return (16 * n_faces * (5 + SUN_BIN_MAX + 1)
+    support = -(-4 * coarse_side(grid)[0] ** 2 // 16) * 16 if cone else 0
+    return (support + 16 * n_faces * (5 + SUN_BIN_MAX + 1)
             + 32 * bins_x ** 2
             + 8 * (n_cnt + -(-n_cnt // 1024) + 1))
 
 
-def sun_grids(faces, e1, e2, s, size: int, grid: int = GRID):
-    """Conservative hard-shadow grids (gBC, a0, b0, ts) for sun basis
-    (e1, e2, s) from the merged faces (FaceSet.device_tuple()). CUDA:
-    K11."""
+def sun_grids(faces, e1, e2, s, size: int, grid: int = GRID,
+              cone_tan: float = 0.0):
+    """Conservative shadow grids (gBC, a0, b0, ts) for sun basis (e1, e2,
+    s) from the merged faces (FaceSet.device_tuple()): the hard grids, or
+    with cone_tan > 0 (CONE_TAN) the cone grids of soft shadows. CUDA:
+    K11 (with the cone, its support pass first, in the same launch)."""
     if not kernels.on_cuda(faces[0]):
-        return sun_grids_plain(faces, e1, e2, s, size, grid)
+        return sun_grids_plain(faces, e1, e2, s, size, grid, cone_tan)
     if len(faces) < 8 or any(a.dtype != torch.int32 for a in faces[:8]):
         raise ValueError("faces must be FaceSet.device_tuple()")
     if not 1 <= grid <= 65535:
@@ -267,12 +396,15 @@ def sun_grids(faces, e1, e2, s, size: int, grid: int = GRID):
     dev = faces[0].device
     a0, b0, ts = grid_frame(e1, e2, size, grid)
     nf = faces[0].shape[0]
-    scratch = torch.empty(sun_scratch_bytes(nf, grid), dtype=torch.uint8,
-                          device=dev)
+    cone = cone_tan > 0.0
+    scratch = torch.empty(sun_scratch_bytes(nf, grid, cone),
+                          dtype=torch.uint8, device=dev)
     gbc = torch.empty((grid * grid, 2), dtype=F32, device=dev)
     kernels.launch("sun_grids", dev, *(a.data_ptr() for a in faces[:8]), nf,
                    *(float(c) for v in (e1, e2, s) for c in v), float(a0),
                    float(b0), float(ts), grid, *sun_tiling(grid),
+                   float(cone_tan), float(world_zmin(s, size)) if cone
+                   else 0.0, *sun_tiling(coarse_side(grid)[0]),
                    scratch.data_ptr(), gbc.data_ptr())
     return gbc, a0, b0, ts
 
@@ -281,12 +413,17 @@ def near_segment_plain(grid: JumpGrid, p_o, sun3, k: int = NEAR_K):
     """(hit, exited, t_end) of the first k voxel crossings from p_o along
     the sun (`_near_segment`): hit = entered solid within the segment;
     exited = left the world; t_end = the entry parameter of the last cell
-    tested empty. The plain voxel step of the DDA, so a hit is the DDA's."""
+    tested empty. The plain voxel step of the DDA, so a hit is the DDA's.
+    `sun3` is one direction for every lane, or an (N, 3) tensor of them
+    (the soft path's jittered samples)."""
     dev = p_o.device
     size, g = grid.size, grid.gsize
     rows = grid.rows.to(torch.int64) & MASK32
     o = p_o.to(F32)
-    sun = torch.as_tensor(np.asarray(sun3, np.float32), device=dev)
+    if isinstance(sun3, torch.Tensor):
+        sun = sun3.to(device=dev, dtype=F32)
+    else:
+        sun = torch.as_tensor(np.asarray(sun3, np.float32), device=dev)
     big = 3e38
     inv = torch.where(sun == 0.0, big, 1.0 / sun)
     pos = (sun > 0).to(torch.int64)
@@ -321,28 +458,77 @@ def near_segment_plain(grid: JumpGrid, p_o, sun3, k: int = NEAR_K):
     return hit, exited, t_end
 
 
+def _texel_rows(p, sun, e1, e2, grids, size: int):
+    """(in world, depth along the sun, texel in the grid, its gBC row) of
+    points p (N, 3): each projection summed left to right, the texel
+    floor((q - origin) / ts) (row 0 off the grid)."""
+    gbc, a0, b0, ts = grids
+    g = math.isqrt(gbc.shape[0])
+    dev = p.device
+    sun, e1, e2 = (torch.as_tensor(np.asarray(v, np.float32), device=dev)
+                   for v in (sun, e1, e2))
+    a0, b0, ts = (torch.tensor(v, dtype=F32, device=dev)
+                  for v in (a0, b0, ts))
+    x, y, z = p.unbind(1)
+    inw = ((p >= 0) & (p < size)).all(1)
+    qa, qb, qz = ((x * b[0] + y * b[1]) + z * b[2] for b in (e1, e2, sun))
+    i = _floor_int((qa - a0) / ts)
+    j = _floor_int((qb - b0) / ts)
+    ing = (i >= 0) & (i < g) & (j >= 0) & (j < g)
+    return inw, qz, ing, gbc[torch.where(ing, j * g + i, 0)]
+
+
+def soft_shadow_gate(s_base, sun3, e1, e2, grids, active, size: int,
+                     fwd: float = SOFT_FWD):
+    """(known hit, known miss), each (N,) bool, shared by every jittered
+    sample of a soft-shadow lane (`soft_shadow_gate`, :771): from the
+    cone grids, a surface point s_base whose depth plus `fwd` lies below
+    its texel's B - SAFE is shadowed for every direction of the cone; one
+    above C + SAFE is lit for all of them; a point outside the world is
+    lit (the DDA's origin-outside rule). The plain version K14's gate
+    mode runs per lane."""
+    inw, qz, ing, row = _texel_rows(s_base, sun3, e1, e2, grids, size)
+    inb = inw & ing
+    kh = active & inb & (qz + fwd < row[:, 0] - SAFE)
+    km = active & ~kh & ((inb & (qz > row[:, 1] + SAFE)) | ~inw)
+    return kh, km
+
+
+def surface_row_c(s_base, sun3, e1, e2, grids, size: int):
+    """The cone gridC of each surface point's texel, 3e38 where the point
+    projects off the grid (no claim): the bound near_walk_classify lifts
+    a sample above (render/frame.py:410-423)."""
+    _, _, ing, row = _texel_rows(s_base, sun3, e1, e2, grids, size)
+    return torch.where(ing, row[:, 1], 3e38)
+
+
+def near_walk_classify(grid: JumpGrid, p_o, p_d, row_c, sun3, size: int):
+    """(known hit, known miss) of soft-shadow sample rays from p_o along
+    their own directions p_d (N, 3) (`near_walk_classify`, :617): the
+    first NEAR_K voxel crossings exactly (a hit there is the DDA's), then
+    a miss is certain where the walk left the world or lifted the ray's
+    depth above its surface texel's cone gridC row_c + SAFE (every later
+    crossing would lie above every one the cone grids registered). A start
+    outside the world is a miss. Lanes in neither run the DDA."""
+    inw = ((p_o >= 0) & (p_o < size)).all(1)
+    nh, nexit, t_end = near_segment_plain(grid, p_o, p_d)
+    sun = torch.as_tensor(np.asarray(sun3, np.float32), device=p_o.device)
+    ox, oy, oz = p_o.unbind(1)
+    dx, dy, dz = p_d.unbind(1)
+    lift = ((ox * sun[0] + oy * sun[1]) + oz * sun[2]) \
+        + t_end * ((dx * sun[0] + dy * sun[1]) + dz * sun[2])
+    kh = inw & nh
+    km = ~inw | (inw & ~nh & (nexit | (lift > row_c + SAFE)))
+    return kh, km
+
+
 def certain(s_o, sun3, e1, e2, grids, size: int, back: float = BACK):
     """The two certainty tests of ray starts s_o (N, 3) toward the sun
     (`_certain`): (certain shadow, certain light, in world, depth along the
     sun, gridC row). Shadow is tested at s_o's depth, light at the depth
     `back` below it. Starts outside the world are never certain."""
-    gbc, a0, b0, ts = grids
-    g = math.isqrt(gbc.shape[0])
-    dev = s_o.device
-
-    def vec(v):
-        return torch.as_tensor(np.asarray(v, np.float32), device=dev)
-
-    sun, e1, e2 = vec(sun3), vec(e1), vec(e2)
-    a0, b0, ts = (torch.tensor(v, dtype=F32, device=dev)
-                  for v in (a0, b0, ts))
-    ox, oy, oz = s_o.unbind(1)
-    inw = ((s_o >= 0) & (s_o < size)).all(1)
-    qa, qb, qz = ((ox * b[0] + oy * b[1]) + oz * b[2] for b in (e1, e2, sun))
-    i = _floor_int((qa - a0) / ts)
-    j = _floor_int((qb - b0) / ts)
-    inb = inw & (i >= 0) & (i < g) & (j >= 0) & (j < g)
-    row = gbc[torch.where(inb, j * g + i, 0)]
+    inw, qz, ing, row = _texel_rows(s_o, sun3, e1, e2, grids, size)
+    inb = inw & ing
     shadow = inb & (qz < row[:, 0] - SAFE)
     light = inb & (qz - back > row[:, 1] + SAFE)
     return shadow, light, inw, qz, row[:, 1]

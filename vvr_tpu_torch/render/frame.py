@@ -2,21 +2,24 @@
 
 Counterpart of vvr_tpu/render/frame.py `render_frame` for the slice the
 port renders: primary visibility by the face rasterizer or the jump-grid
-DDA, one hard shadow ray per lit pixel (or none) answered by the sun
-classifier or the DDA, no mirrors (so only bounce 0 runs), no AO, no point
-lights, the main view (debug_type 6). With `max_ray_iterations` 0 no
-bounce runs and every pixel is black with alpha 0, as in the JAX frame
-(whose loop then runs no body and zeroes the lanes still active). Every pass
-is a kernel on a CUDA device and its plain torch version on the CPU:
+DDA, sun shadows (none, one hard ray per lit pixel, or `shadow_samples`
+jittered soft rays, from the surface or, with `pixelated_shadows`, from
+its quarter-voxel floor), no mirrors (so only bounce 0 runs), no AO, no
+point lights, the main view (debug_type 6). With `max_ray_iterations` 0
+no bounce runs and every pixel is black with alpha 0, as in the JAX frame
+(whose loop then runs no body and zeroes the lanes still active). Every
+pass is a kernel on a CUDA device and its plain torch version on the CPU:
 
   1. sky textures, unless the caller passes cached ones (K3)
   2. primary visibility: the face rasterizer with `raster` (K9, K10),
      else the DDA (K1, by 8x4 pixel tiles, without its counters)
-  3. shadow query toward the sun from surface + 0.05, lit pixels only:
-     the sun classifier with `sunmask` (K12, which reconstructs the
+  3. sun shadows, lit pixels only. Hard: toward the sun from surface +
+     0.05: the sun classifier with `sunmask` (K12, which reconstructs the
      surface and the start itself and sends its residue through the DDA),
      else the starts from K2 surface and the DDA (K1, as above, given the
-     one sun direction of every ray)
+     one sun direction of every ray). Soft: K14, one thread a pixel
+     through its samples, gated by the cone grids with `sunmask`, into a
+     shadow factor
   4. shading, sky and clouds into planar HDR (K2 shade)
   5. bloom chain and composite to u8 (K4)
 """
@@ -31,6 +34,7 @@ from vvr_tpu_torch.ops import shade as shade_ops
 from vvr_tpu_torch.ops import sky as sky_ops
 from vvr_tpu_torch.ops.jump import trace_jump
 from vvr_tpu_torch.ops.rastertrace import trace_raster
+from vvr_tpu_torch.ops.softshadow import soft_shadow
 from vvr_tpu_torch.ops.sunshadow import masked_shadow_from_hits
 from vvr_tpu_torch.world.jumpgrid import JumpGrid
 
@@ -44,13 +48,6 @@ def check_frame_config(cfg: RenderConfig) -> None:
     if cfg.max_ray_iterations < 0:
         raise ValueError(f"max_ray_iterations must be >= 0, got "
                          f"{cfg.max_ray_iterations}")
-    if cfg.shadow_samples > 1:
-        raise NotImplementedError(
-            "soft shadows (shadow_samples > 1) are not ported yet: "
-            "ROADMAP A9")
-    if cfg.pixelated_shadows:
-        raise NotImplementedError(
-            "pixelated_shadows is not ported yet: ROADMAP A9")
     if cfg.ambient_occlusion:
         raise NotImplementedError(
             "ambient occlusion is not ported yet: ROADMAP A10")
@@ -70,10 +67,17 @@ def render_frame(grid: JumpGrid, o, d, sun, time: float, cfg: RenderConfig,
     tensor); `sky`: optional cached (skybox, clouds) textures; `raster`:
     optional (faces, raster_camera, camera-in-solid probe) for rasterized
     primary visibility (the rays must be that camera's wavefront);
-    `sunmask`: optional (e1, e2, grids) of the hard-shadow classifier.
+    `sunmask`: optional (e1, e2, grids) of the sun classifier: the hard
+    grids with one shadow sample, the cone grids
+    (sunshadow.sun_grids(..., cone_tan=CONE_TAN)) with soft shadows; none
+    with pixelated shadows, whose quarter-voxel floor can bury the query
+    where a certain-light claim is unsound (Renderer.use_sunmask).
     Returns (u8 image (H, W, 3), hdr rgba (rh, rw, 4)), both on the rays'
     device."""
     check_frame_config(cfg)
+    if sunmask is not None and cfg.pixelated_shadows:
+        raise ValueError("pixelated shadows take no sun classifier: the "
+                         "quarter-voxel floor can bury the query")
     rh, rw = cfg.render_height, cfg.render_width
     n = o.shape[0]
     if n != rh * rw:
@@ -94,22 +98,25 @@ def render_frame(grid: JumpGrid, o, d, sun, time: float, cfg: RenderConfig,
         res = trace_raster(faces, rcam, d, probe, grid.size, rw, rh)
     else:
         res = trace_jump(grid, o, d, max_steps, width=rw, stats=False)
-    shadow_hit = None
-    if cfg.shadow_samples == 1:
-        # shadow start: surface + 0.05 along the sun
+    hits = (o, d, res.hit, res.face, res.axis_coord)
+    pixelated = cfg.pixelated_shadows
+    shadow = None
+    if cfg.shadow_samples > 1:
+        shadow = soft_shadow(grid, *hits, sun3.numpy(), cfg.shadow_samples,
+                             clouds, max_steps, pixelated, sunmask)
+    elif cfg.shadow_samples == 1:
+        # shadow start: surface (its quarter-voxel floor with pixelated
+        # shadows) + 0.05 along the sun
         if sunmask is not None:
-            e1, e2, grids = sunmask
-            shadow_hit = masked_shadow_from_hits(
-                grid, o, d, res.hit, res.face, res.axis_coord, sun3.numpy(),
-                e1, e2, grids, max_steps)
+            shadow = masked_shadow_from_hits(grid, *hits, sun3.numpy(),
+                                             *sunmask, max_steps)
         else:
-            s_o, s_act = shade_ops.shade_surface(o, d, res.hit, res.face,
-                                                 res.axis_coord, sun3)
-            shadow_hit = trace_jump(grid, s_o, sun3.to(dev), max_steps,
-                                    active=s_act, width=rw, stats=False).hit
-    hdr = shade_ops.shade_pixel(o, d, res.hit, res.face, res.axis_coord,
-                                shadow_hit, grid.size, skybox, clouds, sun3,
-                                sky_ops.sun_colour_final(sun3), rh, rw)
+            s_o, s_act = shade_ops.shade_surface(*hits, sun3, pixelated)
+            shadow = trace_jump(grid, s_o, sun3.to(dev), max_steps,
+                                active=s_act, width=rw, stats=False).hit
+    hdr = shade_ops.shade_pixel(*hits, shadow, grid.size, skybox, clouds,
+                                sun3, sky_ops.sun_colour_final(sun3), rh, rw,
+                                pixelated)
     return _post(hdr, cfg)
 
 

@@ -5,9 +5,9 @@ Counterpart of vvr_tpu/render/renderer.py for the slice:
 the scene, the sun, the cross-frame sky and sun-grid caches and the frame
 statistics. `primary_raster` and `sun_mask` resolve as in the JAX package
 (renderer.py:79-98): at their "auto" defaults the main view rasterizes its
-primary visibility and answers hard shadows with the sun classifier.
-Configurations outside the slice raise NotImplementedError naming the
-ROADMAP item that adds them.
+primary visibility and answers shadows with the sun classifier (its cone
+grids for soft shadows). Configurations outside the slice raise
+NotImplementedError naming the ROADMAP item that adds them.
 """
 
 from __future__ import annotations
@@ -54,10 +54,6 @@ def check_slice(world_cfg: WorldConfig, cfg: RenderConfig,
     """Raise NotImplementedError unless the configuration is the slice the
     port renders; each message names the ROADMAP item that adds the
     feature."""
-    if use_sunmask(cfg) and cfg.shadow_samples > 1:
-        raise NotImplementedError(
-            "sun_mask with soft shadows (shadow_samples > 1) needs the cone "
-            "grids, which are not ported yet: ROADMAP A9")
     if mirror_materials:
         raise NotImplementedError(
             "mirror materials are not ported yet: ROADMAP A10")
@@ -136,15 +132,17 @@ class Renderer:
 
     def _sunmask(self):
         """(e1, e2, grids) of the sun classifier, rebuilt only when the
-        key (sun, scene epoch, reduced resolution, cone) changes."""
+        key (sun, scene epoch, reduced resolution, cone) changes: the cone
+        grids with soft shadows, the hard grids otherwise."""
         lo = self._sun_dragging
-        key = (self.sun[:3].tobytes(), self.scene.epoch, lo,
-               self.cfg.shadow_samples > 1)
+        cone = self.cfg.shadow_samples > 1
+        key = (self.sun[:3].tobytes(), self.scene.epoch, lo, cone)
         if self._sunmask_cache is None or self._sunmask_cache[0] != key:
             e1, e2, s = sunshadow.sun_basis(self.sun[:3])
             grids = sunshadow.sun_grids(
                 self.scene.ensure_faces(), e1, e2, s, self.scene.cfg.size,
-                sunshadow.GRID_DRAGGING if lo else sunshadow.GRID)
+                sunshadow.GRID_DRAGGING if lo else sunshadow.GRID,
+                sunshadow.CONE_TAN if cone else 0.0)
             self._sunmask_cache = (key, (e1, e2, grids))
         return self._sunmask_cache[1]
 
@@ -154,7 +152,6 @@ class Renderer:
         with fetch=True). With timed=True the frame is synchronized and its
         wall time pushed into Statistics."""
         t = self.elapsed if time is None else time
-        t0 = _time.monotonic()
         o, d = camera_rays(camera, self.cfg.render_width,
                            self.cfg.render_height, self.device)
         raster = None
@@ -162,8 +159,14 @@ class Renderer:
             raster = (self.scene.ensure_faces(), raster_camera(camera),
                       self.scene.solid_at_host(camera.position))
         sunmask = self._sunmask() if self.use_sunmask else None
+        sky = self._sky(t)
+        # the clock spans the frame call, as the JAX renderer's does
+        # (vvr_tpu/render/renderer.py:188): the rays, the sun grids and the
+        # sky are enqueued before it, and the synchronize below waits for
+        # them too
+        t0 = _time.monotonic()
         img, _ = render_frame(self.scene.jumpgrid, o, d, self.sun, t,
-                              self.cfg, sky=self._sky(t), raster=raster,
+                              self.cfg, sky=sky, raster=raster,
                               sunmask=sunmask)
         if timed:
             self._sync()

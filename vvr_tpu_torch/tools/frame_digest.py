@@ -1,7 +1,7 @@
 """Digests of the bench frame's bytes, to hold two checkouts to each other
 on one card.
 
-    python3 vvr_tpu_torch/tools/frame_digest.py [--root DIR]
+    python3 vvr_tpu_torch/tools/frame_digest.py [--root DIR] [--cpu-rays]
 
 Renders bench.py's default-knob frame (256^3 world, the bench camera,
 t = 0: face rasterizer, sun classifier, one hard shadow ray per lit pixel)
@@ -23,7 +23,11 @@ grid the SHA-256 of gBC. The calls are those of `Renderer.render`,
 share, so running the script once
 with --root at an unpacked `git archive` of another commit and once
 without, in one call on one card, shows whether the two trees' kernels
-give the same bytes. It exits non-zero without a CUDA device.
+give the same bytes. With --cpu-rays the frames' rays are made on the CPU
+(the package's plain `camera_rays`) and copied to the card, so two
+checkouts whose card rays differ (the plain torch rays on the card before
+K13, K13's since) are held to each other on the same rays. It exits
+non-zero without a CUDA device.
 """
 
 from __future__ import annotations
@@ -77,6 +81,8 @@ def main(argv=None) -> int:
     ap.add_argument("--root", type=pathlib.Path,
                     default=pathlib.Path(__file__).resolve().parents[2],
                     help="the checkout whose vvr_tpu_torch renders")
+    ap.add_argument("--cpu-rays", action="store_true",
+                    help="make the frames' rays on the CPU")
     args = ap.parse_args(argv)
     root = args.root.resolve()
     sys.path.insert(0, str(root))
@@ -95,7 +101,7 @@ def main(argv=None) -> int:
     dev = torch.device("cuda", 0)
     cam = Camera.look_at(*CAMERA[:2], fov=CAMERA[2])
     scene = None
-    out = {"root": str(root)}
+    out = {"root": str(root), "cpu rays": args.cpu_rays}
     for name, knobs in CONFIGS.items():
         cfg = RenderConfig(shadow_samples=1, max_ray_iterations=3, **knobs)
         r = Renderer(WorldConfig(depth=4), cfg, device=dev, scene=scene,
@@ -103,7 +109,9 @@ def main(argv=None) -> int:
                      cache_path=root / "build" / "vvr_tpu_torch"
                      / "map_256.npz")
         scene = r.scene
-        o, d = camera_rays(cam, cfg.render_width, cfg.render_height, dev)
+        o, d = (t.to(dev) for t in camera_rays(
+            cam, cfg.render_width, cfg.render_height,
+            "cpu" if args.cpu_rays else dev))
         raster = ((scene.ensure_faces(), raster_camera(cam),
                    scene.solid_at_host(cam.position)) if r.use_raster
                   else None)

@@ -2,12 +2,14 @@
 
     python3 vvr_tpu_torch/tools/profile_frame.py [--trace PATH] [--root DIR]
 
-Renders the frames that chip_smoke.py drives (256^3 world, 1920x1080, one
-hard shadow ray per lit pixel, the bench camera, a fixed time so no sky
-rebuild falls in a frame window; the K3 window below holds the
-rebuilds): the default-knob frame (face rasterizer and
-sun classifier) and the DDA frame (`primary_raster="off", sun_mask="off"`),
-over one scene, and prints, each from this run:
+Renders the frames that chip_smoke.py drives (256^3 world, 1920x1080, the
+bench camera, a fixed time so no sky rebuild falls in a frame window; the
+K3 window below holds the rebuilds): the default-knob frame (face
+rasterizer and sun classifier, one hard shadow ray per lit pixel) and the
+DDA frame (`primary_raster="off", sun_mask="off"`), and, where the
+measured package renders them, the soft-shadow frames (four samples, with
+the cone classifier and with `sun_mask="off"`) and the pixelated one (four
+samples), over one scene, and prints, each from this run:
 
 1. the default frame's setup beyond the DDA frame's: the merged faces
    (host clock: extraction on the host and the copy to the card) and one
@@ -20,7 +22,8 @@ over one scene, and prints, each from this run:
 4. one window of synchronized frames of each kind under torch.profiler
    with CUDA activity only: device time per kernel per frame, summed per
    C entry point (K9's four kernels; K1, the bloom pyramid, the composite,
-   K12 and K2 shade_surface one each), K1's per call of the DDA frame (its
+   K12, K2 shade_surface, K13 and K14 one each; K11's sun grids are built
+   before the window), K1's per call of the DDA frame (its
    launches alternate: primary rays, then shadow rays), and the
    device busy share of that window = the union of device intervals
    (kernels, copies, sets) over the span from the first to the last event
@@ -31,7 +34,8 @@ over one scene, and prints, each from this run:
    new 0.25 s sky bucket (the sky is rebuilt) and the second in the same
    bucket, with K3's device time per bucket and its launches per bucket,
    and the two kinds of frame on the host clock without the profiler; K11
-   windows: sun-grid builds at 2048^2 and at 512^2, device time per sun
+   windows: sun-grid builds at 2048^2 and at 512^2 (and the cone grids of
+   soft shadows where the package builds them), device time per sun
    direction and per device kernel; and a drag window: default frames
    while the sun is dragged (`set_sun_dragging(True)`, the sun turned
    DRAG_STEP degrees about the vertical every frame, as the app's
@@ -79,7 +83,8 @@ PORT_KERNELS = ("vvr_jump_trace_kernel", "vvr_shade_surface_kernel",
                 "vvr_sky_kernel",
                 "vvr_bloom_pyramid_kernel", "composite_kernel",
                 "vvr_raster_", "vvr_scan_", "vvr_sun_",
-                "vvr_masked_shadow_kernel")
+                "vvr_masked_shadow_kernel", "vvr_generate_rays_kernel",
+                "vvr_soft_shadow_kernel")
 # the device kernels of one C entry point, by name part: K9 launches
 # project, scan, bin and tile kernels (and a memset), the others one each
 ENTRY_KERNELS = {
@@ -90,7 +95,13 @@ ENTRY_KERNELS = {
     "K4 composite": ("composite_kernel",),
     "K12 masked_shadow": ("vvr_masked_shadow_kernel",),
     "K2 shade_surface": ("vvr_shade_surface_kernel",),
+    "K13 generate_rays": ("vvr_generate_rays_kernel",),
+    "K14 soft_shadow": ("vvr_soft_shadow_kernel",),
 }
+# the soft-shadow frames: label, knobs beside the default frame's
+SOFT_FRAMES = (("soft, cone", dict(shadow_samples=4)),
+               ("soft, DDA", dict(shadow_samples=4, sun_mask="off")),
+               ("pixelated", dict(shadow_samples=4, pixelated_shadows=True)))
 # K3's device kernels: one per texture in earlier checkouts, one for both
 K3_KERNELS = ("skybox_kernel", "clouds_kernel", "vvr_sky_kernel")
 SKY_BUCKETS = 8  # sky rebuilds in the K3 window
@@ -274,15 +285,17 @@ def sky_window(renderer, cam, trace_path) -> None:
 
 
 def k11_window(faces, basis, size: int, grid: int, trace_path,
-               calls: int = 10) -> float:
-    """K11 per sun direction at `grid`^2: `calls` sun-grid builds under
-    the profiler; prints the device time per build, in total and per
-    device kernel, and returns the total in us."""
+               calls: int = 10, cone_tan: float = 0.0) -> float:
+    """K11 per sun direction at `grid`^2 (the cone grids of soft shadows
+    with cone_tan > 0): `calls` sun-grid builds under the profiler; prints
+    the device time per build, in total and per device kernel, and
+    returns the total in us."""
     from vvr_tpu_torch.ops import sunshadow as ss
+    cone = (cone_tan,) if cone_tan > 0.0 else ()
 
     def run():
         for _ in range(calls):
-            ss.sun_grids(faces, *basis, size, grid)
+            ss.sun_grids(faces, *basis, size, grid, *cone)
         torch.cuda.synchronize()
 
     events = trace_events(trace_path, run)
@@ -292,7 +305,8 @@ def k11_window(faces, basis, size: int, grid: int, trace_path,
         s[0] += 1
         s[1] += e["dur"]
     us = sum(v[1] for v in per_name.values()) / calls
-    print(f"K11 window: {calls} sun-grid builds ({grid}^2), device "
+    print(f"K11 window: {calls} {'cone ' if cone else ''}sun-grid builds "
+          f"({grid}^2), device "
           f"{us:.2f} us per sun direction in "
           f"{sum(v[0] for v in per_name.values()) / calls:.1f} device "
           f"kernels, copies and sets per build")
@@ -434,6 +448,13 @@ def main(argv=None) -> int:
     dda = Renderer(wcfg, RenderConfig(**knobs, primary_raster="off",
                                       sun_mask="off"),
                    device=dev, scene=renderer.scene)
+    soft = []
+    for label, extra in SOFT_FRAMES:
+        try:
+            soft.append((label, Renderer(wcfg, RenderConfig(**{
+                **knobs, **extra}), device=dev, scene=renderer.scene)))
+        except NotImplementedError as e:
+            print(f"frame ({label}): not rendered by this package ({e})")
     cam = Camera.look_at(*CAMERA[:2], fov=CAMERA[2])
     grid = renderer.scene.jumpgrid
     max_steps = cfg.traversal_max_steps * 8
@@ -465,7 +486,8 @@ def main(argv=None) -> int:
           f"{ev[0].elapsed_time(ev[1]) / 10:.4f} ms, {ss.GRID}^2 texels")
 
     # ---- 2. host clock, no profiler
-    for r, label in ((renderer, "default knobs"), (dda, "DDA")):
+    for r, label in ((renderer, "default knobs"), (dda, "DDA"),
+                     *((r_, l_) for l_, r_ in soft)):
         host_frames(r, cam, 5, True)
         synced = host_frames(r, cam, FRAMES, True)
         piped = host_frames(r, cam, FRAMES, False)[0]
@@ -534,12 +556,12 @@ def main(argv=None) -> int:
         post.composite_p(st["hdr"], st["bloom"], h, w)
 
     print("phases (default knobs):")
-    phases(("ray generation (plain torch)", "K9 raster fragments",
+    phases(("ray generation (camera_rays)", "K9 raster fragments",
             "K10 raster resolve", "K12 masked shadow (from the hits)",
             "K2 shade_pixel", "K4 bloom pyramid", "K4 composite"),
            (rays, fragments, resolve, classifier, pixel, bloom, composite))
     print("phases (DDA):")
-    phases(("ray generation (plain torch)", "K1 primary trace",
+    phases(("ray generation (camera_rays)", "K1 primary trace",
             "K2 shade_surface", "K1 shadow trace",
             "K2 shade_pixel", "K4 bloom pyramid", "K4 composite"),
            (rays, primary, surface, shadow, pixel, bloom, composite))
@@ -550,10 +572,16 @@ def main(argv=None) -> int:
         path.parent.mkdir(parents=True, exist_ok=True)
         window("default knobs", renderer, cam, path)
         window("DDA", dda, cam, pathlib.Path(tmp) / "dda_trace.json")
+        for k, (label, r) in enumerate(soft):
+            window(label, r, cam, pathlib.Path(tmp) / f"soft{k}_trace.json")
         sky_window(renderer, cam, pathlib.Path(tmp) / "sky_trace.json")
         for g in (ss.GRID, ss.GRID_DRAGGING):
             k11_window(faces, (e1, e2, s), wcfg.size, g,
                        pathlib.Path(tmp) / f"k11_{g}_trace.json")
+            if soft:
+                k11_window(faces, (e1, e2, s), wcfg.size, g,
+                           pathlib.Path(tmp) / f"k11c_{g}_trace.json",
+                           cone_tan=ss.CONE_TAN)
         drag_window(renderer, cam, pathlib.Path(tmp) / "drag_trace.json",
                     FRAMES // 2)
 
