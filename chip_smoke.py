@@ -5,8 +5,9 @@
 
 1. prints the card's name and power limit and builds the port's CUDA
    kernels from vvr_tpu_torch/csrc (timed); fails if K11's kernels hold a
-   global atomic (ATOMG, RED or ATOM in their SASS, tools/sass_count.py)
-   or a fill or decode pass, if a K7 kernel's SASS has no HGMMA (wgmma) or
+   global atomic (ATOMG, RED, REDG or ATOM in their SASS, sass_count.py)
+   but in the cone grids' support pass (its 256 KB grid), or a fill or
+   decode pass, if a K7 kernel's SASS has no HGMMA (wgmma) or
    any HMMA (mma.sync), if a K5 or K6 kernel spills (`-Xptxas -v`), or if
    a K6 kernel's SASS holds MUFU.RCP (the reciprocal of a division);
 2. the main path: with every launch counter reset, builds the 256^3 world
@@ -43,6 +44,8 @@
    shade_surface from the quarter-voxel floor, then K1); fails unless
    each per-frame kernel, K13 included, launched once in every frame, or
    unless the cone frame equals the per-sample DDA frame byte for byte;
+   then soft cone frames while the sun is dragged (the 512^2 cone grids,
+   K11, and K3 in every frame beside K14);
 4. holds each kernel against its plain torch version on the card at the
    main path's shapes; K1 with and without its counters, flat and by 8x4
    tiles, on the primary and the shadow rays (one sun direction, and the
@@ -79,14 +82,19 @@
    (SHARED_IN_TURN); prints the registers and spills of K3 and K8;
    K13's rays bit-exact against the plain version run on the CPU at
    1920x1080 and 33x67, and camera_rays on the card one K13 launch with no
-   host-to-device copy (torch.profiler); K11's cone grids against the
-   plain cone build (written texels equal, values within 1e-4) at 2048^2
-   and 512^2 under two suns; K14 at 1920x1080 with four samples in its
-   DDA mode, its cone-gate mode and pixelated (and pixelated with one
-   sample): every sample's hit equal to the plain version's on the card,
-   the factor within SOFT_FACTOR_TOL of the plain factor computed on the
-   CPU from those hits, and the gate mode's hits and factor equal to the
-   DDA mode's on every lane;
+   host-to-device copy (torch.profiler); K11's cone grids (the kernel's
+   tight boxes) bit for bit against the plain cone build over the present
+   boxes at 2048^2 and 512^2 under two suns, and the cone build's device
+   time split into its support pass and the rest (launch order,
+   torch.profiler); K14 at 1920x1080 as the frame calls it, with four
+   samples in its DDA mode, its cone-gate mode and pixelated (and
+   pixelated with one sample), and in those three modes at odd shapes
+   (SOFT_ODD) with SOFT_ODD_SAMPLES samples: every sample's hit equal to the
+   plain version's on the card, the factor within SOFT_FACTOR_TOL of the
+   plain factor computed on the CPU from those hits, and the gate mode's
+   hits and factor equal to the DDA mode's on every lane; K14's time
+   against a copy without its sample traces (tools/k14_split.py) in each
+   mode;
 5. times each kernel beside its plain version (CUDA events) and computes
    its bound: the larger of the bytes it must move over 3.35 TB/s and its
    operations over the peak for their type (K3: its float32 and MUFU
@@ -104,9 +112,11 @@ Any failed check raises and the script exits non-zero. Without a CUDA
 device it exits non-zero before printing any result. Before the last line
 it prints {"kernels": [...]}, one row per kernel with its launches (from
 the path that runs it), error against its plain version, times and bound
-(K11 three times: `sun_grids` at 2048^2 with the main path's launches,
+(K11 four times: `sun_grids` at 2048^2 with the main path's launches,
 `sun_grids_512` with the dragged frames', `sun_grids_cone` at 2048^2 with
-the cone frames'; K14 three times: `soft_shadow` in its DDA mode,
+the cone frames', `sun_grids_cone_512` with the dragged soft frames', the
+cone rows' bounds from the kernel's tight boxes; K14 three times:
+`soft_shadow` in its DDA mode,
 `soft_shadow_cone`, `soft_shadow_pixelated`, each with its frames'
 launches; K14's bound counts this run's DDA sub-steps of its samples);
 the last line of stdout is {"ok": true, "device": {...}}.
@@ -217,6 +227,7 @@ K1_ORACLE_SLACK = 16
 # K11's rows: the 2048^2 build (once per sun direction) and the 512^2 one
 # (every frame while the sun is dragged), both of the sun_grids kernel
 ROW_KERNEL = {"sun_grids_512": "sun_grids", "sun_grids_cone": "sun_grids",
+              "sun_grids_cone_512": "sun_grids",
               "soft_shadow_cone": "soft_shadow",
               "soft_shadow_pixelated": "soft_shadow"}
 # the soft-shadow frames (phase 3c): four jittered samples a lit pixel with
@@ -229,12 +240,20 @@ SOFT_FRAMES = {"soft, cone": dict(shadow_samples=4),
                "pixelated, 1 sample": dict(shadow_samples=1,
                                            pixelated_shadows=True)}
 SOFT_SAMPLES = 4
+# K14's odd shapes: a small image by tiles, flat lanes (width 0), and the
+# sample counts: powers of two and not, one for each of K14's lane groups
+# (1, 2, 4, 8, 16 and 32 lanes a pixel), and 33 for rounds of more samples
+# than a warp's lanes
+SOFT_ODD = ((33, 67), 4099)
+SOFT_ODD_SAMPLES = (1, 2, 3, 4, 5, 9, 33)
 # K14's factor against its plain version on the CPU (from the same
 # per-sample hits): the strength powf(cos, 40) on the card and pow on the
 # CPU may differ by a few ulps, within this
 SOFT_FACTOR_TOL = 1e-5
-# name parts of K11's device kernels (and the scans it shares with K9)
+# name parts of K11's device kernels (and the scans it shares with K9), and
+# of its cone grids' support pass
 K11_SASS = ("vvr_sun_", "vvr_scan_")
+K11_SUPPORT = "vvr_sun_support_kernel"
 # the gather experiment whose times stand in each kernel's row (the first
 # line of that name: pallas_onehot:R4096xC2 is the u32 one)
 GATHER_ROW = {"gather_chain": "pallas_take:R32768xC16",
@@ -478,8 +497,8 @@ def main() -> int:
     from vvr_tpu_torch.render.frame import render_frame
     from vvr_tpu_torch.render.oracle import trace_dense
     from vvr_tpu_torch.render.renderer import Renderer
-    from vvr_tpu_torch.tools import (microbench_gather, profile_frame,
-                                     sass_count)
+    from vvr_tpu_torch.tools import (k14_split, microbench_gather,
+                                     profile_frame, sass_count)
     from vvr_tpu_torch.tools.microbench_gather import bound_ms, cuda_ms
     from vvr_tpu_torch.utils.camera import Camera
     from vvr_tpu_torch.world.generator import assemble_dense
@@ -498,17 +517,31 @@ def main() -> int:
     # K11's kernels: no fill or decode pass, no atomic on device memory
     sass = sass_count.disassemble(lib, pathlib.Path(kernels._nvcc()))
     k11_sass = sass_count.count(sass, K11_SASS)
-    k11_atomics = {k: v["global_atomics"] for k, v in k11_sass.items()}
+    # the cone grids' support pass takes its least depths with atomicMin on
+    # its 256 KB grid; no other K11 kernel may touch device memory so
+    k11_atomics = {k: v["global_atomics"] for k, v in k11_sass.items()
+                   if K11_SUPPORT not in k}
+    support_atomics = {k: v["global_atomics"] for k, v in k11_sass.items()
+                       if K11_SUPPORT in k}
+    support_ops = {op: c for ops in sass_count.opcodes(
+        sass, (K11_SUPPORT,)).values() for op, c in ops.items()
+        if "RED" in op or "ATOM" in op}
+    check(len(support_atomics) == 1
+          and sum(support_atomics.values()) > 0,
+          f"K11's support pass: {support_atomics} ({support_ops}), expected "
+          "one kernel with global atomics")
     check(any("vvr_sun_tile_kernel" in k for k in k11_sass),
           f"K11's tile kernel missing from the SASS: {sorted(k11_sass)}")
     check(not any(("fill" in k or "decode" in k) for k in k11_sass),
           f"K11 has a fill or decode kernel: {sorted(k11_sass)}")
     check(sum(k11_atomics.values()) == 0,
-          f"K11's kernels hold global atomics (ATOMG, RED, ATOM): "
+          f"K11's kernels hold global atomics (ATOMG, RED, REDG, ATOM): "
           f"{k11_atomics}")
     print(f"K11 SASS (sass_count.py): global atomic instructions (ATOMG, "
-          f"RED, ATOM) {sum(k11_atomics.values())} in its "
-          f"{len(k11_sass)} kernels {sorted(k11_sass)}")
+          f"RED, REDG, ATOM) {sum(k11_atomics.values())} in its "
+          f"{len(k11_atomics)} grid kernels {sorted(k11_atomics)}, "
+          f"{sum(support_atomics.values())} in the support pass "
+          f"{support_ops}")
     for name, regs, st, ld in kernels.ptxas_usage("vvr_sun_"):
         print(f"ptxas: {name}: {regs} registers, spill stores {st} B, "
               f"spill loads {ld} B")
@@ -773,6 +806,37 @@ def main() -> int:
     launches["soft_shadow_pixelated"] = \
         soft_launches["pixelated, 4 samples"]["soft_shadow"]
     launches["sun_grids_cone"] = soft_launches["soft, cone"]["sun_grids"]
+
+    # ---- 3d. the dragged sun with soft shadows: the soft cone frame with
+    # set_sun_dragging(True), the sun turned every frame, so each frame
+    # builds the 512^2 cone grids (K11's cone build) beside K14
+    drag_soft = Renderer(wcfg, RenderConfig(width=cfg.width,
+                                            height=cfg.height,
+                                            max_ray_iterations=3,
+                                            **SOFT_FRAMES["soft, cone"]),
+                         device=dev, scene=renderer.scene)
+    drag_soft.set_sun_dragging(True)
+    kernels.reset_launches()
+    ms = []
+    for i in range(n_frames):   # frame 0 warms up
+        drag_soft.sun = profile_frame.dragged_sun(start, i)
+        t0 = time.perf_counter()
+        drag_soft.render(cam, time=i / 60.0)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    ms = ms[1:]
+    got = frame_launches("dragged-sun soft cone", soft_per_frame
+                         + ["sun_grids", "write_sky"],
+                         soft_per_frame + ["sun_grids", "write_sky"])
+    key = drag_soft._sunmask_cache[0]
+    check(key[2] and key[3] and drag_soft._sunmask_cache[1][2][0].shape[0]
+          == ss.GRID_DRAGGING ** 2, "the dragged soft frame did not build "
+          "512^2 cone grids")
+    print(f"frames (dragged sun, soft cone): {FRAMES}, median "
+          f"{sorted(ms)[FRAMES // 2]:.3f} ms, slowest {max(ms):.3f} ms (host "
+          f"clock, synchronized); K11 (512^2 cone) "
+          f"{got['sun_grids'] / n_frames:.2f} launches a frame")
+    launches["sun_grids_cone_512"] = got["sun_grids"]
 
     # ---- 4. each kernel against its plain version, main-path shapes
     sun3 = torch.from_numpy(renderer.sun[:3].copy())
@@ -1129,10 +1193,10 @@ def main() -> int:
              if k13_us else " (the profiler recorded none)"))
     errs["generate_rays"] = 0.0
 
-    # K11's cone grids (soft shadows) against the plain cone build at
-    # 2048^2 and 512^2, the frame's sun and the low sun: written texels
-    # equal, values within 1e-4
-    errs["sun_grids_cone"] = 0.0
+    # K11's cone grids (soft shadows, the kernel's tight boxes) against the
+    # plain cone build over the present boxes at 2048^2 and 512^2, the
+    # frame's sun and the low sun: bit for bit
+    errs["sun_grids_cone"] = errs["sun_grids_cone_512"] = 0.0
     for lbl, sun_ in (("frame", sun_np), ("low", low3)):
         basis = ss.sun_basis(sun_)
         for g_ in (ss.GRID, ss.GRID_DRAGGING):
@@ -1142,54 +1206,95 @@ def main() -> int:
                   "K11 (cone) did not launch once")
             gp_ = ss.sun_grids_plain(faces, *basis, wcfg.size, g_,
                                      ss.CONE_TAN)[0]
-            check(bool(((gk_ <= -3e38) == (gp_ <= -3e38)).all()),
-                  f"K11 cone vs plain ({lbl} sun, {g_}^2): written texels "
-                  "differ")
+            check(torch.equal(gk_, gp_), f"K11 cone vs plain ({lbl} sun, "
+                  f"{g_}^2): {int((gk_ != gp_).any(1).sum())} texels differ")
             fin = gk_ > -3e38
-            err = float((gk_[fin] - gp_[fin]).abs().max())
-            check(err <= 1e-4, f"K11 cone vs plain ({lbl} sun, {g_}^2): "
-                  f"max |diff| {err}")
-            errs["sun_grids_cone"] = max(errs["sun_grids_cone"], err)
-            print(f"K11 cone, {lbl} sun, {g_}^2: value-equal vs plain: "
-                  f"{bool(torch.equal(gk_, gp_))}, max |diff| {err}; "
-                  f"written share B {float(fin[:, 0].float().mean()):.4f}, "
-                  f"C {float(fin[:, 1].float().mean()):.4f}")
+            print(f"K11 cone, {lbl} sun, {g_}^2: bit for bit equal to the "
+                  f"plain build over the present boxes; written share B "
+                  f"{float(fin[:, 0].float().mean()):.4f}, C "
+                  f"{float(fin[:, 1].float().mean()):.4f}")
+    # the cone build's time split by launch order: the support pass, then
+    # the cone build (setup, scans, bin, tiles)
+    for g_ in (ss.GRID, ss.GRID_DRAGGING):
+        profile_frame.k11_window(faces, (e1, e2, s_basis), wcfg.size, g_,
+                                 repo / "build" / "vvr_tpu_torch"
+                                 / "k11c_trace.json", cone_tan=ss.CONE_TAN)
     cone_k = ss.sun_grids(faces, e1, e2, s_basis, wcfg.size, ss.GRID,
                           ss.CONE_TAN)
     cone_gate = (e1, e2, cone_k)
 
-    # K14 at 1920x1080 on the raster hits, four samples, in each mode:
-    # every sample's hit exactly that of its plain version on the card,
-    # and the factor within SOFT_FACTOR_TOL of the plain factor computed
-    # on the CPU from those hits (the plain version's cloud lookup on the
-    # card divides by multiplying with a reciprocal)
+    # K14 in each mode, on the raster hits at 1920x1080 as the frame calls
+    # it (the image's width: 8x4 pixel tiles), four samples (and one,
+    # pixelated), and at odd shapes (SOFT_ODD: 33x67 by tiles, 4099 flat
+    # lanes) with SOFT_ODD_SAMPLES samples: every sample's hit exactly that
+    # of its plain version on the card, and the factor within
+    # SOFT_FACTOR_TOL of the plain factor computed on the CPU from those
+    # hits (the plain version's cloud lookup on the card divides by
+    # multiplying with a reciprocal)
     soft_modes = {"soft_shadow": (SOFT_SAMPLES, False, None),
                   "soft_shadow_cone": (SOFT_SAMPLES, False, cone_gate),
                   "soft_shadow_pixelated": (SOFT_SAMPLES, True, None),
                   "pixelated, 1 sample": (1, True, None)}
-    soft_hits, soft_out = {}, {}
     cl_cpu = cl_k.cpu()
-    for name, (ns, pix, gate) in soft_modes.items():
+
+    def k14_check(hits_, ns, pix, gate, width, what):
         before = kernels.LAUNCHES["soft_shadow"]
-        fk, hk = softshadow.soft_shadow(grid, *hits, sun_np, ns, cl_k,
-                                        max_steps, pix, gate, with_hits=True)
+        fk, hk = softshadow.soft_shadow(grid, *hits_, sun_np, ns, cl_k,
+                                        max_steps, pix, gate, with_hits=True,
+                                        width=width)
         check(kernels.LAUNCHES["soft_shadow"] == before + 1,
-              f"K14 ({name}) did not launch once")
-        hp = softshadow.sample_hits_plain(grid, *hits, sun_np, ns, max_steps,
-                                          pix, gate)
-        check(torch.equal(hk, hp), f"K14 ({name}): {int((hk != hp).sum())} "
+              f"K14 ({what}) did not launch once")
+        hp = softshadow.sample_hits_plain(grid, *hits_, sun_np, ns,
+                                          max_steps, pix, gate)
+        check(torch.equal(hk, hp), f"K14 ({what}): {int((hk != hp).sum())} "
               "sample hits differ from the plain version")
         fp = softshadow.shadow_factor_plain(
-            *(t.cpu() for t in hits), sun_np, hk.cpu(), cl_cpu, pix)
+            *(t.cpu() for t in hits_), sun_np, hk.cpu(), cl_cpu, pix)
         err = float((fk.cpu() - fp).abs().max())
-        check(err <= SOFT_FACTOR_TOL, f"K14 ({name}): factor differs from "
+        check(err <= SOFT_FACTOR_TOL, f"K14 ({what}): factor differs from "
               f"the plain factor by {err}")
+        return fk, hk, err
+
+    soft_hits, soft_out = {}, {}
+    for name, (ns, pix, gate) in soft_modes.items():
+        fk, hk, err = k14_check(hits, ns, pix, gate, cfg.width, name)
         errs[name] = err
         soft_hits[name], soft_out[name] = hk, fk
-        lit = int(hp.any(0).sum())
+        lit = int(hk.any(0).sum())
         print(f"K14 ({name}): {ns} sample hits of {n} lanes equal to plain "
               f"({int(hk.sum())} hits; {lit} lanes with one or more); factor "
               f"max |diff| {err:.3e} vs plain on the CPU")
+    o_s, d_s = camera_rays(cam, *SOFT_ODD[0], dev)
+    ras_s = rt.trace_raster(faces, rcam, d_s, probe, wcfg.size,
+                            *SOFT_ODD[0])
+    flat = slice(n // 2, n // 2 + SOFT_ODD[1])
+    odd = {f"{SOFT_ODD[0][0]}x{SOFT_ODD[0][1]} tiled":
+           ((o_s, d_s, ras_s.hit, ras_s.face, ras_s.axis_coord),
+            SOFT_ODD[0][0]),
+           f"{SOFT_ODD[1]} flat lanes": (tuple(t[flat].contiguous()
+                                              for t in hits), 0)}
+    worst = 0.0
+    for label, (hits_, width) in odd.items():
+        for name, (_, pix, gate) in list(soft_modes.items())[:3]:
+            for ns in SOFT_ODD_SAMPLES:
+                worst = max(worst, k14_check(hits_, ns, pix, gate, width,
+                                             f"{name}, {label}, {ns} "
+                                             "samples")[2])
+    print(f"K14 at odd shapes ({', '.join(odd)}; its three modes; "
+          f"{SOFT_ODD_SAMPLES} samples): every sample hit equal to plain, "
+          f"factor max |diff| {worst:.3e} vs plain on the CPU")
+    # K14's time split: the launch against the same kernel with each
+    # sample's trace replaced by a miss (tools/k14_split.py), for timing
+    # only, at the bench view in each mode
+    split_fns = k14_split.build_pair(kernels,
+                                     repo / "build" / "vvr_tpu_torch"
+                                     / "k14_split")
+    for name, (ns, pix, gate) in list(soft_modes.items())[:3]:
+        us = k14_split.time_pair(split_fns, kernels, softshadow, grid, hits,
+                                 sun_np, ns, cl_k, max_steps, pix, gate,
+                                 cfg.width)
+        print(f"K14 split ({name}): full {us['full']} us, without the "
+              f"sample traces {us['no trace']} us (CUDA events, in turns)")
     # the cone gate's sample hits against the DDA mode's on every lane:
     # where they differ, the sample ray must cross an exact tie that the
     # jump-grid DDA takes the other way (ROADMAP C8), the numpy oracle
@@ -1413,21 +1518,22 @@ def main() -> int:
             lambda: raygen.generate_rays(*ray_args), 50, 5),
         "soft_shadow": (
             lambda: softshadow.soft_shadow(grid, *hits, sun_np,
-                                           SOFT_SAMPLES, cl_k, max_steps),
+                                           SOFT_SAMPLES, cl_k, max_steps,
+                                           width=w),
             lambda: softshadow.soft_shadow_plain(grid, *hits, sun_np,
                                                  SOFT_SAMPLES, cl_k,
                                                  max_steps), 20, 1),
         "soft_shadow_cone": (
             lambda: softshadow.soft_shadow(grid, *hits, sun_np,
                                            SOFT_SAMPLES, cl_k, max_steps,
-                                           gate=cone_gate),
+                                           gate=cone_gate, width=w),
             lambda: softshadow.soft_shadow_plain(
                 grid, *hits, sun_np, SOFT_SAMPLES, cl_k, max_steps,
                 gate=cone_gate), 20, 1),
         "soft_shadow_pixelated": (
             lambda: softshadow.soft_shadow(grid, *hits, sun_np,
                                            SOFT_SAMPLES, cl_k, max_steps,
-                                           True),
+                                           True, width=w),
             lambda: softshadow.soft_shadow_plain(grid, *hits, sun_np,
                                                  SOFT_SAMPLES, cl_k,
                                                  max_steps, True), 20, 1),
@@ -1436,6 +1542,11 @@ def main() -> int:
                                  ss.CONE_TAN),
             lambda: ss.sun_grids_plain(faces, e1, e2, s_basis, wcfg.size,
                                        ss.GRID, ss.CONE_TAN), 10, 1),
+        "sun_grids_cone_512": (
+            lambda: ss.sun_grids(faces, e1, e2, s_basis, wcfg.size,
+                                 ss.GRID_DRAGGING, ss.CONE_TAN),
+            lambda: ss.sun_grids_plain(faces, e1, e2, s_basis, wcfg.size,
+                                       ss.GRID_DRAGGING, ss.CONE_TAN), 20, 3),
         "bloom_pyramid": (lambda: post.bloom_pyramid_p(hdr_k),
                           lambda: post.bloom_pyramid_plain(hdr_k), 50, 5),
         "composite": (lambda: post.composite_p(hdr_k, bloom_k, h, w),
@@ -1467,15 +1578,33 @@ def main() -> int:
 
     pairs = k11_pairs(grids_k, ss.GRID)
     pairs_512 = k11_pairs(grids_512, ss.GRID_DRAGGING)
-    # the cone build's (face, texel) pairs, and its support pass's (face,
-    # coarse texel) pairs in units of a main pair's operations
-    fs_c = ss.face_setup(faces, e1, e2, s_basis, *cone_k[1:], ss.GRID,
-                         ss.CONE_TAN, wcfg.size)
-    pairs_cone = float(torch.where(
-        fs_c["occl"], (fs_c["oi1"] - fs_c["oi0"] + 1)
-        * (fs_c["oj1"] - fs_c["oj0"] + 1), 0).sum())
-    pairs_support = float(((fs_c["si1"] - fs_c["si0"] + 1)
-                           * (fs_c["sj1"] - fs_c["sj0"] + 1)).sum())
+    # the cone build's (face, texel) pairs in the kernel's tight boxes (and
+    # in the present boxes, the bound before them), and its support pass's
+    # (face, coarse texel) pairs in units of a main pair's operations
+    def cone_items(g_):
+        frame = ss.grid_frame(e1, e2, wcfg.size, g_)
+        fs = ss.face_setup(faces, e1, e2, s_basis, *frame, g_, ss.CONE_TAN,
+                           wcfg.size)
+        sg = ss.support_grid_plain(fs, *frame, g_)
+        i0, i1, j0, j1 = ss.cone_boxes_plain(fs, sg, *frame, g_,
+                                             ss.CONE_TAN)
+        tight = float(torch.where(fs["occl"] & (i0 <= i1), (i1 - i0 + 1)
+                                  * (j1 - j0 + 1), 0).sum())
+        loose = float(torch.where(fs["occl"], (fs["oi1"] - fs["oi0"] + 1)
+                                  * (fs["oj1"] - fs["oj0"] + 1), 0).sum())
+        support = float(((fs["si1"] - fs["si0"] + 1)
+                         * (fs["sj1"] - fs["sj0"] + 1)).sum())
+        extra = support * SUN_SUPPORT_OPS / OPS_PER_ITEM["sun_grids"]
+        before = bound_ms(0, (loose + extra) * OPS_PER_ITEM["sun_grids"],
+                          "fp32")[0]
+        print(f"K11 cone {g_}^2: (face, texel) pairs {tight:.0f} in the "
+              f"tight boxes, {loose:.0f} in the present ones; support pass "
+              f"{support:.0f} (face, coarse texel) pairs; bound before the "
+              f"tight boxes {before:.6f} ms (operations)")
+        return tight + extra
+
+    cone_work = {"sun_grids_cone": cone_items(ss.GRID),
+                 "sun_grids_cone_512": cone_items(ss.GRID_DRAGGING)}
 
     def soft_work(pix, gate):
         """K14's items at this run's data, in units of its per-(lit pixel,
@@ -1561,8 +1690,9 @@ def main() -> int:
                                          soft_out["soft_shadow_pixelated"]),
                                   soft_items["soft_shadow_pixelated"]),
         "sun_grids_cone": (nbytes(*faces[:8], cone_k[0]),
-                           pairs_cone + pairs_support * SUN_SUPPORT_OPS
-                           / OPS_PER_ITEM["sun_grids"]),
+                           cone_work["sun_grids_cone"]),
+        "sun_grids_cone_512": (nbytes(*faces[:8], grids_512[0]),
+                               cone_work["sun_grids_cone_512"]),
     }
     rows = []
     for name, (kfn, pfn, kreps, preps) in timed.items():

@@ -456,3 +456,43 @@ def test_cone_margin_covers_the_jitter():
     sun: the jitter moves each component by at most 0.005."""
     assert sunshadow.CONE_TAN == JAX_CONE_TAN
     assert math.atan(sunshadow.CONE_TAN) >= 0.005 * math.sqrt(3.0)
+
+
+# ---- K14's map of its threads to pixels and (pixel, sample) items
+
+@pytest.mark.parametrize("samples", [1, 3, 4, 5])
+@pytest.mark.parametrize("height", [67, 1080])
+@pytest.mark.parametrize("width", [0, 33, 1920])
+def test_lane_map_covers_each_pair_once(width, height, samples):
+    """soft_pixels gives every pixel one thread; soft_lane_map gives every
+    (pixel, sample) of a pixel with samples to add one (thread, round),
+    none to the others, on seeded masks (flat lanes, width 0: 61 x height
+    of them)."""
+    n = (width or 61) * height
+    pix = softshadow.soft_pixels(n, width)
+    assert pix.numel() % 32 == 0
+    assert torch.equal(torch.sort(pix[pix >= 0]).values, torch.arange(n))
+    rng = np.random.default_rng(1000 * width + height + samples)
+    adds = torch.from_numpy(rng.random(n) < 0.7)
+    traced = adds & torch.from_numpy(rng.random(n) < 0.5)
+    p, s = softshadow.soft_lane_map(n, width, samples, traced, adds)
+    ok = p >= 0
+    assert torch.equal(ok, s >= 0)
+    key = torch.sort(p[ok] * samples + s[ok]).values
+    want = torch.nonzero(adds)[:, 0, None] * samples + torch.arange(samples)
+    assert torch.equal(key, want.flatten())
+
+
+def test_lane_map_rounds_take_traced_pixels_first():
+    """In each warp the pixels that trace take the first rounds: no round
+    of a warp holds a pixel that traces after one that does not."""
+    n, width, samples = 33 * 67, 33, 4
+    rng = np.random.default_rng(7)
+    adds = torch.from_numpy(rng.random(n) < 0.8)
+    traced = adds & torch.from_numpy(rng.random(n) < 0.4)
+    p, _ = softshadow.soft_lane_map(n, width, samples, traced, adds)
+    for warp in p.view(-1, 32, p.shape[1]):
+        seq = [int(x) for r in range(warp.shape[1]) for x in warp[:, r]
+               if x >= 0]
+        flags = [bool(traced[x]) for x in dict.fromkeys(seq)]
+        assert flags == sorted(flags, reverse=True)

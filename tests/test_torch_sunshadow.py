@@ -351,3 +351,130 @@ def test_grid_chunks_do_not_change_grids(world, grids, monkeypatch):
     monkeypatch.setattr(sunshadow, "PLAIN_CHUNK", 3000)
     out = sunshadow.sun_grids(faces, e1, e2, s, 64, 512)
     assert torch.equal(out[0], ref[0])
+
+
+@pytest.mark.parametrize("grid", [2048, 1024, 512, 509, 200, 1, 4096])
+def test_sun_tiling_cone(grid):
+    """The cone build's tiles are 16 texels a side at every size, its bins
+    those of the hard build (so the scratch is the same) and at most
+    SUN_MAX_BINS of them."""
+    tile, side = sunshadow.sun_tiling(grid, cone=True)
+    assert tile == 16 and side % tile == 0
+    assert side == sunshadow.sun_tiling(grid)[1]
+    assert (-(-grid // side)) ** 2 <= sunshadow.SUN_MAX_BINS
+
+
+@pytest.mark.parametrize("n_faces, grid", [(68923, 2048), (0, 512), (5, 200)])
+def test_sun_scratch_bytes_cone(n_faces, grid):
+    """The cone build's scratch: the hard build's, behind the support grid
+    (cs^2 u32, cs = min(256, grid), rounded up to 16 bytes)."""
+    cs = min(256, grid)
+    assert (sunshadow.sun_scratch_bytes(n_faces, grid, cone=True)
+            == sunshadow.sun_scratch_bytes(n_faces, grid)
+            + -(-4 * cs * cs // 16) * 16)
+
+
+# ---- the cone build's tight boxes (cone_boxes_plain; K11's setup)
+
+@pytest.fixture(scope="module")
+def cone_boxes(world):
+    """{(sun, grid): (per-face setup with the present boxes, support grid,
+    tight boxes, frame)} of the cone build."""
+    faces = world[4].device_tuple("cpu")
+    out = {}
+    for name in ("default", "low"):
+        basis = sunshadow.sun_basis(SUNS[name])
+        for grid in (512, 2048):
+            frame = sunshadow.grid_frame(basis[0], basis[1], 64, grid)
+            fs = sunshadow.face_setup(faces, *basis, *frame, grid,
+                                      sunshadow.CONE_TAN, 64)
+            sg = sunshadow.support_grid_plain(fs, *frame, grid)
+            tight = sunshadow.cone_boxes_plain(fs, sg, *frame, grid,
+                                               sunshadow.CONE_TAN)
+            out[name, grid] = fs, sg, tight, frame
+    return out
+
+
+@pytest.mark.parametrize("grid", [512, 2048])
+@pytest.mark.parametrize("name", ["default", "low"])
+def test_tight_boxes_lie_in_the_present_boxes(name, grid, cone_boxes):
+    """Each occluder's tight box is empty or inside its present box (grown
+    from the world's least depth), and some are smaller."""
+    fs, _, (i0, i1, j0, j1), _ = cone_boxes[name, grid]
+    occ = fs["occl"]
+    full = (i0 <= i1) & (j0 <= j1)
+    assert bool((i0[occ & full] >= fs["oi0"][occ & full]).all())
+    assert bool((i1[occ & full] <= fs["oi1"][occ & full]).all())
+    assert bool((j0[occ & full] >= fs["oj0"][occ & full]).all())
+    assert bool((j1[occ & full] <= fs["oj1"][occ & full]).all())
+    area = torch.where(full, (i1 - i0 + 1) * (j1 - j0 + 1), 0)
+    loose = (fs["oi1"] - fs["oi0"] + 1) * (fs["oj1"] - fs["oj0"] + 1)
+    assert bool((area[occ] < loose[occ]).any())
+    assert int(area[occ].sum()) < int(loose[occ].sum())
+
+
+@pytest.mark.parametrize("grid", [512, 2048])
+@pytest.mark.parametrize("name", ["default", "low"])
+def test_passing_pairs_lie_in_the_tight_boxes(name, grid, cone_boxes):
+    """Every (face, texel) pair whose texel test marks gridB or gridC in
+    the present boxes' build lies inside the face's tight box."""
+    fs, sg, (i0, i1, j0, j1), frame = cone_boxes[name, grid]
+    marked = 0
+    for f, i, j, poss, _, fully, _ in sunshadow.pair_tests(
+            fs, sg, *frame, grid, sunshadow.CONE_TAN):
+        m = poss | fully
+        f, i, j = f[m], i[m], j[m]
+        assert bool(((i >= i0[f]) & (i <= i1[f]) & (j >= j0[f])
+                     & (j <= j1[f])).all())
+        marked += int(m.sum())
+    assert marked > 0
+
+
+@pytest.mark.parametrize("name, grid", [("default", 2048), ("low", 512)])
+def test_tight_cone_build_equals_present_boxes(name, grid, world):
+    """The plain cone build over the tight boxes equals the build over the
+    present boxes bit for bit."""
+    faces = world[4].device_tuple("cpu")
+    basis = sunshadow.sun_basis(SUNS[name])
+    loose = sunshadow.sun_grids_plain(faces, *basis, 64, grid,
+                                      sunshadow.CONE_TAN)[0]
+    tight = sunshadow.sun_grids_plain(faces, *basis, 64, grid,
+                                      sunshadow.CONE_TAN, tight=True)[0]
+    assert torch.equal(loose, tight)
+    assert bool((loose[:, 1] > -3e38).any())
+
+
+@pytest.mark.parametrize("name", ["default", "low"])
+def test_bbox_grown_by_the_margin_is_not_enough(name, cone_boxes):
+    """Why the tight box is cut from the test's (u, v) region: the bbox of
+    the quad grown by the S_lo margin misses pairs whose texel test marks
+    gridB or gridC (a skewed quad grown by g reaches past its bbox grown
+    by g, and the test compares the texel's (u, v) interval)."""
+    fs, sg, _, (a0, b0, ts) = cone_boxes[name, 512]
+    cs, bfc = sunshadow.coarse_side(512)
+    ci0, ci1 = (torch.clamp(fs[k] // bfc, max=cs - 1) for k in ("oi0", "oi1"))
+    cj0, cj1 = (torch.clamp(fs[k] // bfc, max=cs - 1) for k in ("oj0", "oj1"))
+    s_lo = torch.full_like(fs["zmax"], 3e38)
+    cw = ci1 - ci0 + 1
+    cnt = torch.where(fs["occl"], cw * (cj1 - cj0 + 1), 0)
+    for f, ci, cj in sunshadow._pairs(cnt, ci0, cj0, cw):
+        s_lo.scatter_reduce_(0, f, sg[cj * cs + ci], "amin")
+    grow = sunshadow.SAFE + sunshadow.CONE_TAN * torch.clamp(
+        fs["zmax"] - (s_lo - sunshadow.S_SLACK), min=0.0)
+    ca = torch.stack([fs["p0a"], fs["p0a"] + fs["va"], fs["p0a"] + fs["ua"],
+                      fs["p0a"] + fs["ua"] + fs["va"]])
+    cb = torch.stack([fs["p0b"], fs["p0b"] + fs["vb"], fs["p0b"] + fs["ub"],
+                      fs["p0b"] + fs["ub"] + fs["vb"]])
+
+    def texel(x, lo):
+        return torch.floor((x - float(lo)) / float(ts)).long()
+
+    i0, i1 = texel(ca.amin(0) - grow, a0), texel(ca.amax(0) + grow, a0)
+    j0, j1 = texel(cb.amin(0) - grow, b0), texel(cb.amax(0) + grow, b0)
+    missed = 0
+    for f, i, j, poss, _, fully, _ in sunshadow.pair_tests(
+            fs, sg, a0, b0, ts, 512, sunshadow.CONE_TAN):
+        m = (poss | fully) & ~fs["deg"][f]
+        missed += int((m & ((i < i0[f]) | (i > i1[f]) | (j < j0[f])
+                            | (j > j1[f]))).sum())
+    assert missed > 0

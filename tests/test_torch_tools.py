@@ -9,14 +9,16 @@ import numpy as np
 import pytest
 import torch
 
+from vvr_tpu_torch import kernels
 from vvr_tpu_torch.config import WorldConfig
 from vvr_tpu_torch.ops import sunshadow
 from vvr_tpu_torch.ops.gather import gather_chain_plain
 from vvr_tpu_torch.ops.jump import trace_jump_plain
 from vvr_tpu_torch.ops.raygen import camera_rays
 from vvr_tpu_torch.render.scene import build_scene
-from vvr_tpu_torch.tools import (bank_model, frame_digest, lane_use,
-                                 profile_frame, profile_gather, sass_count)
+from vvr_tpu_torch.tools import (bank_model, frame_digest, k14_split,
+                                 lane_use, profile_frame, profile_gather,
+                                 sass_count)
 from vvr_tpu_torch.utils.camera import Camera
 from vvr_tpu_torch.world.faces import extract_merged_faces
 
@@ -41,6 +43,25 @@ def test_union_us(intervals, total):
 def test_profile_frame_needs_cuda(capsys):
     assert profile_frame.main([]) == 1
     assert "no CUDA device" in capsys.readouterr().err
+
+
+def test_k14_split_needs_cuda(capsys, monkeypatch):
+    monkeypatch.setattr(sys, "path", list(sys.path))
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    assert k14_split.main([]) == 1
+    assert "no CUDA device" in capsys.readouterr().err
+
+
+def test_k14_split_removes_the_trace():
+    """The timing copy of K14 replaces each sample's trace by a miss, in
+    this design's source and in the one-thread-a-pixel design's."""
+    src = (kernels.CSRC / "softshadow.cu").read_text()
+    out = k14_split.no_trace(src)
+    assert out != src and "false && vvr_sample_hit(" in out
+    assert (k14_split.no_trace("x\n        if (traced) {\n")
+            == "x\n        if (false) {\n")
+    with pytest.raises(ValueError):
+        k14_split.no_trace("vvr_jump_trace_ray")
 
 
 def test_frame_digest_needs_cuda(capsys, monkeypatch):
@@ -98,6 +119,19 @@ def test_sass_count_reads_the_listing():
                .items() if k.split(".")[0] == "HGMMA") == 2
 
 
+def test_sass_count_counts_the_global_reduction():
+    """sm_90 writes an atomic whose result is unused (K11's support pass's
+    atomicMin) as the global reduction REDG: it counts as an atomic that
+    may reach device memory."""
+    listing = """
+        Function : _Z22vvr_sun_support_kernelv
+        /*0000*/                   REDG.E.MIN.STRONG.GPU [R2.64], R5 ;
+        /*0010*/                   ATOMS.MIN RZ, [R3], R4 ;  /* 0x0000 */
+"""
+    got = sass_count.count(listing, ["vvr_sun_support_kernel"])
+    assert got["_Z22vvr_sun_support_kernelv"]["global_atomics"] == 1
+
+
 def test_sass_count_probe_fast_path():
     """A probe's fast path ends at its first unconditional EXIT (a
     predicated EXIT does not end it); an FFMA counts two float32
@@ -136,27 +170,31 @@ def test_frame_digest_hashes_the_bytes():
 
 
 def test_frame_digest_grid_digests():
-    """A sun grid's digest is that of sun_grids' gBC for its sun and grid
-    side, a sun of None being the default one (a few voxels of an 8^3
-    world, so the plain build runs)."""
+    """A sun grid's digest is that of sun_grids' gBC for its sun, grid side
+    and kind (hard, or the cone grids of soft shadows), a sun of None
+    being the default one (a few voxels of an 8^3 world, so the plain
+    build runs)."""
     occ = np.zeros((8, 8, 8), bool)
     occ[1:3, 2, 1:5] = True
     occ[4, 1:4, 3] = True
     faces = extract_merged_faces(occ).device_tuple("cpu")
     default = np.array([-0.28, 0.65, -0.71], np.float32)
-    grids = {"a": (None, 16), "b": ((0.6, 0.05, 0.8), 9)}
+    grids = {"a": (None, 16, False), "b": ((0.6, 0.05, 0.8), 9, False),
+             "c": (None, 16, True), "d": ((0.6, 0.05, 0.8), 9, True)}
     got = frame_digest.grid_digests(sunshadow, faces, 8, default, grids)
-    assert sorted(got) == ["a", "b"]
-    for name, (sun, grid) in grids.items():
+    assert sorted(got) == ["a", "b", "c", "d"]
+    for name, (sun, grid, cone) in grids.items():
         s = np.asarray(default if sun is None else sun, np.float32)
         gbc = sunshadow.sun_grids_plain(
-            faces, *sunshadow.sun_basis(s / np.linalg.norm(s)), 8, grid)[0]
+            faces, *sunshadow.sun_basis(s / np.linalg.norm(s)), 8, grid,
+            sunshadow.CONE_TAN if cone else 0.0)[0]
         assert (gbc > -3e38).any()
         assert got[name] == {"gbc": frame_digest.digest(gbc),
                              "shape": [grid * grid, 2]}
+    assert got["a"] != got["c"] and got["b"] != got["d"]
     assert set(frame_digest.GRIDS.values()) == {
-        (sun, grid) for sun in (None, (0.6, 0.05, 0.8))
-        for grid in (2048, 512)}
+        (sun, grid, cone) for sun in (None, (0.6, 0.05, 0.8))
+        for grid in (2048, 512) for cone in (False, True)}
 
 
 @pytest.mark.parametrize("tiled", [False, True], ids=["32x1", "8x4"])
@@ -179,6 +217,38 @@ def test_lane_use_counts_the_trips(tiled, tmp_path):
     assert out["warp_trips_new"] < out["warp_trips_old"]
     ref = trace_jump_plain(scene.jumpgrid, o, d, 2048)
     assert out["sub_steps_max"] == int(ref.iterations.max())
+
+
+@pytest.mark.parametrize("gate", [False, True], ids=["dda", "cone-gate"])
+def test_lane_use_counts_k14_sample_trips(gate, tmp_path):
+    """K14's sample rays on a 96x64 view of the 64^3 world, four samples:
+    a sample traces only for a pixel that traces, and under each of the
+    three maps every traced sample's trips land in one warp's rounds, with
+    lanes busy per trip a fraction."""
+    scene = build_scene(WorldConfig(depth=3), "cpu",
+                        cache_path=tmp_path / "map.npz")
+    cam = Camera.look_at([32, 28, 6], [32, 2, 45], fov=85)
+    o, d = camera_rays(cam, 96, 64, "cpu")
+    r = trace_jump_plain(scene.jumpgrid, o, d, 2048, stats=False)
+    sun = np.array([-0.28, 0.65, -0.71], np.float32)
+    sun /= np.linalg.norm(sun)
+    cone = None
+    if gate:
+        e1, e2, s = sunshadow.sun_basis(sun)
+        cone = (e1, e2, sunshadow.sun_grids(scene.ensure_faces(), e1, e2, s,
+                                            64, 512, sunshadow.CONE_TAN))
+    trips, traced, adds = lane_use.sample_trips(
+        scene.jumpgrid, (o, d, r.hit, r.face, r.axis_coord), sun, 4, 2048,
+        gate=cone)
+    assert trips.shape == (4, 96 * 64)
+    assert bool((trips[:, ~traced] == 0).all()) and bool((trips > 0).any())
+    assert bool((traced <= adds).all()) and bool((adds <= r.hit).all())
+    maps = lane_use.soft_maps(96 * 64, 96, 4, traced, adds)
+    assert len(maps) == 3
+    for pix, samp in maps.values():
+        out = lane_use.soft_lane_use(trips, pix, samp)
+        assert out["busy_lane_trips"] == int(trips.sum())
+        assert 0 < out["lane_use"] <= 1
 
 
 def test_lane_use_warps_cover_each_ray_once():

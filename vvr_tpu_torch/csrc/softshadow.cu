@@ -1,38 +1,64 @@
-// K14 soft_shadow: soft and pixelated sun shadows, one thread per pixel
-// from the primary hits (ops/softshadow.py wraps it). Replaces the soft
-// branch of vvr_tpu/render/frame.py's bounce body (`shadow_samples > 1`,
-// :308-464, with `soft_shadow_gate` and `near_walk_classify` of
+// K14 soft_shadow: soft and pixelated sun shadows from the primary hits
+// (ops/softshadow.py wraps it). Replaces the soft branch of
+// vvr_tpu/render/frame.py's bounce body (`shadow_samples > 1`, :308-464,
+// with `soft_shadow_gate` and `near_walk_classify` of
 // vvr_tpu/ops/sunshadow.py:771, :617) and the pixelated query point
-// (:283-286). A thread:
-//  1. reconstructs its hit's surface (surface.cuh, as K2 and K12 do) and,
-//     with pixelated shadows, floors it to quarter voxels: the query p;
-//  2. traces only if its face turns toward the sun; with the cone grids
-//     (gate mode) it first reads p's cone gBC row once for all samples:
-//     certain shadow (kh) or certain light (km) answers every sample;
-//  3. per sample s: the jittered direction and its strength, the start
-//     p + sun * 0.004 + d_s * 0.05, and the sample's hit: in gate mode the
-//     exact walk of its first crossings (sunmask.cuh vvr_near_segment), a
-//     world exit or a lift above p's cone gridC, then the jump-grid DDA of
-//     what is left (jump_dda.cuh, K12's shadow semantics); in DDA mode
-//     the DDA of every sample;
-//  4. adds where(hit, 0, strength * (1 - cloud alpha along d_s)) / S, in
-//     sample order, and writes the factor (0 on a miss) and, if asked, each
-//     sample's hit.
+// (:283-286). For each pixel:
+//  1. its hit's surface (surface.cuh, as K2 and K12 reconstruct it) and,
+//     with pixelated shadows, its floor to quarter voxels: the query p;
+//  2. it traces only if its face turns toward the sun; with the cone grids
+//     (gate mode) p's cone gBC row first answers every sample at once:
+//     certain shadow (kh) or certain light (km);
+//  3. per sample s: the jittered direction, the start p + sun * 0.004 +
+//     d_s * 0.05, and the sample's hit: in gate mode the exact walk of its
+//     first crossings (sunmask.cuh vvr_near_segment), a world exit or a
+//     lift above p's cone gridC, then the jump-grid DDA of what is left
+//     (jump_dda.cuh, K12's shadow semantics); in DDA mode the DDA of every
+//     sample;
+//  4. the factor: where(hit, 0, strength * (1 - cloud alpha along d_s)) / S
+//     added in sample order (0 on a miss), and, if asked, each sample's
+//     hit.
 // The jitter rounds as the JAX package's jitted frame does (XLA's FMAs at
 // the points ops/softshadow.py lists, here __fmaf_rn; the file is built
 // with -fmad=false otherwise), so a sample's direction and start equal the
 // plain version's bit for bit; its strength's powf may differ from the
 // CPU's pow by an ulp or two. The TPU design's packed residue, its waves
-// and its overflow net are not ported: a thread runs its lane's samples in
-// turn (a compacted residue measured slower for K12).
+// and its overflow net are not ported.
 //
 // What bounds it on an H100: per pixel 33 bytes of primary hit in and 4 out;
-// per traced sample the DDA's chain of dependent row loads (latency-bound
-// like K1) and one cloud texel (L2-resident).
+// per traced sample the near walk's and the DDA's chains of dependent row
+// loads (latency-bound like K1), then per unshadowed sample its jitter,
+// powf and one cloud texel (L2-resident): 92-98 us at the bench view in
+// every mode with the traces removed (tools/k14_split.py). One
+// thread running its pixel's samples in turn chained the traces of a pixel
+// end to end, and a warp of 32 pixels waited each sample for its slowest
+// lane. The design gives each warp an 8x4 pixel tile: a lane a pixel takes
+// the surface, the facing test and the gate, then the pixels with samples
+// to add (those that trace first) are ranked through the warp's ballots,
+// and rounds of a lane per (pixel, sample) take them, 8 pixels x 4 samples
+// a round at four samples (G = the samples rounded up to a power of two,
+// at most 32, lanes a pixel; several sub-rounds above 32). A pixel's
+// samples are nearly parallel (the jitter is +-0.005 about one sun), so
+// their chains run side by side in one warp and their row loads fall on
+// the same bricks, and the rounds hold the traced pixels together
+// (tools/lane_use.py: lanes busy per trip 0.91 in DDA mode and 0.80 with
+// the gate, against 0.73 and 0.44 for 32-pixel rows in turn). Each term
+// is formed as the plain version forms it, (hit ? 0 : strength * (1 -
+// cloud alpha)) / S, and the group's first lane adds its G terms
+// (__shfl_down_sync) in sample order, so the factor keeps its bits. A
+// pixel in certain shadow writes 0 with no jitter or cloud (0 + 0/S summed
+// in order is +0.0), and a sample that hits skips its powf and cloud.
+// Tried and dropped: 8x4 tiles with a thread's samples in turn (cheaper
+// outside the trace, slower in it), and a lane per (pixel, sample) in
+// every phase (each lane then repeats its pixel's surface and gate, which
+// cost more than the trace gained); 64 and 256 threads a block and fewer
+// registers a thread (__launch_bounds__ minimum blocks) measured equal.
 #include "clouds.cuh"
 #include "jump_dda.cuh"
 #include "sunmask.cuh"
 #include "surface.cuh"
+
+#define VVR_K14_BLOCK 128
 
 struct VvrSoftArgs {
     const uint32_t* rows;
@@ -59,9 +85,9 @@ static __device__ __forceinline__ void vvr_jitter(float x, float y, float z,
     j[2] = __fmaf_rn(r2 * 2.0f - 1.0f, 0.005f, sz);
 }
 
-// sample s's jittered unit direction and strength at p (`sample_dir`,
-// frame.py:339-354), with XLA's contractions
-static __device__ __forceinline__ float vvr_sample_dir(
+// sample s's jittered unit direction at p (`sample_dir`, frame.py:339-354),
+// with XLA's contractions; its strength is vvr_sample_strength
+static __device__ __forceinline__ void vvr_sample_dir(
         int s, float px, float py, float pz, float sx, float sy, float sz,
         float* dx, float* dy, float* dz) {
     const float c1 = 23.12123545f;
@@ -93,98 +119,195 @@ static __device__ __forceinline__ float vvr_sample_dir(
     *dx = jx / sn;
     *dy = jy / sn;
     *dz = jz / sn;
-    const float c = __fmaf_rn(*dz, sz, __fmaf_rn(*dx, sx, *dy * sy));
+}
+
+// the sample's strength, pow(clamp(cos(angle to the sun), 0, 1), 40)
+static __device__ __forceinline__ float vvr_sample_strength(
+        float dx, float dy, float dz, float sx, float sy, float sz) {
+    const float c = __fmaf_rn(dz, sz, __fmaf_rn(dx, sx, dy * sy));
     return powf(vvr_clamp(c, 0.0f, 1.0f), 40.0f);
 }
 
-__global__ void __launch_bounds__(128)
+// the hit of the sample ray from p along d: in gate mode its near walk
+// (a hit, a world exit or a lift above p's cone gridC row_c answers it)
+// and the DDA of what is left, in DDA mode the DDA
+static __device__ __forceinline__ bool vvr_sample_hit(
+        const VvrSoftArgs& A, float px, float py, float pz, float dx,
+        float dy, float dz, float row_c) {
+    const float ox = __fmaf_rn(dx, 0.05f, px + A.sx * 0.004f);
+    const float oy = __fmaf_rn(dy, 0.05f, py + A.sy * 0.004f);
+    const float oz = __fmaf_rn(dz, 0.05f, pz + A.sz * 0.004f);
+    if (A.gbc != nullptr) {   // near_walk_classify
+        const float fs = (float)A.size;
+        if (!(ox >= 0.0f && ox < fs && oy >= 0.0f && oy < fs && oz >= 0.0f
+              && oz < fs)) {
+            return false;
+        }
+        bool nh, nexit;
+        float t_end;
+        vvr_near_segment(A.rows, A.size, ox, oy, oz, dx, dy, dz, &nh, &nexit,
+                         &t_end);
+        const float lift = ((ox * A.sx + oy * A.sy) + oz * A.sz)
+                           + t_end * ((dx * A.sx + dy * A.sy) + dz * A.sz);
+        if (nh || nexit || lift > row_c + VVR_SAFE) return nh;
+    }
+    return vvr_jump_trace_ray<false>(A.rows, A.size, ox, oy, oz, dx, dy, dz,
+                                     true, A.max_steps).hit;
+}
+
+// lanes that serve one pixel in the sample rounds: the samples rounded up
+// to a power of two, at most a warp (ops/softshadow.py soft_lanes)
+static inline int vvr_soft_lanes(int samples) {
+    int g = 1;
+    while (g < samples && g < 32) g <<= 1;
+    return g;
+}
+
+// A warp serves 32 pixels: with the image's width, the 8x4 tile w
+// (row-major over the tiles), lane l its pixel in Z order (x from the bits
+// 0, 2, 4 of l, y from the bits 1, 3), so that any aligned power-of-two run
+// of lanes is a tile as square as it can be; with width 0 the pixels
+// 32 w ... 32 w + 31 (ops/softshadow.py soft_pixels).
+//  1. Each lane takes its pixel's surface, facing test and gate.
+//  2. The pixels with samples to add are ranked, those that trace first,
+//     in lane order, and their state goes to shared memory by rank.
+//  3. Rounds of 32 lanes take (pixel, sample) items in rank order: P = 32 /
+//     G pixels a round, lane k of a pixel's group of G samples k, k + G,
+//     ... (sub-rounds when S > G). Each lane traces its item and forms its
+//     term, where(hit, 0, strength * (1 - cloud alpha)) / S.
+//  4. The group's first lane adds the group's terms (__shfl_down_sync) in
+//     sample order and writes the pixel's factor.
+// G is a template parameter (the launch picks it from the samples), so
+// the rounds' index arithmetic and the adds unroll.
+struct VvrSoftRank {   // a pixel with samples to add, by rank
+    float px, py, pz, row_c;
+    int p;          // the pixel, its traced flag in the sign bit
+};
+
+template <int G>
+__global__ void __launch_bounds__(VVR_K14_BLOCK)
 vvr_soft_shadow_kernel(VvrSoftArgs A, const float* __restrict__ o,
                        const float* __restrict__ d,
                        const uint8_t* __restrict__ hit,
                        const int* __restrict__ face,
-                       const int* __restrict__ axis_coord, int n,
+                       const int* __restrict__ axis_coord, int n, int width,
                        float* __restrict__ factor,
                        uint8_t* __restrict__ hits) {
-    const int p = blockIdx.x * blockDim.x + threadIdx.x;
-    if (p >= n) return;
-    if (hit[p] == 0) {
+    __shared__ VvrSoftRank s_rank[VVR_K14_BLOCK];
+    const int lane = threadIdx.x & 31, wb = threadIdx.x & ~31;
+    const long long warp = ((long long)blockIdx.x * blockDim.x
+                            + threadIdx.x) >> 5;
+    long long p;
+    if (width > 0) {
+        const int tiles_x = (width + 7) >> 3;
+        const int x = (int)(warp % tiles_x) * 8 + ((lane & 1)
+                      | ((lane >> 1) & 2) | ((lane >> 2) & 4));
+        const long long y = warp / tiles_x * 4 + (((lane >> 1) & 1)
+                                                 | ((lane >> 2) & 2));
+        p = x < width ? y * width + x : n;
+    } else {
+        p = warp * 32 + lane;
+    }
+    // 1. the pixel
+    const bool valid = p < n;
+    const bool lit = valid && hit[p] != 0;
+    float px = 0.0f, py = 0.0f, pz = 0.0f, row_c = 3e38f;
+    bool kh = false, traced = false;
+    if (lit) {
+        Surface q = vvr_reconstruct(o[3 * p], o[3 * p + 1], o[3 * p + 2],
+                                    d[3 * p], d[3 * p + 1], d[3 * p + 2],
+                                    face[p], axis_coord[p]);
+        if (A.pixelated) vvr_pixelate(&q);
+        px = q.wx;
+        py = q.wy;
+        pz = q.wz;
+        const bool active =
+            ((q.nx * A.sx + q.ny * A.sy) + q.nz * A.sz) > 0.0f;
+        bool km = false;
+        if (A.gbc != nullptr) {   // the cone gate (soft_shadow_gate)
+            const float fs = (float)A.size;
+            const bool inw = px >= 0.0f && px < fs && py >= 0.0f && py < fs
+                             && pz >= 0.0f && pz < fs;
+            const VvrSunRow r = vvr_sun_row(px, py, pz, A.B, A.gbc, A.G);
+            const bool inb = inw && r.ing;
+            kh = active && inb && r.qz + 0.06f < r.row.x - VVR_SAFE;
+            km = active && !kh && ((inb && r.qz > r.row.y + VVR_SAFE) || !inw);
+            if (r.ing) row_c = r.row.y;
+        }
+        traced = active && !kh && !km;
+    }
+    // a pixel with no samples to add: its factor 0 (a certain shadow's
+    // 0 + 0/S in sample order is +0.0) and its hits
+    const bool adds = lit && !kh;
+    if (valid && !adds) {
         factor[p] = 0.0f;
         if (hits != nullptr) {
-            for (int s = 0; s < A.samples; ++s) hits[(size_t)s * n + p] = 0;
+            for (int s = 0; s < A.samples; ++s) {
+                hits[(size_t)s * n + p] = kh ? 1 : 0;
+            }
         }
-        return;
     }
-    Surface q = vvr_reconstruct(o[3 * p], o[3 * p + 1], o[3 * p + 2],
-                                d[3 * p], d[3 * p + 1], d[3 * p + 2],
-                                face[p], axis_coord[p]);
-    if (A.pixelated) vvr_pixelate(&q);
-    const float px = q.wx, py = q.wy, pz = q.wz;
-    const bool active = ((q.nx * A.sx + q.ny * A.sy) + q.nz * A.sz) > 0.0f;
-    const float fs = (float)A.size;
-    bool kh = false, km = false;
-    float row_c = 3e38f;
-    if (A.gbc != nullptr) {   // the cone gate (soft_shadow_gate)
-        const bool inw = px >= 0.0f && px < fs && py >= 0.0f && py < fs
-                         && pz >= 0.0f && pz < fs;
-        const VvrSunRow r = vvr_sun_row(px, py, pz, A.B, A.gbc, A.G);
-        const bool inb = inw && r.ing;
-        kh = active && inb && r.qz + 0.06f < r.row.x - VVR_SAFE;
-        km = active && !kh && ((inb && r.qz > r.row.y + VVR_SAFE) || !inw);
-        if (r.ing) row_c = r.row.y;
+    // 2. ranks: the pixels that trace, then those that only add terms
+    const unsigned below = (1u << lane) - 1u;
+    const unsigned t_mask = __ballot_sync(0xffffffffu, adds && traced);
+    const unsigned u_mask = __ballot_sync(0xffffffffu, adds && !traced);
+    const int n_t = __popc(t_mask), n_w = n_t + __popc(u_mask);
+    const int rank = traced ? __popc(t_mask & below)
+                            : n_t + __popc(u_mask & below);
+    if (adds) {
+        s_rank[wb + rank] = VvrSoftRank{
+            px, py, pz, row_c, (int)p | (traced ? (int)0x80000000 : 0)};
     }
-    const bool traced = active && !kh && !km;
-    float shadow = 0.0f;
-    for (int s = 0; s < A.samples; ++s) {
-        float dx, dy, dz;
-        const float strength = vvr_sample_dir(s, px, py, pz, A.sx, A.sy,
-                                              A.sz, &dx, &dy, &dz);
-        bool s_hit = kh;
-        if (traced) {
-            const float ox = __fmaf_rn(dx, 0.05f, px + A.sx * 0.004f);
-            const float oy = __fmaf_rn(dy, 0.05f, py + A.sy * 0.004f);
-            const float oz = __fmaf_rn(dz, 0.05f, pz + A.sz * 0.004f);
-            bool run = true;
-            if (A.gbc != nullptr) {   // near_walk_classify
-                const bool inw = ox >= 0.0f && ox < fs && oy >= 0.0f
-                                 && oy < fs && oz >= 0.0f && oz < fs;
-                run = false;
-                if (inw) {
-                    bool nh, nexit;
-                    float t_end;
-                    vvr_near_segment(A.rows, A.size, ox, oy, oz, dx, dy, dz,
-                                     &nh, &nexit, &t_end);
-                    const float lift =
-                        ((ox * A.sx + oy * A.sy) + oz * A.sz)
-                        + t_end * ((dx * A.sx + dy * A.sy) + dz * A.sz);
-                    s_hit = nh;
-                    run = !nh && !nexit && !(lift > row_c + VVR_SAFE);
+    __syncwarp();
+    // 3. and 4. the rounds
+    constexpr int P = 32 / G;
+    const int slot = lane & (G - 1), grp = lane / G;
+    for (int base = 0; base < n_w; base += P) {
+        const int k = base + grp;
+        const VvrSoftRank it = s_rank[wb + min(k, n_w - 1)];
+        const bool it_traced = it.p < 0;
+        const long long ip = it.p & 0x7FFFFFFF;
+        float shadow = 0.0f;
+        for (int s0 = 0; s0 < A.samples; s0 += G) {
+            const int s = s0 + slot;
+            float term = 0.0f;
+            if (k < n_w && s < A.samples) {
+                float dx, dy, dz;
+                vvr_sample_dir(s, it.px, it.py, it.pz, A.sx, A.sy, A.sz, &dx,
+                               &dy, &dz);
+                const bool s_hit =
+                    it_traced && vvr_sample_hit(A, it.px, it.py, it.pz, dx,
+                                                dy, dz, it.row_c);
+                if (hits != nullptr) hits[(size_t)s * n + ip] = s_hit ? 1 : 0;
+                if (!s_hit) {
+                    term = vvr_sample_strength(dx, dy, dz, A.sx, A.sy, A.sz)
+                           * (1.0f - vvr_sample_clouds(A.clouds, A.cl_res,
+                                                       dx, dy, dz, it.px,
+                                                       it.py, it.pz).w);
                 }
+                term = term / (float)A.samples;
             }
-            if (run) {
-                s_hit = vvr_jump_trace_ray<false>(A.rows, A.size, ox, oy, oz,
-                                                  dx, dy, dz, true,
-                                                  A.max_steps).hit;
+            // the group's first lane adds its samples s0 .. s0 + G - 1
+#pragma unroll
+            for (int i = 0; i < G; ++i) {
+                const float t = __shfl_down_sync(0xffffffffu, term, i);
+                if (s0 + i < A.samples) shadow = shadow + t;
             }
         }
-        if (hits != nullptr) hits[(size_t)s * n + p] = s_hit ? 1 : 0;
-        const float cl_a = vvr_sample_clouds(A.clouds, A.cl_res, dx, dy, dz,
-                                             px, py, pz).w;
-        shadow = shadow
-                 + (s_hit ? 0.0f : strength * (1.0f - cl_a))
-                       / (float)A.samples;
+        if (k < n_w && slot == 0) factor[ip] = shadow;
     }
-    factor[p] = shadow;
 }
 
 extern "C" int vvr_soft_shadow(
         const void* rows, int size, const void* o, const void* d,
         const void* hit, const void* face, const void* axis_coord, int n,
-        float sx, float sy, float sz, int samples, int pixelated,
+        int width, float sx, float sy, float sz, int samples, int pixelated,
         const void* clouds, int cl_res, int max_steps, float e1x, float e1y,
         float e1z, float e2x, float e2y, float e2z, const void* gbc,
         int grid, float a0, float b0, float ts, void* factor, void* hits,
         void* stream) {
-    if (samples < 1 || cl_res < 1 || (gbc != nullptr && grid < 1)) {
+    if (samples < 1 || cl_res < 1 || width < 0
+        || (gbc != nullptr && grid < 1)) {
         return (int)cudaErrorInvalidValue;
     }
     VvrSoftArgs A;
@@ -202,11 +325,22 @@ extern "C" int vvr_soft_shadow(
     A.gbc = (const float2*)gbc;
     A.G = {a0, b0, ts, grid};
     if (n > 0) {
-        vvr_soft_shadow_kernel<<<vvr_blocks(n, 128), 128, 0,
-                                 (cudaStream_t)stream>>>(
+        const long long warps =
+            width > 0 ? (long long)((width + 7) / 8)
+                            * ((((long long)n + width - 1) / width + 3) / 4)
+                      : ((long long)n + 31) / 32;
+        const int g = vvr_soft_lanes(samples);
+        auto kernel = g == 1    ? vvr_soft_shadow_kernel<1>
+                      : g == 2  ? vvr_soft_shadow_kernel<2>
+                      : g == 4  ? vvr_soft_shadow_kernel<4>
+                      : g == 8  ? vvr_soft_shadow_kernel<8>
+                      : g == 16 ? vvr_soft_shadow_kernel<16>
+                                : vvr_soft_shadow_kernel<32>;
+        kernel<<<vvr_blocks(warps * 32, VVR_K14_BLOCK), VVR_K14_BLOCK, 0,
+                 (cudaStream_t)stream>>>(
             A, (const float*)o, (const float*)d, (const uint8_t*)hit,
-            (const int*)face, (const int*)axis_coord, n, (float*)factor,
-            (uint8_t*)hits);
+            (const int*)face, (const int*)axis_coord, n, width,
+            (float*)factor, (uint8_t*)hits);
     }
     return (int)cudaGetLastError();
 }

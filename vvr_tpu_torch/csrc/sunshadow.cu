@@ -34,15 +34,31 @@
 //     thread's equal run of them with shared-memory atomicMax on each
 //     pair's two values, then writes each texel once, coalesced, including
 //     those no face touched.
-// The cone grids of soft shadows (cone_tan > 0) are the same build twice
-// in one entry point: first the support grid S (cs x cs coarse texels,
-// cs = min(256, grid)), where each face of the set, occluder or not, with
-// its box grown by S_PAD, takes the least of its affine depth at a coarse
-// texel's corners (held at or above its least depth) with a shared-memory
-// atomicMin; then the cone build, whose boxes grow by the face's cone reach
-// above the world's least depth and whose tile threads grow each (face,
-// texel) pair's margins by the reach above that texel's S
-// (sunshadow.py:243-320, :373-441).
+// The cone grids of soft shadows (cone_tan > 0) take two passes in the
+// same entry point. First the support grid S (cs x cs coarse texels, cs =
+// min(256, grid)): each face of the set, occluder or not, with its box
+// grown by S_PAD, takes the least of its affine depth at a coarse texel's
+// corners (held at or above its least depth); one thread sets up one face,
+// the block flattens its faces' (face, coarse texel) pairs and SLICES
+// blocks of the same faces share them, an atomicMin per pair on the
+// order-mapped u32 in S, which a memset starts at all ones (no face). S is
+// 256 KB and stays in L2, and a least value does not depend on the order
+// the faces arrive in, so S keeps its bytes; the no-atomic rule holds for
+// the 32 MiB grids. Then the cone build, whose tile threads grow each
+// (face, texel) pair's margins by the cone's reach above that texel's S
+// (sunshadow.py:243-320, :373-441), staged per tile in shared memory. Its
+// setup takes each occluder's tight box (vvr_sun_tight_box): where the box
+// grown by the reach above the world's least depth spans at most
+// VVR_SUN_TIGHT_SPAN coarse texels, the least S over them, S_lo, gives the
+// largest margin any of its texels can take, and the box is cut to the
+// texels whose test can pass at that margin. Every texel dropped fails its
+// test at its own margin, and the grids are maxima over the pairs that
+// pass, so they keep the loose boxes' bytes with fewer pairs. The bbox
+// grown by that margin would not do: a skewed parallelogram grown by a
+// distance g reaches past its bbox grown by g at its acute corners, and the
+// test compares the texel's (u, v) interval, not its corner points (on the
+// 64^3 world that bbox misses pairs that mark the grids,
+// tests/test_torch_sunshadow.py).
 // Depths along s are negative over part of the world, so the float max goes
 // through an order-preserving u32 map (negative floats bit-inverted): a
 // total order on bits, so the grids do not depend on the order in which
@@ -79,11 +95,20 @@
 // time goes to the tile CTAs' chains of dependent loads (job, entries,
 // records) and to the busiest tiles (up to 17,000 pairs in one 32^2
 // tile), which run for most of the kernel even when they start first;
-// the setup, scan and bin launches cost about a third. K12 reads 33 B of
-// primary hit per lane (o, d, hit, face, axis_coord) and writes 1 B, plus
-// one 8 B gBC row and a brick word per lit lane; a lane of the residue
-// (0.4% at the bench view) runs the DDA, which is latency-bound like K1 and
-// keeps its CTA's slot for up to tens of microseconds. Appending the
+// the hard build's setup, scan and bin launches cost about a third. The
+// cone build's busiest 32^2 tiles hold 28-35 times the mean tile's pairs
+// (tools/profile_frame.py), so it takes 16^2 tiles at every size
+// (sun_tiling); its S stays in L2, where the support pass's own binned
+// build (setup, scans, bin, tiles) cost about 51-54 us at 512^2 and 2048^2
+// alike. Tried and dropped: a warp flattening its 32 faces' support pairs
+// (the largest face's pairs then ran in one warp), and cutting each row of
+// a tight box to the texels the test can reach (each CTA computed the cut
+// of every row of every staged face, more than the pairs it saved). K12
+// reads 33 B of primary hit per lane (o, d, hit, face, axis_coord) and
+// writes 1 B, plus one 8 B gBC row and a brick word per lit lane; a lane
+// of the residue (0.4% at the bench view) runs the DDA, which is
+// latency-bound like K1 and keeps its CTA's slot for up to tens of
+// microseconds. Appending the
 // residue to a queue and draining it in full warps after a grid sync (one
 // cooperative launch) was measured slower: the drain starts only when the
 // last lane is classified, and its longest DDA then runs alone.
@@ -105,11 +130,17 @@
 #define VVR_SUN_MAX_LISTS (VVR_SUN_MAX_BINS + 16 + 1)
 #define VVR_SUN_BIN_MAX 16
 #define VVR_SUN_TILE_THREADS 256
+// the cone build's setup takes an occluder's least support depth over at
+// most this many coarse texels (ops/sunshadow.py TIGHT_SPAN); threads of a
+// block of the support pass
+#define VVR_SUN_TIGHT_SPAN 64
+#define VVR_SUN_SUPPORT_THREADS 512
+#define VVR_SUN_SUPPORT_SLICES 8
 
-// What a build computes: the hard-shadow grids, the cone grids of soft
-// shadows (cone_tan > 0, their margins grown per texel from the support
-// grid S), or S itself (the least surface depth per coarse texel,
-// build_sun_grids :243-320)
+// What a face's setup computes: the hard-shadow grids' quantities, the
+// cone grids' (cone_tan > 0, their margins grown per texel from the
+// support grid S), or those of S itself (the least surface depth per
+// coarse texel, build_sun_grids :243-320)
 #define VVR_SUN_HARD 0
 #define VVR_SUN_CONE 1
 #define VVR_SUN_SUPPORT 2
@@ -119,7 +150,7 @@
 struct VvrSunMode {
     int mode;
     float cone_tan, wzmin;   // the cone's tan, the world's least depth
-    const float* S;          // the support grid (cone), cs x cs
+    const unsigned* S;       // the support grid (cone), cs x cs, order-mapped
     int cs, bfc;             // its side, and fine texels a side of each
 };
 
@@ -220,6 +251,65 @@ static __device__ __forceinline__ float vvr_unord(unsigned u) {
     return __uint_as_float((u & 0x80000000u) ? (u & 0x7FFFFFFFu) : ~u);
 }
 
+// coarse texel k of the support grid: 3e38 where no face reached (the
+// memset's all ones, above every mapped depth)
+static __device__ __forceinline__ float vvr_support_at(
+        const unsigned* __restrict__ S, int k) {
+    const unsigned u = __ldg(S + k);
+    return u == 0xFFFFFFFFu ? 3e38f : vvr_unord(u);
+}
+
+// The cone build's box of an occluder (ops/sunshadow.py cone_boxes_plain,
+// the same expressions in the same order): its present box, grown by the
+// cone's reach above the world's least depth, cut to the texels whose test
+// can pass at the margin grown from S_lo, the least S over the coarse
+// texels that box spans; the present box for an edge-on face or one that
+// spans more than VVR_SUN_TIGHT_SPAN coarse texels.
+static __device__ int4 vvr_sun_tight_box(const VvrSunFace& s,
+                                         const VvrSunFrame& G,
+                                         const VvrSunMode& M) {
+    const int4 box = make_int4(s.oi0, s.oi1, s.oj0, s.oj1);
+    const int ci0 = min(s.oi0 / M.bfc, M.cs - 1);
+    const int ci1 = min(s.oi1 / M.bfc, M.cs - 1);
+    const int cj0 = min(s.oj0 / M.bfc, M.cs - 1);
+    const int cj1 = min(s.oj1 / M.bfc, M.cs - 1);
+    if (s.deg || (ci1 - ci0 + 1) * (cj1 - cj0 + 1) > VVR_SUN_TIGHT_SPAN) {
+        return box;
+    }
+    float s_lo = 3e38f;
+    for (int cj = cj0; cj <= cj1; ++cj) {
+        for (int ci = ci0; ci <= ci1; ++ci) {
+            s_lo = fminf(s_lo, vvr_support_at(M.S, cj * M.cs + ci));
+        }
+    }
+    const float grow =
+        VVR_SAFE + M.cone_tan * fmaxf(s.zmax - (s_lo - VVR_S_SLACK), 0.0f);
+    // the corner (i, j) of a texel whose test passes lies, in (u, v), in
+    // the quad grown by the margin, by the texel's own (u, v) extent
+    // (hu, hv) and, for gridB, across the internal v edges
+    const float inv = fabsf(s.inv_det);
+    const float hu = (G.ts * (fabsf(s.va) + fabsf(s.vb))) * inv;
+    const float hv = (G.ts * (fabsf(s.ua) + fabsf(s.ub))) * inv;
+    const float mu = grow * s.rmu, mv = grow * s.rmv;
+    const float u_lo = -(mu + hu), u_hi = (1.0f + mu) + hu;
+    const float v_lo = -((mv + s.xv0) + hv);
+    const float v_hi = ((1.0f + mv) + s.xv1) + hv;
+    const float a_lo = (s.p0a + fminf(u_lo * s.ua, u_hi * s.ua))
+                       + fminf(v_lo * s.va, v_hi * s.va);
+    const float a_hi = (s.p0a + fmaxf(u_lo * s.ua, u_hi * s.ua))
+                       + fmaxf(v_lo * s.va, v_hi * s.va);
+    const float b_lo = (s.p0b + fminf(u_lo * s.ub, u_hi * s.ub))
+                       + fminf(v_lo * s.vb, v_hi * s.vb);
+    const float b_hi = (s.p0b + fmaxf(u_lo * s.ub, u_hi * s.ub))
+                       + fmaxf(v_lo * s.vb, v_hi * s.vb);
+    const int4 t =
+        make_int4(max(box.x, vvr_floor_int((a_lo - G.a0) / G.ts) - 1),
+                  min(box.y, vvr_floor_int((a_hi - G.a0) / G.ts) + 1),
+                  max(box.z, vvr_floor_int((b_lo - G.b0) / G.ts) - 1),
+                  min(box.w, vvr_floor_int((b_hi - G.b0) / G.ts) + 1));
+    return t.x > t.y || t.z > t.w ? make_int4(0, -1, 0, -1) : t;
+}
+
 // The face lists: n_bins bins, squares of bin_side texels (bins_x a side),
 // then the coarse bins, squares of VVR_SUN_COARSE bins (coarse_x a side),
 // then the global list that every tile reads
@@ -271,16 +361,15 @@ static __device__ __forceinline__ long long vvr_sun_place(
     return cnt[i] + bsum[i >> 10];
 }
 
-// Per face f: its texel box boxes[f] = (oi0, oi1, oj0, oj1), empty (0, -1,
-// 0, -1) for a face that occludes nothing (every face takes part in the
-// support pass), and recs[4f..4f+3], the 16 floats of its texel test: in
-// the hard build with the comparisons' bounds 1 - mu, mv - xv0 and
+// Per face f: its texel box boxes[f] = (oi0, oi1, oj0, oj1) (in the cone
+// build the tight box), empty (0, -1, 0, -1) for a face that occludes
+// nothing, and recs[4f..4f+3], the 16 floats of its texel test: in the
+// hard build with the comparisons' bounds 1 - mu, mv - xv0 and
 // 1 - mv + xv1 formed as the texel test formed them; in the cone build
 // with the margins' factors rmu, rmv and gsum instead, the margins being
-// formed per texel; in the support pass the affine depth and the least
-// depth. Per block: cnt[k * nb + block], its faces' entries in list k
-// (VvrSunLists); a warp adds once per list its lanes share (neighbouring
-// faces lie close together).
+// formed per texel. Per block: cnt[k * nb + block], its faces' entries in
+// list k (VvrSunLists); a warp adds once per list its lanes share
+// (neighbouring faces lie close together).
 static __global__ void __launch_bounds__(VVR_SUN_FPB)
 vvr_sun_setup_kernel(VvrFaces F, VvrSunBasis B, VvrSunFrame G, VvrSunLists L,
                      VvrSunMode M, int nb, int4* __restrict__ boxes,
@@ -295,18 +384,15 @@ vvr_sun_setup_kernel(VvrFaces F, VvrSunBasis B, VvrSunFrame G, VvrSunLists L,
     if (f < F.n) {
         const VvrSunFace s = vvr_sun_face(F, f, B, G, M);
         float4* r = recs + 4 * (size_t)f;
-        if (M.mode == VVR_SUN_SUPPORT) {
-            box = make_int4(s.oi0, s.oi1, s.oj0, s.oj1);
-            r[0] = make_float4(s.p0a, s.p0b, s.g_a, s.g_b);
-            r[1] = make_float4(s.z00, s.zmin, s.deg ? 1.0f : 0.0f, 0.0f);
-        } else if (s.occl) {
-            box = make_int4(s.oi0, s.oi1, s.oj0, s.oj1);
+        if (s.occl) {
             r[0] = make_float4(s.p0a, s.p0b, s.ua, s.ub);
             if (M.mode == VVR_SUN_CONE) {
+                box = vvr_sun_tight_box(s, G, M);
                 r[1] = make_float4(s.va, s.vb, s.inv_det, s.rmu);
                 r[2] = make_float4(s.rmv, s.xv0, s.xv1, s.z00);
                 r[3] = make_float4(s.g_a, s.g_b, s.zmax, s.gsum);
             } else {
+                box = make_int4(s.oi0, s.oi1, s.oj0, s.oj1);
                 r[1] = make_float4(s.va, s.vb, s.inv_det, s.mu);
                 r[2] = make_float4(1.0f - s.mu, s.mv - s.xv0,
                                    1.0f - s.mv + s.xv1, s.z00);
@@ -464,10 +550,8 @@ vvr_sun_bin_kernel(int n_faces, VvrSunLists L, int nb,
 // evaluates the t-th of THREADS equal runs of them, walking its slots'
 // boxes row by row with the record of the slot in registers, as the
 // per-texel build evaluated each texel. All the CTA's threads thus share
-// a tile's pairs, however few faces hold them. MODE: the hard grids, the
-// cone grids (each texel's margins from the support grid M.S), or the
-// support grid itself (one value a texel, the least over the faces, into
-// `out` as floats; the tile kernel then takes the least, not the most).
+// a tile's pairs, however few faces hold them. MODE: the hard grids or
+// the cone grids (each texel's margins from the support grid M.S).
 template <int TILE, int THREADS, int MODE>
 static __global__ void __launch_bounds__(THREADS)
 vvr_sun_tile_kernel(VvrSunFrame G, VvrSunMode M, int bins_x,
@@ -480,6 +564,8 @@ vvr_sun_tile_kernel(VvrSunFrame G, VvrSunMode M, int bins_x,
     __shared__ int s_pre[THREADS];
     __shared__ int s_ws[THREADS / 32];
     __shared__ unsigned s_tex[2 * TILE * TILE];
+    // the cone build: each texel's support depth
+    __shared__ float s_st[MODE == VVR_SUN_CONE ? TILE * TILE : 1];
     const int tid = threadIdx.x;
     const int tiles_x = (G.grid + TILE - 1) / TILE;
     // the bin's job (vvr_sun_order) and this CTA's tile of the bin's
@@ -491,8 +577,15 @@ vvr_sun_tile_kernel(VvrSunFrame G, VvrSunMode M, int bins_x,
     if (tx >= tiles_x || ty >= tiles_x) return;   // past the grid's edge
     const int x0 = tx * TILE, y0 = ty * TILE;
     const int x1 = min(x0 + TILE, G.grid) - 1, y1 = min(y0 + TILE, G.grid) - 1;
-    const unsigned neg = vvr_ord(MODE == VVR_SUN_SUPPORT ? 3e38f : VVR_NEG);
+    const unsigned neg = vvr_ord(VVR_NEG);
     for (int k = tid; k < 2 * TILE * TILE; k += THREADS) s_tex[k] = neg;
+    if (MODE == VVR_SUN_CONE) {
+        for (int k = tid; k < TILE * TILE; k += THREADS) {
+            const int gi = min(x0 + k % TILE, x1), gj = min(y0 + k / TILE, y1);
+            s_st[k] = vvr_support_at(M.S, min(gj / M.bfc, M.cs - 1) * M.cs
+                                              + min(gi / M.bfc, M.cs - 1));
+        }
+    }
     // the entries: the bin list's, the coarse list's, the global list's
     const int n_bin = job.z, n_two = job.z + job2.x;
     const int n_all = n_two + job2.z;
@@ -551,84 +644,67 @@ vvr_sun_tile_kernel(VvrSunFrame G, VvrSunMode M, int bins_x,
             const float da[2] = {(ta0 + ts0) - r0.x, (ta0 + ts1) - r0.x};
             const float db[2] = {(tb0 + ts0) - r0.y, (tb0 + ts1) - r0.y};
             unsigned* t = s_tex + 2 * (lj * TILE + li);
-            if (MODE == VVR_SUN_SUPPORT) {
-                // r0 = (p0a, p0b, g_a, g_b), r1 = (z00, zmin, deg, 0): the
-                // affine depth's least corner, held at or above the face's
-                // least depth (that depth for an edge-on face)
-                float zmn = 3e38f;
-#pragma unroll
-                for (int k = 0; k < 4; ++k) {
-                    zmn = fminf(zmn, (r1.x + da[k >> 1] * r0.z)
-                                         + db[k & 1] * r0.w);
-                }
-                atomicMin(t, vvr_ord(r1.z != 0.0f ? r1.y
-                                                  : fmaxf(zmn, r1.y)));
-            } else {
-                // the texel test: r0 = (p0a, p0b, ua, ub), r1 = (va, vb,
-                // inv_det, mu), r2 = (1 - mu, mv - xv0, 1 - mv + xv1, z00),
-                // r3 = (g_a, g_b, zmax, g_m); in the cone build r1.w = rmu,
-                // r2 = (rmv, xv0, xv1, z00), r3.w = gsum and the margins
-                // grow with the cone's reach above the texel's support
-                // depth. An edge-on face (deg) is the one whose inv_det is
-                // 0. The comparisons are combined without branches.
-                const bool deg = r1.z == 0.0f;
-                float mu = r1.w, lo_v = r2.y, hi_v = r2.z, hi_u = r2.x;
-                float g_m = r3.w, g_bm = 0.0f, mv = 0.0f;
-                if (MODE == VVR_SUN_CONE) {
-                    const int gi = x0 + li, gj = y0 + lj;
-                    const float s_t = __ldg(
-                        M.S + min(gj / M.bfc, M.cs - 1) * M.cs
-                        + min(gi / M.bfc, M.cs - 1));
-                    const float grow_t =
-                        VVR_SAFE + M.cone_tan * fmaxf(r3.z - (s_t
-                                                              - VVR_S_SLACK),
-                                                      0.0f);
-                    mu = grow_t * r1.w;
-                    mv = grow_t * r2.x;
-                    g_m = grow_t * r3.w;
-                    g_bm = (grow_t - VVR_SAFE) * r3.w;
-                    hi_u = 1.0f - mu;
-                    lo_v = mv - r2.y;
-                    hi_v = (1.0f - mv) + r2.z;
-                }
-                bool fully = !deg;
-                float zc_min = 3e38f, zc_max = VVR_NEG;
-                float uu_min = 3e38f, uu_max = -3e38f;
-                float vv_min = 3e38f, vv_max = -3e38f;
-#pragma unroll
-                for (int k = 0; k < 4; ++k) {  // the texel's corners
-                    const float a_ = da[k >> 1], b_ = db[k & 1];
-                    const float uu = (a_ * r1.y - b_ * r1.x) * r1.z;
-                    const float vv = (r0.z * b_ - r0.w * a_) * r1.z;
-                    fully = fully & (uu > mu) & (uu < hi_u) & (vv > lo_v)
-                            & (vv < hi_v);
-                    const float zc = (r2.w + a_ * r3.x) + b_ * r3.y;
-                    zc_min = fminf(zc_min, zc);
-                    zc_max = fmaxf(zc_max, zc);
-                    if (MODE == VVR_SUN_CONE) {
-                        uu_min = fminf(uu_min, uu);
-                        uu_max = fmaxf(uu_max, uu);
-                        vv_min = fminf(vv_min, vv);
-                        vv_max = fmaxf(vv_max, vv);
-                    }
-                }
-                // gridC: possibly touching -> affine max over the grown
-                // texel, capped by the face's max; edge-on faces use the
-                // face's max. The cone build counts a face as touching
-                // only where the texel's corner interval meets its quad
-                // grown by the texel's reach.
-                const bool poss =
-                    MODE != VVR_SUN_CONE || deg
-                    || (uu_max > -mu && uu_min < 1.0f + mu && vv_max > -mv
-                        && vv_min < 1.0f + mv);
-                if (poss) {
-                    atomicMax(t + 1, vvr_ord(deg ? r3.z
-                                                 : fminf(r3.z, zc_max + g_m)));
-                }
-                // gridB: fully covered -> affine min over the texel
-                // (lowered by the cone's reach), capped
-                if (fully) atomicMax(t, vvr_ord(fminf(zc_min - g_bm, r3.z)));
+            // the texel test: r0 = (p0a, p0b, ua, ub), r1 = (va, vb,
+            // inv_det, mu), r2 = (1 - mu, mv - xv0, 1 - mv + xv1, z00),
+            // r3 = (g_a, g_b, zmax, g_m); in the cone build r1.w = rmu,
+            // r2 = (rmv, xv0, xv1, z00), r3.w = gsum and the margins
+            // grow with the cone's reach above the texel's support
+            // depth. An edge-on face (deg) is the one whose inv_det is
+            // 0. The comparisons are combined without branches.
+            const bool deg = r1.z == 0.0f;
+            float mu = r1.w, lo_v = r2.y, hi_v = r2.z, hi_u = r2.x;
+            float g_m = r3.w, g_bm = 0.0f, mv = 0.0f;
+            if (MODE == VVR_SUN_CONE) {
+                const float s_t = s_st[lj * TILE + li];
+                const float grow_t =
+                    VVR_SAFE + M.cone_tan * fmaxf(r3.z - (s_t
+                                                          - VVR_S_SLACK),
+                                                  0.0f);
+                mu = grow_t * r1.w;
+                mv = grow_t * r2.x;
+                g_m = grow_t * r3.w;
+                g_bm = (grow_t - VVR_SAFE) * r3.w;
+                hi_u = 1.0f - mu;
+                lo_v = mv - r2.y;
+                hi_v = (1.0f - mv) + r2.z;
             }
+            bool fully = !deg;
+            float zc_min = 3e38f, zc_max = VVR_NEG;
+            float uu_min = 3e38f, uu_max = -3e38f;
+            float vv_min = 3e38f, vv_max = -3e38f;
+#pragma unroll
+            for (int k = 0; k < 4; ++k) {  // the texel's corners
+                const float a_ = da[k >> 1], b_ = db[k & 1];
+                const float uu = (a_ * r1.y - b_ * r1.x) * r1.z;
+                const float vv = (r0.z * b_ - r0.w * a_) * r1.z;
+                fully = fully & (uu > mu) & (uu < hi_u) & (vv > lo_v)
+                        & (vv < hi_v);
+                const float zc = (r2.w + a_ * r3.x) + b_ * r3.y;
+                zc_min = fminf(zc_min, zc);
+                zc_max = fmaxf(zc_max, zc);
+                if (MODE == VVR_SUN_CONE) {
+                    uu_min = fminf(uu_min, uu);
+                    uu_max = fmaxf(uu_max, uu);
+                    vv_min = fminf(vv_min, vv);
+                    vv_max = fmaxf(vv_max, vv);
+                }
+            }
+            // gridC: possibly touching -> affine max over the grown
+            // texel, capped by the face's max; edge-on faces use the
+            // face's max. The cone build counts a face as touching
+            // only where the texel's corner interval meets its quad
+            // grown by the texel's reach.
+            const bool poss =
+                MODE != VVR_SUN_CONE || deg
+                || (uu_max > -mu && uu_min < 1.0f + mu && vv_max > -mv
+                    && vv_min < 1.0f + mv);
+            if (poss) {
+                atomicMax(t + 1, vvr_ord(deg ? r3.z
+                                             : fminf(r3.z, zc_max + g_m)));
+            }
+            // gridB: fully covered -> affine min over the texel
+            // (lowered by the cone's reach), capped
+            if (fully) atomicMax(t, vvr_ord(fminf(zc_min - g_bm, r3.z)));
             if (++q == q_end) break;
             if (q < a_end) {   // the next texel of this box
                 if (++li > bi1) {
@@ -655,12 +731,8 @@ vvr_sun_tile_kernel(VvrSunFrame G, VvrSunMode M, int bins_x,
         const int li = k % TILE, lj = k / TILE;
         if (x0 + li <= x1 && y0 + lj <= y1) {
             const long long tex = (long long)(y0 + lj) * G.grid + x0 + li;
-            if (MODE == VVR_SUN_SUPPORT) {
-                out[tex] = vvr_unord(s_tex[2 * k]);
-            } else {
-                reinterpret_cast<float2*>(out)[tex] = make_float2(
-                    vvr_unord(s_tex[2 * k]), vvr_unord(s_tex[2 * k + 1]));
-            }
+            reinterpret_cast<float2*>(out)[tex] = make_float2(
+                vvr_unord(s_tex[2 * k]), vvr_unord(s_tex[2 * k + 1]));
         }
     }
 }
@@ -670,19 +742,17 @@ static void vvr_sun_tiles(int mode, int n_ctas, const VvrSunFrame& G,
                           const VvrSunMode& M, int bins_x, int per,
                           const int4* jobs, const float4* recs,
                           const int4* list, float* out, cudaStream_t st) {
-    if (mode == VVR_SUN_SUPPORT) {
-        vvr_sun_tile_kernel<TILE, VVR_SUN_TILE_THREADS, VVR_SUN_SUPPORT>
-            <<<n_ctas, VVR_SUN_TILE_THREADS, 0, st>>>(G, M, bins_x, per, jobs,
-                                                      recs, list, out);
-    } else if (mode == VVR_SUN_CONE) {
-        vvr_sun_tile_kernel<TILE, VVR_SUN_TILE_THREADS, VVR_SUN_CONE>
-            <<<n_ctas, VVR_SUN_TILE_THREADS, 0, st>>>(G, M, bins_x, per, jobs,
-                                                      recs, list, out);
-    } else {
-        vvr_sun_tile_kernel<TILE, VVR_SUN_TILE_THREADS, VVR_SUN_HARD>
-            <<<n_ctas, VVR_SUN_TILE_THREADS, 0, st>>>(G, M, bins_x, per, jobs,
-                                                      recs, list, out);
+    if constexpr (TILE == 16) {   // the cone build's tiles (sun_tiling)
+        if (mode == VVR_SUN_CONE) {
+            vvr_sun_tile_kernel<TILE, VVR_SUN_TILE_THREADS, VVR_SUN_CONE>
+                <<<n_ctas, VVR_SUN_TILE_THREADS, 0, st>>>(
+                    G, M, bins_x, per, jobs, recs, list, out);
+            return;
+        }
     }
+    vvr_sun_tile_kernel<TILE, VVR_SUN_TILE_THREADS, VVR_SUN_HARD>
+        <<<n_ctas, VVR_SUN_TILE_THREADS, 0, st>>>(G, M, bins_x, per, jobs,
+                                                  recs, list, out);
 }
 
 // One build over grid G with the given tiling: setup, scan, bin, tiles
@@ -699,6 +769,7 @@ static int vvr_sun_build(const VvrFaces& F, const VvrSunBasis& B,
     const VvrSunLists L = {bin_side, bins_x, bins_x * bins_x,
                            (bins_x + VVR_SUN_COARSE - 1) / VVR_SUN_COARSE};
     if ((tile != 16 && tile != 32) || bin_side % tile != 0
+        || (M.mode == VVR_SUN_CONE && tile != 16)
         || L.n_bins > VVR_SUN_MAX_BINS || G.grid <= 0 || G.grid > 65535) {
         return (int)cudaErrorInvalidValue;
     }
@@ -731,20 +802,82 @@ static int vvr_sun_build(const VvrFaces& F, const VvrSunBasis& B,
     return (int)cudaGetLastError();
 }
 
+// The support pass: S[k], the least over the faces whose box grown by
+// S_PAD covers coarse texel k of the affine depth at its corners, held at
+// or above the face's least depth (that depth for an edge-on face), as
+// order-mapped u32 (S starts at all ones). One thread sets up one face
+// (every face of the set, occluder or not); the block flattens its faces'
+// (face, coarse texel) pairs (a CTA scan), and each of SLICES blocks of
+// the same faces (blockIdx.y) takes every SLICES-th run of THREADS of
+// them, one atomicMin a pair, so a large face's pairs spread over SLICES
+// blocks. The expressions are the per-texel build's
+// (support_grid_plain).
+static __global__ void __launch_bounds__(VVR_SUN_SUPPORT_THREADS)
+vvr_sun_support_kernel(VvrFaces F, VvrSunBasis B, VvrSunFrame GS,
+                       VvrSunMode M, unsigned* __restrict__ S) {
+    // each face's (p0a, p0b, g_a, g_b) and (z00, zmin, deg), its box's
+    // corner (i0, j0), its width and the block's running pair count
+    __shared__ float4 s_rec[VVR_SUN_SUPPORT_THREADS][2];
+    __shared__ int4 s_box[VVR_SUN_SUPPORT_THREADS];
+    __shared__ int s_ws[VVR_SUN_SUPPORT_THREADS / 32];
+    const int tid = threadIdx.x;
+    const int f = blockIdx.x * VVR_SUN_SUPPORT_THREADS + tid;
+    int cnt = 0, i0 = 0, j0 = 0, w = 1;
+    if (f < F.n) {
+        const VvrSunFace s = vvr_sun_face(F, f, B, GS, M);
+        s_rec[tid][0] = make_float4(s.p0a, s.p0b, s.g_a, s.g_b);
+        s_rec[tid][1] = make_float4(s.z00, s.zmin, s.deg ? 1.0f : 0.0f,
+                                    0.0f);
+        i0 = s.oi0;
+        j0 = s.oj0;
+        w = s.oi1 - s.oi0 + 1;
+        cnt = w * (s.oj1 - s.oj0 + 1);
+    }
+    s_box[tid] = make_int4(i0, j0, w, vvr_tile_scan(cnt, s_ws));
+    __syncthreads();
+    const int total = s_box[VVR_SUN_SUPPORT_THREADS - 1].w;
+    const float ts0 = 0.0f * GS.ts, ts1 = 1.0f * GS.ts;   // corners' steps
+    for (int q = tid + blockIdx.y * VVR_SUN_SUPPORT_THREADS; q < total;
+         q += VVR_SUN_SUPPORT_SLICES * VVR_SUN_SUPPORT_THREADS) {
+        int a = 0, z = VVR_SUN_SUPPORT_THREADS - 1;
+        while (a < z) {   // the face of pair q: the first prefix past q
+            const int mid = (a + z) >> 1;
+            if (s_box[mid].w > q) {
+                z = mid;
+            } else {
+                a = mid + 1;
+            }
+        }
+        const int4 bx = s_box[a];
+        const int idx = q - (a > 0 ? s_box[a - 1].w : 0);
+        const int ci = bx.x + idx % bx.z, cj = bx.y + idx / bx.z;
+        const float4 r0 = s_rec[a][0], r1 = s_rec[a][1];
+        const float ta0 = GS.a0 + (float)ci * GS.ts;
+        const float tb0 = GS.b0 + (float)cj * GS.ts;
+        const float da[2] = {(ta0 + ts0) - r0.x, (ta0 + ts1) - r0.x};
+        const float db[2] = {(tb0 + ts0) - r0.y, (tb0 + ts1) - r0.y};
+        float zmn = 3e38f;
+#pragma unroll
+        for (int k = 0; k < 4; ++k) {
+            zmn = fminf(zmn, (r1.x + da[k >> 1] * r0.z) + db[k & 1] * r0.w);
+        }
+        atomicMin(S + cj * M.cs + ci,
+                  vvr_ord(r1.z != 0.0f ? r1.y : fmaxf(zmn, r1.y)));
+    }
+}
+
 // K11: with cone_tan 0 the hard grids (one build); with cone_tan > 0 the
 // cone grids: first the support grid S over cs x cs coarse texels (cs =
-// min(256, grid), each bfc = grid / cs texels a side, a build of its own
-// with tiling (s_tile, s_bin_side)), at the front of scratch, then the
-// cone build, whose tiles read S. The two builds share the rest of
-// scratch in turn (the support build's lists are no larger).
+// min(256, grid), each bfc = grid / cs texels a side; a memset and the
+// support pass) at the front of scratch, then the cone build, whose setup
+// and tiles read S, in the rest of scratch.
 extern "C" int vvr_sun_grids(
         const void* vx, const void* vy, const void* vz, const void* axis,
         const void* sgn, const void* eu, const void* ev, const void* einfo,
         int n_faces, float e1x, float e1y, float e1z, float e2x, float e2y,
         float e2z, float sx, float sy, float sz, float a0, float b0, float ts,
         int grid, int tile, int bin_side, float cone_tan, float wzmin,
-        int s_tile, int s_bin_side, void* scratch, void* gbc,
-        void* stream) {
+        void* scratch, void* gbc, void* stream) {
     cudaStream_t st = (cudaStream_t)stream;
     const VvrFaces F = {(const int*)vx, (const int*)vy, (const int*)vz,
                         (const int*)axis, (const int*)sgn, (const int*)eu,
@@ -756,15 +889,21 @@ extern "C" int vvr_sun_grids(
         if (grid <= 0) return (int)cudaErrorInvalidValue;
         M.cs = min(256, grid);
         M.bfc = grid / M.cs;
-        float* sgrid = (float*)scratch;
-        scratch = (char*)scratch
-                  + ((size_t)M.cs * M.cs * sizeof(float) + 15) / 16 * 16;
+        unsigned* sgrid = (unsigned*)scratch;
+        const size_t s_bytes = (size_t)M.cs * M.cs * sizeof(unsigned);
+        scratch = (char*)scratch + (s_bytes + 15) / 16 * 16;
+        const cudaError_t err = cudaMemsetAsync(sgrid, 0xFF, s_bytes, st);
+        if (err != cudaSuccess) return (int)err;
         const VvrSunFrame GS = {a0, b0, ts * (float)M.bfc, M.cs};
         VvrSunMode MS = M;
         MS.mode = VVR_SUN_SUPPORT;
-        const int err = vvr_sun_build(F, B, GS, s_tile, s_bin_side, MS,
-                                      scratch, sgrid, st);
-        if (err != 0) return err;
+        if (n_faces > 0) {
+            const dim3 blocks(vvr_blocks(n_faces, VVR_SUN_SUPPORT_THREADS),
+                              VVR_SUN_SUPPORT_SLICES);
+            vvr_sun_support_kernel<<<blocks, VVR_SUN_SUPPORT_THREADS, 0,
+                                     st>>>(
+                F, B, GS, MS, sgrid);
+        }
         M.mode = VVR_SUN_CONE;
         M.S = sgrid;
     }

@@ -93,8 +93,8 @@ KERNELS = {
         "vvr_tpu_torch/csrc/raster.cu", "vvr_tpu/ops/rastertrace.py:190"),
     "sun_grids": Kernel(
         "vvr_sun_grids",
-        (_P,) * 8 + (_I,) + (_F,) * 12 + (_I, _I, _I, _F, _F, _I, _I, _P,
-                                          _P, _P),
+        (_P,) * 8 + (_I,) + (_F,) * 12 + (_I, _I, _I, _F, _F, _P, _P,
+                                          _P),
         "vvr_tpu_torch/csrc/sunshadow.cu", "vvr_tpu/ops/sunshadow.py:112"),
     "masked_shadow": Kernel(
         "vvr_masked_shadow",
@@ -106,8 +106,8 @@ KERNELS = {
         "vvr_tpu_torch/csrc/raygen.cu", "vvr_tpu/ops/raygen.py:37"),
     "soft_shadow": Kernel(
         "vvr_soft_shadow",
-        (_P, _I, _P, _P, _P, _P, _P, _I, _F, _F, _F, _I, _I, _P, _I, _I)
-        + (_F,) * 6 + (_P, _I, _F, _F, _F, _P, _P, _P),
+        (_P, _I, _P, _P, _P, _P, _P, _I, _I, _F, _F, _F, _I, _I, _P, _I,
+         _I) + (_F,) * 6 + (_P, _I, _F, _F, _F, _P, _P, _P),
         "vvr_tpu_torch/csrc/softshadow.cu", "vvr_tpu/render/frame.py:308"),
     "gather_chain": Kernel(
         "vvr_gather_chain", (_P, _I, _I, _P, _I, _P, _I, _P, _U64, _P),

@@ -3,7 +3,7 @@
 
 Replaces the soft-shadow branch of vvr_tpu/render/frame.py's bounce body
 (`shadow_samples > 1`, :308-464) with its pixelated query point (:283-286)
-for the slice (bounce 0, no mirrors). For each primary hit, one thread:
+for the slice (bounce 0, no mirrors). For each primary hit:
 
   1. the surface point (frame.py:212-238) and, with `pixelated`, its
      quarter-voxel floor floor(w * 4) / 4, the query point p;
@@ -24,7 +24,9 @@ for the slice (bounce 0, no mirrors). For each primary hit, one thread:
 
 The factor (N,) f32 is 0 on a miss (the sky shades those pixels). The JAX
 design's packed residue, its waves and its overflow net exist for static
-shapes and are not ported: one thread runs a lane's samples in turn.
+shapes and are not ported. On the card a warp serves a tile of 32
+pixels (`soft_pixels`) and then their (pixel, sample) items a lane each,
+the pixels that trace first (`soft_lane_map`).
 
 Rounding. The jitter's hash feeds `fract` three times, so one ulp moves a
 sample direction by up to 0.01: the jitter rounds where XLA's jit on the
@@ -195,14 +197,81 @@ def soft_shadow_plain(grid: JumpGrid, o, d, hit, face, axis_coord, sun3,
                                 clouds, pixelated), hits)
 
 
+def soft_lanes(samples: int) -> int:
+    """K14's lanes a pixel in its sample rounds: the samples rounded up to a
+    power of two, at most a warp (csrc/softshadow.cu vvr_soft_lanes)."""
+    g = 1
+    while g < samples and g < 32:
+        g <<= 1
+    return g
+
+
+def soft_pixels(n: int, width: int) -> torch.Tensor:
+    """The pixel of each K14 thread, -1 for none, the kernel's own index
+    arithmetic: with `width` > 0 warp w takes the 8x4 tile w of the image
+    (row-major over the tiles) and lane l its pixel in Z order (x from the
+    bits 0, 2 and 4 of l, y from the bits 1 and 3); with width 0 the
+    pixels 32 w ... 32 w + 31."""
+    if width > 0:
+        tiles_x = -(-width // 8)
+        rows = -(-n // width)
+        warps = tiles_x * -(-rows // 4)
+        i = torch.arange(warps * 32)
+        warp, lane = i // 32, i % 32
+        x = warp % tiles_x * 8 + ((lane & 1) | ((lane >> 1) & 2)
+                                  | ((lane >> 2) & 4))
+        y = warp // tiles_x * 4 + (((lane >> 1) & 1) | ((lane >> 2) & 2))
+        pix = torch.where(x < width, y * width + x, n)
+    else:
+        pix = torch.arange(-(-n // 32) * 32)
+    return torch.where(pix < n, pix, -1)
+
+
+def soft_lane_map(n: int, width: int, samples: int, traced, adds):
+    """K14's sample rounds: (pixel, sample), each (threads, rounds) int64,
+    -1 where a thread has no item in a round. `adds` (N,) bool: the
+    pixels with samples to add (hit, not in certain shadow); `traced`: those
+    of them that trace. Each warp ranks its pixels (soft_pixels) that add,
+    those that trace first, in lane order; round b * ceil(S / G) + r gives
+    lane l the pixel of rank b * P + l // G and its sample r * G + l % G,
+    G = soft_lanes(S), P = 32 // G."""
+    pix = soft_pixels(n, width)
+    warps = pix.numel() // 32
+    g = soft_lanes(samples)
+    per = 32 // g
+    sub = -(-samples // g)
+    pc = pix.clamp(min=0)
+    add = (pix >= 0) & adds.cpu()[pc]
+    tr = add & traced.cpu()[pc]
+    t, u = tr.view(warps, 32), (add & ~tr).view(warps, 32)
+    rank = torch.where(t, t.cumsum(1) - 1,
+                       t.sum(1, keepdim=True) + u.cumsum(1) - 1).flatten()
+    by_rank = torch.full((warps, 33), -1, dtype=torch.int64)
+    row = torch.arange(pix.numel()) // 32
+    by_rank[row[add], rank[add]] = pix[add]
+    lane = torch.arange(32)
+    rounds = [(b, r) for b in range(-(-32 // per)) for r in range(sub)]
+    k = torch.tensor([b * per for b, _ in rounds])[None, :] \
+        + (lane // g)[:, None]
+    smp = torch.tensor([r * g for _, r in rounds])[None, :] \
+        + (lane % g)[:, None]
+    got = by_rank[:, torch.clamp(k, max=32)].reshape(warps * 32, -1)
+    smp = smp.repeat(warps, 1)
+    ok = (got >= 0) & (smp < samples)
+    return torch.where(ok, got, -1), torch.where(ok, smp, -1)
+
+
 def soft_shadow(grid: JumpGrid, o, d, hit, face, axis_coord, sun3,
                 samples: int, clouds, max_steps: int,
-                pixelated: bool = False, gate=None, with_hits: bool = False):
+                pixelated: bool = False, gate=None, with_hits: bool = False,
+                width: int = 0):
     """The soft-shadow factor (N,) f32 of the primary hits (0 on a miss),
     and with `with_hits` the per-sample hits (S, N) bool. `sun3`: the
     frame's (3,) sun; `clouds`: the (R, R, 4) cloud texture; `gate`: (e1,
     e2, cone grids) from sun_basis and sun_grids(..., cone_tan=CONE_TAN),
-    or None. CUDA: K14, one launch."""
+    or None; `width`: the image's width, if the lanes are its pixels in
+    row-major order (the kernel then serves 8x4 tiles of them,
+    soft_pixels), or 0. CUDA: K14, one launch."""
     if not kernels.on_cuda(o):
         factor, hits = soft_shadow_plain(grid, o, d, hit, face, axis_coord,
                                          sun3, samples, clouds, max_steps,
@@ -211,6 +280,8 @@ def soft_shadow(grid: JumpGrid, o, d, hit, face, axis_coord, sun3,
     check_trace_inputs(o, d, hit, face, axis_coord)
     if not 1 <= samples <= 255:
         raise ValueError(f"samples must lie in 1..255, got {samples}")
+    if width < 0:
+        raise ValueError(f"width must be 0 or more, got {width}")
     if clouds.dim() != 3 or clouds.shape[2] != 4 or clouds.dtype != F32 \
             or clouds.data_ptr() % 16:
         raise ValueError("clouds must be (R, R, 4) float32, 16-byte "
@@ -234,7 +305,7 @@ def soft_shadow(grid: JumpGrid, o, d, hit, face, axis_coord, sun3,
             if with_hits else None)
     kernels.launch("soft_shadow", dev, grid.rows.data_ptr(), grid.size,
                    o.data_ptr(), d.data_ptr(), hit.data_ptr(),
-                   face.data_ptr(), axis_coord.data_ptr(), n,
+                   face.data_ptr(), axis_coord.data_ptr(), n, width,
                    *(float(c) for c in np.asarray(sun3, np.float32)[:3]),
                    samples, int(pixelated), clouds.data_ptr(),
                    clouds.shape[0], max_steps, *basis, gbc_ptr, g, *frame,

@@ -40,7 +40,10 @@ the least surface depth of the texel's coarse column (COARSE texels a
 side), so a lane whose every sample is certainly shadowed or lit traces
 nothing (`soft_shadow_gate`); a sample that is neither walks its first
 crossings and lifts above its surface texel's cone gridC
-(`near_walk_classify`) before the DDA.
+(`near_walk_classify`) before the DDA. On the card the cone build takes
+each occluder's tight box (`cone_boxes_plain`): the texels whose test can
+pass at the largest margin its box's support depths allow; the grids are
+those of the present boxes bit for bit.
 
 The grids are (gBC (G^2, 2) f32, a0, b0, ts): texel (i, j) covers
 [a0 + i*ts, a0 + (i+1)*ts) x [b0 + j*ts, ...) of the (e1, e2) plane, row
@@ -93,6 +96,10 @@ COARSE = 256
 S_PAD = 0.5
 S_SLACK = 0.5
 SOFT_FWD = 0.06
+# the most coarse texels of a present box over which the cone build's
+# setup takes its least support depth (cone_boxes_plain); a face whose box
+# spans more keeps that box
+TIGHT_SPAN = 64
 
 
 def sun_basis(sun3):
@@ -283,25 +290,82 @@ def support_grid_plain(fs, a0, b0, ts, grid: int):
     return sg
 
 
-def sun_grids_plain(faces, e1, e2, s, size: int, grid: int = GRID,
-                    cone_tan: float = 0.0):
-    """Plain torch K11: (gBC (grid^2, 2) f32, a0, b0, ts). With cone_tan >
-    0 the cone grids of soft shadows (build_sun_grids with cone_tan): each
-    texel's margins grow by the cone's reach above the texel's support
-    depth S, and a face marks gridC only where its quad grown by that
-    reach may touch the texel."""
-    dev = faces[0].device
-    a0, b0, ts = grid_frame(e1, e2, size, grid)
-    fs = face_setup(faces, e1, e2, s, a0, b0, ts, grid, cone_tan, size)
+def cone_boxes_plain(fs, sg, a0, b0, ts, grid: int, cone_tan: float):
+    """The cone build's tight texel boxes (oi0, oi1, oj0, oj1), (F,) each,
+    from the per-face setup `fs` (face_setup with cone_tan) and the support
+    grid `sg` (support_grid_plain); csrc/sunshadow.cu vvr_sun_tight_box is
+    its CUDA copy.
+
+    An occluder whose present box (grown from the world's least depth)
+    spans at most TIGHT_SPAN coarse texels takes S_lo, the least S over
+    them, and the grow SAFE + cone_tan * max(zmax - (S_lo - S_SLACK), 0):
+    the per-texel expression with S_lo in place of the texel's S, so no
+    texel of the present box has a larger margin. Its tight box is the
+    present box cut to the texels whose corner (i, j) can pass the texel
+    test at that margin: its (u, v) lies within the quad grown by the
+    margin and by the texel's own (u, v) extent (and across the internal
+    v edges, for gridB), mapped back to the (e1, e2) plane with one texel
+    to spare on each side for rounding. The grown bbox of the quad alone
+    would not do: a skewed parallelogram grown by a distance g reaches
+    past its bbox grown by g at its acute corners, and the texel test
+    compares the texel's (u, v) interval. Any other face keeps its
+    present box. The grids are maxima over the pairs whose test passes,
+    so these boxes give the present boxes' grids bit for bit."""
+    dev = fs["zmax"].device
+    cs, bfc = coarse_side(grid)
+    a0t, b0t, tst = (torch.tensor(v, dtype=F32, device=dev)
+                     for v in (a0, b0, ts))
+    oi0, oi1, oj0, oj1 = (fs[k] for k in ("oi0", "oi1", "oj0", "oj1"))
+    ci0, ci1 = (torch.clamp(x // bfc, max=cs - 1) for x in (oi0, oi1))
+    cj0, cj1 = (torch.clamp(x // bfc, max=cs - 1) for x in (oj0, oj1))
+    cw = ci1 - ci0 + 1
+    span = cw * (cj1 - cj0 + 1)
+    tight = fs["occl"] & ~fs["deg"] & (span <= TIGHT_SPAN)
+    s_lo = torch.full_like(fs["zmax"], 3e38)
+    for fidx, ci, cj in _pairs(torch.where(tight, span, 0), ci0, cj0, cw):
+        s_lo.scatter_reduce_(0, fidx, sg[cj * cs + ci], "amin")
+    grow = SAFE + cone_tan * torch.clamp(
+        fs["zmax"] - (s_lo - S_SLACK), min=0.0)
+    inv = fs["inv_det"].abs()
+    hu = (tst * (fs["va"].abs() + fs["vb"].abs())) * inv
+    hv = (tst * (fs["ua"].abs() + fs["ub"].abs())) * inv
+    mu, mv = grow * fs["rmu"], grow * fs["rmv"]
+    u_lo, u_hi = -(mu + hu), (1.0 + mu) + hu
+    v_lo = -((mv + fs["xv0"]) + hv)
+    v_hi = ((1.0 + mv) + fs["xv1"]) + hv
+
+    def extent(p0, eu_, ev_, lo):
+        a = torch.minimum(u_lo * eu_, u_hi * eu_)
+        b = torch.minimum(v_lo * ev_, v_hi * ev_)
+        c = torch.maximum(u_lo * eu_, u_hi * eu_)
+        d = torch.maximum(v_lo * ev_, v_hi * ev_)
+        return (_floor_int(((p0 + a) + b - lo) / tst) - 1,
+                _floor_int(((p0 + c) + d - lo) / tst) + 1)
+
+    i_lo, i_hi = extent(fs["p0a"], fs["ua"], fs["va"], a0t)
+    j_lo, j_hi = extent(fs["p0b"], fs["ub"], fs["vb"], b0t)
+    i_lo, i_hi = torch.maximum(oi0, i_lo), torch.minimum(oi1, i_hi)
+    j_lo, j_hi = torch.maximum(oj0, j_lo), torch.minimum(oj1, j_hi)
+    empty = (i_lo > i_hi) | (j_lo > j_hi)
+    return tuple(torch.where(tight, torch.where(empty, e, t), lo)
+                 for t, lo, e in ((i_lo, oi0, 0), (i_hi, oi1, -1),
+                                  (j_lo, oj0, 0), (j_hi, oj1, -1)))
+
+
+def pair_tests(fs, sg, a0, b0, ts, grid: int, cone_tan: float = 0.0):
+    """The texel test of every (face, texel) pair of the occluders' boxes
+    in `fs` (face_setup), in chunks (_pairs): yields (face, i, j, marks C,
+    C value, marks B, B value), each (P,). With cone_tan > 0 the cone
+    build's test, each texel's margins grown by the cone's reach above
+    its support depth in `sg` (support_grid_plain)."""
+    dev = fs["zmax"].device
     cone = cone_tan > 0.0
     if cone:
         cs, bfc = coarse_side(grid)
-        sg = support_grid_plain(fs, a0, b0, ts, grid)
-    tsf = torch.tensor(ts, dtype=F32, device=dev)
+    a0, b0, tsf = (torch.tensor(v, dtype=F32, device=dev)
+                   for v in (a0, b0, ts))
     bw = fs["oi1"] - fs["oi0"] + 1
     cnt = torch.where(fs["occl"], bw * (fs["oj1"] - fs["oj0"] + 1), 0)
-    g_b = torch.full((grid * grid,), NEG, dtype=F32, device=dev)
-    g_c = torch.full((grid * grid,), NEG, dtype=F32, device=dev)
     for fidx, i, j in _pairs(cnt, fs["oi0"], fs["oj0"], bw):
         f = {k: v[fidx] for k, v in fs.items()}
         if cone:
@@ -332,7 +396,6 @@ def sun_grids_plain(faces, e1, e2, s, size: int, grid: int = GRID,
                 zc = (f["z00"] + da * f["g_a"]) + db * f["g_b"]
                 zc_min = torch.minimum(zc_min, zc)
                 zc_max = torch.maximum(zc_max, zc)
-        tex = j * grid + i
         zc_val = torch.where(f["deg"], f["zmax"],
                              torch.minimum(f["zmax"], zc_max + g_m))
         if cone:
@@ -342,22 +405,51 @@ def sun_grids_plain(faces, e1, e2, s, size: int, grid: int = GRID,
             vv = torch.stack([v for _, v in uvs])
             poss = f["deg"] | ((uu.amax(0) > -mu) & (uu.amin(0) < 1.0 + mu)
                                & (vv.amax(0) > -mv) & (vv.amin(0) < 1.0 + mv))
-            g_c.scatter_reduce_(0, tex[poss], zc_val[poss], "amax")
             zb_val = torch.minimum(zc_min - g_bm, f["zmax"])
         else:
-            g_c.scatter_reduce_(0, tex, zc_val, "amax")
+            poss = torch.ones_like(fully)
             zb_val = torch.minimum(zc_min, f["zmax"])
+        yield fidx, i, j, poss, zc_val, fully, zb_val
+
+
+def sun_grids_plain(faces, e1, e2, s, size: int, grid: int = GRID,
+                    cone_tan: float = 0.0, tight: bool = False):
+    """Plain torch K11: (gBC (grid^2, 2) f32, a0, b0, ts). With cone_tan >
+    0 the cone grids of soft shadows (build_sun_grids with cone_tan): each
+    texel's margins grow by the cone's reach above the texel's support
+    depth S, and a face marks gridC only where its quad grown by that
+    reach may touch the texel. The faces' texel boxes are face_setup's,
+    or with `tight` (the cone grids) the kernel's cone_boxes_plain, which
+    give the same grids."""
+    dev = faces[0].device
+    a0, b0, ts = grid_frame(e1, e2, size, grid)
+    fs = face_setup(faces, e1, e2, s, a0, b0, ts, grid, cone_tan, size)
+    sg = None
+    if cone_tan > 0.0:
+        sg = support_grid_plain(fs, a0, b0, ts, grid)
+        if tight:
+            fs["oi0"], fs["oi1"], fs["oj0"], fs["oj1"] = cone_boxes_plain(
+                fs, sg, a0, b0, ts, grid, cone_tan)
+    g_b = torch.full((grid * grid,), NEG, dtype=F32, device=dev)
+    g_c = torch.full((grid * grid,), NEG, dtype=F32, device=dev)
+    for _, i, j, poss, zc_val, fully, zb_val in pair_tests(
+            fs, sg, a0, b0, ts, grid, cone_tan):
+        tex = j * grid + i
+        g_c.scatter_reduce_(0, tex[poss], zc_val[poss], "amax")
         g_b.scatter_reduce_(0, tex[fully], zb_val[fully], "amax")
     return torch.stack([g_b, g_c], 1), a0, b0, ts
 
 
-def sun_tiling(grid: int) -> tuple[int, int]:
+def sun_tiling(grid: int, cone: bool = False) -> tuple[int, int]:
     """K11's (tile side, bin side) in texels at `grid`^2: a CTA owns a
     tile, and a bin (a square of tiles) holds one face list; the bins are
-    as small as SUN_MAX_BINS allows. 32-texel tiles at 1024^2 and above,
-    16 below, so the 512^2 build of a dragged sun still has a CTA for each
-    of 1024 tiles."""
-    tile = 32 if grid >= 1024 else 16
+    as small as SUN_MAX_BINS allows. The hard build takes 32-texel tiles
+    at 1024^2 and above, 16 below, so the 512^2 build of a dragged sun
+    still has a CTA for each of 1024 tiles; the cone build (`cone`) takes
+    16-texel tiles at every size, since its busiest tiles hold 30-40
+    times the mean tile's (face, texel) pairs and a CTA's time follows its
+    tile's pairs."""
+    tile = 32 if grid >= 1024 and not cone else 16
     tiles_x = -(-grid // tile)
     return tile, tile * -(-tiles_x // math.isqrt(SUN_MAX_BINS))
 
@@ -368,9 +460,9 @@ def sun_scratch_bytes(n_faces: int, grid: int, cone: bool = False) -> int:
     list entries (int4); a job (2 int4) per bin; a count per (list, block
     of SUN_FPB faces), int64, the lists being the bins, the coarse bins
     (SUN_COARSE bins a side) and the global list, with the scan's block
-    sums and total. The cone build adds its support grid (cs^2 floats,
-    rounded up to 16 bytes) in front; its support pass reuses the rest."""
-    bin_side = sun_tiling(grid)[1]
+    sums and total. The cone build adds its support grid (cs^2 u32,
+    rounded up to 16 bytes) in front."""
+    bin_side = sun_tiling(grid, cone)[1]
     bins_x = -(-grid // bin_side)
     n_lists = bins_x ** 2 + (-(-bins_x // SUN_COARSE)) ** 2 + 1
     n_cnt = n_lists * max(-(-n_faces // SUN_FPB), 1)
@@ -385,7 +477,8 @@ def sun_grids(faces, e1, e2, s, size: int, grid: int = GRID,
     """Conservative shadow grids (gBC, a0, b0, ts) for sun basis (e1, e2,
     s) from the merged faces (FaceSet.device_tuple()): the hard grids, or
     with cone_tan > 0 (CONE_TAN) the cone grids of soft shadows. CUDA:
-    K11 (with the cone, its support pass first, in the same launch)."""
+    K11 (with the cone, its support pass first, in the same entry point,
+    and the cone build's tight boxes, cone_boxes_plain)."""
     if not kernels.on_cuda(faces[0]):
         return sun_grids_plain(faces, e1, e2, s, size, grid, cone_tan)
     if len(faces) < 8 or any(a.dtype != torch.int32 for a in faces[:8]):
@@ -402,10 +495,9 @@ def sun_grids(faces, e1, e2, s, size: int, grid: int = GRID,
     gbc = torch.empty((grid * grid, 2), dtype=F32, device=dev)
     kernels.launch("sun_grids", dev, *(a.data_ptr() for a in faces[:8]), nf,
                    *(float(c) for v in (e1, e2, s) for c in v), float(a0),
-                   float(b0), float(ts), grid, *sun_tiling(grid),
+                   float(b0), float(ts), grid, *sun_tiling(grid, cone),
                    float(cone_tan), float(world_zmin(s, size)) if cone
-                   else 0.0, *sun_tiling(coarse_side(grid)[0]),
-                   scratch.data_ptr(), gbc.data_ptr())
+                   else 0.0, scratch.data_ptr(), gbc.data_ptr())
     return gbc, a0, b0, ts
 
 

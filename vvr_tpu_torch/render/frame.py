@@ -103,7 +103,7 @@ def render_frame(grid: JumpGrid, o, d, sun, time: float, cfg: RenderConfig,
     shadow = None
     if cfg.shadow_samples > 1:
         shadow = soft_shadow(grid, *hits, sun3.numpy(), cfg.shadow_samples,
-                             clouds, max_steps, pixelated, sunmask)
+                             clouds, max_steps, pixelated, sunmask, width=rw)
     elif cfg.shadow_samples == 1:
         # shadow start: surface (its quarter-voxel floor with pixelated
         # shadows) + 0.05 along the sun

@@ -9,13 +9,16 @@ with the vvr_tpu_torch package found under DIR (default: this checkout),
 in three configurations: 1920x1080 with bloom, without bloom, and
 3840x2160 composited from a 1920x1080 render (the compositor's integer
 upscale); and beside them the DDA frame (`primary_raster="off",
-sun_mask="off"`: K1 traces the primary and the shadow rays) at 1920x1080.
+sun_mask="off"`: K1 traces the primary and the shadow rays) and the soft
+frames (K14: four samples with the cone grids and through every sample's
+DDA, pixelated with four samples and with one) at 1920x1080.
 Beside the frames it digests the sky textures (the 256^2 skybox and the
 512^2 clouds) at two (sun, time) pairs, the default sun at t = 0 and a
 low sun at t = 1.75 s, and the second at odd sizes (7^2 and 13^2), each
 built through the renderer's sky cache (`Renderer._sky`), and the sun
 grids gBC (K11 `sun_grids`) at 2048^2 and 512^2 (the dragged sun's) for
-the default sun and that low sun. It prints one JSON line: for each
+the default sun and that low sun, hard and cone (soft shadows' `cone_tan`).
+It prints one JSON line: for each
 configuration the SHA-256 of the frame's HDR image and of its u8 image,
 for each sky the SHA-256 of its skybox and its clouds, and for each sun
 grid the SHA-256 of gBC. The calls are those of `Renderer.render`,
@@ -45,15 +48,23 @@ CONFIGS = {"bloom": dict(width=1920, height=1080),
            "no bloom": dict(width=1920, height=1080, bloom_enabled=False),
            "upscale 2": dict(width=3840, height=2160, downscale_factor=2),
            "dda": dict(width=1920, height=1080, primary_raster="off",
-                       sun_mask="off")}
+                       sun_mask="off"),
+           "soft cone": dict(width=1920, height=1080, shadow_samples=4),
+           "soft dda": dict(width=1920, height=1080, shadow_samples=4,
+                            sun_mask="off"),
+           "pixelated 4": dict(width=1920, height=1080, shadow_samples=4,
+                               pixelated_shadows=True),
+           "pixelated 1": dict(width=1920, height=1080, shadow_samples=1,
+                               pixelated_shadows=True)}
 # (sun direction before normalization, or None for the renderer's, time,
 # skybox and cloud resolutions)
 SKIES = {"sky default sun t 0": (None, 0.0, 256, 512),
          "sky low sun t 1.75": ((0.6, 0.05, 0.8), 1.75, 256, 512),
          "sky low sun t 1.75 at 7/13": ((0.6, 0.05, 0.8), 1.75, 7, 13)}
 # the sun grids: (sun direction before normalization, or None for the
-# renderer's, grid side)
-GRIDS = {f"gbc {name} sun {grid}": (sun, grid)
+# renderer's, grid side, the cone grids of soft shadows)
+GRIDS = {f"gbc {'cone ' if cone else ''}{name} sun {grid}": (sun, grid, cone)
+         for cone in (False, True)
          for name, sun in (("default", None), ("low", (0.6, 0.05, 0.8)))
          for grid in (2048, 512)}
 
@@ -65,13 +76,14 @@ def digest(t) -> str:
 def grid_digests(sunshadow, faces, size: int, default_sun, grids=GRIDS):
     """{name: SHA-256 of gBC} of `sunshadow.sun_grids` (the module of the
     package under test) for each entry of `grids`, a sun of None being
-    `default_sun`."""
+    `default_sun`, the cone grids with the package's CONE_TAN."""
     out = {}
-    for name, (sun, grid) in grids.items():
+    for name, (sun, grid, cone) in grids.items():
         s = np.asarray(default_sun if sun is None else sun, np.float32)
         s = (s / np.linalg.norm(s)).astype(np.float32)
         gbc = sunshadow.sun_grids(faces, *sunshadow.sun_basis(s), size,
-                                  grid)[0]
+                                  grid, sunshadow.CONE_TAN if cone
+                                  else 0.0)[0]
         out[name] = {"gbc": digest(gbc), "shape": list(gbc.shape)}
     return out
 
@@ -103,7 +115,8 @@ def main(argv=None) -> int:
     scene = None
     out = {"root": str(root), "cpu rays": args.cpu_rays}
     for name, knobs in CONFIGS.items():
-        cfg = RenderConfig(shadow_samples=1, max_ray_iterations=3, **knobs)
+        cfg = RenderConfig(**{"shadow_samples": 1, "max_ray_iterations": 3,
+                              **knobs})
         r = Renderer(WorldConfig(depth=4), cfg, device=dev, scene=scene,
                      force_regenerate=scene is None,
                      cache_path=root / "build" / "vvr_tpu_torch"

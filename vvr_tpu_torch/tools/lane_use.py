@@ -1,4 +1,5 @@
-"""Lane use of K1's loop, counted from the plain tracer's trips.
+"""Lane use of K1's loop and of K14's sample rays, counted from the plain
+tracer's trips.
 
     python3 -m vvr_tpu_torch.tools.lane_use [--device cuda]
 
@@ -15,6 +16,17 @@ rows) and a tiled one (8x4 pixel tiles) group them:
 - the box-exit loop (load the row if needed, then one box exit): the
   lanes busy per trip.
 
+Then K14's sample rays at the same view (four jittered samples a pixel,
+surface and pixelated query points; every sample's DDA, and with the cone
+gate the near walk's steps and the DDA of what it leaves), each sample
+ray's trips (a trip: one row load or box exit of the DDA, or one crossing
+of the near walk), and for three maps of (pixel, sample) onto lanes the
+lanes busy per warp trip: 32x1 pixel rows with a lane running its pixel's
+samples in turn (a warp's trips are the sum over the samples of its
+slowest lane's), 8x4 pixel tiles the same way, and K14's rounds of a lane
+per (pixel, sample) (softshadow.soft_lane_map: a warp's 8x4 tile, its
+pixels that trace first, 8 pixels x 4 samples a round).
+
 These are counts of the algorithm on these rays, not device measurements.
 It prints one JSON line per (rays, warp shape).
 """
@@ -30,6 +42,8 @@ import numpy as np
 import torch
 
 from vvr_tpu_torch.config import RenderConfig, WorldConfig
+from vvr_tpu_torch.ops import softshadow
+from vvr_tpu_torch.ops import sunshadow as ss
 from vvr_tpu_torch.ops.jump import tile_ray_index, trace_jump_plain
 from vvr_tpu_torch.ops.raygen import camera_rays
 from vvr_tpu_torch.ops.shade import shade_surface_plain
@@ -39,6 +53,7 @@ from vvr_tpu_torch.utils.camera import Camera
 
 CAMERA = ([128.0, 100.0, 20.0], [128.0, 20.0, 180.0], 85.0)  # bench.py:33
 WARP = 32
+SOFT_SAMPLES = 4   # K14's samples a pixel (the JAX quick start's)
 
 
 def warps(n: int, width: int, tiled: bool) -> torch.Tensor:
@@ -95,6 +110,91 @@ def lane_use(grid, o, d, active, warp_of, max_steps: int) -> dict:
             "warp_trips_old": trips, "warp_trips_new": new["trips"]}
 
 
+def sample_trips(grid, hits, sun, samples: int, max_steps: int,
+                 pixelated: bool = False, gate=None):
+    """(trips, traced, adds): each K14 sample ray's trips (S, N) int64, 0
+    for a sample that traces nothing: its near walk's crossings (with
+    `gate`, the cone gate's (e1, e2, grids)) and its DDA's trips (the plain
+    tracer's, where a trip is busy for a ray that loads a row or takes a
+    step); the pixels that trace and those with samples to add (N,)
+    bool."""
+    sun_t = torch.as_tensor(np.asarray(sun, np.float32),
+                            device=grid.rows.device)
+    p, act = softshadow.query_points(*hits, sun_t, pixelated)
+    traced, adds = act, hits[2].clone()
+    if gate is not None:
+        e1, e2, grids = gate
+        kh, km = ss.soft_shadow_gate(p, sun, e1, e2, grids, act, grid.size)
+        traced = act & ~kh & ~km
+        adds &= ~kh
+        row_c = ss.surface_row_c(p, sun, e1, e2, grids, grid.size)
+    n = p.shape[0]
+    out = torch.zeros((samples, n), dtype=torch.int64, device=p.device)
+    for s in range(samples):
+        dirs = softshadow.sample_dir(s, *p.unbind(1), sun_t)[:3]
+        start = torch.stack(softshadow.ray_start(*p.unbind(1), *dirs, sun_t),
+                            -1)
+        dirs = torch.stack(dirs, -1)
+        run = traced
+        if gate is not None:
+            inw = ((start >= 0) & (start < grid.size)).all(1)
+            walk = traced & inw
+            out[s] += walk.long()     # the first crossing's test
+            for k in range(1, ss.NEAR_K):
+                hit_k, exit_k, _ = ss.near_segment_plain(grid, start, dirs, k)
+                out[s] += (walk & ~hit_k & ~exit_k).long()
+            wh, wm = ss.near_walk_classify(grid, start, dirs, row_c, sun,
+                                           grid.size)
+            run = traced & ~wh & ~wm
+        busy = torch.zeros(n, dtype=torch.int64, device=p.device)
+        idx = torch.nonzero(run)[:, 0]
+
+        def on_trip(loaded, stepped):
+            b = torch.zeros(idx.numel(), dtype=torch.bool, device=p.device)
+            b[loaded] = True
+            b[stepped] = True
+            busy[idx[b]] += 1
+
+        trace_jump_plain(grid, start[idx], dirs[idx], max_steps, stats=False,
+                         on_trip=on_trip)
+        out[s] += busy
+    return out, traced, adds
+
+
+def soft_maps(n: int, width: int, samples: int, traced, adds) -> dict:
+    """K14's three maps of (pixel, sample) onto lanes: name -> (pixel,
+    sample), each (threads, rounds) int64, -1 where a thread has none; a
+    thread's rounds run in turn, and a warp's trips in a round are those
+    of its slowest lane. `traced`, `adds`: as sample_trips returns them
+    (the third map ranks the pixels by them)."""
+    flat = torch.arange(-(-n // WARP) * WARP)
+    out = {}
+    for name, thread in (
+            ("32x1, samples in turn", torch.where(flat < n, flat, -1)),
+            ("8x4 tiles, samples in turn", tile_ray_index(width, n // width))):
+        pix = thread[:, None].expand(-1, samples)
+        s = torch.arange(samples).expand(thread.numel(), -1)
+        out[name] = (pix, torch.where(pix >= 0, s, -1))
+    out["lane per (pixel, sample)"] = softshadow.soft_lane_map(
+        n, width, samples, traced, adds)
+    return out
+
+
+def soft_lane_use(trips: torch.Tensor, pix: torch.Tensor,
+                  samp: torch.Tensor) -> dict:
+    """Lanes busy per warp trip of K14 under one map (soft_maps) of the
+    sample rays' trips (S, N) (sample_trips)."""
+    trips = trips.cpu()
+    t = torch.where(pix >= 0, trips[samp.clamp(min=0), pix.clamp(min=0)], 0)
+    per_warp = t.view(-1, WARP, t.shape[1]).amax(1)   # (warps, rounds)
+    warp_trips = int(per_warp.sum())
+    busy = int(t.sum())
+    if busy != int(trips.sum()):
+        raise AssertionError("the map drops a traced (pixel, sample)")
+    return {"warp_trips": warp_trips, "busy_lane_trips": busy,
+            "lane_use": round(busy / (WARP * max(warp_trips, 1)), 4)}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--device", default="cuda")
@@ -123,6 +223,23 @@ def main(argv=None) -> int:
             print(json.dumps({"rays": label,
                               "warp": "8x4 tiles" if tiled else "32x1",
                               "device": str(dev), **out}))
+    # K14's sample rays: every sample's DDA, the cone gate, pixelated
+    hits = (o, d, primary.hit, primary.face, primary.axis_coord)
+    e1, e2, s = ss.sun_basis(sun.numpy())
+    cone = ss.sun_grids(scene.ensure_faces(), e1, e2, s, grid.size, ss.GRID,
+                        ss.CONE_TAN)
+    for label, pix, gate in (("K14 samples, every sample's DDA", False, None),
+                             ("K14 samples, cone gate", False,
+                              (e1, e2, cone)),
+                             ("K14 samples, pixelated", True, None)):
+        trips, traced, adds = sample_trips(grid, hits, sun.numpy(),
+                                           SOFT_SAMPLES, max_steps, pix, gate)
+        maps = soft_maps(n, cfg.width, SOFT_SAMPLES, traced, adds)
+        for name, (mp, ms) in maps.items():
+            print(json.dumps({"rays": label, "warp": name,
+                              "device": str(dev),
+                              "traced": int((trips > 0).sum()),
+                              **soft_lane_use(trips, mp, ms)}))
     return 0
 
 

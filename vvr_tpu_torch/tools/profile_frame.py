@@ -36,17 +36,24 @@ samples), over one scene, and prints, each from this run:
    and the two kinds of frame on the host clock without the profiler; K11
    windows: sun-grid builds at 2048^2 and at 512^2 (and the cone grids of
    soft shadows where the package builds them), device time per sun
-   direction and per device kernel; and a drag window: default frames
-   while the sun is dragged (`set_sun_dragging(True)`, the sun turned
-   DRAG_STEP degrees about the vertical every frame, as the app's
-   middle-mouse drag turns it, so each frame builds the 512^2 sun grids
-   and the sky), device time per kernel per frame under the profiler and
-   the median and slowest frame on the host clock without it;
+   direction and per device kernel, and for the cone grids the split by
+   launch order into the support pass (every launch before the cone
+   build's setup kernel) and the cone build; and drag windows: default
+   frames, then soft cone frames where the package renders them, while the
+   sun is dragged (`set_sun_dragging(True)`, the sun turned DRAG_STEP
+   degrees about the vertical every frame, as the app's middle-mouse drag
+   turns it, so each frame builds the 512^2 sun grids, hard or cone, and
+   the sky), device time per kernel per frame under the profiler and the
+   median and slowest frame on the host clock without it;
 5. the work counters at this camera (K9's fragments in its tight boxes
    and in the JAX boxes, its binned (face, tile) pairs and big faces);
 6. K11's work per tile: for the default sun and frame_digest's low sun,
    at 2048^2 and 512^2, the (face, texel) pairs of the busiest tile
-   against the mean, at tiles of 16, 32 and 64 texels a side.
+   against the mean, at tiles of 16, 32 and 64 texels a side; for the cone
+   build its (face, texel) pairs in the present boxes and, where the
+   package has them, in the tight boxes (sunshadow.cone_boxes_plain), the
+   busiest tile against the mean at 16 and 32 texels a side, and the
+   support pass's (face, coarse texel) pairs (the most of one face).
 
 It measures the vvr_tpu_torch package found under DIR (default: this
 checkout), so one call can run it on an unpacked `git archive` of another
@@ -305,6 +312,24 @@ def k11_window(faces, basis, size: int, grid: int, trace_path,
         s[0] += 1
         s[1] += e["dur"]
     us = sum(v[1] for v in per_name.values()) / calls
+    if cone:
+        # by launch order: a build ends with its cone tile kernel (template
+        # mode 1); its cone build starts at the last setup kernel before
+        # that, and its support pass is what runs between the two builds
+        ev = sorted(events, key=lambda e: e["ts"])
+        split, builds, start, setup = [0.0, 0.0], 0, 0, None
+        for k, e in enumerate(ev):
+            if "vvr_sun_setup_kernel" in e["name"]:
+                setup = k
+            elif ("vvr_sun_tile_kernel" in e["name"] and ", 1>" in e["name"]
+                  and setup is not None):
+                split[0] += sum(x["dur"] for x in ev[start:setup])
+                split[1] += sum(x["dur"] for x in ev[setup:k + 1])
+                builds, start, setup = builds + 1, k + 1, None
+        print(f"K11 cone split ({grid}^2, by launch order, {builds} "
+              f"builds): support pass {split[0] / max(builds, 1):.2f} us, "
+              f"cone build {split[1] / max(builds, 1):.2f} us per sun "
+              f"direction")
     print(f"K11 window: {calls} {'cone ' if cone else ''}sun-grid builds "
           f"({grid}^2), device "
           f"{us:.2f} us per sun direction in "
@@ -364,9 +389,41 @@ def k11_balance(faces, size: int, suns: dict) -> None:
                   f"bins: max {int(spans.max())}, over 16: "
                   f"{int((spans > 16).sum())}, over 4: "
                   f"{int((spans > 4).sum())}; " + "; ".join(parts))
+            cone_balance(faces, size, label, (e1, e2, s), grid)
 
 
-def drag_window(renderer, cam, trace_path, frames: int) -> None:
+def cone_balance(faces, size: int, label: str, basis, grid: int) -> None:
+    """The cone build's (face, texel) pairs in the present boxes and, where
+    the package has them, the tight boxes: the total, and the busiest tile
+    against the mean at 16 and 32 texels a side; and the support pass's
+    (face, coarse texel) pairs."""
+    from vvr_tpu_torch.ops import sunshadow as ss
+    a0, b0, ts = ss.grid_frame(*basis[:2], size, grid)
+    fs = ss.face_setup(faces, *basis, a0, b0, ts, grid, ss.CONE_TAN, size)
+    boxes = {"present": tuple(fs[k] for k in ("oi0", "oi1", "oj0", "oj1"))}
+    if hasattr(ss, "cone_boxes_plain"):
+        sg = ss.support_grid_plain(fs, a0, b0, ts, grid)
+        boxes["tight"] = ss.cone_boxes_plain(fs, sg, a0, b0, ts, grid,
+                                             ss.CONE_TAN)
+    parts = []
+    for name, box in boxes.items():
+        f = dict(fs, oi0=box[0], oi1=box[1], oj0=box[2], oj1=box[3],
+                 occl=fs["occl"] & (box[0] <= box[1]))
+        for tile in (16, 32):
+            per = tile_pairs(f, grid, tile).flatten().double()
+            parts.append(f"{name} boxes {tile}^2 tiles: pairs "
+                         f"{float(per.sum()):.0f}, busiest "
+                         f"{float(per.max()):.0f}, mean "
+                         f"{float(per.mean()):.1f}, "
+                         f"busiest / mean {float(per.max() / per.mean()):.1f}")
+    sup = (fs["si1"] - fs["si0"] + 1) * (fs["sj1"] - fs["sj0"] + 1)
+    print(f"K11 cone balance, {label} sun, {grid}^2: " + "; ".join(parts)
+          + f"; support pass (face, coarse texel) pairs {int(sup.sum())}, "
+          f"the most of one face {int(sup.max())}")
+
+
+def drag_window(renderer, cam, trace_path, frames: int,
+                label: str = "default knobs") -> None:
     """Frames while the sun is dragged (`set_sun_dragging(True)`, the sun
     turned by `dragged_sun` every frame): device time per frame by kernel
     under the profiler, then the host clock without it."""
@@ -387,8 +444,8 @@ def drag_window(renderer, cam, trace_path, frames: int) -> None:
         s[0] += 1
         s[1] += e["dur"]
     busy = union_us((e["ts"], e["ts"] + e["dur"]) for e in events)
-    print(f"drag window: {frames} synchronized frames, the sun turned "
-          f"{DRAG_STEP} degrees a frame; device busy "
+    print(f"drag window ({label}): {frames} synchronized frames, the sun "
+          f"turned {DRAG_STEP} degrees a frame; device busy "
           f"{busy / frames / 1e3:.4f} ms per frame")
     for k, (cnt, us) in sorted(per_name.items(), key=lambda kv: -kv[1][1]):
         print(f"  device {us / frames:9.2f} us/frame  {cnt / frames:5.1f} "
@@ -400,7 +457,7 @@ def drag_window(renderer, cam, trace_path, frames: int) -> None:
         renderer.render(cam, time=0.0)
         torch.cuda.synchronize()
         host.append((time.perf_counter() - t0) * 1e3)
-    print(f"drag window, host clock without the profiler: median "
+    print(f"drag window ({label}), host clock without the profiler: median "
           f"{statistics.median(host):.4f} ms, max {max(host):.4f} ms over "
           f"{frames} dragged frames")
     renderer.set_sun_dragging(False)
@@ -584,6 +641,9 @@ def main(argv=None) -> int:
                            cone_tan=ss.CONE_TAN)
         drag_window(renderer, cam, pathlib.Path(tmp) / "drag_trace.json",
                     FRAMES // 2)
+        for label, r in soft[:1]:   # the soft cone frame
+            drag_window(r, cam, pathlib.Path(tmp) / "drag_soft_trace.json",
+                        FRAMES // 2, label)
 
     # ---- 5. work at this camera
     st = {}

@@ -11,7 +11,7 @@ one JSON line per kernel whose mangled name contains one of the PARTs
 (default: K3's and K8's kernels): its instructions in all, the
 special-function (MUFU) instructions by kind, local-memory loads and
 stores (LDL, STL), calls (CALL: the slow paths of IEEE division and
-square root), atomics that may reach device memory (ATOMG, RED and
+square root), atomics that may reach device memory (ATOMG, RED, REDG and
 the generic ATOM; not ATOMS, shared memory) and tensor-core instructions
 by opcode (HGMMA: wgmma; HMMA, IMMA, DMMA: the per-warp mma.sync of earlier
 architectures; IGMMA, QGMMA, BGMMA: Hopper's integer, fp8 and binary
@@ -44,9 +44,10 @@ import subprocess
 import sys
 
 PARTS = ("rows_kernel", "skybox_kernel", "clouds_kernel", "vvr_sky_kernel")
-# opcodes of atomics that may reach device memory: ATOMG and RED (global)
-# and ATOM (generic address); ATOMS is shared memory
-GLOBAL_ATOMICS = ("ATOMG", "RED", "ATOM")
+# opcodes of atomics that may reach device memory: ATOMG, RED and REDG
+# (global; sm_90 writes a reduction whose result is unused as REDG) and
+# ATOM (generic address); ATOMS is shared memory
+GLOBAL_ATOMICS = ("ATOMG", "RED", "REDG", "ATOM")
 # tensor-core opcodes: warpgroup (HGMMA, IGMMA, QGMMA, BGMMA) and per-warp
 # (HMMA, IMMA, DMMA) products
 TENSOR_OPS = ("HGMMA", "IGMMA", "QGMMA", "BGMMA", "HMMA", "IMMA", "DMMA")
