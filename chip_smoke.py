@@ -45,7 +45,16 @@
    each per-frame kernel, K13 included, launched once in every frame, or
    unless the cone frame equals the per-sample DDA frame byte for byte;
    then soft cone frames while the sun is dragged (the 512^2 cone grids,
-   K11, and K3 in every frame beside K14);
+   K11, and K3 in every frame beside K14); then config 4 (CONFIG4: four
+   soft samples with the cone grids, four mirror bounces, the filtered
+   AO; `mirror_materials=True`), its counters reset before its frames and
+   read after: fails unless K13, K9, K10 and K4 launch once a frame, K14
+   and K15 once a bounce, K1 once a bounce after the first, K11's cone
+   grids once, K3 once a sky bucket and nothing else; prints its median
+   and, under torch.profiler, its device time per kernel and K15's per
+   bounce; then frames with point lights set near the view's surface
+   and wavy reflections (LIGHTS_FRAME: hard shadows, so K12 at every
+   bounce), counted the same way;
 4. holds each kernel against its plain torch version on the card at the
    main path's shapes; K1 with and without its counters, flat and by 8x4
    tiles, on the primary and the shadow rays (one sun direction, and the
@@ -94,7 +103,19 @@
    plain factor computed on the CPU from those hits, and the gate mode's
    hits and factor equal to the DDA mode's on every lane; K14's time
    against a copy without its sample traces (tools/k14_split.py) in each
-   mode;
+   mode; config 4 at 1920x1080 through render_frame with every bounce's
+   K15 held to shade_bounce_plain on copies of that bounce's inputs
+   (alpha, the continuation and the rgb of every lane but the shaded
+   hits bit for bit, those within BOUNCE_TOL), with each bounce's live,
+   hit, mirror and shaded lanes; the cone ("auto") frame against the
+   per-sample DDA ("off") frame: the same rays at every bounce, each
+   sample hit of a shaded lane equal but at C8 ties, each printed with
+   the oracle's answer, and the HDR equal off those lanes; the kernel
+   path's frame against the plain path's on the card (every wrapper's
+   plain version, no launch): alpha equal, HDR within rtol=atol=1e-4;
+   the lights frame the same way (K15 every bounce, kernel path against
+   plain path) and against the frame with its lights far away; the AO
+   frame without mirrors (K15 once, in place of K2) the same way;
 5. times each kernel beside its plain version (CUDA events) and computes
    its bound: the larger of the bytes it must move over 3.35 TB/s and its
    operations over the peak for their type (K3: its float32 and MUFU
@@ -118,12 +139,17 @@ the cone frames', `sun_grids_cone_512` with the dragged soft frames', the
 cone rows' bounds from the kernel's tight boxes; K14 three times:
 `soft_shadow` in its DDA mode,
 `soft_shadow_cone`, `soft_shadow_pixelated`, each with its frames'
-launches; K14's bound counts this run's DDA sub-steps of its samples);
+launches; K14's bound counts this run's DDA sub-steps of its samples;
+K15 twice: `shade_bounce` at config 4's bounce 0 with its frames'
+launches, `shade_bounce_lights` at the lights frame's bounce 0, its
+bound counting the lights' DDA sub-steps);
 the last line of stdout is {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
 
+import contextlib
+import dataclasses
 import json
 import pathlib
 import subprocess
@@ -144,15 +170,21 @@ OPS_PER_ITEM = {"jump_trace": 30, "shade_surface": 40, "shade_pixel": 250,
                 "bloom_pyramid": 220, "composite": 190,
                 "raster_fragments": 70,
                 "raster_resolve": 45, "sun_grids": 90, "masked_shadow": 60,
-                "generate_rays": 75, "soft_shadow": 140}
+                "generate_rays": 75, "soft_shadow": 140,
+                "shade_bounce": 340}
 # K13's 75 per pixel: two IEEE divisions (11 each), a correctly rounded
 # sqrtf (6) and three more divisions, and the sums and products of u, v
 # and the direction. K14's 140 per (lit pixel, sample): the jitter (two
 # hash chains, three divisions, a sqrtf, powf about 30), the start and the
 # cloud texel; each DDA sub-step of its samples, and each near-walk step,
 # at jump_trace's rate. K11's support pass: 25 per (face, coarse texel)
-# pair (four affine corners, their least, the clamp).
+# pair (four affine corners, their least, the clamp). K15's 340 per lane:
+# shade_pixel's 250, the mirror hash (20), the AO's eight taps, trilinear
+# weights and powf (70); each (lane, light) pair within reach 40 (a
+# sqrtf, a division, the smoothstep and n.l), each of its DDA sub-steps at
+# jump_trace's rate.
 SUN_SUPPORT_OPS = 25
+LIGHT_OPS = 40
 # K3's work per texel (sky_work), from csrc/sky.cu. SKY_LEAF: the fast path
 # of each device function a texel calls, (float32 operations, MUFU
 # operations), from `python3 vvr_tpu_torch/tools/sass_count.py --probe`
@@ -227,6 +259,7 @@ K1_ORACLE_SLACK = 16
 # K11's rows: the 2048^2 build (once per sun direction) and the 512^2 one
 # (every frame while the sun is dragged), both of the sun_grids kernel
 ROW_KERNEL = {"sun_grids_512": "sun_grids", "sun_grids_cone": "sun_grids",
+              "shade_bounce_lights": "shade_bounce",
               "sun_grids_cone_512": "sun_grids",
               "soft_shadow_cone": "soft_shadow",
               "soft_shadow_pixelated": "soft_shadow"}
@@ -240,6 +273,19 @@ SOFT_FRAMES = {"soft, cone": dict(shadow_samples=4),
                "pixelated, 1 sample": dict(shadow_samples=1,
                                            pixelated_shadows=True)}
 SOFT_SAMPLES = 4
+# config 4 (BASELINE.md:29-32, tools/bench_scale.py:33-50) with mirror
+# materials: four soft samples, four bounces, the filtered AO; and the
+# frame with the point lights and wavy reflections, with hard shadows (the
+# sun classifier, K12, at every bounce)
+CONFIG4 = dict(shadow_samples=4, max_ray_iterations=4,
+               ambient_occlusion=True)
+LIGHTS_FRAME = dict(shadow_samples=1, max_ray_iterations=3,
+                    ambient_occlusion=True, point_lights=True,
+                    wavy_reflections=True)
+LIGHTS_FRAMES = 4    # timed frames of the lights phase
+# K15's shaded lanes against plain (the lighting's and the AO's powf
+# against pow); every other lane and output bit for bit
+BOUNCE_TOL = 1e-5
 # K14's odd shapes: a small image by tiles, flat lanes (width 0), and the
 # sample counts: powers of two and not, one for each of K14's lane groups
 # (1, 2, 4, 8, 16 and 32 lanes a pixel), and 33 for rounds of more samples
@@ -477,6 +523,172 @@ def shared_in_turn(gather, dev) -> None:
           + "; ".join(f"{what} {shapes}" for what, shapes in SHARED_IN_TURN))
 
 
+def sample_ties(softshadow, trace_dense, occ, hits, h_gate, h_dda, sun_d,
+                width: int, label: str, used=None) -> list[int]:
+    """The lanes where K14's cone gate and its per-sample DDA disagree on a
+    sample's hit (S, N), on the hits `hits`, among the lanes `used` (N,)
+    bool whose shadow the frame shades with (all if None): each such
+    sample ray must cross an exact tie that the jump-grid DDA takes the
+    other way (ROADMAP C8), the numpy oracle agreeing with the gate's near
+    walk. Prints each with the oracle's answer, and how many lanes outside
+    `used` disagree; returns the lanes, sorted."""
+    import torch
+    off = h_gate != h_dda
+    if used is not None:
+        unused = int((off.any(0) & ~used).sum())
+        print(f"{label}: the cone gate and the DDA disagree on {unused} "
+              "lanes whose shadow the frame does not use (mirror lanes; "
+              "ROADMAP C13)")
+        off = off & used
+    ties = torch.nonzero(off).cpu().numpy()
+    p_q = softshadow.query_points(*hits, sun_d, False)[0]
+    for k, lane in ties:
+        q = p_q[lane:lane + 1].unbind(1)
+        dirs = softshadow.sample_dir(int(k), *q, sun_d)[:3]
+        start = torch.stack(softshadow.ray_start(*q, *dirs, sun_d), -1)
+        ora = trace_dense(occ, start.cpu().numpy(),
+                          torch.stack(dirs, -1).cpu().numpy())
+        check(bool(ora["hit"][0]) == bool(h_gate[k, lane]),
+              f"{label}: sample {k} of lane {lane}: the cone gate says "
+              f"{'hit' if h_gate[k, lane] else 'miss'}, the DDA and the "
+              "oracle the other")
+        print(f"{label}: sample {k} of lane {lane} (pixel {lane % width}, "
+              f"{lane // width}), start {start[0].tolist()}: the DDA "
+              f"{'hits' if h_dda[k, lane] else 'misses'}, the cone gate "
+              f"and the numpy oracle say "
+              f"{'hit' if h_gate[k, lane] else 'miss'} (an exact tie)")
+    return sorted({int(lane) for _, lane in ties})
+
+
+@contextlib.contextmanager
+def plain_path(kernels):
+    """Within it every wrapper runs its plain torch version, on the card
+    too: the frame's plain path, its tensors where the kernels' are."""
+    on_cuda = kernels.on_cuda
+    kernels.on_cuda = lambda where: False
+    try:
+        yield
+    finally:
+        kernels.on_cuda = on_cuda
+
+
+@contextlib.contextmanager
+def recorded_soft(frame_mod, calls: list):
+    """Within it the frame's K14 calls also return each sample's hit: each
+    call appends (its hits (o, d, hit, face, axis_coord), copied, the
+    sample hits (S, N)) to `calls`."""
+    soft_shadow = frame_mod.soft_shadow
+
+    def rec(*args, **kw):
+        factor, hits_s = soft_shadow(*args, with_hits=True, **kw)
+        calls.append((tuple(t.clone() for t in args[1:6]), hits_s))
+        return factor
+
+    frame_mod.soft_shadow = rec
+    try:
+        yield
+    finally:
+        frame_mod.soft_shadow = soft_shadow
+
+
+def k15_bytes(n: int, live: int, hits: int, mirrors: int, shaded: int,
+              first: bool, shadow, ao: bool, mirror: bool) -> int:
+    """The bytes one K15 launch over `n` lanes must move, from its lane
+    counts: the live lanes' rays and hit flags (and colours after bounce
+    0); the hits' face and axis_coord; the shaded hits' shadow and, with
+    AO, the eight u8 taps they read; the HDR out, every lane's four
+    channels at bounce 0 (the image is not cleared before) and after it
+    the rgb of the shaded and missed lanes and the misses' alpha; with
+    mirrors the mirror lanes' continuation (origin, direction, colour, 36
+    B) and the live lanes' flags, every lane's at bounce 0; after bounce
+    0 one flag byte of every lane read. The textures and the density
+    field stay in L2: only the AO taps are counted."""
+    miss = live - hits
+    moved = (live * (24 + 1) + hits * 8
+             + shaded * ((0 if shadow is None else shadow.element_size())
+                         + (8 if ao else 0)))
+    if first:
+        moved += n * 16
+    else:
+        moved += n + live * 12 + (shaded + miss) * 12 + miss * 4
+    if mirror:
+        moved += mirrors * 36 + (n if first else live)
+    return moved
+
+
+class BounceCheck:
+    """Within `with BounceCheck(...)`, each K15 call of the frame is held to
+    shade_bounce_plain on copies of its inputs (every bounce's real
+    inputs): alpha, the continuation (rays, colours, live flags) and the
+    rgb of every lane that is no shaded hit bit for bit, the shaded hits'
+    rgb (powf against pow) within BOUNCE_TOL. `bounces` gets, per call,
+    (live lanes, hits, mirrors, shaded, rgb max |diff|, shaded lanes not
+    bit-equal, k15_bytes); `first` the first call's arguments, its output and
+    continuation buffers copied (to time K15 on them)."""
+
+    def __init__(self, frame_mod, bounce_mod, kernels):
+        self.frame_mod, self.bounce, self.kernels = (frame_mod, bounce_mod,
+                                                     kernels)
+        self.bounces, self.first = [], None
+
+    def __enter__(self):
+        self.orig = self.frame_mod.shade_bounce
+        self.frame_mod.shade_bounce = self.call
+        return self
+
+    def __exit__(self, *exc):
+        self.frame_mod.shade_bounce = self.orig
+
+    def call(self, *args):
+        import torch
+        (grid, o, d, hit, face, ac, shadow, skybox, clouds, sun, sun_col,
+         out, col, active, pix, dens, lights, ms, mirror, wavy, t,
+         nxt) = args
+        if self.first is None:
+            self.first = args[:11] + (out.clone(), col, active) + args[14:21] \
+                + ((tuple(x.clone() for x in nxt),) if nxt else (None,))
+        out_p = out.clone()
+        nxt_p = tuple(x.clone() for x in nxt) if nxt else None
+        live = (torch.ones_like(hit) if active is None else active.clone())
+        ins = (o, d, col, active) if active is None else nxt_p
+        self.bounce.shade_bounce_plain(
+            grid, ins[0], ins[1], hit, face, ac, shadow, skybox, clouds, sun,
+            sun_col, out_p, ins[2], ins[3], pix, dens, lights, ms, mirror,
+            wavy, t, nxt_p)
+        before = self.kernels.LAUNCHES["shade_bounce"]
+        self.orig(*args)
+        check(self.kernels.LAUNCHES["shade_bounce"] == before + 1,
+              "K15 did not launch once")
+        k = len(self.bounces)
+        a, b = out.view(4, -1), out_p.view(4, -1)
+        check(torch.equal(a[3], b[3]), f"K15 bounce {k}: alpha differs on "
+              f"{int((a[3] != b[3]).sum())} lanes")
+        hits = hit & live
+        mirrors = (nxt_p[3] & live) if nxt else torch.zeros_like(hits)
+        shaded = hits & ~mirrors
+        if nxt:
+            for name, x, y in zip(("origins", "directions", "colours",
+                                   "live flags"), nxt, nxt_p):
+                lanes = int((x != y).reshape(x.shape[0], -1).any(1).sum())
+                check(torch.equal(x, y), f"K15 bounce {k}: {name} differ "
+                      f"on {lanes} lanes")
+        rgb_off = (a[:3] != b[:3]).any(0)
+        check(not bool((rgb_off & ~shaded).any()), f"K15 bounce {k}: rgb "
+              f"differs on {int((rgb_off & ~shaded).sum())} lanes that are "
+              "no shaded hit")
+        diff = float((a[:3] - b[:3]).abs().max())
+        check(bool(torch.isclose(a[:3], b[:3], rtol=BOUNCE_TOL,
+                                 atol=BOUNCE_TOL).all()),
+              f"K15 bounce {k}: rgb differs beyond {BOUNCE_TOL} (max |diff| "
+              f"{diff})")
+        counts = (int(live.sum()), int(hits.sum()), int(mirrors.sum()),
+                  int(shaded.sum()))
+        self.bounces.append(counts + (
+            diff, int((rgb_off & shaded).sum()),
+            k15_bytes(hit.numel(), *counts, active is None, shadow,
+                      dens is not None, bool(nxt))))
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -489,11 +701,13 @@ def main() -> int:
 
     from vvr_tpu_torch import kernels
     from vvr_tpu_torch.config import RenderConfig, WorldConfig
-    from vvr_tpu_torch.ops import gather, jump, post, shade, sky, softshadow
+    from vvr_tpu_torch.ops import (bounce, gather, jump, post, shade, sky,
+                                   softshadow)
     from vvr_tpu_torch.ops import rastertrace as rt
     from vvr_tpu_torch.ops import raygen
     from vvr_tpu_torch.ops import sunshadow as ss
     from vvr_tpu_torch.ops.raygen import camera_rays
+    from vvr_tpu_torch.render import frame as frame_mod
     from vvr_tpu_torch.render.frame import render_frame
     from vvr_tpu_torch.render.oracle import trace_dense
     from vvr_tpu_torch.render.renderer import Renderer
@@ -837,6 +1051,90 @@ def main() -> int:
           f"clock, synchronized); K11 (512^2 cone) "
           f"{got['sun_grids'] / n_frames:.2f} launches a frame")
     launches["sun_grids_cone_512"] = got["sun_grids"]
+
+    # ---- 3e. config 4 (tools/bench_scale.py:33-50): four soft samples with
+    # the cone grids, four mirror bounces, the filtered AO; counters reset
+    # before its frames and read after. Bounce 0 runs K13, K9, K10, K14 and
+    # K15; each later bounce K1 over the live lanes, K14 and K15; K11's cone
+    # grids once, K3 once a sky bucket
+    c4 = Renderer(wcfg, RenderConfig(width=cfg.width, height=cfg.height,
+                                     **CONFIG4),
+                  device=dev, scene=renderer.scene, mirror_materials=True)
+    bounces = CONFIG4["max_ray_iterations"]
+    c4_per_frame = {"generate_rays": 1, "raster_fragments": 1,
+                    "raster_resolve": 1, "soft_shadow": bounces,
+                    "jump_trace": bounces - 1, "shade_bounce": bounces,
+                    "bloom_pyramid": 1, "composite": 1}
+
+    def bounce_launches(label, per_frame, frames_, once):
+        got = dict(kernels.LAUNCHES)
+        uneven = {k: got[k] for k, v in per_frame.items()
+                  if got[k] != v * frames_}
+        check(not uneven, f"{label} frames: kernels not launched "
+              f"{per_frame} times a frame over {frames_} frames: {uneven}")
+        for k in once:
+            check(got[k] == 1, f"{label} frames launched {k} {got[k]} "
+                  "times, expected once")
+        others = {k: v for k, v in got.items()
+                  if v and k not in per_frame and k not in once
+                  and k != "write_sky"}
+        check(not others, f"{label} frames launched {others}")
+        print(f"launches in the {label} frames ({frames_} frames): "
+              f"{ {k: v for k, v in got.items() if v} }; per frame "
+              f"{sum(got.values()) / frames_:.2f} through kernels.launch")
+        return got
+
+    kernels.reset_launches()
+    c4_med = frames(c4, "config 4")
+    got = bounce_launches("config 4", c4_per_frame, n_frames, ["sun_grids"])
+    check(got["write_sky"] == buckets, f"the config-4 frames launched K3 "
+          f"{got['write_sky']} times over {buckets} sky buckets")
+    check(c4._sunmask_cache[0][3], "config 4 did not build the cone grids")
+    launches["shade_bounce"] = got["shade_bounce"]
+    print(f"frame medians (same call, same card): default knobs {med:.3f} "
+          f"ms, soft cone {soft_med['soft, cone']:.3f} ms, config 4 "
+          f"{c4_med:.3f} ms")
+    profile_frame.window("config 4", c4, cam, repo / "build"
+                         / "vvr_tpu_torch" / "c4_trace.json")
+
+    # ---- 3f. point lights and wavy reflections: the ten first lights set
+    # near the view's surface (2 units back along ten seeded camera rays
+    # from their hits), hard shadows from the sun classifier, so K12 answers
+    # every bounce's shadows; K15 walks each light's DDA
+    lf = Renderer(wcfg, RenderConfig(width=cfg.width, height=cfg.height,
+                                     **LIGHTS_FRAME),
+                  device=dev, scene=renderer.scene, mirror_materials=True)
+    o_l, d_l = camera_rays(cam, cfg.width, cfg.height, dev)
+    first = jump.trace_jump(grid, o_l, d_l, cfg.traversal_max_steps * 8,
+                            width=cfg.width, stats=False)
+    seeded = np.random.default_rng(11).choice(
+        torch.nonzero(first.hit)[:, 0].cpu().numpy(), 10, replace=False)
+    near_lights = (o_l + d_l * (first.t[:, None] - 2.0))[seeded].cpu()
+    lf.scene.lights[:10, :3] = near_lights.numpy()
+    lights_np = lf.scene.lights.copy()
+    lf_bounces = LIGHTS_FRAME["max_ray_iterations"]
+    lf_per_frame = {"generate_rays": 1, "raster_fragments": 1,
+                    "raster_resolve": 1, "masked_shadow": lf_bounces,
+                    "jump_trace": lf_bounces - 1,
+                    "shade_bounce": lf_bounces, "bloom_pyramid": 1,
+                    "composite": 1}
+    kernels.reset_launches()
+    ms = []
+    for i in range(LIGHTS_FRAMES + 1):   # frame 0 warms up
+        t0 = time.perf_counter()
+        img = lf.render(cam, time=i / 60.0)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    check(tuple(img.shape) == (cfg.height, cfg.width, 3)
+          and float(img.float().std()) > 10, "the lights frame is wrong")
+    got = bounce_launches("point-light", lf_per_frame, LIGHTS_FRAMES + 1,
+                          ["sun_grids"])
+    launches["shade_bounce_lights"] = got["shade_bounce"]
+    print(f"frames (point lights, wavy reflections): {LIGHTS_FRAMES} after a "
+          f"warm-up, median {sorted(ms[1:])[LIGHTS_FRAMES // 2]:.3f} ms "
+          f"(host clock, synchronized); the lights moved "
+          f"{float(np.abs(lf.scene.lights - lights_np).max()):.3f} units "
+          f"at most over the frames")
 
     # ---- 4. each kernel against its plain version, main-path shapes
     sun3 = torch.from_numpy(renderer.sun[:3].copy())
@@ -1300,24 +1598,8 @@ def main() -> int:
     # jump-grid DDA takes the other way (ROADMAP C8), the numpy oracle
     # agreeing with the gate's near walk
     h_dda, h_cone = soft_hits["soft_shadow"], soft_hits["soft_shadow_cone"]
-    ties = torch.nonzero(h_cone != h_dda).cpu().numpy()
-    p_q = softshadow.query_points(*hits, sun_d, False)[0]
-    for k, lane in ties:
-        q = p_q[lane:lane + 1].unbind(1)
-        dirs = softshadow.sample_dir(int(k), *q, sun_d)[:3]
-        start = torch.stack(softshadow.ray_start(*q, *dirs, sun_d), -1)
-        ora = trace_dense(occ, start.cpu().numpy(),
-                          torch.stack(dirs, -1).cpu().numpy())
-        check(bool(ora["hit"][0]) == bool(h_cone[k, lane]),
-              f"K14: sample {k} of lane {lane}: the cone gate says "
-              f"{'hit' if h_cone[k, lane] else 'miss'}, the DDA and the "
-              "oracle the other")
-        print(f"K14: sample {k} of lane {lane} (pixel {lane % cfg.width}, "
-              f"{lane // cfg.width}), start {start[0].tolist()}: the DDA "
-              f"{'hits' if h_dda[k, lane] else 'misses'}, the cone gate "
-              f"and the numpy oracle say "
-              f"{'hit' if h_cone[k, lane] else 'miss'} (an exact tie)")
-    tie_lanes = sorted({int(lane) for _, lane in ties})
+    tie_lanes = sample_ties(softshadow, trace_dense, occ, hits, h_cone,
+                            h_dda, sun_d, cfg.width, "K14")
     check(len(tie_lanes) <= K1_ORACLE_SLACK,
           f"K14: the cone gate and the DDA differ on {len(tie_lanes)} lanes")
     other = torch.ones(n, dtype=torch.bool, device=dev)
@@ -1356,6 +1638,140 @@ def main() -> int:
                                + kernels.ptxas_usage("vvr_generate_rays")):
         print(f"ptxas: {name}: {regs} registers, spill stores {st} B, "
               f"spill loads {ld} B")
+
+    # config 4 on the card: every bounce's K15 against shade_bounce_plain
+    # on that bounce's inputs (BounceCheck), with the per-bounce live and
+    # mirror lanes; the cone frame ("auto") against the per-sample DDA
+    # frame ("off"), bounce by bounce: the same rays and hits at every
+    # bounce (shadows do not steer a ray), each sample hit equal but at C8
+    # ties the oracle answers as the gate, the HDR equal off those lanes;
+    # and the kernel path's frame against the plain path's (every wrapper's
+    # plain version on the card, no launch)
+    c4_sky = renderer._sky(0.25)
+    raster = (faces, rcam, probe)
+    dens = renderer.scene.ensure_density()
+    c4_kw = dict(sky=c4_sky, raster=raster, density=dens,
+                 mirror_materials=True)
+    soft_auto, soft_off, c4_dem = [], [], {}
+    with BounceCheck(frame_mod, bounce, kernels) as c4_check, \
+            recorded_soft(frame_mod, soft_auto):
+        img4, hdr4 = render_frame(grid, o, d, renderer.sun, 0.25, c4.cfg,
+                                  sunmask=c4._sunmask(), demand=c4_dem,
+                                  **c4_kw)
+    check(bool(torch.isfinite(hdr4).all()), "config-4 HDR not finite")
+    for k, (live, hit_n, mir, shd, diff, nbe, _) in enumerate(
+            c4_check.bounces):
+        check(live == int(c4_dem[f"b{k}_active"])
+              and mir == int(c4_dem[f"b{k}_mirror"]),
+              f"config 4 bounce {k}: demand counts disagree")
+        print(f"config 4 bounce {k}: {live} live lanes, {hit_n} hits, {mir} "
+              f"mirrors, {shd} shaded; K15 vs plain: alpha, continuation and "
+              f"every lane but the shaded hits bit for bit, shaded rgb max "
+              f"|diff| {diff:.3e} ({nbe} shaded lanes not bit-equal, tol "
+              f"{BOUNCE_TOL})")
+    # K15's bound per bounce in the bytes its lanes need (k15_bytes)
+    for k, b in enumerate(c4_check.bounces):
+        moved = b[6]
+        print(f"K15 bound, config 4 bounce {k}: {moved / 1e6:.3f} MB of its "
+              f"lanes, {bound_ms(moved, 0, 'fp32')[0] * 1e3:.2f} us")
+    check(len(c4_check.bounces) == CONFIG4["max_ray_iterations"]
+          and c4_check.bounces[-1][0] > 0,
+          f"config 4 ran {len(c4_check.bounces)} bounces, the last with no "
+          "live lane")
+    with recorded_soft(frame_mod, soft_off):
+        img4_off, hdr4_off = render_frame(
+            grid, o, d, renderer.sun, 0.25,
+            dataclasses.replace(c4.cfg, sun_mask="off"), **c4_kw)
+    c4_ties = set()
+    for k, ((h_a, s_a), (h_o, s_o)) in enumerate(zip(soft_auto, soft_off)):
+        check(all(torch.equal(x, y) for x, y in zip(h_a, h_o)),
+              f"config 4 bounce {k}: the cone and DDA frames trace other "
+              "rays")
+        # the lanes shaded with this bounce's shadow: hits that are no
+        # mirror
+        block = shade._reconstruct(*h_a[:2], *h_a[3:])[2]
+        shaded_k = h_a[2] & ~bounce.mirror_lanes(h_a[2], block)
+        c4_ties |= set(sample_ties(softshadow, trace_dense, occ, h_a, s_a,
+                                   s_o, sun_d, cfg.width,
+                                   f"config 4 bounce {k}", shaded_k))
+    off4 = (hdr4 != hdr4_off).any(-1).reshape(-1)
+    away = off4.clone()
+    away[sorted(c4_ties)] = False
+    check(len(soft_auto) == len(soft_off) == CONFIG4["max_ray_iterations"]
+          and not bool(away.any()), f"config 4: the cone frame's HDR "
+          f"differs from the DDA frame's on {int(away.sum())} pixels off "
+          f"the tie lanes {sorted(c4_ties)}")
+    print(f"config 4, sun_mask auto vs off: the same rays at all "
+          f"{len(soft_auto)} bounces; sample hits equal but at "
+          f"{len(c4_ties)} tie lanes {sorted(c4_ties)}; HDR equal on every "
+          f"pixel but {int(off4.sum())}, all of them tie lanes; u8 pixels "
+          f"that differ: {int((img4 != img4_off).any(-1).sum())}")
+
+    def kernel_vs_plain(label, cfg_, img_k, hdr_k_, **kw):
+        before = dict(kernels.LAUNCHES)
+        with plain_path(kernels):
+            img_p, hdr_p = render_frame(grid, o, d, renderer.sun, 0.25,
+                                        cfg_, **kw)
+        check(kernels.LAUNCHES == before, f"{label}: the plain path "
+              "launched a kernel")
+        check(torch.equal(hdr_k_[..., 3], hdr_p[..., 3]),
+              f"{label}: alpha differs from the plain path")
+        close = torch.isclose(hdr_k_, hdr_p, rtol=1e-4, atol=1e-4).all(-1)
+        off = float(((img_k.int() - img_p.int()).abs() > 2).any(-1)
+                    .float().mean())
+        check(bool(close.all()),
+              f"{label}: kernel vs plain path: {int((~close).sum())} pixels "
+              f"beyond rtol=atol=1e-4 "
+              f"{torch.nonzero(~close)[:8].tolist()}")
+        print(f"{label}: kernel path vs plain path on the card: alpha "
+              f"equal; HDR within rtol=atol=1e-4 on every pixel (max |diff| "
+              f"{float((hdr_k_ - hdr_p).abs().max()):.3e}); {off:.6f} of u8 "
+              f"pixels off by more than 2")
+
+    kernel_vs_plain("config 4", c4.cfg, img4, hdr4, sunmask=c4._sunmask(),
+                    **c4_kw)
+
+    # the lights frame: K15 on every bounce against plain, the kernel path
+    # against the plain path, and the pixels the lights change (against
+    # the same frame with the lights far from everything)
+    lf_kw = dict(sky=c4_sky, raster=raster, density=dens,
+                 mirror_materials=True, sunmask=lf._sunmask())
+    with BounceCheck(frame_mod, bounce, kernels) as lf_check:
+        img_l, hdr_l = render_frame(grid, o, d, renderer.sun, 0.25, lf.cfg,
+                                    lights=lights_np, **lf_kw)
+    for k, (live, hit_n, mir, shd, diff, nbe, _) in enumerate(
+            lf_check.bounces):
+        print(f"lights frame bounce {k}: {live} live lanes, {hit_n} hits, "
+              f"{mir} mirrors, {shd} shaded; K15 vs plain bit for bit but "
+              f"the shaded rgb, max |diff| {diff:.3e} ({nbe} lanes not "
+              f"bit-equal)")
+    kernel_vs_plain("lights frame", lf.cfg, img_l, hdr_l, lights=lights_np,
+                    **lf_kw)
+    far = lights_np.copy()
+    far[:, :3] = -1000.0
+    _, hdr_far = render_frame(grid, o, d, renderer.sun, 0.25, lf.cfg,
+                              lights=far, **lf_kw)
+    lit = int((hdr_far != hdr_l).any(-1).sum())
+    check(lit > 0, "the lights changed no pixel")
+    print(f"lights frame: the ten lights change {lit} pixels against the "
+          f"same frame with the lights far away")
+    # the filtered AO without mirrors: K15 once, in place of K2, in its
+    # form without a continuation
+    ao_kw = dict(sky=c4_sky, raster=raster, density=dens,
+                 sunmask=c4._sunmask())
+    with BounceCheck(frame_mod, bounce, kernels) as ao_check:
+        img_ao, hdr_ao = render_frame(grid, o, d, renderer.sun, 0.25, c4.cfg,
+                                      **ao_kw)
+    check(len(ao_check.bounces) == 1 and ao_check.bounces[0][2] == 0,
+          "the AO frame without mirrors ran more than one bounce")
+    print(f"AO frame without mirrors: K15 once, vs plain bit for bit but "
+          f"the shaded rgb, max |diff| {ao_check.bounces[0][4]:.3e}")
+    kernel_vs_plain("AO frame", c4.cfg, img_ao, hdr_ao, **ao_kw)
+    for name, regs, st, ld in kernels.ptxas_usage("vvr_shade_bounce"):
+        print(f"ptxas: {name}: {regs} registers, spill stores {st} B, "
+              f"spill loads {ld} B")
+    errs["shade_bounce"] = max(b[4] for b in c4_check.bounces)
+    errs["shade_bounce_lights"] = max(b[4] for b in lf_check.bounces)
 
     sun_col = sky.sun_colour_final(sun3)
     args = (o, d, res_k.hit, res_k.face, res_k.axis_coord, sh_k.hit,
@@ -1547,6 +1963,14 @@ def main() -> int:
                                  ss.GRID_DRAGGING, ss.CONE_TAN),
             lambda: ss.sun_grids_plain(faces, e1, e2, s_basis, wcfg.size,
                                        ss.GRID_DRAGGING, ss.CONE_TAN), 20, 3),
+        # K15 at config 4's bounce 0 and the lights frame's, on the
+        # inputs the frames gave it (BounceCheck.first)
+        "shade_bounce": (lambda: bounce.shade_bounce(*c4_check.first),
+                         lambda: bounce.shade_bounce_plain(*c4_check.first),
+                         20, 1),
+        "shade_bounce_lights": (
+            lambda: bounce.shade_bounce(*lf_check.first),
+            lambda: bounce.shade_bounce_plain(*lf_check.first), 20, 1),
         "bloom_pyramid": (lambda: post.bloom_pyramid_p(hdr_k),
                           lambda: post.bloom_pyramid_plain(hdr_k), 50, 5),
         "composite": (lambda: post.composite_p(hdr_k, bloom_k, h, w),
@@ -1643,6 +2067,39 @@ def main() -> int:
     soft_items = {"soft_shadow": soft_work(False, None),
                   "soft_shadow_cone": soft_work(False, cone_gate),
                   "soft_shadow_pixelated": soft_work(True, None)}
+    def k15_work(bc):
+        """(bytes, items) of K15 at bounce 0 (BounceCheck `bc`): the bytes
+        its lanes need (k15_bytes), its lanes and, with lights, each near
+        light's lane and its DDA sub-steps (K1 with counters on the same
+        rays), in units of a lane's operations."""
+        args = bc.first
+        (_, o_, d_, hit_, face_, ac_) = args[:6]
+        lights_ = args[16]
+        moved = float(bc.bounces[0][6])
+        count = float(hit_.numel())
+        if lights_ is not None:
+            _, world_, block_ = shade._reconstruct(o_, d_, face_, ac_)
+            shaded_ = hit_ & ~bounce.mirror_lanes(hit_, block_)
+            q_ = torch.stack(world_, -1)
+            table = bounce.light_table(lights_)
+            near_n = steps = 0.0
+            for li in range(table.shape[0]):
+                lp = torch.as_tensor(table[li, :3], device=dev)
+                dist = (q_ - lp).norm(dim=-1)
+                near = shaded_ & (dist < bounce.LIGHT_RADIUS)
+                dirs = ((q_ - lp) / dist.clamp(min=1e-6)[:, None])
+                it = jump.trace_jump(grid, lp.expand(n, 3).contiguous(),
+                                     dirs.contiguous(), max_steps,
+                                     active=near).iterations
+                near_n += float(near.sum())
+                steps += float(it[near].sum())
+            print(f"K15 lights work at bounce 0: {near_n:.0f} (lane, light) "
+                  f"pairs within {bounce.LIGHT_RADIUS} units, DDA sub-steps "
+                  f"{steps:.0f}")
+            count += (near_n * LIGHT_OPS + steps * OPS_PER_ITEM["jump_trace"]
+                      ) / OPS_PER_ITEM["shade_bounce"]
+        return moved, count
+
     res_it = jump.trace_jump(grid, so_k, sun_d, max_steps,
                              active=residue).iterations[residue].float()
     res_steps = float(res_it.sum())
@@ -1689,6 +2146,8 @@ def main() -> int:
         "soft_shadow_pixelated": (nbytes(*hits, grid.rows, cl_k,
                                          soft_out["soft_shadow_pixelated"]),
                                   soft_items["soft_shadow_pixelated"]),
+        "shade_bounce": k15_work(c4_check),
+        "shade_bounce_lights": k15_work(lf_check),
         "sun_grids_cone": (nbytes(*faces[:8], cone_k[0]),
                            cone_work["sun_grids_cone"]),
         "sun_grids_cone_512": (nbytes(*faces[:8], grids_512[0]),

@@ -412,13 +412,13 @@ def test_shadow_knobs_render(knobs, hard_renderer):
 
 
 OUTSIDE = [
-    ("ao", {"ambient_occlusion": True}, {}),
-    ("point_lights", {"point_lights": True}, {}),
+    ("ao", {"ambient_occlusion": True, "ao_mode": "overlap"}, {}),
+    ("debug_normals", {"debug_type": 3}, {}),
     ("debug_iterations", {"debug_type": 1}, {}),
     ("pyramid", {"traversal": "pyramid"}, {}),
     ("paged", {"traversal": "paged"}, {}),
     ("jump2", {"traversal": "jump2"}, {}),
-    ("mirrors", {}, {"mirror_materials": True}),
+    ("debug_raster", {"debug_type": 0}, {}),
     ("dynamic", {}, {"dynamic_world": True}),
 ]
 

@@ -86,3 +86,26 @@ def sun_grids_from_numpy(grids, device="cuda"):
         raise ValueError(f"gBC must be (G^2, 2), got {gbc.shape}")
     return (torch.from_numpy(gbc).to(device), np.float32(a0),
             np.float32(b0), np.float32(ts))
+
+
+def density_from_numpy(density: np.ndarray, device="cuda") -> torch.Tensor:
+    """The filtered AO's u8 density (S, S, S) [z, y, x] from
+    `np.asarray(vvr_tpu density_from_occupancy(...))`, byte for byte."""
+    density = np.asarray(density)
+    if density.dtype != np.uint8 or density.ndim != 3 \
+            or len(set(density.shape)) != 1:
+        raise ValueError(f"expected a u8 (S, S, S) density, got "
+                         f"{density.dtype} {density.shape}")
+    return torch.from_numpy(density.copy()).to(device)
+
+
+def lights_from_numpy(lights: np.ndarray) -> np.ndarray:
+    """The point lights (L, 4) float32 (x, y, z, unused), as the JAX
+    `Scene.lights` and the port's both hold them on the host: a float32
+    copy, checked. The frame passes the first ten to the card as kernel
+    arguments."""
+    lights = np.array(lights, np.float32)
+    if lights.ndim != 2 or lights.shape[1] < 3:
+        raise ValueError(f"lights must be (L, 3) or (L, 4), got "
+                         f"{lights.shape}")
+    return lights

@@ -109,6 +109,11 @@ KERNELS = {
         (_P, _I, _P, _P, _P, _P, _P, _I, _I, _F, _F, _F, _I, _I, _P, _I,
          _I) + (_F,) * 6 + (_P, _I, _F, _F, _F, _P, _P, _P),
         "vvr_tpu_torch/csrc/softshadow.cu", "vvr_tpu/render/frame.py:308"),
+    "shade_bounce": Kernel(
+        "vvr_shade_bounce",
+        (_P, _I) + (_P,) * 9 + (_I, _P, _I, _P, _I) + (_F,) * 6
+        + (_I, _P, _P, _I, _I, _I, _I, _F) + (_P,) * 5 + (_P,),
+        "vvr_tpu_torch/csrc/bounce.cu", "vvr_tpu/render/frame.py:192"),
     "gather_chain": Kernel(
         "vvr_gather_chain", (_P, _I, _I, _P, _I, _P, _I, _P, _U64, _P),
         "vvr_tpu_torch/csrc/gather.cu",

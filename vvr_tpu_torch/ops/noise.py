@@ -1,7 +1,8 @@
 """Gradient and simplex noise in torch — world generation and the cloud layer.
 
 Counterpart of vvr_tpu/ops/noise.py (`perlin2`, `fbm2`, `sdnoise2`,
-`snoise2`), the same formulas in the same op order. The lattice hash is
+`snoise2`, and `snoise3` of the wavy mirror reflections), the same
+formulas in the same op order. The lattice hash is
 uint32 arithmetic with wrapping multiplies. torch has no `>>` for uint32 on
 the CPU, so words are held as int64 masked to 32 bits, and every multiply
 is split in 16-bit halves so that no int64 product overflows. The CUDA copy
@@ -47,6 +48,13 @@ def _lattice_hash2(ix, iy, seed: int):
     sk = (seed * 0x27D4EB2F + 0x165667B1) & MASK32
     return _hash_u32(_mul32(_u32(ix), 0x9E3779B1)
                      ^ _mul32(_u32(iy), 0x85EBCA77) ^ sk)
+
+
+def _lattice_hash3(ix, iy, iz, seed: int):
+    sk = (seed * 0x27D4EB2F + 0x165667B1) & MASK32
+    return _hash_u32(_mul32(_u32(ix), 0x9E3779B1)
+                     ^ _mul32(_u32(iy), 0x85EBCA77)
+                     ^ _mul32(_u32(iz), 0xC2B2AE3D) ^ sk)
 
 
 def _grad2(h):
@@ -154,3 +162,39 @@ def sdnoise2(x, y, seed: int = 0):
 def snoise2(x, y, seed: int = 0):
     """Plain simplex value noise in ~[-1,1] (shader `snoise(float2)`)."""
     return sdnoise2(x, y, seed)[0]
+
+
+# snoise3's 12 edge gradients
+_G3 = ((1, 1, 0), (-1, 1, 0), (1, -1, 0), (-1, -1, 0), (1, 0, 1), (-1, 0, 1),
+       (1, 0, -1), (-1, 0, -1), (0, 1, 1), (0, -1, 1), (0, 1, -1),
+       (0, -1, -1))
+
+
+def snoise3(p, seed: int = 0):
+    """3D gradient noise in ~[-1, 1] over (..., 3) points: the wave of the
+    wavy mirror reflections (raytracer.slang:262). As in the JAX package,
+    3D Perlin noise with the integer lattice hash and 12 edge gradients."""
+    x, y, z = (p[..., k].to(F32) for k in range(3))
+    x0, y0, z0 = torch.floor(x), torch.floor(y), torch.floor(z)
+    fx, fy, fz = x - x0, y - y0, z - z0
+    ix, iy, iz = (c.to(torch.int64) for c in (x0, y0, z0))
+    g = torch.tensor(_G3, dtype=F32, device=x.device)
+
+    def dot_grad(ox, oy, oz):
+        h = _lattice_hash3(ix + ox, iy + oy, iz + oz, seed)
+        gg = g[(h >> 28) % 12]
+        return (gg[..., 0] * (fx - ox) + gg[..., 1] * (fy - oy)) \
+            + gg[..., 2] * (fz - oz)
+
+    u, v, w = _fade(fx), _fade(fy), _fade(fz)
+    n000, n100 = dot_grad(0, 0, 0), dot_grad(1, 0, 0)
+    n010, n110 = dot_grad(0, 1, 0), dot_grad(1, 1, 0)
+    n001, n101 = dot_grad(0, 0, 1), dot_grad(1, 0, 1)
+    n011, n111 = dot_grad(0, 1, 1), dot_grad(1, 1, 1)
+    nx00 = n000 + u * (n100 - n000)
+    nx10 = n010 + u * (n110 - n010)
+    nx01 = n001 + u * (n101 - n001)
+    nx11 = n011 + u * (n111 - n011)
+    nxy0 = nx00 + v * (nx10 - nx00)
+    nxy1 = nx01 + v * (nx11 - nx01)
+    return 1.1547 * (nxy0 + w * (nxy1 - nxy0))

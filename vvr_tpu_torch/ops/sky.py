@@ -329,7 +329,7 @@ def write_clouds(sun, time, resolution: int = 512, device="cuda"):
 
 # ---------------------------------------------------------------------------
 # nearest samplers on the plain textures (the plain shade path's lookups;
-# csrc/shade.cu has the device copies)
+# csrc/clouds.cuh and csrc/shading.cuh have the device copies)
 # ---------------------------------------------------------------------------
 
 def sample_clouds(clouds_tex, dx, dy, dz, px, py, pz):
@@ -340,8 +340,12 @@ def sample_clouds(clouds_tex, dx, dy, dz, px, py, pz):
     denom = -dy
     t = -(CLOUD_HEIGHT - py) / torch.where(torch.abs(denom) < 1e-4, 1.0,
                                            denom)
-    u = (px + t * dx) / CLOUD_EXTENT + 0.5
-    v = (pz + t * dz) / CLOUD_EXTENT + 0.5
+    # the extent as a tensor: torch on the card divides by a Python
+    # number as a multiply by its reciprocal, which can move a texel; a
+    # tensor divisor divides exactly there, as the CPU and the kernels do
+    ext = torch.tensor(CLOUD_EXTENT, dtype=torch.float32, device=px.device)
+    u = (px + t * dx) / ext + 0.5
+    v = (pz + t * dz) / ext + 0.5
     valid = ((torch.abs(denom) > 1e-4) & (t >= 0) & (u >= 0) & (u <= 1)
              & (v >= 0) & (v <= 1))
     iu = torch.clamp(torch.trunc(u * r), 0, r - 1).to(torch.int64)

@@ -1,14 +1,16 @@
-"""Frame graph — the per-frame pipeline of the slice.
+"""Frame graph — the per-frame pipeline of the port.
 
-Counterpart of vvr_tpu/render/frame.py `render_frame` for the slice the
-port renders: primary visibility by the face rasterizer or the jump-grid
-DDA, sun shadows (none, one hard ray per lit pixel, or `shadow_samples`
-jittered soft rays, from the surface or, with `pixelated_shadows`, from
-its quarter-voxel floor), no mirrors (so only bounce 0 runs), no AO, no
-point lights, the main view (debug_type 6). With `max_ray_iterations` 0
-no bounce runs and every pixel is black with alpha 0, as in the JAX frame
-(whose loop then runs no body and zeroes the lanes still active). Every
-pass is a kernel on a CUDA device and its plain torch version on the CPU:
+Counterpart of vvr_tpu/render/frame.py `render_frame`: primary visibility
+by the face rasterizer or the jump-grid DDA, sun shadows (none, one hard
+ray per lit pixel, or `shadow_samples` jittered soft rays, from the
+surface or, with `pixelated_shadows`, from its quarter-voxel floor),
+mirror bounces (`mirror_materials`, `wavy_reflections`), the filtered AO
+(`ambient_occlusion` with the scene's density field) and the point lights
+(`point_lights` with the scene's lights), the main view (debug_type 6).
+With `max_ray_iterations` 0 no bounce runs and every pixel is black with
+alpha 0, as in the JAX frame (whose loop then runs no body and zeroes the
+lanes still active). Every pass is a kernel on a CUDA device and its plain
+torch version on the CPU:
 
   1. sky textures, unless the caller passes cached ones (K3)
   2. primary visibility: the face rasterizer with `raster` (K9, K10),
@@ -17,10 +19,15 @@ pass is a kernel on a CUDA device and its plain torch version on the CPU:
      0.05: the sun classifier with `sunmask` (K12, which reconstructs the
      surface and the start itself and sends its residue through the DDA),
      else the starts from K2 surface and the DDA (K1, as above, given the
-     one sun direction of every ray). Soft: K14, one thread a pixel
-     through its samples, gated by the cone grids with `sunmask`, into a
-     shadow factor
-  4. shading, sky and clouds into planar HDR (K2 shade)
+     one sun direction of every ray). Soft: K14, a warp per 8x4 pixel
+     tile, gated by the cone grids with `sunmask`, into a shadow factor
+  4. shading, sky and clouds into planar HDR: K2 shade when the frame has
+     no mirrors, AO or lights; else K15 shade_bounce, which also writes
+     the mirror lanes' continuation. With mirrors each later bounce, up
+     to `max_ray_iterations`, traces the live lanes (K1, `active`), runs
+     the same shadow pass on that bounce's hits and K15 again, over the
+     whole image with no compaction and no early stop (a stop would read
+     a count back to the host)
   5. bloom chain and composite to u8 (K4)
 """
 
@@ -32,6 +39,7 @@ from vvr_tpu_torch.config import DEBUG_MAIN, RenderConfig
 from vvr_tpu_torch.ops import post as post_ops
 from vvr_tpu_torch.ops import shade as shade_ops
 from vvr_tpu_torch.ops import sky as sky_ops
+from vvr_tpu_torch.ops.bounce import bounce_buffers, shade_bounce
 from vvr_tpu_torch.ops.jump import trace_jump
 from vvr_tpu_torch.ops.rastertrace import trace_raster
 from vvr_tpu_torch.ops.softshadow import soft_shadow
@@ -42,26 +50,47 @@ F32 = torch.float32
 
 
 def check_frame_config(cfg: RenderConfig) -> None:
-    """Raise NotImplementedError for the frame knobs outside the slice,
+    """Raise NotImplementedError for the frame knobs outside the port,
     naming the ROADMAP item that adds each, and ValueError for a negative
     bounce count."""
     if cfg.max_ray_iterations < 0:
         raise ValueError(f"max_ray_iterations must be >= 0, got "
                          f"{cfg.max_ray_iterations}")
-    if cfg.ambient_occlusion:
+    if cfg.ambient_occlusion and cfg.ao_mode != "filtered":
         raise NotImplementedError(
-            "ambient occlusion is not ported yet: ROADMAP A10")
-    if cfg.point_lights:
-        raise NotImplementedError(
-            "point lights are not ported yet: ROADMAP A10")
+            f"ao_mode {cfg.ao_mode!r} is not ported yet: ROADMAP A13 (the "
+            "brick pyramid) and B14 (overlap AO)")
     if cfg.debug_type != DEBUG_MAIN:
         raise NotImplementedError(
             f"debug_type {cfg.debug_type} is not ported yet: ROADMAP A13 "
             "(heatmaps) and A14 (raster debug view)")
 
 
+def _shadow(grid: JumpGrid, hits, sun3, cfg: RenderConfig, clouds, sunmask,
+            max_steps: int, width: int):
+    """The sun shadows of one bounce's hits: None, the hard shadow rays'
+    (N,) bool hits or the soft (N,) float32 factor (step 3)."""
+    pixelated = cfg.pixelated_shadows
+    if cfg.shadow_samples > 1:
+        return soft_shadow(grid, *hits, sun3.numpy(), cfg.shadow_samples,
+                           clouds, max_steps, pixelated, sunmask,
+                           width=width)
+    if cfg.shadow_samples == 1:
+        # shadow start: surface (its quarter-voxel floor with pixelated
+        # shadows) + 0.05 along the sun
+        if sunmask is not None:
+            return masked_shadow_from_hits(grid, *hits, sun3.numpy(),
+                                           *sunmask, max_steps)
+        s_o, s_act = shade_ops.shade_surface(*hits, sun3, pixelated)
+        return trace_jump(grid, s_o, sun3.to(s_o.device), max_steps,
+                          active=s_act, width=width, stats=False).hit
+    return None
+
+
 def render_frame(grid: JumpGrid, o, d, sun, time: float, cfg: RenderConfig,
-                 sky=None, raster=None, sunmask=None):
+                 sky=None, raster=None, sunmask=None, density=None,
+                 lights=None, mirror_materials: bool = False,
+                 demand: dict | None = None, nxt=None):
     """Full frame. `o`, `d`: the flattened (render_h * render_w, 3) camera
     rays on the render device; `sun`: (3,) or (4,) direction (host array or
     tensor); `sky`: optional cached (skybox, clouds) textures; `raster`:
@@ -71,9 +100,19 @@ def render_frame(grid: JumpGrid, o, d, sun, time: float, cfg: RenderConfig,
     grids with one shadow sample, the cone grids
     (sunshadow.sun_grids(..., cone_tan=CONE_TAN)) with soft shadows; none
     with pixelated shadows, whose quarter-voxel floor can bury the query
-    where a certain-light claim is unsound (Renderer.use_sunmask).
+    where a certain-light claim is unsound (Renderer.use_sunmask);
+    `density`: the u8 AO field (world/svt.py), read with
+    `ambient_occlusion`; `lights`: the scene's point lights (L, >= 3)
+    float32 on the host, the first ten read with `point_lights`;
+    `mirror_materials`: mirror bounces; `demand`: a dict that, if given,
+    receives each K15 bounce's live, hit and mirror lane counts as 0-d
+    tensors (`b{k}_active`, `b{k}_hit`, `b{k}_mirror`, the JAX frame's
+    `collect_demand` keys), read by the caller only; `nxt`: with mirrors,
+    the continuation buffers (ops/bounce.py `bounce_buffers(N, device)`),
+    which a caller rendering many frames keeps across them; zero-filled
+    ones are made here when None.
     Returns (u8 image (H, W, 3), hdr rgba (rh, rw, 4)), both on the rays'
-    device."""
+    device. The rays are not written."""
     check_frame_config(cfg)
     if sunmask is not None and cfg.pixelated_shadows:
         raise ValueError("pixelated shadows take no sun classifier: the "
@@ -92,6 +131,7 @@ def render_frame(grid: JumpGrid, o, d, sun, time: float, cfg: RenderConfig,
     else:
         skybox, clouds = sky
     max_steps = cfg.traversal_max_steps * 8
+    sun_col = sky_ops.sun_colour_final(sun3)
 
     if raster is not None:
         faces, rcam, probe = raster
@@ -99,24 +139,45 @@ def render_frame(grid: JumpGrid, o, d, sun, time: float, cfg: RenderConfig,
     else:
         res = trace_jump(grid, o, d, max_steps, width=rw, stats=False)
     hits = (o, d, res.hit, res.face, res.axis_coord)
-    pixelated = cfg.pixelated_shadows
-    shadow = None
-    if cfg.shadow_samples > 1:
-        shadow = soft_shadow(grid, *hits, sun3.numpy(), cfg.shadow_samples,
-                             clouds, max_steps, pixelated, sunmask, width=rw)
-    elif cfg.shadow_samples == 1:
-        # shadow start: surface (its quarter-voxel floor with pixelated
-        # shadows) + 0.05 along the sun
-        if sunmask is not None:
-            shadow = masked_shadow_from_hits(grid, *hits, sun3.numpy(),
-                                             *sunmask, max_steps)
-        else:
-            s_o, s_act = shade_ops.shade_surface(*hits, sun3, pixelated)
-            shadow = trace_jump(grid, s_o, sun3.to(dev), max_steps,
-                                active=s_act, width=rw, stats=False).hit
-    hdr = shade_ops.shade_pixel(*hits, shadow, grid.size, skybox, clouds,
-                                sun3, sky_ops.sun_colour_final(sun3), rh, rw,
-                                pixelated)
+    shadow = _shadow(grid, hits, sun3, cfg, clouds, sunmask, max_steps, rw)
+    density = density if cfg.ambient_occlusion else None
+    lights = lights if cfg.point_lights else None
+    if not (mirror_materials or density is not None or lights is not None):
+        hdr = shade_ops.shade_pixel(*hits, shadow, grid.size, skybox, clouds,
+                                    sun3, sun_col, rh, rw,
+                                    cfg.pixelated_shadows)
+        return _post(hdr, cfg)
+
+    hdr = torch.empty((4, rh, rw), dtype=F32, device=dev)
+    # the next bounce's rays, colours and live lanes: K15 writes the mirror
+    # lanes' continuation and every lane's flag here, and from bounce 1 on
+    # reads and writes them in place
+    if not mirror_materials:
+        nxt = None
+    elif nxt is None:
+        nxt = bounce_buffers(n, dev)
+    col = active = None
+    for bounce in range(cfg.max_ray_iterations):
+        if bounce > 0:
+            o, d, col, active = nxt
+            res = trace_jump(grid, o, d, max_steps, active=active, width=rw,
+                             stats=False)
+            hits = (o, d, res.hit, res.face, res.axis_coord)
+            shadow = _shadow(grid, hits, sun3, cfg, clouds, sunmask,
+                             max_steps, rw)
+        if demand is not None:   # before K15 rewrites the live flags
+            demand[f"b{bounce}_active"] = (torch.tensor(n) if active is None
+                                           else active.sum())
+            demand[f"b{bounce}_hit"] = res.hit.sum()
+        shade_bounce(grid, *hits, shadow, skybox, clouds, sun3, sun_col, hdr,
+                     col, active, cfg.pixelated_shadows, density, lights,
+                     max_steps, mirror_materials,
+                     mirror_materials and cfg.wavy_reflections, time, nxt)
+        if demand is not None:
+            demand[f"b{bounce}_mirror"] = (nxt[3].sum() if mirror_materials
+                                           else torch.tensor(0))
+        if not mirror_materials:
+            break   # no lane continues
     return _post(hdr, cfg)
 
 

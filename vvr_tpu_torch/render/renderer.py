@@ -1,13 +1,17 @@
 """Renderer — the frame orchestrator and the library's entry point.
 
-Counterpart of vvr_tpu/render/renderer.py for the slice:
-`Renderer(WorldConfig, RenderConfig, device=...).render(camera)`. It owns
-the scene, the sun, the cross-frame sky and sun-grid caches and the frame
-statistics. `primary_raster` and `sun_mask` resolve as in the JAX package
+Counterpart of vvr_tpu/render/renderer.py for what the port renders:
+`Renderer(WorldConfig, RenderConfig, device=..., mirror_materials=...)
+.render(camera)`. It owns the scene, the sun, the cross-frame sky and
+sun-grid caches, the animated point lights and the frame statistics.
+`primary_raster` and `sun_mask` resolve as in the JAX package
 (renderer.py:79-98): at their "auto" defaults the main view rasterizes its
 primary visibility and answers shadows with the sun classifier (its cone
-grids for soft shadows). Configurations outside the slice raise
-NotImplementedError naming the ROADMAP item that adds them.
+grids for soft shadows). With `ambient_occlusion` the scene builds its
+density field; the lights move every frame, as in the JAX renderer
+(:159-160), and with `point_lights` the frame reads the first ten.
+Configurations outside the port raise NotImplementedError naming the
+ROADMAP item that adds them.
 """
 
 from __future__ import annotations
@@ -21,6 +25,7 @@ import torch
 from vvr_tpu_torch.config import RenderConfig, WorldConfig
 from vvr_tpu_torch.ops import sky as sky_ops
 from vvr_tpu_torch.ops import sunshadow
+from vvr_tpu_torch.ops.bounce import bounce_buffers
 from vvr_tpu_torch.ops.rastertrace import raster_camera
 from vvr_tpu_torch.ops.raygen import camera_rays
 from vvr_tpu_torch.render.frame import check_frame_config, render_frame
@@ -49,14 +54,9 @@ def use_sunmask(cfg: RenderConfig) -> bool:
 
 
 def check_slice(world_cfg: WorldConfig, cfg: RenderConfig,
-                mirror_materials: bool = False,
                 dynamic_world: bool = False) -> None:
-    """Raise NotImplementedError unless the configuration is the slice the
-    port renders; each message names the ROADMAP item that adds the
-    feature."""
-    if mirror_materials:
-        raise NotImplementedError(
-            "mirror materials are not ported yet: ROADMAP A10")
+    """Raise NotImplementedError unless the port renders the configuration;
+    each message names the ROADMAP item that adds the feature."""
     if dynamic_world:
         raise NotImplementedError(
             "the dynamic world is not ported yet: ROADMAP A12")
@@ -77,10 +77,11 @@ class Renderer:
                  force_regenerate: bool = False,
                  mirror_materials: bool = False,
                  dynamic_world: bool = False, cache_path=None):
-        check_slice(world_cfg, render_cfg, mirror_materials, dynamic_world)
+        check_slice(world_cfg, render_cfg, dynamic_world)
         self.world_cfg = world_cfg
         self.cfg = render_cfg
         self.device = torch.device(device)
+        self.mirror_materials = mirror_materials
         self.scene = scene or build_scene(world_cfg, self.device,
                                           force_regenerate=force_regenerate,
                                           cache_path=cache_path)
@@ -88,6 +89,8 @@ class Renderer:
         self.use_sunmask = use_sunmask(render_cfg)
         if self.use_raster or self.use_sunmask:
             self.scene.ensure_faces()
+        if render_cfg.ambient_occlusion:
+            self.scene.ensure_density()
         self.stats = Statistics()
         self.frame_count = 0
         self.elapsed = 0.0
@@ -96,6 +99,7 @@ class Renderer:
         self._sky_cache = None  # (key, (skybox, clouds))
         self._sunmask_cache = None  # (key, (e1, e2, grids))
         self._sun_dragging = False
+        self._nxt = None  # the mirror bounces' continuation buffers
 
     @property
     def rays_per_frame(self) -> int:
@@ -146,12 +150,22 @@ class Renderer:
             self._sunmask_cache = (key, (e1, e2, grids))
         return self._sunmask_cache[1]
 
+    def _bounce_buffers(self):
+        """The mirror bounces' continuation buffers, made once, zero-filled
+        (None without mirrors)."""
+        if self.mirror_materials and self._nxt is None:
+            self._nxt = bounce_buffers(
+                self.cfg.render_width * self.cfg.render_height, self.device)
+        return self._nxt
+
     def render(self, camera: Camera, time: float | None = None,
                timed: bool = False, fetch: bool = False):
         """One frame -> (H, W, 3) u8 on the render device (a numpy array
         with fetch=True). With timed=True the frame is synchronized and its
         wall time pushed into Statistics."""
         t = self.elapsed if time is None else time
+        # animated point lights (renderer.rs:494-505), every frame
+        self.scene.animate_lights(camera.position, t, 1.0 / 60.0)
         o, d = camera_rays(camera, self.cfg.render_width,
                            self.cfg.render_height, self.device)
         raster = None
@@ -165,9 +179,13 @@ class Renderer:
         # sky are enqueued before it, and the synchronize below waits for
         # them too
         t0 = _time.monotonic()
-        img, _ = render_frame(self.scene.jumpgrid, o, d, self.sun, t,
-                              self.cfg, sky=sky, raster=raster,
-                              sunmask=sunmask)
+        img, _ = render_frame(
+            self.scene.jumpgrid, o, d, self.sun, t, self.cfg, sky=sky,
+            raster=raster, sunmask=sunmask,
+            density=(self.scene.density if self.cfg.ambient_occlusion
+                     else None),
+            lights=self.scene.lights if self.cfg.point_lights else None,
+            mirror_materials=self.mirror_materials, nxt=self._bounce_buffers())
         if timed:
             self._sync()
             self.stats.push_timing((_time.monotonic() - t0) * 1e3)

@@ -1,10 +1,12 @@
 """Scene — the world's chunks and its device-resident structures.
 
-Counterpart of vvr_tpu/render/scene.py `build_scene` for what the slice
-reads: the jump grid (DDA traversal) and, built lazily on first use, the
-merged exposed faces of the face rasterizer and the sun-grid build. The
-brick pyramid, the density field, the SVO tree and the lights come back
-with their consumers (ROADMAP A10-A13).
+Counterpart of vvr_tpu/render/scene.py `build_scene` for what the port
+reads: the jump grid (DDA traversal), the animated point lights (host
+NumPy, as in the JAX package: scene.py:27, :126-141, :174-175) and, built
+lazily on first use, the merged exposed faces of the face rasterizer and
+the sun-grid build, and the u8 density field of the filtered ambient
+occlusion. The brick pyramid and the SVO tree come back with their
+consumers (ROADMAP A11-A13).
 """
 
 from __future__ import annotations
@@ -21,8 +23,18 @@ from vvr_tpu_torch.world.chunk import CHUNK_SIZE, Chunk
 from vvr_tpu_torch.world.faces import extract_merged_faces
 from vvr_tpu_torch.world.generator import assemble_dense, generate_world
 from vvr_tpu_torch.world.jumpgrid import JumpGrid, build_jump_grid
+from vvr_tpu_torch.world.svt import density_from_occupancy
 
 log = logging.getLogger(__name__)
+
+NUM_LIGHTS = 100  # src/renderer.rs:290
+LIGHT_SEED = 421  # renderer.rs:494
+
+
+def initial_lights(size: int) -> np.ndarray:
+    """(NUM_LIGHTS, 4) float32: the lights' start, uniform in [0, size)."""
+    rng = np.random.default_rng(LIGHT_SEED)
+    return rng.random((NUM_LIGHTS, 4)).astype(np.float32) * size
 
 
 @dataclasses.dataclass
@@ -32,7 +44,42 @@ class Scene:
     jumpgrid: JumpGrid
     faces: tuple | None = None   # FaceSet.device_tuple() on the grid's device
     epoch: int = 0               # world version, part of the sun-grid key
+    lights: np.ndarray | None = None  # (NUM_LIGHTS, 4) float32, host
+    density: torch.Tensor | None = None  # u8 (S, S, S) on the grid's device
     _chunk_index: dict | None = None
+
+    def __post_init__(self):
+        if self.lights is None:
+            self.lights = initial_lights(self.cfg.size)
+
+    def ensure_density(self) -> torch.Tensor:
+        """The density field of the filtered AO (world/svt.py), built on
+        the host once and kept on the jump grid's device."""
+        if self.density is None:
+            self.density = density_from_occupancy(
+                assemble_dense(self.chunks, self.cfg.size),
+                self.jumpgrid.rows.device)
+        return self.density
+
+    def animate_lights(self, camera_position, elapsed: float,
+                       delta: float) -> None:
+        """Host light animation (src/renderer.rs:494-505), as the JAX
+        package's Scene.animate_lights: each light moves `delta` of the way
+        toward a point on a disk of radius 5 around the camera, turned by
+        `elapsed` about the light's own random axis."""
+        rng = np.random.default_rng(LIGHT_SEED)
+        axes = rng.random((NUM_LIGHTS, 3)).astype(np.float32) - 0.5
+        axes /= np.linalg.norm(axes, axis=1, keepdims=True)
+        c, s = np.cos(elapsed), np.sin(elapsed)
+        # Rodrigues rotation of unit_x around each axis by `elapsed`
+        ux = np.array([1.0, 0.0, 0.0], np.float32)
+        k = axes
+        rot = (ux[None] * c
+               + np.cross(k, ux[None]) * s
+               + k * (k @ ux)[:, None] * (1 - c))
+        target = np.asarray(camera_position, np.float32)[None] + rot * 5.0
+        t = min(max(delta, 0.0), 1.0)
+        self.lights[:, :3] += (target - self.lights[:, :3]) * t
 
     def ensure_faces(self) -> tuple:
         """Merged exposed faces, built on the host once and kept on the

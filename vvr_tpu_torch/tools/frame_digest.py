@@ -9,9 +9,12 @@ with the vvr_tpu_torch package found under DIR (default: this checkout),
 in three configurations: 1920x1080 with bloom, without bloom, and
 3840x2160 composited from a 1920x1080 render (the compositor's integer
 upscale); and beside them the DDA frame (`primary_raster="off",
-sun_mask="off"`: K1 traces the primary and the shadow rays) and the soft
+sun_mask="off"`: K1 traces the primary and the shadow rays), the soft
 frames (K14: four samples with the cone grids and through every sample's
-DDA, pixelated with four samples and with one) at 1920x1080.
+DDA, pixelated with four samples and with one) and config 4 (K15: four
+soft samples, four mirror bounces, the filtered AO; and the same with the
+scene's point lights as they start and wavy reflections) at 1920x1080; a
+package that does not render a configuration gets a note in its place.
 Beside the frames it digests the sky textures (the 256^2 skybox and the
 512^2 clouds) at two (sun, time) pairs, the default sun at t = 0 and a
 low sun at t = 1.75 s, and the second at odd sizes (7^2 and 13^2), each
@@ -55,7 +58,20 @@ CONFIGS = {"bloom": dict(width=1920, height=1080),
            "pixelated 4": dict(width=1920, height=1080, shadow_samples=4,
                                pixelated_shadows=True),
            "pixelated 1": dict(width=1920, height=1080, shadow_samples=1,
-                               pixelated_shadows=True)}
+                               pixelated_shadows=True),
+           # config 4 (tools/bench_scale.py:33-50) with mirror materials,
+           # and with the point lights and wavy reflections too (the
+           # renderer's lights as build_scene starts them)
+           "config 4": dict(width=1920, height=1080, shadow_samples=4,
+                            max_ray_iterations=4, ambient_occlusion=True),
+           "config 4 lights wavy": dict(width=1920, height=1080,
+                                        shadow_samples=4,
+                                        max_ray_iterations=4,
+                                        ambient_occlusion=True,
+                                        point_lights=True,
+                                        wavy_reflections=True)}
+# the configurations rendered with mirror materials
+MIRRORS = ("config 4", "config 4 lights wavy")
 # (sun direction before normalization, or None for the renderer's, time,
 # skybox and cloud resolutions)
 SKIES = {"sky default sun t 0": (None, 0.0, 256, 512),
@@ -117,11 +133,21 @@ def main(argv=None) -> int:
     for name, knobs in CONFIGS.items():
         cfg = RenderConfig(**{"shadow_samples": 1, "max_ray_iterations": 3,
                               **knobs})
-        r = Renderer(WorldConfig(depth=4), cfg, device=dev, scene=scene,
-                     force_regenerate=scene is None,
-                     cache_path=root / "build" / "vvr_tpu_torch"
-                     / "map_256.npz")
+        mirrors = {"mirror_materials": True} if name in MIRRORS else {}
+        try:
+            r = Renderer(WorldConfig(depth=4), cfg, device=dev, scene=scene,
+                         force_regenerate=scene is None,
+                         cache_path=root / "build" / "vvr_tpu_torch"
+                         / "map_256.npz", **mirrors)
+        except NotImplementedError as e:
+            out[name] = f"not rendered by this package ({e})"
+            continue
         scene = r.scene
+        extra = {}
+        if mirrors:   # the keywords of packages that render config 4
+            extra = dict(mirror_materials=True,
+                         density=scene.ensure_density(),
+                         lights=scene.lights if cfg.point_lights else None)
         o, d = (t.to(dev) for t in camera_rays(
             cam, cfg.render_width, cfg.render_height,
             "cpu" if args.cpu_rays else dev))
@@ -131,7 +157,7 @@ def main(argv=None) -> int:
         img, hdr = render_frame(scene.jumpgrid, o, d, r.sun, 0.0, cfg,
                                 sky=r._sky(0.0), raster=raster,
                                 sunmask=r._sunmask() if r.use_sunmask
-                                else None)
+                                else None, **extra)
         torch.cuda.synchronize()
         out[name] = {"hdr": digest(hdr), "u8": digest(img),
                      "shape": list(img.shape)}

@@ -8,8 +8,10 @@ K3 window below holds the rebuilds): the default-knob frame (face
 rasterizer and sun classifier, one hard shadow ray per lit pixel) and the
 DDA frame (`primary_raster="off", sun_mask="off"`), and, where the
 measured package renders them, the soft-shadow frames (four samples, with
-the cone classifier and with `sun_mask="off"`) and the pixelated one (four
-samples), over one scene, and prints, each from this run:
+the cone classifier and with `sun_mask="off"`), the pixelated one (four
+samples) and config 4 (four soft samples with the cone classifier, four
+mirror bounces, the filtered AO), over one scene, and prints, each from
+this run:
 
 1. the default frame's setup beyond the DDA frame's: the merged faces
    (host clock: extraction on the host and the copy to the card) and one
@@ -22,9 +24,11 @@ samples), over one scene, and prints, each from this run:
 4. one window of synchronized frames of each kind under torch.profiler
    with CUDA activity only: device time per kernel per frame, summed per
    C entry point (K9's four kernels; K1, the bloom pyramid, the composite,
-   K12, K2 shade_surface, K13 and K14 one each; K11's sun grids are built
-   before the window), K1's per call of the DDA frame (its
-   launches alternate: primary rays, then shadow rays), and the
+   K12, K2 shade_surface, K13, K14 and K15 one each; K11's sun grids are
+   built before the window), K1's per call of the DDA frame (its
+   launches alternate: primary rays, then shadow rays), K1's, K14's and
+   K15's per launch of a frame where a frame launches them more than once
+   (config 4: bounce by bounce), and the
    device busy share of that window = the union of device intervals
    (kernels, copies, sets) over the span from the first to the last event
    of the trace, both on the trace's clock. The profiler's own overhead
@@ -91,7 +95,7 @@ PORT_KERNELS = ("vvr_jump_trace_kernel", "vvr_shade_surface_kernel",
                 "vvr_bloom_pyramid_kernel", "composite_kernel",
                 "vvr_raster_", "vvr_scan_", "vvr_sun_",
                 "vvr_masked_shadow_kernel", "vvr_generate_rays_kernel",
-                "vvr_soft_shadow_kernel")
+                "vvr_soft_shadow_kernel", "vvr_shade_bounce_kernel")
 # the device kernels of one C entry point, by name part: K9 launches
 # project, scan, bin and tile kernels (and a memset), the others one each
 ENTRY_KERNELS = {
@@ -104,11 +108,17 @@ ENTRY_KERNELS = {
     "K2 shade_surface": ("vvr_shade_surface_kernel",),
     "K13 generate_rays": ("vvr_generate_rays_kernel",),
     "K14 soft_shadow": ("vvr_soft_shadow_kernel",),
+    "K15 shade_bounce": ("vvr_shade_bounce_kernel",),
 }
 # the soft-shadow frames: label, knobs beside the default frame's
 SOFT_FRAMES = (("soft, cone", dict(shadow_samples=4)),
                ("soft, DDA", dict(shadow_samples=4, sun_mask="off")),
                ("pixelated", dict(shadow_samples=4, pixelated_shadows=True)))
+# config 4 (tools/bench_scale.py:33-50): label, knobs beside the default
+# frame's, the Renderer's keywords
+BOUNCE_FRAMES = (("config 4", dict(shadow_samples=4, max_ray_iterations=4,
+                                   ambient_occlusion=True),
+                  dict(mirror_materials=True)),)
 # K3's device kernels: one per texture in earlier checkouts, one for both
 K3_KERNELS = ("skybox_kernel", "clouds_kernel", "vvr_sky_kernel")
 SKY_BUCKETS = 8  # sky rebuilds in the K3 window
@@ -233,6 +243,19 @@ def window(label, renderer, cam, trace_path) -> None:
         primary, shadow = (sum(u for _, u in k1[k::2]) / n for k in (0, 1))
         print(f"  K1 per call: primary rays {primary:.2f} us/frame, shadow "
               f"rays {shadow:.2f} us/frame")
+    # the kernels a bounce loop launches more than once a frame, by their
+    # k-th launch of a frame: K14's and K15's is bounce k, K1's bounce k +
+    # 1 in a frame with mirrors and the rasterizer
+    for label, part in (("K1", "vvr_jump_trace_kernel"),
+                        ("K14", "vvr_soft_shadow_kernel"),
+                        ("K15", "vvr_shade_bounce_kernel")):
+        ev_k = sorted((e["ts"], e["dur"]) for e in dev_ev
+                      if part in e["name"])
+        per = len(ev_k) // n
+        if per > 1 and len(ev_k) == per * n:
+            print(f"  {label} per launch of a frame: " + ", ".join(
+                f"{b}: {sum(u for _, u in ev_k[b::per]) / n:.2f} us"
+                for b in range(per)))
 
 
 def trace_events(trace_path: pathlib.Path, run):
@@ -510,6 +533,12 @@ def main(argv=None) -> int:
         try:
             soft.append((label, Renderer(wcfg, RenderConfig(**{
                 **knobs, **extra}), device=dev, scene=renderer.scene)))
+        except NotImplementedError as e:
+            print(f"frame ({label}): not rendered by this package ({e})")
+    for label, extra, kw in BOUNCE_FRAMES:
+        try:
+            soft.append((label, Renderer(wcfg, RenderConfig(**{
+                **knobs, **extra}), device=dev, scene=renderer.scene, **kw)))
         except NotImplementedError as e:
             print(f"frame ({label}): not rendered by this package ({e})")
     cam = Camera.look_at(*CAMERA[:2], fov=CAMERA[2])

@@ -10,6 +10,7 @@ The CUDA copies live in csrc/common.cuh, compiled without FMA contraction.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 F32 = torch.float32
@@ -51,6 +52,45 @@ def hash33_soa(x, y, z):
     pz = pz + d
     return (_fract((px + py) * pz), _fract((px + px) * py),
             _fract((py + px) * px))
+
+
+def hash13_soa(x, y, z):
+    """hash13 on separate (N,) channels -> (N,), as the JAX package's
+    jitted frame rounds it (the mirror decision, frame.py:241-251): XLA
+    contracts the two sums of its three-term dot product into FMAs,
+    fma(pz, px + 33.33, fma(py, py + 33.33, px * (pz + 33.33))) (equal to
+    a jitted hash13_soa on every 8^3 group of a 256^3 world; the op-by-op
+    sum differs on about a fifth of them). csrc/bounce.cu places
+    __fmaf_rn at the same points."""
+    px = _fract(x * 0.1031)
+    py = _fract(y * 0.1031)
+    pz = _fract(z * 0.1031)
+    d = _fma(pz, px + 33.33, _fma(py, py + 33.33, px * (pz + 33.33)))
+    px = px + d
+    py = py + d
+    pz = pz + d
+    return _fract((px + py) * pz)
+
+
+def light_colours(count: int) -> np.ndarray:
+    """(count, 3) float32: the colour of point light li, hash33(li *
+    3.21312 in all three channels) * 0.3 (frame.py:514-519), as the JAX
+    frame has it. Its input is a constant there, so XLA folds the hash at
+    compile time, and its constant folder sums the dot product in float64
+    before rounding (equal to a jitted copy for li < 30; the float32 sum
+    differs at li = 1 and 3)."""
+    out = np.zeros((count, 3), np.float32)
+    k = np.array([0.1031, 0.1030, 0.0973], np.float32)
+    c = np.float32(33.33)
+    for li in range(count):
+        v = np.full(3, li * 3.21312, np.float32) * k
+        p = v - np.floor(v)
+        t = p * (p[[1, 0, 2]] + c)
+        d = np.float32(t.astype(np.float64).sum())
+        q = p + d
+        h = (q[[0, 0, 1]] + q[[1, 0, 0]]) * q[[2, 1, 0]]
+        out[li] = (h - np.floor(h)) * np.float32(0.3)
+    return out
 
 
 def _fma(a, b, c):
