@@ -128,6 +128,30 @@
    N = 2^21 lanes) with the launch counters reset just before and read
    just after, and fails unless each of K5-K8 was launched; the tool holds
    every kernel against its plain version bit for bit before timing it.
+7. config 5 (tools/bench_scale.py:62-97 without its edits: the 1024^3
+   world, 1920x1080, its camera; `traversal="auto"`, so the paged grid):
+   builds one 1024^3 scene and prints each setup step's host time (world
+   generation, assemble_dense, the merged faces, the paged grid, the
+   density field), then over it, each configuration's counters reset
+   before its frames and read after (C5_PHASES): the default-knob frame,
+   the DDA frame, the soft cone frame, config 4's knobs and the lights
+   frame; fails unless each per-frame kernel launched as that table says
+   (K16 `paged_trace` for every DDA, the paged K12, K14 and K15), K11 once
+   where the frame classifies, K3 once, and nothing else (no K1, no
+   jump-grid K12, K14 or K15), or unless the Renderer builds no jump grid;
+   prints each median and a profiled window (device busy, K16's device
+   time); then K16 bit for bit against trace_paged_plain on the primary
+   and the shadow rays (one sun direction) at 1920x1080 and 33x67, with
+   and without counters, flat and tiled, with the rays at the cap; the
+   raster against K16 on every primary ray, each ray where they differ
+   printed with the oracle's answer; the paged K12 against its plain
+   version and against an every-lane K16 shadow trace on every lit lane
+   (C6 at 1024^3); the paged K14 in its three modes as in 4., and its cone
+   gate's hits equal to its DDA mode's; the paged K15 at every bounce of
+   config 4's knobs and of the lights frame (BounceCheck); rows for the
+   kernels line (K16, paged K12 on the raster hits, paged K14's cone
+   gate, paged K15 at the lights frame's bounce 0) and the peak device
+   memory (run before 6.).
 
 Any failed check raises and the script exits non-zero. Without a CUDA
 device it exits non-zero before printing any result. Before the last line
@@ -591,6 +615,25 @@ def recorded_soft(frame_mod, calls: list):
         frame_mod.soft_shadow = soft_shadow
 
 
+def rows_bytes(grid, label: str, run) -> float:
+    """The bytes of the distinct table rows a kernel's work loads:
+    `run(read)` runs its plain version with `rows_read=read` (one bool
+    tensor per table, ops/trace.py `trace_plain`), which marks every row
+    it loads; ROW_READ bytes a row. Prints the counts."""
+    import torch
+
+    from vvr_tpu_torch.ops import trace as tracer
+    read = tuple(torch.zeros(t.shape[0], dtype=torch.bool, device=t.device)
+                 for t in tracer.tensors(grid))
+    run(read)
+    tables = ROW_READ["paged" if tracer.is_paged(grid) else "jump"]
+    counts = [int(r.sum()) for r in read]
+    print(f"{label}: loads " + " and ".join(
+        f"{c} of {r.numel()} {name}" for c, r, (name, _) in
+        zip(counts, read, tables)))
+    return float(sum(c * b for c, (_, b) in zip(counts, tables)))
+
+
 def k15_bytes(n: int, live: int, hits: int, mirrors: int, shaded: int,
               first: bool, shadow, ao: bool, mirror: bool) -> int:
     """The bytes one K15 launch over `n` lanes must move, from its lane
@@ -655,10 +698,11 @@ class BounceCheck:
             grid, ins[0], ins[1], hit, face, ac, shadow, skybox, clouds, sun,
             sun_col, out_p, ins[2], ins[3], pix, dens, lights, ms, mirror,
             wavy, t, nxt_p)
-        before = self.kernels.LAUNCHES["shade_bounce"]
+        launched = self.kernels.LAUNCHES
+        before = launched["shade_bounce"] + launched["shade_bounce_paged"]
         self.orig(*args)
-        check(self.kernels.LAUNCHES["shade_bounce"] == before + 1,
-              "K15 did not launch once")
+        check(launched["shade_bounce"] + launched["shade_bounce_paged"]
+              == before + 1, "K15 did not launch once")
         k = len(self.bounces)
         a, b = out.view(4, -1), out_p.view(4, -1)
         check(torch.equal(a[3], b[3]), f"K15 bounce {k}: alpha differs on "
@@ -687,6 +731,458 @@ class BounceCheck:
             diff, int((rgb_off & shaded).sum()),
             k15_bytes(hit.numel(), *counts, active is None, shadow,
                       dens is not None, bool(nxt))))
+
+
+# config 5 (tools/bench_scale.py:62-97) without its edits: the reference's
+# own 1024^3 world (depth 5), 1920x1080, its camera (:96-97); the paged
+# grid under traversal "auto". Its frames over one scene: the default
+# knobs, the DDA frame, the soft cone frame, config 4's knobs and the
+# lights frame; each configuration's kernels a frame (K3 and K11 apart)
+C5_CAMERA = ([512.0, 400.0, 80.0], [512.0, 80.0, 720.0], 85.0)
+C5_FRAMES = 6        # timed frames a configuration, after a warm-up
+_C5_RASTER = {"generate_rays": 1, "raster_fragments": 1,
+              "raster_resolve": 1, "bloom_pyramid": 1, "composite": 1}
+C5_PHASES = {
+    "config 5": ({}, False, {**_C5_RASTER, "masked_shadow_paged": 1,
+                             "shade_pixel": 1}),
+    "config 5 DDA": (dict(primary_raster="off", sun_mask="off"), False,
+                     {"generate_rays": 1, "paged_trace": 2,
+                      "shade_surface": 1, "shade_pixel": 1,
+                      "bloom_pyramid": 1, "composite": 1}),
+    "config 5 soft cone": (dict(shadow_samples=4), False,
+                           {**_C5_RASTER, "soft_shadow_paged": 1,
+                            "shade_pixel": 1}),
+    "config 5 config-4 knobs": (CONFIG4, True, {
+        **_C5_RASTER, "soft_shadow_paged": 4, "paged_trace": 3,
+        "shade_bounce_paged": 4}),
+    "config 5 lights": (LIGHTS_FRAME, True, {
+        **_C5_RASTER, "masked_shadow_paged": 3, "paged_trace": 2,
+        "shade_bounce_paged": 3}),
+}
+# K16's oracle slack: primary rays where the raster (the oracle's answer)
+# and K16 differ (an exact x/z tie the paged DDA places as the JAX tracer
+# does, ROADMAP C8)
+K16_ORACLE_SLACK = 64
+# the tables of each grid, and the bytes of a row of each that a kernel
+# needs (a bound counts each distinct row its plain version records
+# loading once, rows_bytes): a jump-grid row's 16 voxel words, its
+# subcell words 16-19 and the four octant distances of the ray's half (96
+# of its 128 B); a page row's words 0-3 (mask, pool base, octant radii:
+# one 16-byte load); a pool row's words 0-17 (voxel words, subcell mask)
+ROW_READ = {"jump": (("rows", 96),),
+            "paged": (("page rows", 16), ("pool rows", 72))}
+
+
+def config5_phase(repo, dev, errs: dict, launches: dict) -> list:
+    """Phase 3g (module docstring): the 1024^3 scene built once, each setup
+    step timed; the frames of C5_PHASES, counters reset before each
+    configuration and read after; then K16, the paged K12, K14 and K15
+    against their plain versions. Returns the kernels line's rows of the
+    paged kernels; fills `errs` and `launches`."""
+    import numpy as np
+    import torch
+
+    from vvr_tpu_torch import kernels
+    from vvr_tpu_torch.config import RenderConfig, WorldConfig
+    from vvr_tpu_torch.ops import bounce, paged, shade, softshadow
+    from vvr_tpu_torch.ops import rastertrace as rt
+    from vvr_tpu_torch.ops import sunshadow as ss
+    from vvr_tpu_torch.ops import trace as tracer
+    from vvr_tpu_torch.ops.raygen import camera_rays
+    from vvr_tpu_torch.render import frame as frame_mod
+    from vvr_tpu_torch.render.frame import render_frame
+    from vvr_tpu_torch.render.oracle import trace_dense
+    from vvr_tpu_torch.render.renderer import Renderer
+    from vvr_tpu_torch.render.scene import build_scene
+    from vvr_tpu_torch.tools import profile_frame
+    from vvr_tpu_torch.tools.microbench_gather import bound_ms, cuda_ms
+    from vvr_tpu_torch.utils.camera import Camera
+
+    # the registers and spills of K16 and of every paged instantiation
+    # (their jump-grid twins are printed with their kernels' checks)
+    for name, regs, st, ld in kernels.ptxas_usage("vvr_"):
+        if "VvrPagedView" in name:
+            print(f"ptxas: {name}: {regs} registers, spill stores {st} B, "
+                  f"spill loads {ld} B")
+    wcfg = WorldConfig(depth=5)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    t_phase = time.perf_counter()
+    setup = {}
+
+    def timed(label, fn):
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        setup[label] = time.perf_counter() - t0
+        return out
+
+    scene = timed("world generation", lambda: build_scene(
+        wcfg, dev, force_regenerate=True,
+        cache_path=repo / "build" / "vvr_tpu_torch" / "map_1024.npz"))
+    occ = timed("assemble_dense", scene.dense)
+    faces = timed("merged faces", scene.ensure_faces)
+    grid = timed("paged grid", scene.ensure_paged)
+    timed("density field", scene.ensure_density)
+    print("setup (config 5, 1024^3, host clock): " + ", ".join(
+        f"{k} {v:.2f} s" for k, v in setup.items()) + f"; "
+        f"{faces[0].shape[0]} merged faces, page table "
+        f"{tuple(grid.prows.shape)}, pool {tuple(grid.brows.shape)}, "
+        f"{grid.memory_bytes() / 2**20:.2f} MiB")
+    cfg = RenderConfig(width=1920, height=1080, shadow_samples=1,
+                       max_ray_iterations=3)
+    check(cfg.use_paged(wcfg.size) and not cfg.use_jump(wcfg.size),
+          "traversal 'auto' must resolve to the paged grid at 1024^3")
+    cam = Camera.look_at(*C5_CAMERA[:2], fov=C5_CAMERA[2])
+    w, h, n = cfg.width, cfg.height, cfg.width * cfg.height
+    max_steps = cfg.traversal_max_steps * 8
+    o, d = camera_rays(cam, w, h, dev)
+    first = paged.trace_paged(grid, o, d, max_steps, width=w, stats=False)
+    seeded = np.random.default_rng(11).choice(
+        torch.nonzero(first.hit)[:, 0].cpu().numpy(), 10, replace=False)
+    scene.lights[:10, :3] = (o + d * (first.t[:, None] - 2.0))[
+        seeded].cpu().numpy()
+    lights0 = scene.lights.copy()
+
+    # ---- the frames
+    rend, meds = {}, {}
+    for label, (knobs, mirrors, per_frame) in C5_PHASES.items():
+        scene.lights[:] = lights0
+        kernels.reset_launches()
+        r = Renderer(wcfg, dataclasses.replace(cfg, **knobs), device=dev,
+                     scene=scene, mirror_materials=mirrors)
+        check(r.use_paged and r.grid is grid and scene.jumpgrid is None,
+              f"{label}: the Renderer must trace the scene's paged grid and "
+              "build no jump grid")
+        ms = []
+        for i in range(C5_FRAMES + 1):   # frame 0 warms up (K11, K3)
+            t1 = time.perf_counter()
+            img = r.render(cam, time=i / 60.0)
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t1) * 1e3)
+        check(tuple(img.shape) == (h, w, 3)
+              and float(img.float().std()) > 10, f"{label}: the frame is "
+              "wrong")
+        got = dict(kernels.LAUNCHES)
+        frames_ = C5_FRAMES + 1
+        uneven = {k: got[k] for k, v in per_frame.items()
+                  if got[k] != v * frames_}
+        check(not uneven, f"{label}: kernels not launched {per_frame} times "
+              f"a frame over {frames_} frames: {uneven}")
+        once = [] if knobs.get("sun_mask") == "off" else ["sun_grids"]
+        for k in once:
+            check(got[k] == 1, f"{label}: {k} launched {got[k]} times")
+        check(got["write_sky"] == 1, f"{label}: K3 launched "
+              f"{got['write_sky']} times in one sky bucket")
+        others = {k: v for k, v in got.items() if v and k not in per_frame
+                  and k not in once and k != "write_sky"}
+        check(not others, f"{label}: launched {others} (the flat K1 and "
+              "the jump-grid forms of K12, K14 and K15 must not run)")
+        for k, v in got.items():
+            if k in per_frame or k in once:
+                launches[f"c5 {k}"] = launches.get(f"c5 {k}", 0) + v
+        meds[label] = sorted(ms[1:])[C5_FRAMES // 2]
+        print(f"{label}: {C5_FRAMES} frames after a warm-up of "
+              f"{ms[0]:.1f} ms (K11 and K3), median {meds[label]:.3f} ms "
+              f"(host clock, synchronized); launches "
+              f"{ {k: v for k, v in got.items() if v} }")
+        rend[label] = r
+        profile_frame.window(label, r, cam, repo / "build" / "vvr_tpu_torch"
+                             / "c5_trace.json")
+    scene.lights[:] = lights0
+
+    # ---- K16 against its plain version: primary and shadow rays at
+    # 1920x1080 and 33x67, with and without counters, flat and tiled
+    fields = ("hit", "face", "axis_coord", "t", "iterations", "fetches",
+              "missed_pops")
+    sun_np = rend["config 5"].sun[:3].copy()
+    sun3 = torch.from_numpy(sun_np)
+    sun_d = sun3.to(dev)
+
+    def k16_check(ro, rd, ra, width, label):
+        full = paged.trace_paged(grid, ro, rd, max_steps, active=ra)
+        ref = paged.trace_paged_plain(grid, ro, rd, max_steps, ra)
+        lean = paged.trace_paged(grid, ro, rd, max_steps, active=ra,
+                                 width=width, stats=False)
+        for f in fields:
+            check(torch.equal(getattr(full, f), getattr(ref, f)),
+                  f"K16 ({label}): {f} differs from plain on "
+                  f"{int((getattr(full, f) != getattr(ref, f)).sum())} rays")
+        for f in fields[:4]:
+            check(torch.equal(getattr(lean, f), getattr(ref, f)),
+                  f"K16 ({label}, tiled, no counters): {f} differs")
+        capped = int((full.iterations >= max_steps).sum())
+        print(f"K16 ({label}): {ro.shape[0]} rays, hits "
+              f"{int(full.hit.sum())}, bit-exact vs plain (seven outputs; "
+              f"tiled without counters the four); sub-steps mean "
+              f"{float(full.iterations.float().mean()):.2f} max "
+              f"{int(full.iterations.max())}, fetches mean "
+              f"{float(full.fetches.float().mean()):.2f}; rays at the "
+              f"{max_steps} cap: {capped}")
+        return full, capped
+
+    res_k, cap_p = k16_check(o, d, None, w, "primary, 1920x1080")
+    so_k, sa_k = shade.shade_surface(o, d, res_k.hit, res_k.face,
+                                     res_k.axis_coord, sun3)
+    sh_k, cap_s = k16_check(so_k, sun_d, sa_k, w, "shadow, 1920x1080, one "
+                            "sun direction")
+    o_s, d_s = camera_rays(cam, 33, 67, dev)
+    r_s, _ = k16_check(o_s, d_s, None, 33, "primary, 33x67")
+    so_s, sa_s = shade.shade_surface(o_s, d_s, r_s.hit, r_s.face,
+                                     r_s.axis_coord, sun3)
+    k16_check(so_s, sun_d, sa_s, 33, "shadow, 33x67")
+    errs["paged_trace"] = 0.0
+
+    # the raster against K16 on every primary ray, each ray where they
+    # differ against the numpy oracle
+    rcam = rt.raster_camera(cam)
+    probe = scene.solid_at_host(cam.position)
+    ras = rt.trace_raster(faces, rcam, d, probe, wcfg.size, w, h)
+    off = ((ras.hit != res_k.hit) | (ras.hit & (
+        (ras.face != res_k.face) | (ras.axis_coord != res_k.axis_coord))))
+    bad = torch.nonzero(off)[:, 0].cpu().numpy()
+    check(len(bad) <= K16_ORACLE_SLACK, f"the raster and K16 differ on "
+          f"{len(bad)} primary rays")
+    if len(bad):
+        ora = trace_dense(occ, o[bad].cpu().numpy(), d[bad].cpu().numpy())
+        for k, ray in enumerate(bad):
+            agree = (bool(ora["hit"][k]) == bool(ras.hit[ray])
+                     and int(ora["axis_coord"][k]) == int(ras.axis_coord[ray]))
+            check(agree, f"ray {ray}: the raster is not the oracle's answer")
+            print(f"primary ray {ray} (pixel {ray % w}, {ray // w}): K16 "
+                  f"hit {bool(res_k.hit[ray])} face {int(res_k.face[ray])} "
+                  f"axis {int(res_k.axis_coord[ray])}; the raster and the "
+                  f"oracle: hit {bool(ora['hit'][k])} face "
+                  f"{int(ora['face'][k])} axis {int(ora['axis_coord'][k])} "
+                  "(an exact tie, ROADMAP C8)")
+    print(f"raster vs K16 at 1024^3: {n - len(bad)} of {n} primary rays "
+          f"equal; {len(bad)} differ, each the oracle's tie (above)")
+
+    # the paged K12 on the raster hits: against its plain version and
+    # against an every-lane K16 shadow trace on every lit lane (C6)
+    hits = (o, d, ras.hit, ras.face, ras.axis_coord)
+    e1, e2, s_b = ss.sun_basis(sun_np)
+    grids_k = rend["config 5"]._sunmask()[2]
+    ms_k = ss.masked_shadow_from_hits(grid, *hits, sun_np, e1, e2, grids_k,
+                                      max_steps)
+    ms_p = ss.masked_shadow_from_hits_plain(grid, *hits, sun_np, e1, e2,
+                                            grids_k, max_steps)
+    check(torch.equal(ms_k, ms_p), f"paged K12 vs plain: "
+          f"{int((ms_k != ms_p).sum())} lanes differ")
+    so_r, sa_r = shade.shade_surface(*hits, sun3)
+    every = paged.trace_paged(grid, so_r, sun_d, max_steps, active=sa_r,
+                              width=w, stats=False).hit
+    c6 = torch.nonzero((ms_k != every) & sa_r)[:, 0].cpu().numpy()
+    for lane in c6:
+        ora = trace_dense(occ, so_r[lane:lane + 1].cpu().numpy(),
+                          sun_np[None])
+        print(f"K12 lane {lane}: K12 {bool(ms_k[lane])}, the every-lane "
+              f"K16 trace {bool(every[lane])}, the oracle "
+              f"{bool(ora['hit'][0])}")
+    check(len(c6) == 0, f"paged K12 and an every-lane K16 shadow trace "
+          f"differ on {len(c6)} lit lanes (printed above)")
+    branch = ss.shadow_branches(grid, so_r, sun_np, e1, e2, grids_k, sa_r)
+    counts = torch.bincount(branch, minlength=len(ss.BRANCHES)).tolist()
+    residue = branch == ss.BRANCHES.index("residue")
+    res_it = paged.trace_paged(grid, so_r, sun_d, max_steps,
+                               active=residue).iterations[residue]
+    print(f"paged K12: {int(sa_r.sum())} lit lanes of {n} bit-exact vs "
+          f"plain and vs an every-lane K16 shadow trace; branches "
+          f"{dict(zip(ss.BRANCHES, counts))}; residue DDA sub-steps "
+          f"{int(res_it.sum())}")
+    errs["masked_shadow_paged"] = 0.0
+
+    # the paged K14 in its three modes: every sample's hit equal to the
+    # plain version's on the card, the factor within SOFT_FACTOR_TOL of the
+    # plain factor on the CPU; the cone gate's hits equal to the DDA mode's
+    # on every lane (no near walk on the paged grid, so no C8 tie between
+    # them)
+    _, cl_k = rend["config 5"]._sky(0.0)
+    cl_cpu = cl_k.cpu()
+    cone_k = rend["config 5 soft cone"]._sunmask()[2]
+    gate = (e1, e2, cone_k)
+    modes = {"DDA": (False, None), "cone gate": (False, gate),
+             "pixelated": (True, None)}
+
+    def k14_check(hits_, ns, pix, g, width, what):
+        before = kernels.LAUNCHES["soft_shadow_paged"]
+        fk, hk = softshadow.soft_shadow(grid, *hits_, sun_np, ns, cl_k,
+                                        max_steps, pix, g, with_hits=True,
+                                        width=width)
+        check(kernels.LAUNCHES["soft_shadow_paged"] == before + 1,
+              f"paged K14 ({what}) did not launch once")
+        hp = softshadow.sample_hits_plain(grid, *hits_, sun_np, ns,
+                                          max_steps, pix, g)
+        check(torch.equal(hk, hp), f"paged K14 ({what}): "
+              f"{int((hk != hp).sum())} sample hits differ from plain")
+        fp = softshadow.shadow_factor_plain(
+            *(t.cpu() for t in hits_), sun_np, hk.cpu(), cl_cpu, pix)
+        err = float((fk.cpu() - fp).abs().max())
+        check(err <= SOFT_FACTOR_TOL, f"paged K14 ({what}): factor off the "
+              f"plain factor by {err}")
+        return fk, hk, err
+
+    soft = {}
+    for name, (pix, g) in modes.items():
+        soft[name] = k14_check(hits, SOFT_SAMPLES, pix, g, w, name)
+        print(f"paged K14 ({name}): {SOFT_SAMPLES} sample hits of {n} "
+              f"lanes equal to plain ({int(soft[name][1].sum())} hits), "
+              f"factor max |diff| {soft[name][2]:.3e} vs plain on the CPU")
+    check(torch.equal(soft["DDA"][1], soft["cone gate"][1]),
+          f"paged K14: the cone gate's sample hits differ from the DDA "
+          f"mode's on {int((soft['DDA'][1] != soft['cone gate'][1]).sum())}")
+    # and at K14's odd shapes, as its jump-grid form is held (SOFT_ODD)
+    ras_s = rt.trace_raster(faces, rcam, d_s, probe, wcfg.size,
+                            *SOFT_ODD[0])
+    flat = slice(n // 2, n // 2 + SOFT_ODD[1])
+    odd = {f"{SOFT_ODD[0][0]}x{SOFT_ODD[0][1]} tiled":
+           ((o_s, d_s, ras_s.hit, ras_s.face, ras_s.axis_coord),
+            SOFT_ODD[0][0]),
+           f"{SOFT_ODD[1]} flat lanes": (tuple(t[flat].contiguous()
+                                              for t in hits), 0)}
+    worst = 0.0
+    for label, (hits_, width) in odd.items():
+        for name, (pix, g) in modes.items():
+            for ns in SOFT_ODD_SAMPLES:
+                worst = max(worst, k14_check(hits_, ns, pix, g, width,
+                                             f"{name}, {label}, {ns} "
+                                             "samples")[2])
+    print(f"paged K14 at odd shapes ({', '.join(odd)}; its three modes; "
+          f"{SOFT_ODD_SAMPLES} samples): every sample hit equal to plain, "
+          f"factor max |diff| {worst:.3e} vs plain on the CPU")
+    errs["soft_shadow_paged"] = soft["cone gate"][2]
+
+    # the paged K15: config 4's knobs and the lights frame at 1024^3, every
+    # bounce held to shade_bounce_plain (BounceCheck)
+    checks = {}
+    for label in ("config 5 config-4 knobs", "config 5 lights"):
+        r = rend[label]
+        scene.lights[:] = lights0
+        with BounceCheck(frame_mod, bounce, kernels) as bc:
+            _, hdr_b = render_frame(
+                grid, o, d, r.sun, 0.0, r.cfg, sky=r._sky(0.0),
+                raster=(faces, rcam, probe), sunmask=r._sunmask(),
+                density=scene.density,
+                lights=scene.lights if r.cfg.point_lights else None,
+                mirror_materials=True)
+        check(bool(torch.isfinite(hdr_b).all()), f"{label}: HDR not finite")
+        check(len(bc.bounces) == r.cfg.max_ray_iterations,
+              f"{label}: {len(bc.bounces)} bounces")
+        for k, (live, hit_n, mir, shd, diff, nbe, _) in enumerate(
+                bc.bounces):
+            print(f"{label} bounce {k}: {live} live lanes, {hit_n} hits, "
+                  f"{mir} mirrors, {shd} shaded; paged K15 vs plain: bit "
+                  f"for bit but the shaded rgb, max |diff| {diff:.3e} "
+                  f"({nbe} shaded lanes not bit-equal)")
+        checks[label] = bc
+    errs["shade_bounce_paged"] = max(b[4] for b in
+                                     checks["config 5 lights"].bounces)
+    scene.lights[:] = lights0
+
+    # ---- the rows: kernel and plain times (CUDA events), bounds
+    def nbytes(*ts):
+        return float(sum(t.nbytes for t in ts))
+
+    lanes = float(sa_r.sum())
+    soft_steps = 0.0
+    p_q, act_q = softshadow.query_points(*hits, sun_d, False)
+    kh, km = ss.soft_shadow_gate(p_q, sun_np, e1, e2, cone_k, act_q,
+                                 wcfg.size)
+    traced = act_q & ~kh & ~km
+    for k in range(SOFT_SAMPLES):
+        dirs = softshadow.sample_dir(k, *p_q.unbind(1), sun_d)[:3]
+        start = torch.stack(softshadow.ray_start(*p_q.unbind(1), *dirs,
+                                                 sun_d), -1)
+        it = paged.trace_paged(grid, start, torch.stack(dirs, -1),
+                               max_steps, active=traced).iterations
+        soft_steps += float(it[traced].sum())
+    lf_args = checks["config 5 lights"].first
+    light_steps = near_n = 0.0
+    _, world_, block_ = shade._reconstruct(*lf_args[1:3], *lf_args[4:6])
+    shaded_ = lf_args[3] & ~bounce.mirror_lanes(lf_args[3], block_)
+    q_ = torch.stack(world_, -1)
+    table = bounce.light_table(lf_args[16])
+    for li in range(table.shape[0]):
+        lp = torch.as_tensor(table[li, :3], device=dev)
+        dist = (q_ - lp).norm(dim=-1)
+        near = shaded_ & (dist < bounce.LIGHT_RADIUS)
+        dirs = (q_ - lp) / dist.clamp(min=1e-6)[:, None]
+        it = paged.trace_paged(grid, lp.expand(n, 3).contiguous(),
+                               dirs.contiguous(), max_steps,
+                               active=near).iterations
+        near_n += float(near.sum())
+        light_steps += float(it[near].sum())
+    print(f"config 5 work: K14 cone gate {int(act_q.sum())} lit lanes, "
+          f"{int(traced.sum())} traced, {soft_steps:.0f} DDA sub-steps; "
+          f"K15 lights at bounce 0: {near_n:.0f} (lane, light) pairs, "
+          f"{light_steps:.0f} DDA sub-steps")
+    k15_moved = float(checks["config 5 lights"].bounces[0][6])
+    timed_rows = {
+        "paged_trace": (
+            lambda: paged.trace_paged(grid, o, d, max_steps, width=w,
+                                      stats=False),
+            lambda: paged.trace_paged_plain(grid, o, d, max_steps,
+                                            stats=False),
+            nbytes(o, d, *(getattr(res_k, f) for f in fields[:4]))
+            + rows_bytes(grid, "K16 primary", lambda r: paged.
+                         trace_paged_plain(grid, o, d, max_steps,
+                                           stats=False, rows_read=r)),
+            float(res_k.iterations.sum()) * OPS_PER_ITEM["jump_trace"]),
+        "masked_shadow_paged": (
+            lambda: ss.masked_shadow_from_hits(grid, *hits, sun_np, e1, e2,
+                                               grids_k, max_steps),
+            lambda: ss.masked_shadow_from_hits_plain(
+                grid, *hits, sun_np, e1, e2, grids_k, max_steps),
+            nbytes(*hits, grids_k[0], ms_k)
+            + rows_bytes(grid, "paged K12", lambda r: ss.
+                         masked_shadow_from_hits_plain(
+                             grid, *hits, sun_np, e1, e2, grids_k,
+                             max_steps, rows_read=r)),
+            lanes * OPS_PER_ITEM["masked_shadow"]
+            + n * OPS_PER_ITEM["shade_surface"]
+            + float(res_it.sum()) * OPS_PER_ITEM["jump_trace"]),
+        "soft_shadow_paged": (
+            lambda: softshadow.soft_shadow(grid, *hits, sun_np,
+                                           SOFT_SAMPLES, cl_k, max_steps,
+                                           gate=gate, width=w),
+            lambda: softshadow.soft_shadow_plain(
+                grid, *hits, sun_np, SOFT_SAMPLES, cl_k, max_steps,
+                gate=gate),
+            nbytes(*hits, cl_k, cone_k[0], soft["cone gate"][0])
+            + rows_bytes(grid, "paged K14, cone gate", lambda r: softshadow.
+                         soft_shadow_plain(grid, *hits, sun_np,
+                                           SOFT_SAMPLES, cl_k, max_steps,
+                                           gate=gate, rows_read=r)),
+            float(act_q.sum()) * SOFT_SAMPLES * OPS_PER_ITEM["soft_shadow"]
+            + soft_steps * OPS_PER_ITEM["jump_trace"]),
+        "shade_bounce_paged": (
+            lambda: bounce.shade_bounce(*lf_args),
+            lambda: bounce.shade_bounce_plain(*lf_args),
+            k15_moved + rows_bytes(grid, "paged K15, lights", lambda r:
+                                   bounce.shade_bounce_plain(*lf_args,
+                                                             rows_read=r)),
+            n * OPS_PER_ITEM["shade_bounce"] + near_n * LIGHT_OPS
+            + light_steps * OPS_PER_ITEM["jump_trace"]),
+    }
+    rows = []
+    for name, (kfn, pfn, moved, ops) in timed_rows.items():
+        k_ms, p_ms = cuda_ms(kfn, 10), cuda_ms(pfn, 1)
+        b_ms, b_by = bound_ms(moved, ops, "fp32")
+        k = kernels.KERNELS[name]
+        rows.append({"name": name, "route": "cuda", "source": k.source,
+                     "replaces": k.replaces,
+                     "launches": launches.get(f"c5 {name}", 0),
+                     "max_abs_err": errs[name], "ms": k_ms,
+                     "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by,
+                     "library_ms": None})
+        print(f"time {name} (1024^3): kernel {k_ms:.4f} ms, plain torch "
+              f"{p_ms:.4f} ms, bound {b_ms:.6f} ms ({b_by})")
+    scene.release_dense()
+    print(f"config 5 phase: {time.perf_counter() - t_phase:.1f} s, peak "
+          f"device memory {torch.cuda.max_memory_allocated(dev) / 2**20:.1f}"
+          f" MiB; rays at the cap: primary {cap_p}, shadow {cap_s}; frame "
+          f"medians {meds}")
+    return rows
 
 
 def main() -> int:
@@ -808,11 +1304,11 @@ def main() -> int:
     torch.cuda.synchronize()
     faces = renderer.scene.faces
     print(f"setup: {time.perf_counter() - t0:.2f} s (world generation, "
-          f"jump grid {tuple(renderer.scene.jumpgrid.rows.shape)}, "
+          f"jump grid {tuple(renderer.grid.rows.shape)}, "
           f"{faces[0].shape[0]} merged faces)")
     check(renderer.use_raster and renderer.use_sunmask,
           "the default knobs must resolve to the rasterizer and classifier")
-    grid = renderer.scene.jumpgrid
+    grid = renderer.grid
 
     def frames(r, label):
         r.render(cam, time=0.0)
@@ -1360,7 +1856,8 @@ def main() -> int:
     print(f"K1 at 33x67: primary ({int(r_odd.hit.sum())} hits) and shadow "
           f"({int(sa_odd.sum())} active) rays bit-exact vs plain in all four "
           f"forms")
-    for part in ("vvr_jump_trace_kernel", "vvr_masked_shadow_kernel"):
+    for part in ("vvr_trace_kernelI11VvrFlatView",
+                 "vvr_masked_shadow_kernel"):
         for name, regs, st, ld in kernels.ptxas_usage(part):
             print(f"ptxas: {name}: {regs} registers, spill stores {st} B, "
                   f"spill loads {ld} B")
@@ -1614,13 +2111,19 @@ def main() -> int:
     # the soft frames: the cone frame against the per-sample DDA frame, one
     # sky: HDR equal on every pixel but those lanes
     soft_sky = renderer._sky(0.25)
-    hdr_soft = {}
-    for label in ("soft, cone", "soft, DDA"):
+    hdr_soft, soft_calls = {}, {}
+
+    def soft_frame(grid_, label):
         r = soft_r[label]
-        hdr_soft[label] = render_frame(
-            grid, o, d, renderer.sun, 0.25, r.cfg, sky=soft_sky,
+        return render_frame(
+            grid_, o, d, renderer.sun, 0.25, r.cfg, sky=soft_sky,
             raster=(faces, rt.raster_camera(cam), probe),
             sunmask=r._sunmask() if r.use_sunmask else None)
+
+    for label in ("soft, cone", "soft, DDA"):
+        soft_calls[label] = []
+        with recorded_soft(frame_mod, soft_calls[label]):
+            hdr_soft[label] = soft_frame(grid, label)
     (img_c, hdr_c), (img_s, hdr_s) = hdr_soft.values()
     hdr_off = (hdr_c != hdr_s).any(-1).reshape(-1)
     check(not bool((hdr_off & other).any()), f"soft frames: the cone frame's "
@@ -1634,6 +2137,90 @@ def main() -> int:
           f"frame's on every pixel but the {int(hdr_off.sum())} tie lanes; "
           f"u8 pixels that differ: {u8_off}"
           f"{' (byte for byte)' if u8_off == 0 else ' (bloom spreads them)'}")
+
+    # the same frames on the paged grid of this world: with no near walk
+    # before its DDA (the JAX frame walks only the jump grid), the paged
+    # K14 answers each sample as the per-sample DDA. So at every K14 call
+    # the paged frame traces the jump frame's rays, its sample hits on the
+    # lanes the frame shades with equal the jump grid's DDA frame's, its
+    # HDR equals that frame's, and it differs from the jump grid's cone
+    # frame only on lanes where the jump gate's near walk and the DDA part
+    # at an exact tie (ROADMAP C8): each such sample ray goes to the
+    # oracle (sample_ties), which must agree with the walk. A bounce's
+    # ray that K16 and K1 answer apart (another hit, or the face or cell
+    # of a hit: a miss's face is the last face crossed, which the grids
+    # do not share) must be an exact tie that the oracle answers as one
+    # of them; its lane is printed and left out from there on.
+    pgrid = renderer.scene.ensure_paged()
+
+    def hit_of(h, lane):
+        return ((int(h[3][lane]), int(h[4][lane])) if bool(h[2][lane])
+                else "miss")
+
+    def paged_vs_jump(label, render, gate_calls, dda_calls, gate_frame,
+                      hdr_dda, shaded_of=lambda h: None):
+        img_gate, hdr_gate = gate_frame
+        calls = []
+        with recorded_soft(frame_mod, calls):
+            img_p, hdr_p = render(pgrid)
+        check(len(calls) == len(gate_calls) == len(dda_calls),
+              f"{label}: {len(calls)} paged K14 calls against "
+              f"{len(gate_calls)}")
+        ties, parted = set(), torch.zeros(n, dtype=torch.bool, device=dev)
+        for k, ((h_p, s_p), (h_g, s_g), (_, s_d)) in enumerate(
+                zip(calls, gate_calls, dda_calls)):
+            same = ((h_p[0] == h_g[0]).all(1) & (h_p[1] == h_g[1]).all(1)
+                    & (h_p[2] == h_g[2])
+                    & (~h_g[2] | ((h_p[3] == h_g[3]) & (h_p[4] == h_g[4]))))
+            check(bool((same | parted).all()), f"{label} call {k}: the "
+                  "paged frame traces other rays than the jump frame's")
+            for lane in torch.nonzero(~same & ~parted)[:, 0].tolist():
+                ora = trace_dense(occ, h_g[0][lane:lane + 1].cpu().numpy(),
+                                  h_g[1][lane:lane + 1].cpu().numpy())
+                o_hit = ((int(ora["face"][0]), int(ora["axis_coord"][0]))
+                         if ora["hit"][0] else "miss")
+                print(f"{label} call {k}: lane {lane} (pixel "
+                      f"{lane % cfg.width}, {lane // cfg.width}): K16 "
+                      f"{hit_of(h_p, lane)}, K1 {hit_of(h_g, lane)}, the "
+                      f"numpy oracle {o_hit} (face, cell; an exact tie)")
+                check(o_hit in (hit_of(h_p, lane), hit_of(h_g, lane)),
+                      f"{label} call {k}: lane {lane}: the oracle agrees "
+                      "with neither grid")
+                parted[lane] = True
+            check(int(parted.sum()) <= K1_ORACLE_SLACK, f"{label}: "
+                  f"{int(parted.sum())} lanes parted")
+            used = shaded_of(h_g)
+            used = ~parted if used is None else used & ~parted
+            ties |= set(sample_ties(softshadow, trace_dense, occ, h_g, s_g,
+                                    s_p, sun_d, cfg.width,
+                                    f"{label} call {k}, paged grid", used))
+            apart = (s_p != s_d).any(0) & used
+            check(not bool(apart.any()), f"{label} call {k}: the paged "
+                  f"K14's sample hits differ from the jump grid's DDA "
+                  f"frame's on {int(apart.sum())} lanes")
+        px = (hdr_p != hdr_dda).any(-1).reshape(-1) & ~parted
+        check(not bool(px.any()), f"{label}: the paged frame's HDR "
+              f"differs from the jump grid's DDA frame's on "
+              f"{int(px.sum())} pixels")
+        off = (hdr_p != hdr_gate).any(-1).reshape(-1)
+        away = off & ~parted
+        away[sorted(ties)] = False
+        check(not bool(away.any()), f"{label}: the paged frame's HDR "
+              f"differs from the jump cone frame's on {int(away.sum())} "
+              f"pixels off the tie lanes {sorted(ties)}")
+        print(f"{label}, paged against jump grid ({cfg.width}x{cfg.height})"
+              f": at all {len(calls)} K14 calls the same rays but on "
+              f"{int(parted.sum())} lanes parted at a tie (above); off "
+              f"them sample hits and HDR equal to the jump grid's DDA "
+              f"frame's; against its cone frame HDR equal on every pixel "
+              f"but {int(off.sum())}, the parted lanes and the tie lanes "
+              f"{sorted(ties)} where the oracle agrees with the jump gate's "
+              f"near walk; u8 pixels that differ: "
+              f"{int((img_p != img_gate).any(-1).sum())}")
+
+    paged_vs_jump("soft cone", lambda g: soft_frame(g, "soft, cone"),
+                  soft_calls["soft, cone"], soft_calls["soft, DDA"],
+                  (img_c, hdr_c), hdr_s)
     for name, regs, st, ld in (kernels.ptxas_usage("vvr_soft_shadow")
                                + kernels.ptxas_usage("vvr_generate_rays")):
         print(f"ptxas: {name}: {regs} registers, spill stores {st} B, "
@@ -1683,17 +2270,20 @@ def main() -> int:
             grid, o, d, renderer.sun, 0.25,
             dataclasses.replace(c4.cfg, sun_mask="off"), **c4_kw)
     c4_ties = set()
+
+    def shaded_of(h):
+        """The lanes shaded with a bounce's shadow: hits that are no
+        mirror."""
+        block = shade._reconstruct(*h[:2], *h[3:])[2]
+        return h[2] & ~bounce.mirror_lanes(h[2], block)
+
     for k, ((h_a, s_a), (h_o, s_o)) in enumerate(zip(soft_auto, soft_off)):
         check(all(torch.equal(x, y) for x, y in zip(h_a, h_o)),
               f"config 4 bounce {k}: the cone and DDA frames trace other "
               "rays")
-        # the lanes shaded with this bounce's shadow: hits that are no
-        # mirror
-        block = shade._reconstruct(*h_a[:2], *h_a[3:])[2]
-        shaded_k = h_a[2] & ~bounce.mirror_lanes(h_a[2], block)
         c4_ties |= set(sample_ties(softshadow, trace_dense, occ, h_a, s_a,
                                    s_o, sun_d, cfg.width,
-                                   f"config 4 bounce {k}", shaded_k))
+                                   f"config 4 bounce {k}", shaded_of(h_a)))
     off4 = (hdr4 != hdr4_off).any(-1).reshape(-1)
     away = off4.clone()
     away[sorted(c4_ties)] = False
@@ -1706,6 +2296,9 @@ def main() -> int:
           f"{len(c4_ties)} tie lanes {sorted(c4_ties)}; HDR equal on every "
           f"pixel but {int(off4.sum())}, all of them tie lanes; u8 pixels "
           f"that differ: {int((img4 != img4_off).any(-1).sum())}")
+    paged_vs_jump("config 4", lambda g: render_frame(
+        g, o, d, renderer.sun, 0.25, c4.cfg, sunmask=c4._sunmask(),
+        **c4_kw), soft_auto, soft_off, (img4, hdr4), hdr4_off, shaded_of)
 
     def kernel_vs_plain(label, cfg_, img_k, hdr_k_, **kw):
         before = dict(kernels.LAUNCHES)
@@ -2078,6 +2671,8 @@ def main() -> int:
         moved = float(bc.bounces[0][6])
         count = float(hit_.numel())
         if lights_ is not None:
+            moved += rows_bytes(grid, "K15, lights", lambda r: bounce.
+                                shade_bounce_plain(*args, rows_read=r))
             _, world_, block_ = shade._reconstruct(o_, d_, face_, ac_)
             shaded_ = hit_ & ~bounce.mirror_lanes(hit_, block_)
             q_ = torch.stack(world_, -1)
@@ -2100,6 +2695,11 @@ def main() -> int:
                       ) / OPS_PER_ITEM["shade_bounce"]
         return moved, count
 
+    def soft_rows(label, pix, gate):
+        return rows_bytes(grid, label, lambda r: softshadow.soft_shadow_plain(
+            grid, *hits, sun_np, SOFT_SAMPLES, cl_k, max_steps, pix,
+            gate=gate, rows_read=r))
+
     res_it = jump.trace_jump(grid, so_k, sun_d, max_steps,
                              active=residue).iterations[residue].float()
     res_steps = float(res_it.sum())
@@ -2116,13 +2716,19 @@ def main() -> int:
         "sun_grids_512": (nbytes(*faces[:8], grids_512[0]), pairs_512),
         # the starts of every hit (K2 shade_surface's operations), the
         # lit lanes' tests, the residue's DDA sub-steps
-        "masked_shadow": (nbytes(*hits, gk, grid.rows, ms_k),
+        "masked_shadow": (nbytes(*hits, gk, ms_k) + rows_bytes(
+            grid, "K12", lambda r: ss.masked_shadow_from_hits_plain(
+                grid, *hits, sun_np, e1, e2, grids_k, max_steps,
+                rows_read=r)),
                           lanes + (n * OPS_PER_ITEM["shade_surface"]
                                    + res_steps * OPS_PER_ITEM["jump_trace"])
                           / OPS_PER_ITEM["masked_shadow"]),
         # the frame's outputs (hit, face, axis_coord, t)
-        "jump_trace": (nbytes(o, d, grid.rows,
-                              *(getattr(res_k, f) for f in fields[:4])),
+        "jump_trace": (nbytes(o, d, *(getattr(res_k, f) for f in fields[:4]))
+                       + rows_bytes(grid, "K1 primary", lambda r: jump.
+                                    trace_jump_plain(grid, o, d, max_steps,
+                                                     stats=False,
+                                                     rows_read=r)),
                        float(res_k.iterations.sum())),
         "shade_surface": (nbytes(o, d, res_k.hit, res_k.face,
                                  res_k.axis_coord, so_k, sa_k), n),
@@ -2137,14 +2743,16 @@ def main() -> int:
         # three of the four channels of the HDR image and of mip 2
         "composite": (nbytes(hdr_k[:3], bloom_k[:3], img_k), h * w),
         "generate_rays": (nbytes(o, d), n),
-        "soft_shadow": (nbytes(*hits, grid.rows, cl_k,
-                               soft_out["soft_shadow"]),
+        "soft_shadow": (nbytes(*hits, cl_k, soft_out["soft_shadow"])
+                        + soft_rows("K14, every sample", False, None),
                         soft_items["soft_shadow"]),
-        "soft_shadow_cone": (nbytes(*hits, grid.rows, cl_k, cone_k[0],
-                                    soft_out["soft_shadow_cone"]),
+        "soft_shadow_cone": (nbytes(*hits, cl_k, cone_k[0],
+                                    soft_out["soft_shadow_cone"])
+                             + soft_rows("K14, cone gate", False, cone_gate),
                              soft_items["soft_shadow_cone"]),
-        "soft_shadow_pixelated": (nbytes(*hits, grid.rows, cl_k,
-                                         soft_out["soft_shadow_pixelated"]),
+        "soft_shadow_pixelated": (nbytes(*hits, cl_k,
+                                         soft_out["soft_shadow_pixelated"])
+                                  + soft_rows("K14, pixelated", True, None),
                                   soft_items["soft_shadow_pixelated"]),
         "shade_bounce": k15_work(c4_check),
         "shade_bounce_lights": k15_work(lf_check),
@@ -2199,7 +2807,10 @@ def main() -> int:
                                                active=ra, width=rw_,
                                                stats=st), 10)
         outs = [getattr(rr, f) for f in (fields if st else fields[:4])]
-        b_ms, b_by = bound_ms(nbytes(ro, rd, grid.rows, *outs),
+        moved = nbytes(ro, rd, *outs) + rows_bytes(
+            grid, f"K1 {label}", lambda r: jump.trace_jump_plain(
+                grid, ro, rd, max_steps, ra, stats=False, rows_read=r))
+        b_ms, b_by = bound_ms(moved,
                               OPS_PER_ITEM["jump_trace"]
                               * float(rr.iterations.sum()), "fp32")
         print(f"time jump_trace ({label}): kernel {k_ms:.4f} ms, bound "
@@ -2238,6 +2849,10 @@ def main() -> int:
         torch.cuda.synchronize()
     print(f"host us per call over {LAUNCH_CALLS} (64x2 table, 32 lanes): "
           + ", ".join(f"{k} {v:.3f}" for k, v in host.items()))
+
+    # ---- 5b. config 5, the 1024^3 world on the paged grid (phase 7 of
+    # the module docstring), its counters reset before each configuration
+    rows += config5_phase(repo, dev, errs, launches)
 
     # ---- 6. the gather microbenchmark's path, through its entry point
     gather_kernels = [k for k, v in kernels.KERNELS.items()

@@ -416,7 +416,7 @@ OUTSIDE = [
     ("debug_normals", {"debug_type": 3}, {}),
     ("debug_iterations", {"debug_type": 1}, {}),
     ("pyramid", {"traversal": "pyramid"}, {}),
-    ("paged", {"traversal": "paged"}, {}),
+    ("pyramid_1024", {"traversal": "pyramid"}, {"depth": 5}),
     ("jump2", {"traversal": "jump2"}, {}),
     ("debug_raster", {"debug_type": 0}, {}),
     ("dynamic", {}, {"dynamic_world": True}),
@@ -426,6 +426,10 @@ OUTSIDE = [
 @pytest.mark.parametrize("knobs,kwargs", [c[1:] for c in OUTSIDE],
                          ids=[c[0] for c in OUTSIDE])
 def test_outside_the_slice_raises(knobs, kwargs):
+    """`depth` in kwargs is the world's (3 unless given); the check comes
+    before the scene is built."""
     cfg = RenderConfig(**{**SLICE, **knobs})
+    kwargs = dict(kwargs)
+    depth = kwargs.pop("depth", 3)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Renderer(WorldConfig(depth=3), cfg, device="cpu", **kwargs)
+        Renderer(WorldConfig(depth=depth), cfg, device="cpu", **kwargs)

@@ -159,3 +159,21 @@ def test_the_table_matches_the_c_entry_point(name):
         types.append(_C_TYPES["void*" if "*" in param
                               else param.rsplit(" ", 1)[0]])
     assert types == list(k.argtypes)
+
+
+@pytest.mark.parametrize("flat,paged", [
+    ("jump_trace", "paged_trace"), ("masked_shadow", "masked_shadow_paged"),
+    ("soft_shadow", "soft_shadow_paged"),
+    ("shade_bounce", "shade_bounce_paged")])
+def test_the_paged_entries_port_trace_paged(flat, paged):
+    """K16 and the paged grid's forms of K12, K14 and K15 port the JAX
+    paged trace (vvr_tpu/ops/paged.py:322) and take their jump-grid
+    entry's arguments with the grid's (rows, size) replaced by (page
+    table, pool, size, page edge), from the same source."""
+    f, p = kernels.KERNELS[flat], kernels.KERNELS[paged]
+    assert "vvr_tpu/ops/paged.py:322" in p.replaces
+    assert p.path == "frame" and p.symbol == f"vvr_{paged}"
+    P, I = ctypes.c_void_p, ctypes.c_int
+    assert f.argtypes[:2] == (P, I)
+    assert p.argtypes == (P, P, I, I) + f.argtypes[2:]
+    assert p.source == f.source

@@ -31,9 +31,11 @@ from vvr_tpu_torch.ops import shade, sunshadow
 from vvr_tpu_torch.ops.jump import trace_jump_plain
 from vvr_tpu_torch.ops.raygen import camera_rays
 from vvr_tpu_torch.ops.rastertrace import raster_camera, trace_raster
+from vvr_tpu_torch.ops.trace import solid, tensors, trace_plain
 from vvr_tpu_torch.render.oracle import trace_dense
 from vvr_tpu_torch.utils.camera import Camera
 from vvr_tpu_torch.world.faces import extract_merged_faces
+from vvr_tpu_torch.world.paged import build_paged_grid
 
 # one intra-op thread: the suite runs six pytest workers on eight cores
 torch.set_num_threads(1)
@@ -308,6 +310,43 @@ def test_branches_partition_the_lanes(world, grids, surface):
     hits = (br == 2) | (br == 3) | (br == 5)
     lights = (br == 1) | (br == 4) | (br == 6) | (br == 7)
     assert not bool((hits & ~dda).any()) and not bool((lights & dda).any())
+
+
+@pytest.mark.parametrize("kind", ["jump", "paged"])
+def test_masked_shadow_records_the_rows_it_loads(kind, world, grids,
+                                                 surface):
+    """`rows_read` of the plain K12 (the bound's count of the bytes K12
+    needs) leaves its answer as it is and marks what its tests load: the
+    start voxel's rows of each active lane in the world, the near walk's
+    rows of the lanes past the certainty tests (jump grid only), and the
+    rows of the residue's DDA."""
+    grid = world[2] if kind == "jump" else build_paged_grid(world[0], "cpu")
+    (e1, e2, _), _, port = grids["default"]
+    s_o, act = surface
+    sun = SUNS["default"]
+
+    def marks():
+        return tuple(torch.zeros(t.shape[0], dtype=torch.bool)
+                     for t in tensors(grid))
+
+    read = marks()
+    got = sunshadow.masked_shadow_hits_plain(grid, s_o, sun, e1, e2, port,
+                                             act, STEPS, rows_read=read)
+    assert torch.equal(got, sunshadow.masked_shadow_hits_plain(
+        grid, s_o, sun, e1, e2, port, act, STEPS))
+    want = marks()
+    inw = ((s_o >= 0) & (s_o < 64)).all(1)
+    v = torch.floor(s_o[act & inw]).to(torch.int64)
+    solid(grid, v, want)
+    br = sunshadow.shadow_branches(grid, s_o, sun, e1, e2, port, act)
+    if kind == "jump":
+        sunshadow.near_segment_plain(grid, s_o[br >= 5], sun,
+                                     rows_read=want)
+    trace_plain(grid, s_o[br == 8], torch.from_numpy(sun), STEPS,
+                stats=False, rows_read=want)
+    for a, b in zip(read, want):
+        assert torch.equal(a, b)
+    assert int(read[-1].sum()) > 0
 
 
 def test_near_segment_equals_jax(world, surface):

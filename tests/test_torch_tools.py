@@ -207,7 +207,7 @@ def test_lane_use_counts_the_trips(tiled, tmp_path):
                         cache_path=tmp_path / "map.npz")
     cam = Camera.look_at([32, 28, 6], [32, 2, 45], fov=85)
     o, d = camera_rays(cam, 96, 64, "cpu")
-    out = lane_use.lane_use(scene.jumpgrid, o, d, None,
+    out = lane_use.lane_use(scene.ensure_jumpgrid(), o, d, None,
                             lane_use.warps(96 * 64, 96, tiled), 2048)
     assert out["traced"] == 96 * 64
     assert 0 < out["old_trips_both_bodies"] < 1
@@ -215,7 +215,7 @@ def test_lane_use_counts_the_trips(tiled, tmp_path):
             < out["old_lane_use_one_body"] <= 1)
     assert 0 < out["new_lane_use"] <= 1
     assert out["warp_trips_new"] < out["warp_trips_old"]
-    ref = trace_jump_plain(scene.jumpgrid, o, d, 2048)
+    ref = trace_jump_plain(scene.ensure_jumpgrid(), o, d, 2048)
     assert out["sub_steps_max"] == int(ref.iterations.max())
 
 
@@ -229,7 +229,7 @@ def test_lane_use_counts_k14_sample_trips(gate, tmp_path):
                         cache_path=tmp_path / "map.npz")
     cam = Camera.look_at([32, 28, 6], [32, 2, 45], fov=85)
     o, d = camera_rays(cam, 96, 64, "cpu")
-    r = trace_jump_plain(scene.jumpgrid, o, d, 2048, stats=False)
+    r = trace_jump_plain(scene.ensure_jumpgrid(), o, d, 2048, stats=False)
     sun = np.array([-0.28, 0.65, -0.71], np.float32)
     sun /= np.linalg.norm(sun)
     cone = None
@@ -238,7 +238,8 @@ def test_lane_use_counts_k14_sample_trips(gate, tmp_path):
         cone = (e1, e2, sunshadow.sun_grids(scene.ensure_faces(), e1, e2, s,
                                             64, 512, sunshadow.CONE_TAN))
     trips, traced, adds = lane_use.sample_trips(
-        scene.jumpgrid, (o, d, r.hit, r.face, r.axis_coord), sun, 4, 2048,
+        scene.ensure_jumpgrid(), (o, d, r.hit, r.face, r.axis_coord), sun, 4,
+        2048,
         gate=cone)
     assert trips.shape == (4, 96 * 64)
     assert bool((trips[:, ~traced] == 0).all()) and bool((trips > 0).any())

@@ -109,9 +109,10 @@ def test_world_cache_keyed_by_every_field(tmp_path, monkeypatch):
     assert paths[0] != paths[1]
     a, b = (build_scene(c, "cpu") for c in cfgs)
     assert all(p.exists() and tmp_path in p.parents for p in paths)
-    assert not torch.equal(a.jumpgrid.rows, b.jumpgrid.rows)
+    assert not torch.equal(a.ensure_jumpgrid().rows,
+                           b.ensure_jumpgrid().rows)
     again = build_scene(cfgs[1], "cpu")
-    assert torch.equal(again.jumpgrid.rows, b.jumpgrid.rows)
+    assert torch.equal(again.ensure_jumpgrid().rows, b.jumpgrid.rows)
 
 
 def test_world_cache_of_another_size_not_loaded(tmp_path, small_world):

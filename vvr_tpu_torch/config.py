@@ -71,10 +71,11 @@ class RenderConfig:
     # the JAX package's knobs (no reference analog)
     ray_tile: int = 4096            # JAX traversal batch; unused here
     traversal_max_steps: int = 256  # x8 = the jump tracer's sub-step cap
-    traversal: str = "auto"         # "jump" (the port's only tracer),
-                                    # "pyramid", "jump2", "paged"; "auto"
+    traversal: str = "auto"         # "jump", "paged" (the port's two
+                                    # tracers), "pyramid", "jump2"; "auto"
                                     # picks jump up to (size/8)^3 = 65536
-                                    # superbricks, as the JAX package does
+                                    # superbricks and paged beyond, as the
+                                    # JAX package does
     primary_raster: str = "auto"    # face rasterizer for primary rays:
                                     # "auto" = on for the main view
     sun_mask: str = "auto"          # sun-space hard-shadow classifier
@@ -99,6 +100,13 @@ class RenderConfig:
         if self.traversal in ("pyramid", "jump2", "paged"):
             return False
         return (world_size // 8) ** 3 <= 65536
+
+    def use_paged(self, world_size: int) -> bool:
+        """The paged two-level grid: explicit, or "auto" past 65536
+        superbricks (worlds past 512^3)."""
+        if self.traversal == "paged":
+            return True
+        return self.traversal == "auto" and (world_size // 8) ** 3 > 65536
 
     @property
     def render_width(self) -> int:

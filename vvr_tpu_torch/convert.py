@@ -14,6 +14,7 @@ import torch
 
 from vvr_tpu_torch.world.faces import FIELDS
 from vvr_tpu_torch.world.jumpgrid import ROW_WORDS, JumpGrid
+from vvr_tpu_torch.world.paged import PAGE_WORDS, POOL_WORDS, PagedGrid
 
 
 def jumpgrid_from_numpy(rows: np.ndarray, size: int,
@@ -24,6 +25,21 @@ def jumpgrid_from_numpy(rows: np.ndarray, size: int,
     if rows.shape != (g ** 3, ROW_WORDS):
         raise ValueError(f"rows {rows.shape} do not fit a {size}^3 grid")
     return JumpGrid(torch.from_numpy(rows.view(np.int32)).to(device), size)
+
+
+def paged_grid_from_numpy(prows: np.ndarray, brows: np.ndarray, size: int,
+                          device="cuda") -> PagedGrid:
+    """PagedGrid from `np.asarray` of vvr_tpu PagedGrid.prows ((P^3, 8)
+    u32) and .brows ((cap, 20) u32); `size` is the true world size."""
+    prows = np.array(prows, np.uint32)
+    brows = np.array(brows, np.uint32)
+    p = -(-size // 32)
+    if prows.shape != (p ** 3, PAGE_WORDS) or brows.ndim != 2 \
+            or brows.shape[1] != POOL_WORDS:
+        raise ValueError(f"tables {prows.shape}, {brows.shape} do not fit "
+                         f"a {size}^3 paged grid")
+    return PagedGrid(torch.from_numpy(prows.view(np.int32)).to(device),
+                     torch.from_numpy(brows.view(np.int32)).to(device), size)
 
 
 def sky_from_numpy(skybox: np.ndarray, clouds: np.ndarray,

@@ -26,9 +26,11 @@
 // texture reads and, with AO, eight taps of the 16 MiB density field; at
 // later bounces the live lanes' bytes and one flag byte of every lane.
 // With lights, up to ten DDA walks a shaded lane, each a chain of
-// dependent row loads like K1's.
+// dependent row loads like K1's. The grid is a template parameter
+// (grid_view.cuh): the jump grid's DDA (K1's) or, past 512^3, the paged
+// grid's (K16's), from one body.
 #include "clouds.cuh"
-#include "jump_dda.cuh"
+#include "grid_view.cuh"
 #include "shading.cuh"
 #include "surface.cuh"
 
@@ -43,9 +45,10 @@ struct VvrLights {
     float col[VVR_MAX_LIGHTS][3];
 };
 
+template <class View>
 struct VvrBounceArgs {
-    const uint32_t* rows;
-    int size, n, sky_res, cl_res, max_steps;
+    View grid;                  // grid_view.cuh: the jump or the paged grid
+    int n, sky_res, cl_res, max_steps;
     const float* o_in;
     const float* d_in;
     const float* col_in;        // null: every colour 1 (bounce 0)
@@ -157,9 +160,9 @@ static __device__ __forceinline__ float vvr_density_trilinear(
     return c0 * (1.0f - fz) + c1 * fz;
 }
 
-template <bool AO, bool LIGHTS, bool MIRROR, bool WAVY>
+template <class View, bool AO, bool LIGHTS, bool MIRROR, bool WAVY>
 __global__ void __launch_bounds__(VVR_K15_BLOCK) vvr_shade_bounce_kernel(
-        const VvrBounceArgs A, const VvrLights L) {
+        const VvrBounceArgs<View> A, const VvrLights L) {
     const int i = blockIdx.x * blockDim.x + threadIdx.x;
     if (i >= A.n) return;
     const bool first = A.active_in == nullptr;
@@ -181,7 +184,7 @@ __global__ void __launch_bounds__(VVR_K15_BLOCK) vvr_shade_bounce_kernel(
         const Surface s = vvr_reconstruct(ox, oy, oz, dx, dy, dz, A.face[i],
                                           A.axis_coord[i]);
         float ar = 1.0f, ag = 1.0f, ab = 1.0f;
-        if (s.bx > A.size / 2) {
+        if (s.bx > A.grid.size / 2) {
             float c0, c1, c2;
             vvr_block_colour(s.bx, s.by, s.bz, &c0, &c1, &c2);
             ar = c0 + (1.0f - c0) * 0.5f;
@@ -249,7 +252,7 @@ __global__ void __launch_bounds__(VVR_K15_BLOCK) vvr_shade_bounce_kernel(
             // negative axis
             const float ao = 1.0f - vvr_clamp(
                 vvr_density_trilinear(
-                    A.density, A.size,
+                    A.density, A.grid.size,
                     s.wx + (s.nx < 0.0f ? -2.0f : s.nx),
                     s.wy + (s.ny < 0.0f ? -2.0f : s.ny),
                     s.wz + (s.nz < 0.0f ? -2.0f : s.nz)) * 0.5f,
@@ -268,9 +271,8 @@ __global__ void __launch_bounds__(VVR_K15_BLOCK) vvr_shade_bounce_kernel(
                 if (!(dist < 10.0f)) continue;   // adds 0
                 const float inv = 1.0f / fmaxf(dist, 1e-6f);
                 const float ldx = tx * inv, ldy = ty * inv, ldz = tz * inv;
-                const JumpHit h = vvr_jump_trace_ray<false>(
-                    A.rows, A.size, lx, ly, lz, ldx, ldy, ldz, true,
-                    A.max_steps);
+                const JumpHit h = A.grid.template trace<false>(
+                    lx, ly, lz, ldx, ldy, ldz, true, A.max_steps);
                 const bool unshadowed = (h.t + 0.1f) > dist;
                 const float n_dot_l = vvr_clamp(
                     -((s.nx * ldx + s.ny * ldy) + s.nz * ldz), 0.0f, 1.0f);
@@ -306,18 +308,19 @@ __global__ void __launch_bounds__(VVR_K15_BLOCK) vvr_shade_bounce_kernel(
     if (MIRROR) A.active_out[i] = 0;
 }
 
-template <bool AO, bool LIGHTS>
-static void vvr_launch_bounce(const VvrBounceArgs& A, const VvrLights& L,
-                              bool mirror, bool wavy, cudaStream_t stream) {
+template <class View, bool AO, bool LIGHTS>
+static void vvr_launch_bounce(const VvrBounceArgs<View>& A,
+                              const VvrLights& L, bool mirror, bool wavy,
+                              cudaStream_t stream) {
     const unsigned blocks = vvr_blocks(A.n, VVR_K15_BLOCK);
     if (mirror && wavy) {
-        vvr_shade_bounce_kernel<AO, LIGHTS, true, true>
+        vvr_shade_bounce_kernel<View, AO, LIGHTS, true, true>
             <<<blocks, VVR_K15_BLOCK, 0, stream>>>(A, L);
     } else if (mirror) {
-        vvr_shade_bounce_kernel<AO, LIGHTS, true, false>
+        vvr_shade_bounce_kernel<View, AO, LIGHTS, true, false>
             <<<blocks, VVR_K15_BLOCK, 0, stream>>>(A, L);
     } else {
-        vvr_shade_bounce_kernel<AO, LIGHTS, false, false>
+        vvr_shade_bounce_kernel<View, AO, LIGHTS, false, false>
             <<<blocks, VVR_K15_BLOCK, 0, stream>>>(A, L);
     }
 }
@@ -329,9 +332,10 @@ static void vvr_launch_bounce(const VvrBounceArgs& A, const VvrLights& L,
 // continuation is written to o_out, d_out, col_out, active_out: the
 // mirror lanes' rays and colours and the live lanes' flags (every lane's
 // at bounce 0); after bounce 0 the buffers are the bounce's own inputs;
-// wavy only with mirror.
-extern "C" int vvr_shade_bounce(
-        const void* rows, int size, const void* o_in, const void* d_in,
+// wavy only with mirror. V: the grid's view (grid_view.cuh).
+template <class View>
+static int vvr_shade_bounce_launch(
+        const View& V, const void* o_in, const void* d_in,
         const void* col_in, const void* active_in, const void* hit,
         const void* face, const void* axis_coord, const void* shadow_hit,
         const void* shadow_factor, int n, const void* skybox, int sky_res,
@@ -348,9 +352,8 @@ extern "C" int vvr_shade_bounce(
         return (int)cudaErrorInvalidValue;
     }
     if (n <= 0) return (int)cudaGetLastError();
-    VvrBounceArgs A;
-    A.rows = (const uint32_t*)rows;
-    A.size = size;
+    VvrBounceArgs<View> A;
+    A.grid = V;
     A.n = n;
     A.sky_res = sky_res;
     A.cl_res = cl_res;
@@ -392,13 +395,55 @@ extern "C" int vvr_shade_bounce(
     const cudaStream_t st = (cudaStream_t)stream;
     const bool m = mirror != 0, w = wavy != 0;
     if (density != nullptr && n_lights > 0) {
-        vvr_launch_bounce<true, true>(A, L, m, w, st);
+        vvr_launch_bounce<View, true, true>(A, L, m, w, st);
     } else if (density != nullptr) {
-        vvr_launch_bounce<true, false>(A, L, m, w, st);
+        vvr_launch_bounce<View, true, false>(A, L, m, w, st);
     } else if (n_lights > 0) {
-        vvr_launch_bounce<false, true>(A, L, m, w, st);
+        vvr_launch_bounce<View, false, true>(A, L, m, w, st);
     } else {
-        vvr_launch_bounce<false, false>(A, L, m, w, st);
+        vvr_launch_bounce<View, false, false>(A, L, m, w, st);
     }
     return (int)cudaGetLastError();
+}
+
+// K15 on the jump grid
+extern "C" int vvr_shade_bounce(
+        const void* rows, int size, const void* o_in, const void* d_in,
+        const void* col_in, const void* active_in, const void* hit,
+        const void* face, const void* axis_coord, const void* shadow_hit,
+        const void* shadow_factor, int n, const void* skybox, int sky_res,
+        const void* clouds, int cl_res, float sx, float sy, float sz,
+        float cr, float cg, float cb, int pixelated, const void* density,
+        const void* lights, int n_lights, int max_steps, int mirror,
+        int wavy, float time, void* out, void* o_out, void* d_out,
+        void* col_out, void* active_out, void* stream) {
+    const VvrFlatView V = {(const uint32_t*)rows, size};
+    return vvr_shade_bounce_launch(
+        V, o_in, d_in, col_in, active_in, hit, face,
+        axis_coord, shadow_hit, shadow_factor, n, skybox, sky_res, clouds,
+        cl_res, sx, sy, sz, cr, cg, cb, pixelated, density, lights, n_lights,
+        max_steps, mirror, wavy, time, out, o_out, d_out, col_out,
+        active_out, stream);
+}
+
+// K15 on the paged grid (its page table, pool, size and page edge)
+extern "C" int vvr_shade_bounce_paged(
+        const void* prows, const void* brows, int size, int psize,
+        const void* o_in, const void* d_in,
+        const void* col_in, const void* active_in, const void* hit,
+        const void* face, const void* axis_coord, const void* shadow_hit,
+        const void* shadow_factor, int n, const void* skybox, int sky_res,
+        const void* clouds, int cl_res, float sx, float sy, float sz,
+        float cr, float cg, float cb, int pixelated, const void* density,
+        const void* lights, int n_lights, int max_steps, int mirror,
+        int wavy, float time, void* out, void* o_out, void* d_out,
+        void* col_out, void* active_out, void* stream) {
+    const VvrPagedView V = {(const uint32_t*)prows, (const uint32_t*)brows,
+                            size, psize};
+    return vvr_shade_bounce_launch(
+        V, o_in, d_in, col_in, active_in, hit, face,
+        axis_coord, shadow_hit, shadow_factor, n, skybox, sky_res, clouds,
+        cl_res, sx, sy, sz, cr, cg, cb, pixelated, density, lights, n_lights,
+        max_steps, mirror, wavy, time, out, o_out, d_out, col_out,
+        active_out, stream);
 }

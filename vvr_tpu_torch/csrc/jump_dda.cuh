@@ -1,5 +1,5 @@
 // The jump-grid DDA of one ray, as a __device__ function: K1
-// (jump_trace.cu) runs it per primary or shadow ray, and K12
+// (trace.cu) runs it per primary or shadow ray, and K12
 // (sunshadow.cu) runs it inline for its residue, without a second copy.
 //
 // Port of vvr_tpu/ops/jump.py `_make_stepper` (fetch :94-165, in-brick

@@ -14,7 +14,9 @@
 //     first crossings (sunmask.cuh vvr_near_segment), a world exit or a
 //     lift above p's cone gridC, then the jump-grid DDA of what is left
 //     (jump_dda.cuh, K12's shadow semantics); in DDA mode the DDA of every
-//     sample;
+//     sample. On the paged grid (grid_view.cuh's paged view, the 1024^3
+//     world) gate mode skips the walk, as the JAX frame does
+//     (frame.py:388), and every DDA is K16's (paged_dda.cuh);
 //  4. the factor: where(hit, 0, strength * (1 - cloud alpha along d_s)) / S
 //     added in sample order (0 on a miss), and, if asked, each sample's
 //     hit.
@@ -54,15 +56,16 @@
 // cost more than the trace gained); 64 and 256 threads a block and fewer
 // registers a thread (__launch_bounds__ minimum blocks) measured equal.
 #include "clouds.cuh"
-#include "jump_dda.cuh"
+#include "grid_view.cuh"
 #include "sunmask.cuh"
 #include "surface.cuh"
 
 #define VVR_K14_BLOCK 128
 
+template <class View>
 struct VvrSoftArgs {
-    const uint32_t* rows;
-    int size, samples, max_steps, cl_res;
+    View grid;               // grid_view.cuh: the jump or the paged grid
+    int samples, max_steps, cl_res;
     bool pixelated;
     float sx, sy, sz;
     const float* clouds;
@@ -128,31 +131,36 @@ static __device__ __forceinline__ float vvr_sample_strength(
     return powf(vvr_clamp(c, 0.0f, 1.0f), 40.0f);
 }
 
-// the hit of the sample ray from p along d: in gate mode its near walk
-// (a hit, a world exit or a lift above p's cone gridC row_c answers it)
-// and the DDA of what is left, in DDA mode the DDA
+// the hit of the sample ray from p along d: in gate mode on the jump grid
+// its near walk (a hit, a world exit or a lift above p's cone gridC row_c
+// answers it) and the DDA of what is left, else the grid's DDA (the JAX
+// frame walks only the jump grid, vvr_tpu/render/frame.py:388)
+template <class View>
 static __device__ __forceinline__ bool vvr_sample_hit(
-        const VvrSoftArgs& A, float px, float py, float pz, float dx,
+        const VvrSoftArgs<View>& A, float px, float py, float pz, float dx,
         float dy, float dz, float row_c) {
     const float ox = __fmaf_rn(dx, 0.05f, px + A.sx * 0.004f);
     const float oy = __fmaf_rn(dy, 0.05f, py + A.sy * 0.004f);
     const float oz = __fmaf_rn(dz, 0.05f, pz + A.sz * 0.004f);
-    if (A.gbc != nullptr) {   // near_walk_classify
-        const float fs = (float)A.size;
-        if (!(ox >= 0.0f && ox < fs && oy >= 0.0f && oy < fs && oz >= 0.0f
-              && oz < fs)) {
-            return false;
+    if constexpr (View::NEAR_WALK) {
+        if (A.gbc != nullptr) {   // near_walk_classify
+            const float fs = (float)A.grid.size;
+            if (!(ox >= 0.0f && ox < fs && oy >= 0.0f && oy < fs
+                  && oz >= 0.0f && oz < fs)) {
+                return false;
+            }
+            bool nh, nexit;
+            float t_end;
+            vvr_near_segment(A.grid.rows, A.grid.size, ox, oy, oz, dx, dy,
+                             dz, &nh, &nexit, &t_end);
+            const float lift = ((ox * A.sx + oy * A.sy) + oz * A.sz)
+                               + t_end * ((dx * A.sx + dy * A.sy)
+                                          + dz * A.sz);
+            if (nh || nexit || lift > row_c + VVR_SAFE) return nh;
         }
-        bool nh, nexit;
-        float t_end;
-        vvr_near_segment(A.rows, A.size, ox, oy, oz, dx, dy, dz, &nh, &nexit,
-                         &t_end);
-        const float lift = ((ox * A.sx + oy * A.sy) + oz * A.sz)
-                           + t_end * ((dx * A.sx + dy * A.sy) + dz * A.sz);
-        if (nh || nexit || lift > row_c + VVR_SAFE) return nh;
     }
-    return vvr_jump_trace_ray<false>(A.rows, A.size, ox, oy, oz, dx, dy, dz,
-                                     true, A.max_steps).hit;
+    return A.grid.template trace<false>(ox, oy, oz, dx, dy, dz, true,
+                                        A.max_steps).hit;
 }
 
 // lanes that serve one pixel in the sample rounds: the samples rounded up
@@ -184,9 +192,9 @@ struct VvrSoftRank {   // a pixel with samples to add, by rank
     int p;          // the pixel, its traced flag in the sign bit
 };
 
-template <int G>
+template <int G, class View>
 __global__ void __launch_bounds__(VVR_K14_BLOCK)
-vvr_soft_shadow_kernel(VvrSoftArgs A, const float* __restrict__ o,
+vvr_soft_shadow_kernel(VvrSoftArgs<View> A, const float* __restrict__ o,
                        const float* __restrict__ d,
                        const uint8_t* __restrict__ hit,
                        const int* __restrict__ face,
@@ -225,7 +233,7 @@ vvr_soft_shadow_kernel(VvrSoftArgs A, const float* __restrict__ o,
             ((q.nx * A.sx + q.ny * A.sy) + q.nz * A.sz) > 0.0f;
         bool km = false;
         if (A.gbc != nullptr) {   // the cone gate (soft_shadow_gate)
-            const float fs = (float)A.size;
+            const float fs = (float)A.grid.size;
             const bool inw = px >= 0.0f && px < fs && py >= 0.0f && py < fs
                              && pz >= 0.0f && pz < fs;
             const VvrSunRow r = vvr_sun_row(px, py, pz, A.B, A.gbc, A.G);
@@ -298,21 +306,20 @@ vvr_soft_shadow_kernel(VvrSoftArgs A, const float* __restrict__ o,
     }
 }
 
-extern "C" int vvr_soft_shadow(
-        const void* rows, int size, const void* o, const void* d,
-        const void* hit, const void* face, const void* axis_coord, int n,
-        int width, float sx, float sy, float sz, int samples, int pixelated,
-        const void* clouds, int cl_res, int max_steps, float e1x, float e1y,
-        float e1z, float e2x, float e2y, float e2z, const void* gbc,
-        int grid, float a0, float b0, float ts, void* factor, void* hits,
-        void* stream) {
+template <class View>
+static int vvr_soft_shadow_launch(
+        const View& V, const void* o, const void* d, const void* hit,
+        const void* face, const void* axis_coord, int n, int width, float sx,
+        float sy, float sz, int samples, int pixelated, const void* clouds,
+        int cl_res, int max_steps, float e1x, float e1y, float e1z,
+        float e2x, float e2y, float e2z, const void* gbc, int grid, float a0,
+        float b0, float ts, void* factor, void* hits, void* stream) {
     if (samples < 1 || cl_res < 1 || width < 0
         || (gbc != nullptr && grid < 1)) {
         return (int)cudaErrorInvalidValue;
     }
-    VvrSoftArgs A;
-    A.rows = (const uint32_t*)rows;
-    A.size = size;
+    VvrSoftArgs<View> A;
+    A.grid = V;
     A.samples = samples;
     A.max_steps = max_steps;
     A.cl_res = cl_res;
@@ -330,12 +337,12 @@ extern "C" int vvr_soft_shadow(
                             * ((((long long)n + width - 1) / width + 3) / 4)
                       : ((long long)n + 31) / 32;
         const int g = vvr_soft_lanes(samples);
-        auto kernel = g == 1    ? vvr_soft_shadow_kernel<1>
-                      : g == 2  ? vvr_soft_shadow_kernel<2>
-                      : g == 4  ? vvr_soft_shadow_kernel<4>
-                      : g == 8  ? vvr_soft_shadow_kernel<8>
-                      : g == 16 ? vvr_soft_shadow_kernel<16>
-                                : vvr_soft_shadow_kernel<32>;
+        auto kernel = g == 1    ? vvr_soft_shadow_kernel<1, View>
+                      : g == 2  ? vvr_soft_shadow_kernel<2, View>
+                      : g == 4  ? vvr_soft_shadow_kernel<4, View>
+                      : g == 8  ? vvr_soft_shadow_kernel<8, View>
+                      : g == 16 ? vvr_soft_shadow_kernel<16, View>
+                                : vvr_soft_shadow_kernel<32, View>;
         kernel<<<vvr_blocks(warps * 32, VVR_K14_BLOCK), VVR_K14_BLOCK, 0,
                  (cudaStream_t)stream>>>(
             A, (const float*)o, (const float*)d, (const uint8_t*)hit,
@@ -343,4 +350,39 @@ extern "C" int vvr_soft_shadow(
             (float*)factor, (uint8_t*)hits);
     }
     return (int)cudaGetLastError();
+}
+
+// K14 on the jump grid
+extern "C" int vvr_soft_shadow(
+        const void* rows, int size, const void* o, const void* d,
+        const void* hit, const void* face, const void* axis_coord, int n,
+        int width, float sx, float sy, float sz, int samples, int pixelated,
+        const void* clouds, int cl_res, int max_steps, float e1x, float e1y,
+        float e1z, float e2x, float e2y, float e2z, const void* gbc,
+        int grid, float a0, float b0, float ts, void* factor, void* hits,
+        void* stream) {
+    const VvrFlatView V = {(const uint32_t*)rows, size};
+    return vvr_soft_shadow_launch(V, o, d, hit, face, axis_coord, n, width,
+                                  sx, sy, sz, samples, pixelated, clouds,
+                                  cl_res, max_steps, e1x, e1y, e1z, e2x, e2y,
+                                  e2z, gbc, grid, a0, b0, ts, factor, hits,
+                                  stream);
+}
+
+// K14 on the paged grid (its page table, pool, size and page edge)
+extern "C" int vvr_soft_shadow_paged(
+        const void* prows, const void* brows, int size, int psize,
+        const void* o, const void* d, const void* hit, const void* face,
+        const void* axis_coord, int n, int width, float sx, float sy,
+        float sz, int samples, int pixelated, const void* clouds, int cl_res,
+        int max_steps, float e1x, float e1y, float e1z, float e2x, float e2y,
+        float e2z, const void* gbc, int grid, float a0, float b0, float ts,
+        void* factor, void* hits, void* stream) {
+    const VvrPagedView V = {(const uint32_t*)prows, (const uint32_t*)brows,
+                            size, psize};
+    return vvr_soft_shadow_launch(V, o, d, hit, face, axis_coord, n, width,
+                                  sx, sy, sz, samples, pixelated, clouds,
+                                  cl_res, max_steps, e1x, e1y, e1z, e2x, e2y,
+                                  e2z, gbc, grid, a0, b0, ts, factor, hits,
+                                  stream);
 }

@@ -81,8 +81,11 @@
 // (`_certain`, :525); an ambiguous lane walks its first 6 voxel crossings
 // (`_near_segment`, :536) and re-tests light at the lifted depth (:739);
 // only a lane still ambiguous runs the jump-grid DDA inline
-// (jump_dda.cuh). A start whose own voxel is solid is a hit first, as in
-// the DDA: the grids' light claim holds only for starts in empty space,
+// (jump_dda.cuh). On the paged grid (the 1024^3 world) the same kernel
+// body takes grid_view.cuh's paged view: no near walk, as the JAX frame
+// skips it there (vvr_tpu/render/frame.py:475), and the residue runs
+// K16's DDA (paged_dda.cuh). A start whose own voxel is solid is a hit
+// first, as in the DDA: the grids' light claim holds only for starts in empty space,
 // and the JAX version's surface-depth margin does not cover a start buried
 // deeper than 0.05 (a camera inside solid, whose primary hits sit at
 // t = 0). The TPU design's two-stage pack of the ambiguous lanes, its
@@ -112,8 +115,8 @@
 // residue to a queue and draining it in full warps after a grid sync (one
 // cooperative launch) was measured slower: the drain starts only when the
 // last lane is classified, and its longest DDA then runs alone.
+#include "grid_view.cuh"
 #include "items.cuh"
-#include "jump_dda.cuh"
 #include "sunmask.cuh"
 #include "surface.cuh"
 
@@ -915,16 +918,13 @@ extern "C" int vvr_sun_grids(
 
 // whether the voxel of an in-world start is solid (the DDA then hits at
 // t = 0)
-static __device__ __forceinline__ bool vvr_start_solid(
-        const uint32_t* __restrict__ rows, int size, float ox, float oy,
-        float oz) {
-    const int g = size >> 3;
-    const int vx = vvr_floor_clip(ox, 0, size - 1);
-    const int vy = vvr_floor_clip(oy, 0, size - 1);
-    const int vz = vvr_floor_clip(oz, 0, size - 1);
-    return vvr_brick_solid(
-        rows + (size_t)((vx >> 3) + (vy >> 3) * g + (vz >> 3) * g * g) * 32,
-        vx & 7, vy & 7, vz & 7);
+template <class View>
+static __device__ __forceinline__ bool vvr_start_solid(const View& V,
+                                                       float ox, float oy,
+                                                       float oz) {
+    return V.solid(vvr_floor_clip(ox, 0, V.size - 1),
+                   vvr_floor_clip(oy, 0, V.size - 1),
+                   vvr_floor_clip(oz, 0, V.size - 1));
 }
 
 // The lanes' inputs: the shadow rays' starts and their mask
@@ -967,12 +967,13 @@ static __device__ __forceinline__ bool vvr_lane_start(
 #define VVR_K12_SHADOW 1
 #define VVR_K12_RESIDUE 2
 
-// the answer for one start without the DDA, or VVR_K12_RESIDUE
+// the answer for one start without the DDA, or VVR_K12_RESIDUE; the
+// near walk only on the flat grid (grid_view.cuh)
+template <class View>
 static __device__ int vvr_classify_start(
-        const uint32_t* __restrict__ rows, int size, float ox, float oy,
-        float oz, const VvrSunBasis& B, const float2* __restrict__ gbc,
-        const VvrSunFrame& G, float back) {
-    const float fs = (float)size;
+        const View& V, float ox, float oy, float oz, const VvrSunBasis& B,
+        const float2* __restrict__ gbc, const VvrSunFrame& G, float back) {
+    const float fs = (float)V.size;
     const bool inw = ox >= 0.0f && ox < fs && oy >= 0.0f && oy < fs
                      && oz >= 0.0f && oz < fs;
     if (!inw) return VVR_K12_LIGHT;           // the DDA's origin-outside rule
@@ -980,50 +981,51 @@ static __device__ int vvr_classify_start(
     const float qz = r.qz;
     const bool inb = r.ing;
     const float2 row = r.row;
-    if (vvr_start_solid(rows, size, ox, oy, oz)) {
+    if (vvr_start_solid(V, ox, oy, oz)) {
         return VVR_K12_SHADOW;                // the DDA's start-in-solid hit
     }
     if (inb && qz < row.x - VVR_SAFE) return VVR_K12_SHADOW;  // certain
     if (inb && qz - back > row.y + VVR_SAFE) return VVR_K12_LIGHT;
-    bool nh, nexit;
-    float t_end;
-    vvr_near_segment(rows, size, ox, oy, oz, B.sx, B.sy, B.sz, &nh, &nexit,
-                     &t_end);
-    if (nh) return VVR_K12_SHADOW;
-    if (nexit || qz + t_end > row.y + VVR_SAFE) {
-        return VVR_K12_LIGHT;                 // left the world, or lifted
+    if constexpr (View::NEAR_WALK) {
+        bool nh, nexit;
+        float t_end;
+        vvr_near_segment(V.rows, V.size, ox, oy, oz, B.sx, B.sy, B.sz, &nh,
+                         &nexit, &t_end);
+        if (nh) return VVR_K12_SHADOW;
+        if (nexit || qz + t_end > row.y + VVR_SAFE) {
+            return VVR_K12_LIGHT;             // left the world, or lifted
+        }
     }
     return VVR_K12_RESIDUE;
 }
 
 // One thread per lane: its start (read, or computed from its primary
-// hit), the tests above, and, for a residue lane, the jump-grid DDA inline.
+// hit), the tests above, and, for a residue lane, the grid's DDA inline.
+template <class View>
 static __global__ void __launch_bounds__(128)
-vvr_masked_shadow_kernel(const uint32_t* __restrict__ rows, int size,
-                         VvrShadowLanes L, int n, VvrSunBasis B,
-                         const float2* __restrict__ gbc, VvrSunFrame G,
-                         float back, int max_steps,
+vvr_masked_shadow_kernel(const View V, VvrShadowLanes L, int n,
+                         VvrSunBasis B, const float2* __restrict__ gbc,
+                         VvrSunFrame G, float back, int max_steps,
                          uint8_t* __restrict__ out) {
     const int p = blockIdx.x * blockDim.x + threadIdx.x;
     if (p >= n) return;
     int r = VVR_K12_LIGHT;
     float ox, oy, oz;
     if (vvr_lane_start(L, p, B, &ox, &oy, &oz)) {
-        r = vvr_classify_start(rows, size, ox, oy, oz, B, gbc, G, back);
+        r = vvr_classify_start(V, ox, oy, oz, B, gbc, G, back);
         if (r == VVR_K12_RESIDUE) {
-            r = vvr_jump_trace_ray<false>(rows, size, ox, oy, oz, B.sx,
-                                          B.sy, B.sz, true, max_steps).hit
+            r = V.template trace<false>(ox, oy, oz, B.sx, B.sy, B.sz, true,
+                                        max_steps).hit
                     ? VVR_K12_SHADOW : VVR_K12_LIGHT;
         }
     }
     out[p] = (uint8_t)r;
 }
 
-// K12 over n lanes given as starts (s_o, active) or, with s_o null, as
-// the primary hits (o, d, hit, face, axis_coord)
-extern "C" int vvr_masked_shadow(
-        const void* rows, int size, const void* s_o, const void* active,
-        const void* o, const void* d, const void* hit, const void* face,
+template <class View>
+static int vvr_masked_shadow_launch(
+        const View& V, const void* s_o, const void* active, const void* o,
+        const void* d, const void* hit, const void* face,
         const void* axis_coord, int n, float sx, float sy, float sz,
         float e1x, float e1y, float e1z, float e2x, float e2y, float e2z,
         const void* gbc, int grid, float a0, float b0, float ts, float back,
@@ -1035,10 +1037,43 @@ extern "C" int vvr_masked_shadow(
     const VvrSunBasis B = {e1x, e1y, e1z, e2x, e2y, e2z, sx, sy, sz};
     const VvrSunFrame G = {a0, b0, ts, grid};
     if (n > 0) {
-        vvr_masked_shadow_kernel<<<vvr_blocks(n, 128), 128, 0,
-                                   (cudaStream_t)stream>>>(
-            (const uint32_t*)rows, size, L, n, B, (const float2*)gbc, G,
-            back, max_steps, (uint8_t*)out);
+        vvr_masked_shadow_kernel<View><<<vvr_blocks(n, 128), 128, 0,
+                                         (cudaStream_t)stream>>>(
+            V, L, n, B, (const float2*)gbc, G, back, max_steps,
+            (uint8_t*)out);
     }
     return (int)cudaGetLastError();
+}
+
+// K12 over n lanes given as starts (s_o, active) or, with s_o null, as
+// the primary hits (o, d, hit, face, axis_coord), on the jump grid
+extern "C" int vvr_masked_shadow(
+        const void* rows, int size, const void* s_o, const void* active,
+        const void* o, const void* d, const void* hit, const void* face,
+        const void* axis_coord, int n, float sx, float sy, float sz,
+        float e1x, float e1y, float e1z, float e2x, float e2y, float e2z,
+        const void* gbc, int grid, float a0, float b0, float ts, float back,
+        int max_steps, void* out, void* stream) {
+    const VvrFlatView V = {(const uint32_t*)rows, size};
+    return vvr_masked_shadow_launch(V, s_o, active, o, d, hit, face,
+                                    axis_coord, n, sx, sy, sz, e1x, e1y, e1z,
+                                    e2x, e2y, e2z, gbc, grid, a0, b0, ts,
+                                    back, max_steps, out, stream);
+}
+
+// the same on the paged grid (its page table, pool, size and page edge)
+extern "C" int vvr_masked_shadow_paged(
+        const void* prows, const void* brows, int size, int psize,
+        const void* s_o, const void* active, const void* o, const void* d,
+        const void* hit, const void* face, const void* axis_coord, int n,
+        float sx, float sy, float sz, float e1x, float e1y, float e1z,
+        float e2x, float e2y, float e2z, const void* gbc, int grid, float a0,
+        float b0, float ts, float back, int max_steps, void* out,
+        void* stream) {
+    const VvrPagedView V = {(const uint32_t*)prows, (const uint32_t*)brows,
+                            size, psize};
+    return vvr_masked_shadow_launch(V, s_o, active, o, d, hit, face,
+                                    axis_coord, n, sx, sy, sz, e1x, e1y, e1z,
+                                    e2x, e2y, e2z, gbc, grid, a0, b0, ts,
+                                    back, max_steps, out, stream);
 }

@@ -63,7 +63,7 @@ KERNELS = {
     "jump_trace": Kernel(
         "vvr_jump_trace", (_P, _I, _P, _P, _I, _P, _I, _I, _I) + (_P,) * 7
         + (_P,),
-        "vvr_tpu_torch/csrc/jump_trace.cu", "vvr_tpu/ops/jump.py:289"),
+        "vvr_tpu_torch/csrc/trace.cu", "vvr_tpu/ops/jump.py:289"),
     "shade_surface": Kernel(
         "vvr_shade_surface",
         (_P, _P, _P, _P, _P, _I, _F, _F, _F, _I, _P, _P, _P),
@@ -114,6 +114,31 @@ KERNELS = {
         (_P, _I) + (_P,) * 9 + (_I, _P, _I, _P, _I) + (_F,) * 6
         + (_I, _P, _P, _I, _I, _I, _I, _F) + (_P,) * 5 + (_P,),
         "vvr_tpu_torch/csrc/bounce.cu", "vvr_tpu/render/frame.py:192"),
+    "paged_trace": Kernel(
+        "vvr_paged_trace", (_P, _P, _I, _I, _P, _P, _I, _P, _I, _I, _I)
+        + (_P,) * 7 + (_P,),
+        "vvr_tpu_torch/csrc/trace.cu", "vvr_tpu/ops/paged.py:322"),
+    # the paged grid's instantiations of the kernels that trace inline
+    # (csrc/grid_view.cuh): the arguments of the jump-grid entry, with the
+    # grid's (rows, size) replaced by (page table, pool, size, page edge)
+    "masked_shadow_paged": Kernel(
+        "vvr_masked_shadow_paged",
+        (_P, _P, _I, _I) + (_P,) * 7 + (_I,) + (_F,) * 9 + (_P, _I)
+        + (_F,) * 4 + (_I, _P, _P),
+        "vvr_tpu_torch/csrc/sunshadow.cu",
+        "vvr_tpu/ops/sunshadow.py:654, vvr_tpu/ops/paged.py:322"),
+    "soft_shadow_paged": Kernel(
+        "vvr_soft_shadow_paged",
+        (_P, _P, _I, _I, _P, _P, _P, _P, _P, _I, _I, _F, _F, _F, _I, _I, _P,
+         _I, _I) + (_F,) * 6 + (_P, _I, _F, _F, _F, _P, _P, _P),
+        "vvr_tpu_torch/csrc/softshadow.cu",
+        "vvr_tpu/render/frame.py:308, vvr_tpu/ops/paged.py:322"),
+    "shade_bounce_paged": Kernel(
+        "vvr_shade_bounce_paged",
+        (_P, _P, _I, _I) + (_P,) * 9 + (_I, _P, _I, _P, _I) + (_F,) * 6
+        + (_I, _P, _P, _I, _I, _I, _I, _F) + (_P,) * 5 + (_P,),
+        "vvr_tpu_torch/csrc/bounce.cu",
+        "vvr_tpu/render/frame.py:192, vvr_tpu/ops/paged.py:322"),
     "gather_chain": Kernel(
         "vvr_gather_chain", (_P, _I, _I, _P, _I, _P, _I, _P, _U64, _P),
         "vvr_tpu_torch/csrc/gather.cu",

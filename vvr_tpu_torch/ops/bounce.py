@@ -16,8 +16,9 @@ or K1 at bounce 0, K1 over the live lanes after it) and its sun shadows
      modes), with `density` the filtered AO 1 - clip(trilinear density at
      w + n, -2 on a negative axis, * 0.5, 0, 1) (:270-277, world/svt.py),
      lit with visibility pow(ao, 1.4) (:488-492), then each of the first
-     ten `lights` within 10 units of the query point: a jump-grid DDA from
-     the light toward the point, unshadowed when t + 0.1 > dist, its n.l
+     ten `lights` within 10 units of the query point: the grid's DDA (the
+     jump grid's, or the paged grid's past 512^3) from the light toward
+     the point, unshadowed when t + 0.1 > dist, its n.l
      with a smoothstep falloff over 10 - dist over max(dist^2, 1e-4), in
      the light's colour (utils/hash.py `light_colours`), added in light
      order (:495-519); the output is the lane's colour times that;
@@ -55,14 +56,14 @@ import numpy as np
 import torch
 
 from vvr_tpu_torch import kernels
-from vvr_tpu_torch.ops.jump import BIG_T, trace_jump_plain
+from vvr_tpu_torch.ops import trace as tracer
+from vvr_tpu_torch.ops.jump import BIG_T
 from vvr_tpu_torch.ops.noise import snoise3
 from vvr_tpu_torch.ops.shade import (ROUGHNESS, _reconstruct,
                                      check_trace_inputs, lighting_soa,
                                      material_at_soa, pixelate)
 from vvr_tpu_torch.ops.sky import sample_clouds, sample_skybox
 from vvr_tpu_torch.utils.hash import hash13_soa, light_colours, sqrt32
-from vvr_tpu_torch.world.jumpgrid import JumpGrid
 from vvr_tpu_torch.world.svt import sample_density_trilinear
 
 F32 = torch.float32
@@ -107,12 +108,13 @@ def ambient_occlusion(density, world, normal):
                              0.0, 1.0)
 
 
-def add_lights(grid: JumpGrid, lit, table, shaded, q, normal,
-               max_steps: int):
+def add_lights(grid: tracer.Grid, lit, table, shaded, q, normal,
+               max_steps: int, rows_read=None):
     """`lit` (r, g, b) plus each light of `table` (light_table) in turn:
     the inverse-square, smoothstepped n.l term of the shaded lanes within
     LIGHT_RADIUS whose DDA from the light does not stop short of the query
-    point `q` (frame.py:495-519)."""
+    point `q` (frame.py:495-519). `rows_read` (as `tracer.trace_plain`
+    takes it) gets the rows the DDAs load."""
     nx, ny, nz = normal
     lit = list(lit)
     for li in range(table.shape[0]):
@@ -126,8 +128,9 @@ def add_lights(grid: JumpGrid, lit, table, shaded, q, normal,
         idx = torch.nonzero(near)[:, 0]
         if idx.numel():
             ld = torch.stack([lx, ly, lz], -1)[idx]
-            t[idx] = trace_jump_plain(grid, lp.expand(idx.numel(), 3), ld,
-                                      max_steps, stats=False).t
+            t[idx] = tracer.trace_plain(grid, lp.expand(idx.numel(), 3), ld,
+                                        max_steps, stats=False,
+                                        rows_read=rows_read).t
         unshadowed = (t + 0.1) > dist
         n_dot_l = torch.clamp(-((nx * lx + ny * ly) + nz * lz), 0.0, 1.0)
         s = torch.clamp(LIGHT_RADIUS - dist, 0.0, 1.0)
@@ -156,14 +159,14 @@ def continuation(o, d, world, normal, wavy: bool, time: float):
     return torch.stack(world, -1) + rf * CONTINUE_LIFT, rf
 
 
-def shade_bounce_plain(grid: JumpGrid, o, d, hit, face, axis_coord, shadow,
+def shade_bounce_plain(grid: tracer.Grid, o, d, hit, face, axis_coord, shadow,
                        skybox, clouds, sun, sun_col, out, col=None,
                        active=None, pixelated: bool = False, density=None,
                        lights=None, max_steps: int = 2048,
                        mirror: bool = False, wavy: bool = False,
-                       time: float = 0.0, nxt=None):
+                       time: float = 0.0, nxt=None, rows_read=None):
     """Plain torch K15 (the module docstring), writing `out` and `nxt` in
-    place; returns `out`."""
+    place; returns `out`. `rows_read` as `add_lights` takes it."""
     n = o.shape[0]
     dev = o.device
     sun, sun_col = sun.to(dev), sun_col.to(dev)
@@ -196,7 +199,7 @@ def shade_bounce_plain(grid: JumpGrid, o, d, hit, face, axis_coord, shadow,
                        sun, sun_col)
     if lights is not None:
         lit = add_lights(grid, lit, light_table(lights), shaded, q, normal,
-                         max_steps)
+                         max_steps, rows_read)
     sb = sample_skybox(skybox, dx, dy, dz)
     val = [torch.where(miss, colv[:, c] * (sb[:, c] + (cl[:, c] - sb[:, c])
                                            * cl[:, 3]),
@@ -223,7 +226,7 @@ def shade_bounce_plain(grid: JumpGrid, o, d, hit, face, axis_coord, shadow,
     return out
 
 
-def shade_bounce(grid: JumpGrid, o, d, hit, face, axis_coord, shadow,
+def shade_bounce(grid: tracer.Grid, o, d, hit, face, axis_coord, shadow,
                  skybox, clouds, sun, sun_col, out, col=None, active=None,
                  pixelated: bool = False, density=None, lights=None,
                  max_steps: int = 2048, mirror: bool = False,
@@ -256,9 +259,9 @@ def shade_bounce(grid: JumpGrid, o, d, hit, face, axis_coord, shadow,
             or clouds.data_ptr() % 16:
         raise ValueError("skybox must be (6, R, R, 3), clouds (R, R, 4), "
                          "float32, the clouds 16-byte aligned")
-    if grid.rows.dtype != torch.int32 or grid.rows.data_ptr() % 16:
-        raise ValueError("jump-grid rows must be int32, 16-byte aligned")
-    tensors = [grid.rows, o, d, hit, face, axis_coord, skybox, clouds, out]
+    name, grid_args = tracer.kernel_args("shade_bounce", grid)
+    tensors = [*tracer.tensors(grid), o, d, hit, face, axis_coord, skybox,
+               clouds, out]
     hits = factor = None
     if shadow is not None:
         if shadow.shape != (n,) or shadow.dtype not in (torch.bool, F32):
@@ -302,8 +305,7 @@ def shade_bounce(grid: JumpGrid, o, d, hit, face, axis_coord, shadow,
              else np.zeros((0, 6), np.float32))
     s = [float(c) for c in sun.cpu()]
     c = [float(v) for v in sun_col.cpu()]
-    kernels.launch("shade_bounce", o.device, grid.rows.data_ptr(), grid.size,
-                   o.data_ptr(), d.data_ptr(),
+    kernels.launch(name, o.device, *grid_args, o.data_ptr(), d.data_ptr(),
                    0 if col is None else col.data_ptr(),
                    0 if active is None else active.data_ptr(),
                    hit.data_ptr(), face.data_ptr(), axis_coord.data_ptr(),

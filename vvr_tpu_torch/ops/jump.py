@@ -1,4 +1,4 @@
-"""Distance-jump superbrick traversal — kernel K1 (csrc/jump_trace.cu).
+"""Distance-jump superbrick traversal — kernel K1 (csrc/trace.cu).
 
 Replaces vvr_tpu/ops/jump.py `trace_jump` (its `_make_stepper`,
 `_make_ray`, `_init_state` and `_outputs`). Each ray runs a flat DDA over
@@ -116,15 +116,17 @@ def tile_ray_index(width: int, height: int) -> torch.Tensor:
 
 
 def trace_jump_plain(grid: JumpGrid, ray_o, ray_d, max_steps: int = 2048,
-                     active=None, stats: bool = True,
-                     on_trip=None) -> TraceResult:
+                     active=None, stats: bool = True, on_trip=None,
+                     rows_read=None) -> TraceResult:
     """Plain torch version of K1, in its form: per loop trip, on the
     compacted set of active rays, a ray waiting for a row loads it, and
     every ray that neither hit nor stopped then takes one box exit (its
     jump, or the in-brick step after its solid test). `on_trip(loaded,
     stepped)`, if given, sees each trip's work: the indices of the rays
     that loaded a row and of those that took an in-brick step
-    (tools/lane_use.py counts the lanes of a warp's trips with it)."""
+    (tools/lane_use.py counts the lanes of a warp's trips with it).
+    `rows_read`, a 1-tuple of a bool tensor as long as the rows, gets True
+    at every row the rays load (what a trace must read, for its bound)."""
     dev = ray_o.device
     n = ray_o.shape[0]
     size, g = grid.size, grid.gsize
@@ -160,6 +162,8 @@ def trace_jump_plain(grid: JumpGrid, ray_o, ray_d, max_steps: int = 2048,
             break
         # ---- load the row of each ray that waits for one
         fi = idx[pend[idx]]
+        if rows_read is not None:
+            rows_read[0][addr[fi]] = True
         dval = rows[addr[fi], 24 + octant[fi]]
         it[fi] += 1
         fe[fi] += 1
@@ -242,23 +246,38 @@ def trace_jump(grid: JumpGrid, ray_o, ray_d, max_steps: int = 2048,
     image's pixels, row-major, `width` to a row; the kernel then gives
     each warp an 8x4 pixel tile (the outputs do not change). `stats=False`
     leaves the counters out (None): the kernel does not write them."""
-    n = ray_o.shape[0]
-    if width is not None and (width <= 0 or n % width):
-        raise ValueError(f"{n} rays are not rows of width {width}")
+    check_width(ray_o.shape[0], width)
     if not kernels.on_cuda(ray_o):
         return trace_jump_plain(grid, ray_o, ray_d, max_steps, active, stats)
+    if grid.rows.dtype != torch.int32:
+        raise ValueError("jump-grid rows must be int32 (u32 bit patterns)")
+    if grid.rows.data_ptr() % 16:
+        raise ValueError("jump-grid rows must be 16-byte aligned (the "
+                         "kernel loads 4 words at a time)")
+    return launch_trace("jump_trace", [grid.rows.data_ptr(), grid.size],
+                        [grid.rows], ray_o, ray_d, max_steps, active, width,
+                        stats)
+
+
+def check_width(n: int, width: int | None) -> None:
+    if width is not None and (width <= 0 or n % width):
+        raise ValueError(f"{n} rays are not rows of width {width}")
+
+
+def launch_trace(name: str, grid_args: list, tables: list, ray_o, ray_d,
+                 max_steps: int, active, width: int | None,
+                 stats: bool) -> TraceResult:
+    """Launch the trace kernel `name` (K1 or K16, csrc/trace.cu) on CUDA
+    rays: the grid's launch arguments `grid_args`, its device `tables`;
+    the rest as `trace_jump`."""
+    n = ray_o.shape[0]
     if ray_o.shape != (n, 3) or ray_d.shape not in ((n, 3), (3,)):
         raise ValueError(f"rays must be (N, 3) with (N, 3) or (3,) "
                          f"directions, got {tuple(ray_o.shape)} and "
                          f"{tuple(ray_d.shape)}")
     if ray_o.dtype != torch.float32 or ray_d.dtype != torch.float32:
         raise ValueError("rays must be float32")
-    if grid.rows.dtype != torch.int32:
-        raise ValueError("jump-grid rows must be int32 (u32 bit patterns)")
-    if grid.rows.data_ptr() % 16:
-        raise ValueError("jump-grid rows must be 16-byte aligned (the "
-                         "kernel loads 4 words at a time)")
-    tensors = [grid.rows, ray_o, ray_d]
+    tensors = [*tables, ray_o, ray_d]
     if active is not None:
         if active.dtype != torch.bool or active.shape != (n,):
             raise ValueError("active must be a (N,) bool tensor")
@@ -272,8 +291,8 @@ def trace_jump(grid: JumpGrid, ray_o, ray_d, max_steps: int = 2048,
     counters = ([torch.empty(n, dtype=torch.int32, device=dev)
                  for _ in range(3)] if stats else [None] * 3)
     kernels.launch(
-        "jump_trace", dev, grid.rows.data_ptr(), grid.size,
-        ray_o.data_ptr(), ray_d.data_ptr(), 3 if ray_d.dim() == 2 else 0,
+        name, dev, *grid_args, ray_o.data_ptr(), ray_d.data_ptr(),
+        3 if ray_d.dim() == 2 else 0,
         0 if active is None else active.data_ptr(), n, width or 0,
         max_steps, hit.data_ptr(), face.data_ptr(), axis_coord.data_ptr(),
         t.data_ptr(), *(0 if c is None else c.data_ptr() for c in counters))

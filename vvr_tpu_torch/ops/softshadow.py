@@ -13,10 +13,11 @@ for the slice (bounce 0, no mirrors). For each primary hit:
      nothing (:320-331);
   4. per sample s of S: the jittered direction and its strength
      (`sample_dir`, :339-354), the start p + sun * 0.004 + d_s * 0.05
-     (`ray_start`, :356-359), the sample's hit: the jump-grid DDA of a
-     shadow lane (after, with the gate, `near_walk_classify` against the
-     cone gridC of p's texel, :391-425), and its cloud alpha along d_s from
-     p (:455-459);
+     (`ray_start`, :356-359), the sample's hit: the grid's DDA of a
+     shadow lane (after, with the gate on the jump grid,
+     `near_walk_classify` against the cone gridC of p's texel, :391-425;
+     the JAX frame walks no paged grid, :388), and its cloud alpha along
+     d_s from p (:455-459);
   5. the factor, summed in sample order: shadow += where(hit, 0, strength
      * (1 - cloud alpha)) / S (:460-464). Lanes that trace nothing (hits
      facing away from the sun) still add their unshadowed terms, as the
@@ -54,11 +55,10 @@ import torch
 
 from vvr_tpu_torch import kernels
 from vvr_tpu_torch.ops import sunshadow
-from vvr_tpu_torch.ops.jump import trace_jump_plain
+from vvr_tpu_torch.ops import trace as tracer
 from vvr_tpu_torch.ops.shade import _reconstruct, check_trace_inputs
 from vvr_tpu_torch.ops.sky import sample_clouds
 from vvr_tpu_torch.utils.hash import _fma, _fract, sqrt32
-from vvr_tpu_torch.world.jumpgrid import JumpGrid
 
 F32 = torch.float32
 C1 = 23.12123545          # the jitter hash's input scale (frame.py:344)
@@ -129,12 +129,14 @@ def query_points(o, d, hit, face, axis_coord, sun, pixelated: bool):
     return p, hit & facing
 
 
-def sample_hits_plain(grid: JumpGrid, o, d, hit, face, axis_coord, sun3,
+def sample_hits_plain(grid: tracer.Grid, o, d, hit, face, axis_coord, sun3,
                       samples: int, max_steps: int, pixelated: bool = False,
-                      gate=None):
+                      gate=None, rows_read=None):
     """Each sample's shadow hit (S, N) bool of the primary hits (steps 1-4
     of the module docstring). `gate`: (e1, e2, cone grids) of the cone
-    classifier, or None to trace every shadow lane's samples."""
+    classifier, or None to trace every shadow lane's samples. `rows_read`
+    (as `tracer.trace_plain` takes it) gets the rows the walks and the
+    DDAs load."""
     dev = o.device
     sun = torch.as_tensor(np.asarray(sun3, np.float32)).to(dev)
     p, active = query_points(o, d, hit, face, axis_coord, sun, pixelated)
@@ -154,16 +156,18 @@ def sample_hits_plain(grid: JumpGrid, o, d, hit, face, axis_coord, sun3,
         dirs = torch.stack(dirs, -1)
         run = traced
         s_dda = torch.zeros(n, dtype=torch.bool, device=dev)
-        if gate is not None:
+        if gate is not None and tracer.near_walk(grid):
             idx = torch.nonzero(traced)[:, 0]
             wh, wm = sunshadow.near_walk_classify(
-                grid, start[idx], dirs[idx], row_c[idx], sun3, grid.size)
+                grid, start[idx], dirs[idx], row_c[idx], sun3, grid.size,
+                rows_read)
             s_dda[idx[wh]] = True
             run = torch.zeros_like(traced)
             run[idx[~wh & ~wm]] = True
         idx = torch.nonzero(run)[:, 0]
-        s_dda[idx] = trace_jump_plain(grid, start[idx], dirs[idx], max_steps,
-                                      stats=False).hit
+        s_dda[idx] = tracer.trace_plain(grid, start[idx], dirs[idx],
+                                        max_steps, stats=False,
+                                        rows_read=rows_read).hit
         hits.append(kh | (~km & s_dda))
     return torch.stack(hits)
 
@@ -186,13 +190,13 @@ def shadow_factor_plain(o, d, hit, face, axis_coord, sun3, hits, clouds,
     return torch.where(hit, shadow, 0.0)
 
 
-def soft_shadow_plain(grid: JumpGrid, o, d, hit, face, axis_coord, sun3,
+def soft_shadow_plain(grid: tracer.Grid, o, d, hit, face, axis_coord, sun3,
                       samples: int, clouds, max_steps: int,
-                      pixelated: bool = False, gate=None):
+                      pixelated: bool = False, gate=None, rows_read=None):
     """Plain torch K14: (shadow factor (N,) f32, per-sample hits (S, N)
-    bool)."""
+    bool); `rows_read` as `sample_hits_plain` takes it."""
     hits = sample_hits_plain(grid, o, d, hit, face, axis_coord, sun3,
-                             samples, max_steps, pixelated, gate)
+                             samples, max_steps, pixelated, gate, rows_read)
     return (shadow_factor_plain(o, d, hit, face, axis_coord, sun3, hits,
                                 clouds, pixelated), hits)
 
@@ -261,7 +265,7 @@ def soft_lane_map(n: int, width: int, samples: int, traced, adds):
     return torch.where(ok, got, -1), torch.where(ok, smp, -1)
 
 
-def soft_shadow(grid: JumpGrid, o, d, hit, face, axis_coord, sun3,
+def soft_shadow(grid: tracer.Grid, o, d, hit, face, axis_coord, sun3,
                 samples: int, clouds, max_steps: int,
                 pixelated: bool = False, gate=None, with_hits: bool = False,
                 width: int = 0):
@@ -288,7 +292,8 @@ def soft_shadow(grid: JumpGrid, o, d, hit, face, axis_coord, sun3,
                          "aligned")
     n = o.shape[0]
     dev = o.device
-    tensors = [grid.rows, o, d, hit, face, axis_coord, clouds]
+    name, grid_args = tracer.kernel_args("soft_shadow", grid)
+    tensors = [*tracer.tensors(grid), o, d, hit, face, axis_coord, clouds]
     basis = [0.0] * 6
     gbc_ptr, g, frame = 0, 0, (0.0, 0.0, 0.0)
     if gate is not None:
@@ -303,9 +308,9 @@ def soft_shadow(grid: JumpGrid, o, d, hit, face, axis_coord, sun3,
     factor = torch.empty(n, dtype=F32, device=dev)
     hits = (torch.empty((samples, n), dtype=torch.bool, device=dev)
             if with_hits else None)
-    kernels.launch("soft_shadow", dev, grid.rows.data_ptr(), grid.size,
-                   o.data_ptr(), d.data_ptr(), hit.data_ptr(),
-                   face.data_ptr(), axis_coord.data_ptr(), n, width,
+    kernels.launch(name, dev, *grid_args, o.data_ptr(), d.data_ptr(),
+                   hit.data_ptr(), face.data_ptr(), axis_coord.data_ptr(), n,
+                   width,
                    *(float(c) for c in np.asarray(sun3, np.float32)[:3]),
                    samples, int(pixelated), clouds.data_ptr(),
                    clouds.shape[0], max_steps, *basis, gbc_ptr, g, *frame,

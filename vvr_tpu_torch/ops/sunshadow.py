@@ -25,8 +25,11 @@ those faces, answer most lanes with one table read:
 
 A lane neither certain walks its first six voxel crossings (a hit there is
 the DDA's hit; a miss lifts the query above the local wall), and only what
-is still ambiguous runs the jump-grid DDA. The answer equals the DDA's for
-every lane whose DDA ends within its step cap.
+is still ambiguous runs the jump-grid DDA. On the paged grid (worlds past
+512^3) there is no walk, as in the JAX frame (vvr_tpu/render/frame.py:475):
+every lane the grids leave ambiguous runs the paged DDA (K16's, inline).
+The answer equals the DDA's for every lane whose DDA ends within its step
+cap.
 
 The frame calls `masked_shadow_from_hits` with its primary hits: on the
 card K12 computes each lane's start and mask from them in registers, with
@@ -61,7 +64,7 @@ import numpy as np
 import torch
 
 from vvr_tpu_torch import kernels
-from vvr_tpu_torch.ops.jump import trace_jump_plain
+from vvr_tpu_torch.ops import trace as tracer
 from vvr_tpu_torch.ops.shade import (check_trace_inputs,
                                      shade_surface_plain)
 from vvr_tpu_torch.utils.hash import sqrt32
@@ -501,13 +504,15 @@ def sun_grids(faces, e1, e2, s, size: int, grid: int = GRID,
     return gbc, a0, b0, ts
 
 
-def near_segment_plain(grid: JumpGrid, p_o, sun3, k: int = NEAR_K):
+def near_segment_plain(grid: JumpGrid, p_o, sun3, k: int = NEAR_K,
+                       rows_read=None):
     """(hit, exited, t_end) of the first k voxel crossings from p_o along
     the sun (`_near_segment`): hit = entered solid within the segment;
     exited = left the world; t_end = the entry parameter of the last cell
     tested empty. The plain voxel step of the DDA, so a hit is the DDA's.
     `sun3` is one direction for every lane, or an (N, 3) tensor of them
-    (the soft path's jittered samples)."""
+    (the soft path's jittered samples). `rows_read` (as `trace_jump_plain`
+    takes it) gets True at the row of every voxel the walk tests."""
     dev = p_o.device
     size, g = grid.size, grid.gsize
     rows = grid.rows.to(torch.int64) & MASK32
@@ -528,6 +533,8 @@ def near_segment_plain(grid: JumpGrid, p_o, sun3, k: int = NEAR_K):
     alive = torch.ones(n, dtype=torch.bool, device=dev)
     for _ in range(k):
         addr = (v[:, 0] >> 3) + (v[:, 1] >> 3) * g + (v[:, 2] >> 3) * g * g
+        if rows_read is not None:
+            rows_read[0][addr[alive]] = True
         lc = v & 7
         solid = brick_solid(rows[addr], lc[:, 0], lc[:, 1], lc[:, 2])
         hit |= alive & solid
@@ -594,16 +601,19 @@ def surface_row_c(s_base, sun3, e1, e2, grids, size: int):
     return torch.where(ing, row[:, 1], 3e38)
 
 
-def near_walk_classify(grid: JumpGrid, p_o, p_d, row_c, sun3, size: int):
+def near_walk_classify(grid: JumpGrid, p_o, p_d, row_c, sun3, size: int,
+                       rows_read=None):
     """(known hit, known miss) of soft-shadow sample rays from p_o along
     their own directions p_d (N, 3) (`near_walk_classify`, :617): the
     first NEAR_K voxel crossings exactly (a hit there is the DDA's), then
     a miss is certain where the walk left the world or lifted the ray's
     depth above its surface texel's cone gridC row_c + SAFE (every later
     crossing would lie above every one the cone grids registered). A start
-    outside the world is a miss. Lanes in neither run the DDA."""
+    outside the world is a miss. Lanes in neither run the DDA. `rows_read`
+    as `near_segment_plain` takes it."""
     inw = ((p_o >= 0) & (p_o < size)).all(1)
-    nh, nexit, t_end = near_segment_plain(grid, p_o, p_d)
+    nh, nexit, t_end = near_segment_plain(grid, p_o, p_d,
+                                          rows_read=rows_read)
     sun = torch.as_tensor(np.asarray(sun3, np.float32), device=p_o.device)
     ox, oy, oz = p_o.unbind(1)
     dx, dy, dz = p_d.unbind(1)
@@ -631,77 +641,91 @@ BRANCHES = ("inactive", "outside", "buried", "certain shadow",
             "certain light", "near-walk hit", "exit", "lift", "residue")
 
 
-def shadow_branches(grid: JumpGrid, s_o, sun3, e1, e2, grids, active,
-                    back: float = BACK):
+def shadow_branches(grid: tracer.Grid, s_o, sun3, e1, e2, grids, active,
+                    back: float = BACK, rows_read=None):
     """(N,) int64: for each lane, the index in BRANCHES of the test that
     answers it in K12: a start outside the world (light), a buried start
-    (hit), certain shadow, certain light, then the near walk's hit, its
-    exit from the world and its lift (light), and the residue the DDA
-    answers."""
+    (hit), certain shadow, certain light, then, on the jump grid, the near
+    walk's hit, its exit from the world and its lift (light), and the
+    residue the DDA answers (on the paged grid every lane left after the
+    certainty tests: the JAX frame walks only the jump grid). `rows_read`
+    (as `tracer.trace_plain` takes it) gets the rows K12's tests load: the
+    start voxel's of each active lane in the world, the walk's."""
     shadow, light, inw, qz, row_c = certain(s_o, sun3, e1, e2, grids,
                                             grid.size, back)
     v = torch.clamp(torch.floor(s_o), 0, grid.size - 1).to(torch.int64)
-    g = grid.gsize
-    words = grid.rows[(v[:, 0] >> 3) + (v[:, 1] >> 3) * g
-                      + (v[:, 2] >> 3) * g * g].to(torch.int64) & MASK32
-    buried = brick_solid(words, v[:, 0] & 7, v[:, 1] & 7, v[:, 2] & 7)
+    buried = tracer.solid(grid, v)
+    if rows_read is not None:
+        tracer.solid(grid, v[active & inw], rows_read)
     br = torch.zeros(s_o.shape[0], dtype=torch.int64, device=s_o.device)
     rest = active.clone()
     for code, cond in ((1, ~inw), (2, buried), (3, shadow), (4, light)):
         br[rest & cond] = code
         rest &= ~cond
     amb = torch.nonzero(rest)[:, 0]
-    nh, nexit, t_end = near_segment_plain(grid, s_o[amb], sun3)
+    if not tracer.near_walk(grid):
+        br[amb] = 8
+        return br
+    nh, nexit, t_end = near_segment_plain(grid, s_o[amb], sun3,
+                                          rows_read=rows_read)
     lift = qz[amb] + t_end > row_c[amb] + SAFE
     br[amb] = torch.where(nh, 5, torch.where(nexit, 6,
                                              torch.where(lift, 7, 8)))
     return br
 
 
-def masked_shadow_hits_plain(grid: JumpGrid, s_o, sun3, e1, e2, grids,
-                             active, max_steps: int, back: float = BACK):
-    """Plain torch K12: (N,) bool shadow hits of the active lanes."""
-    br = shadow_branches(grid, s_o, sun3, e1, e2, grids, active, back)
+def masked_shadow_hits_plain(grid: tracer.Grid, s_o, sun3, e1, e2, grids,
+                             active, max_steps: int, back: float = BACK,
+                             rows_read=None):
+    """Plain torch K12: (N,) bool shadow hits of the active lanes.
+    `rows_read` (as `tracer.trace_plain` takes it) gets the rows K12
+    loads."""
+    br = shadow_branches(grid, s_o, sun3, e1, e2, grids, active, back,
+                         rows_read)
     out = (br == 2) | (br == 3) | (br == 5)  # buried, certain, near-walk hit
     res = torch.nonzero(br == 8)[:, 0]       # the residue
     sun = torch.as_tensor(np.asarray(sun3, np.float32), device=s_o.device)
-    dda = trace_jump_plain(grid, s_o[res], sun, max_steps, stats=False).hit
+    dda = tracer.trace_plain(grid, s_o[res], sun, max_steps,
+                             stats=False, rows_read=rows_read).hit
     out[res[dda]] = True
     return out
 
 
-def masked_shadow_from_hits_plain(grid: JumpGrid, o, d, hit, face,
+def masked_shadow_from_hits_plain(grid: tracer.Grid, o, d, hit, face,
                                   axis_coord, sun3, e1, e2, grids,
-                                  max_steps: int, back: float = BACK):
+                                  max_steps: int, back: float = BACK,
+                                  rows_read=None):
     """Plain torch version of the frame's K12 entry: K2 `shade_surface`'s
-    starts, then the query on them."""
+    starts, then the query on them (`rows_read` as
+    `masked_shadow_hits_plain` takes it)."""
     sun = torch.as_tensor(np.asarray(sun3, np.float32))
     s_o, s_act = shade_surface_plain(o, d, hit, face, axis_coord, sun)
     return masked_shadow_hits_plain(grid, s_o, sun3, e1, e2, grids, s_act,
-                                    max_steps, back)
+                                    max_steps, back, rows_read)
 
 
-def _launch_k12(grid: JumpGrid, lanes, n: int, sun3, e1, e2, grids,
+def _launch_k12(grid: tracer.Grid, lanes, n: int, sun3, e1, e2, grids,
                 max_steps: int, back: float):
     """K12 over n lanes: `lanes` is (s_o, active) or the primary hits
     (o, d, hit, face, axis_coord)."""
     gbc, a0, b0, ts = grids
     if gbc.dtype != F32 or gbc.dim() != 2 or gbc.shape[1] != 2:
         raise ValueError("gBC must be (G^2, 2) float32")
-    kernels.check_cuda(grid.rows, gbc, *lanes)
+    name, grid_args = tracer.kernel_args("masked_shadow", grid)
+    kernels.check_cuda(*tracer.tensors(grid), gbc, *lanes)
     dev = gbc.device
     ptrs = [t.data_ptr() for t in lanes]
     ptrs = ptrs + [0] * 5 if len(ptrs) == 2 else [0, 0] + ptrs
     out = torch.empty(n, dtype=torch.bool, device=dev)
-    kernels.launch("masked_shadow", dev, grid.rows.data_ptr(), grid.size,
-                   *ptrs, n, *(float(c) for v in (sun3, e1, e2) for c in v),
+    kernels.launch(name, dev, *grid_args, *ptrs, n,
+                   *(float(c) for v in (sun3, e1, e2) for c in v),
                    gbc.data_ptr(), math.isqrt(gbc.shape[0]), float(a0),
                    float(b0), float(ts), float(back), max_steps,
                    out.data_ptr())
     return out
 
 
-def masked_shadow_hits(grid: JumpGrid, s_o, sun3, e1, e2, grids, active,
+def masked_shadow_hits(grid: tracer.Grid, s_o, sun3, e1, e2, grids, active,
                        max_steps: int, back: float = BACK):
     """The hard-shadow query: (N,) bool, whether the ray from s_o
     (surface point + `back` along the sun) toward the sun hits, for the
@@ -724,7 +748,7 @@ def masked_shadow_hits(grid: JumpGrid, s_o, sun3, e1, e2, grids, active,
                        max_steps, back)
 
 
-def masked_shadow_from_hits(grid: JumpGrid, o, d, hit, face, axis_coord,
+def masked_shadow_from_hits(grid: tracer.Grid, o, d, hit, face, axis_coord,
                             sun3, e1, e2, grids, max_steps: int,
                             back: float = BACK):
     """The frame's hard-shadow query from its primary hits: the starts

@@ -1,7 +1,7 @@
 """Frame graph — the per-frame pipeline of the port.
 
 Counterpart of vvr_tpu/render/frame.py `render_frame`: primary visibility
-by the face rasterizer or the jump-grid DDA, sun shadows (none, one hard
+by the face rasterizer or the grid's DDA, sun shadows (none, one hard
 ray per lit pixel, or `shadow_samples` jittered soft rays, from the
 surface or, with `pixelated_shadows`, from its quarter-voxel floor),
 mirror bounces (`mirror_materials`, `wavy_reflections`), the filtered AO
@@ -9,23 +9,27 @@ mirror bounces (`mirror_materials`, `wavy_reflections`), the filtered AO
 (`point_lights` with the scene's lights), the main view (debug_type 6).
 With `max_ray_iterations` 0 no bounce runs and every pixel is black with
 alpha 0, as in the JAX frame (whose loop then runs no body and zeroes the
-lanes still active). Every pass is a kernel on a CUDA device and its plain
-torch version on the CPU:
+lanes still active). The grid is the jump grid (worlds up to 512^3) or the
+paged grid (past it); every trace of the frame goes through one dispatch,
+ops/trace.py `trace`, to the grid's DDA (K1 or K16), as the JAX frame's
+one tracer `tr` serves every call site (frame.py:91-110), and the kernels
+that trace inline (K12, K14, K15) take the grid's view. Every pass is a
+kernel on a CUDA device and its plain torch version on the CPU:
 
   1. sky textures, unless the caller passes cached ones (K3)
   2. primary visibility: the face rasterizer with `raster` (K9, K10),
-     else the DDA (K1, by 8x4 pixel tiles, without its counters)
+     else the DDA (K1 or K16, by 8x4 pixel tiles, without the counters)
   3. sun shadows, lit pixels only. Hard: toward the sun from surface +
      0.05: the sun classifier with `sunmask` (K12, which reconstructs the
      surface and the start itself and sends its residue through the DDA),
-     else the starts from K2 surface and the DDA (K1, as above, given the
-     one sun direction of every ray). Soft: K14, a warp per 8x4 pixel
+     else the starts from K2 surface and the DDA (as above, given the one
+     sun direction of every ray). Soft: K14, a warp per 8x4 pixel
      tile, gated by the cone grids with `sunmask`, into a shadow factor
   4. shading, sky and clouds into planar HDR: K2 shade when the frame has
      no mirrors, AO or lights; else K15 shade_bounce, which also writes
      the mirror lanes' continuation. With mirrors each later bounce, up
-     to `max_ray_iterations`, traces the live lanes (K1, `active`), runs
-     the same shadow pass on that bounce's hits and K15 again, over the
+     to `max_ray_iterations`, traces the live lanes (the DDA, `active`),
+     runs the same shadow pass on that bounce's hits and K15 again, over the
      whole image with no compaction and no early stop (a stop would read
      a count back to the host)
   5. bloom chain and composite to u8 (K4)
@@ -40,11 +44,10 @@ from vvr_tpu_torch.ops import post as post_ops
 from vvr_tpu_torch.ops import shade as shade_ops
 from vvr_tpu_torch.ops import sky as sky_ops
 from vvr_tpu_torch.ops.bounce import bounce_buffers, shade_bounce
-from vvr_tpu_torch.ops.jump import trace_jump
+from vvr_tpu_torch.ops.trace import Grid, trace
 from vvr_tpu_torch.ops.rastertrace import trace_raster
 from vvr_tpu_torch.ops.softshadow import soft_shadow
 from vvr_tpu_torch.ops.sunshadow import masked_shadow_from_hits
-from vvr_tpu_torch.world.jumpgrid import JumpGrid
 
 F32 = torch.float32
 
@@ -66,7 +69,7 @@ def check_frame_config(cfg: RenderConfig) -> None:
             "(heatmaps) and A14 (raster debug view)")
 
 
-def _shadow(grid: JumpGrid, hits, sun3, cfg: RenderConfig, clouds, sunmask,
+def _shadow(grid: Grid, hits, sun3, cfg: RenderConfig, clouds, sunmask,
             max_steps: int, width: int):
     """The sun shadows of one bounce's hits: None, the hard shadow rays'
     (N,) bool hits or the soft (N,) float32 factor (step 3)."""
@@ -82,22 +85,22 @@ def _shadow(grid: JumpGrid, hits, sun3, cfg: RenderConfig, clouds, sunmask,
             return masked_shadow_from_hits(grid, *hits, sun3.numpy(),
                                            *sunmask, max_steps)
         s_o, s_act = shade_ops.shade_surface(*hits, sun3, pixelated)
-        return trace_jump(grid, s_o, sun3.to(s_o.device), max_steps,
-                          active=s_act, width=width, stats=False).hit
+        return trace(grid, s_o, sun3.to(s_o.device), max_steps,
+                     active=s_act, width=width, stats=False).hit
     return None
 
 
-def render_frame(grid: JumpGrid, o, d, sun, time: float, cfg: RenderConfig,
+def render_frame(grid: Grid, o, d, sun, time: float, cfg: RenderConfig,
                  sky=None, raster=None, sunmask=None, density=None,
                  lights=None, mirror_materials: bool = False,
                  demand: dict | None = None, nxt=None):
-    """Full frame. `o`, `d`: the flattened (render_h * render_w, 3) camera
-    rays on the render device; `sun`: (3,) or (4,) direction (host array or
-    tensor); `sky`: optional cached (skybox, clouds) textures; `raster`:
-    optional (faces, raster_camera, camera-in-solid probe) for rasterized
-    primary visibility (the rays must be that camera's wavefront);
-    `sunmask`: optional (e1, e2, grids) of the sun classifier: the hard
-    grids with one shadow sample, the cone grids
+    """Full frame on the jump or the paged grid. `o`, `d`: the flattened
+    (render_h * render_w, 3) camera rays on the render device; `sun`: (3,)
+    or (4,) direction (host array or tensor); `sky`: optional cached
+    (skybox, clouds) textures; `raster`: optional (faces, raster_camera,
+    camera-in-solid probe) for rasterized primary visibility (the rays must
+    be that camera's wavefront); `sunmask`: optional (e1, e2, grids) of the
+    sun classifier: the hard grids with one shadow sample, the cone grids
     (sunshadow.sun_grids(..., cone_tan=CONE_TAN)) with soft shadows; none
     with pixelated shadows, whose quarter-voxel floor can bury the query
     where a certain-light claim is unsound (Renderer.use_sunmask);
@@ -110,9 +113,8 @@ def render_frame(grid: JumpGrid, o, d, sun, time: float, cfg: RenderConfig,
     `collect_demand` keys), read by the caller only; `nxt`: with mirrors,
     the continuation buffers (ops/bounce.py `bounce_buffers(N, device)`),
     which a caller rendering many frames keeps across them; zero-filled
-    ones are made here when None.
-    Returns (u8 image (H, W, 3), hdr rgba (rh, rw, 4)), both on the rays'
-    device. The rays are not written."""
+    ones are made here when None. Returns (u8 image (H, W, 3), hdr rgba
+    (rh, rw, 4)), both on the rays' device. The rays are not written."""
     check_frame_config(cfg)
     if sunmask is not None and cfg.pixelated_shadows:
         raise ValueError("pixelated shadows take no sun classifier: the "
@@ -137,7 +139,7 @@ def render_frame(grid: JumpGrid, o, d, sun, time: float, cfg: RenderConfig,
         faces, rcam, probe = raster
         res = trace_raster(faces, rcam, d, probe, grid.size, rw, rh)
     else:
-        res = trace_jump(grid, o, d, max_steps, width=rw, stats=False)
+        res = trace(grid, o, d, max_steps, width=rw, stats=False)
     hits = (o, d, res.hit, res.face, res.axis_coord)
     shadow = _shadow(grid, hits, sun3, cfg, clouds, sunmask, max_steps, rw)
     density = density if cfg.ambient_occlusion else None
@@ -160,8 +162,8 @@ def render_frame(grid: JumpGrid, o, d, sun, time: float, cfg: RenderConfig,
     for bounce in range(cfg.max_ray_iterations):
         if bounce > 0:
             o, d, col, active = nxt
-            res = trace_jump(grid, o, d, max_steps, active=active, width=rw,
-                             stats=False)
+            res = trace(grid, o, d, max_steps, active=active, width=rw,
+                        stats=False)
             hits = (o, d, res.hit, res.face, res.axis_coord)
             shadow = _shadow(grid, hits, sun3, cfg, clouds, sunmask,
                              max_steps, rw)

@@ -7,7 +7,10 @@ sun-grid caches, the animated point lights and the frame statistics.
 `primary_raster` and `sun_mask` resolve as in the JAX package
 (renderer.py:79-98): at their "auto" defaults the main view rasterizes its
 primary visibility and answers shadows with the sun classifier (its cone
-grids for soft shadows). With `ambient_occlusion` the scene builds its
+grids for soft shadows). `traversal` resolves as there (:72-78): "auto"
+traces the jump grid up to 512^3 and the paged grid past it (the 1024^3
+world); the scene builds only the grid the Renderer reads, and no brick
+pyramid. With `ambient_occlusion` the scene builds its
 density field; the lights move every frame, as in the JAX renderer
 (:159-160), and with `point_lights` the frame reads the first ten.
 Configurations outside the port raise NotImplementedError naming the
@@ -64,10 +67,10 @@ def check_slice(world_cfg: WorldConfig, cfg: RenderConfig,
         raise NotImplementedError(
             "traversal 'jump2' is a measured negative result the port does "
             "not carry (ROADMAP 'Not to port')")
-    if not (cfg.traversal == "jump" or cfg.use_jump(world_cfg.size)):
+    if not (cfg.use_jump(world_cfg.size) or cfg.use_paged(world_cfg.size)):
         raise NotImplementedError(
-            f"traversal {cfg.traversal!r} at size {world_cfg.size} is not "
-            "ported yet: ROADMAP A11 (paged grid) and A13 (brick pyramid)")
+            f"traversal {cfg.traversal!r} at size {world_cfg.size} (the "
+            "brick pyramid) is not ported yet: ROADMAP A13")
     check_frame_config(cfg)
 
 
@@ -85,12 +88,16 @@ class Renderer:
         self.scene = scene or build_scene(world_cfg, self.device,
                                           force_regenerate=force_regenerate,
                                           cache_path=cache_path)
+        self.use_paged = render_cfg.use_paged(world_cfg.size)
+        self.grid = (self.scene.ensure_paged() if self.use_paged
+                     else self.scene.ensure_jumpgrid())
         self.use_raster = use_raster(render_cfg)
         self.use_sunmask = use_sunmask(render_cfg)
         if self.use_raster or self.use_sunmask:
             self.scene.ensure_faces()
         if render_cfg.ambient_occlusion:
             self.scene.ensure_density()
+        self.scene.release_dense()
         self.stats = Statistics()
         self.frame_count = 0
         self.elapsed = 0.0
@@ -180,7 +187,7 @@ class Renderer:
         # them too
         t0 = _time.monotonic()
         img, _ = render_frame(
-            self.scene.jumpgrid, o, d, self.sun, t, self.cfg, sky=sky,
+            self.grid, o, d, self.sun, t, self.cfg, sky=sky,
             raster=raster, sunmask=sunmask,
             density=(self.scene.density if self.cfg.ambient_occlusion
                      else None),

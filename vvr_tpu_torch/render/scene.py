@@ -1,12 +1,16 @@
 """Scene — the world's chunks and its device-resident structures.
 
 Counterpart of vvr_tpu/render/scene.py `build_scene` for what the port
-reads: the jump grid (DDA traversal), the animated point lights (host
-NumPy, as in the JAX package: scene.py:27, :126-141, :174-175) and, built
-lazily on first use, the merged exposed faces of the face rasterizer and
-the sun-grid build, and the u8 density field of the filtered ambient
-occlusion. The brick pyramid and the SVO tree come back with their
-consumers (ROADMAP A11-A13).
+reads: the chunks, the animated point lights (host NumPy, as in the JAX
+package: scene.py:27, :126-141, :174-175) and, built lazily on first use,
+the DDA's grid (the jump grid up to 512^3, `ensure_jumpgrid`; the paged
+grid past it, `ensure_paged`, as scene.py:93-110 builds them), the merged
+exposed faces of the face rasterizer and the sun-grid build, and the u8
+density field of the filtered ambient occlusion, each on the scene's
+device. They all come from the dense occupancy, which the scene assembles
+once and keeps until `release_dense` (the Renderer releases it once it
+has built what it reads: 1 GiB at 1024^3). The brick pyramid and the SVO
+tree come back with their consumers (ROADMAP A12, A13).
 """
 
 from __future__ import annotations
@@ -23,6 +27,7 @@ from vvr_tpu_torch.world.chunk import CHUNK_SIZE, Chunk
 from vvr_tpu_torch.world.faces import extract_merged_faces
 from vvr_tpu_torch.world.generator import assemble_dense, generate_world
 from vvr_tpu_torch.world.jumpgrid import JumpGrid, build_jump_grid
+from vvr_tpu_torch.world.paged import PagedGrid, build_paged_grid
 from vvr_tpu_torch.world.svt import density_from_occupancy
 
 log = logging.getLogger(__name__)
@@ -41,24 +46,51 @@ def initial_lights(size: int) -> np.ndarray:
 class Scene:
     cfg: WorldConfig
     chunks: list[Chunk]
-    jumpgrid: JumpGrid
-    faces: tuple | None = None   # FaceSet.device_tuple() on the grid's device
+    jumpgrid: JumpGrid | None = None   # built by ensure_jumpgrid
+    paged: PagedGrid | None = None     # built by ensure_paged
+    faces: tuple | None = None   # FaceSet.device_tuple() on the device
     epoch: int = 0               # world version, part of the sun-grid key
     lights: np.ndarray | None = None  # (NUM_LIGHTS, 4) float32, host
-    density: torch.Tensor | None = None  # u8 (S, S, S) on the grid's device
+    density: torch.Tensor | None = None  # u8 (S, S, S) on the device
+    device: torch.device | str = "cuda"  # where the structures live
     _chunk_index: dict | None = None
+    _dense: np.ndarray | None = None
 
     def __post_init__(self):
+        self.device = torch.device(self.device)
         if self.lights is None:
             self.lights = initial_lights(self.cfg.size)
 
+    def dense(self) -> np.ndarray:
+        """The dense bool occupancy [z, y, x], assembled from the chunks
+        once and kept until release_dense."""
+        if self._dense is None:
+            self._dense = assemble_dense(self.chunks, self.cfg.size)
+        return self._dense
+
+    def release_dense(self) -> None:
+        """Drop the dense occupancy (a later ensure_* assembles it
+        again)."""
+        self._dense = None
+
+    def ensure_jumpgrid(self) -> JumpGrid:
+        """The jump grid (world/jumpgrid.py), built on the host once."""
+        if self.jumpgrid is None:
+            self.jumpgrid = build_jump_grid(self.dense(), self.device)
+        return self.jumpgrid
+
+    def ensure_paged(self) -> PagedGrid:
+        """The paged two-level grid (world/paged.py), built on the host
+        once."""
+        if self.paged is None:
+            self.paged = build_paged_grid(self.dense(), self.device)
+        return self.paged
+
     def ensure_density(self) -> torch.Tensor:
         """The density field of the filtered AO (world/svt.py), built on
-        the host once and kept on the jump grid's device."""
+        the host once."""
         if self.density is None:
-            self.density = density_from_occupancy(
-                assemble_dense(self.chunks, self.cfg.size),
-                self.jumpgrid.rows.device)
+            self.density = density_from_occupancy(self.dense(), self.device)
         return self.density
 
     def animate_lights(self, camera_position, elapsed: float,
@@ -82,12 +114,10 @@ class Scene:
         self.lights[:, :3] += (target - self.lights[:, :3]) * t
 
     def ensure_faces(self) -> tuple:
-        """Merged exposed faces, built on the host once and kept on the
-        jump grid's device."""
+        """Merged exposed faces, built on the host once."""
         if self.faces is None:
-            fs = extract_merged_faces(assemble_dense(self.chunks,
-                                                     self.cfg.size))
-            self.faces = fs.device_tuple(self.jumpgrid.rows.device)
+            self.faces = extract_merged_faces(self.dense()).device_tuple(
+                self.device)
         return self.faces
 
     def solid_at_host(self, p) -> bool:
@@ -110,7 +140,8 @@ class Scene:
 def build_scene(cfg: WorldConfig, device="cuda",
                 force_regenerate: bool = False, cache_path=None) -> Scene:
     """Load the cached world or generate and cache it (the height field
-    runs on `device`), then build the jump grid on `device`."""
+    runs on `device`): a scene whose structures (the grids, the faces,
+    the density field) are built on `device` when first asked for."""
     device = torch.device(device)
     path = cache_path or cache_mod.default_cache_path(cfg)
     chunks = None if force_regenerate else cache_mod.load_world(path,
@@ -124,5 +155,4 @@ def build_scene(cfg: WorldConfig, device="cuda",
             log.warning("could not write world cache: %s", e)
     else:
         log.info("world cache hit: %s (%d chunks)", path, len(chunks))
-    grid = build_jump_grid(assemble_dense(chunks, cfg.size), device)
-    return Scene(cfg, chunks, grid)
+    return Scene(cfg, chunks, device=device)

@@ -2,6 +2,7 @@
 on one card.
 
     python3 vvr_tpu_torch/tools/frame_digest.py [--root DIR] [--cpu-rays]
+        [--traversal jump|paged ...]
 
 Renders bench.py's default-knob frame (256^3 world, the bench camera,
 t = 0: face rasterizer, sun classifier, one hard shadow ray per lit pixel)
@@ -32,8 +33,13 @@ without, in one call on one card, shows whether the two trees' kernels
 give the same bytes. With --cpu-rays the frames' rays are made on the CPU
 (the package's plain `camera_rays`) and copied to the card, so two
 checkouts whose card rays differ (the plain torch rays on the card before
-K13, K13's since) are held to each other on the same rays. It exits
-non-zero without a CUDA device.
+K13, K13's since) are held to each other on the same rays. With --traversal
+it also renders config 5's static frames (tools/bench_scale.py:62-97
+without its edits: the 1024^3 world, 1920x1080, its camera; the default
+knobs and the DDA frame) over one 1024^3 scene, once per traversal named,
+so that the jump grid's frames and the paged grid's can be held to each
+other; a package that does not render one gets a note. It exits non-zero
+without a CUDA device.
 """
 
 from __future__ import annotations
@@ -70,6 +76,11 @@ CONFIGS = {"bloom": dict(width=1920, height=1080),
                                         ambient_occlusion=True,
                                         point_lights=True,
                                         wavy_reflections=True)}
+# config 5's static frames (tools/bench_scale.py:62-97, without edits)
+CONFIG5_CAMERA = ([512.0, 400.0, 80.0], [512.0, 80.0, 720.0], 85.0)
+CONFIG5 = {"config 5": dict(width=1920, height=1080),
+           "config 5 dda": dict(width=1920, height=1080,
+                                primary_raster="off", sun_mask="off")}
 # the configurations rendered with mirror materials
 MIRRORS = ("config 4", "config 4 lights wavy")
 # (sun direction before normalization, or None for the renderer's, time,
@@ -111,6 +122,9 @@ def main(argv=None) -> int:
                     help="the checkout whose vvr_tpu_torch renders")
     ap.add_argument("--cpu-rays", action="store_true",
                     help="make the frames' rays on the CPU")
+    ap.add_argument("--traversal", nargs="+", choices=("jump", "paged"),
+                    default=(), help="render config 5's frames at 1024^3 "
+                    "through each of these grids")
     args = ap.parse_args(argv)
     root = args.root.resolve()
     sys.path.insert(0, str(root))
@@ -154,7 +168,10 @@ def main(argv=None) -> int:
         raster = ((scene.ensure_faces(), raster_camera(cam),
                    scene.solid_at_host(cam.position)) if r.use_raster
                   else None)
-        img, hdr = render_frame(scene.jumpgrid, o, d, r.sun, 0.0, cfg,
+        # the Renderer's grid (a package before the paged grid: the
+        # scene's)
+        grid = getattr(r, "grid", None) or scene.jumpgrid
+        img, hdr = render_frame(grid, o, d, r.sun, 0.0, cfg,
                                 sky=r._sky(0.0), raster=raster,
                                 sunmask=r._sunmask() if r.use_sunmask
                                 else None, **extra)
@@ -176,6 +193,36 @@ def main(argv=None) -> int:
                      "shapes": [list(skybox.shape), list(clouds.shape)]}
     out.update(grid_digests(sunshadow, scene.ensure_faces(),
                             scene.cfg.size, default_sun))
+    scene5 = None
+    cam5 = Camera.look_at(*CONFIG5_CAMERA[:2], fov=CONFIG5_CAMERA[2])
+    for trav in args.traversal:
+        for name, knobs in CONFIG5.items():
+            cfg = RenderConfig(**{"shadow_samples": 1,
+                                  "max_ray_iterations": 3, **knobs,
+                                  "traversal": trav})
+            try:
+                r = Renderer(WorldConfig(depth=5), cfg, device=dev,
+                             scene=scene5, force_regenerate=scene5 is None,
+                             cache_path=root / "build" / "vvr_tpu_torch"
+                             / "map_1024.npz")
+            except NotImplementedError as e:
+                out[f"{name} {trav}"] = f"not rendered by this package ({e})"
+                continue
+            scene5 = r.scene
+            o, d = (t.to(dev) for t in camera_rays(
+                cam5, cfg.render_width, cfg.render_height,
+                "cpu" if args.cpu_rays else dev))
+            raster = ((scene5.ensure_faces(), raster_camera(cam5),
+                       scene5.solid_at_host(cam5.position)) if r.use_raster
+                      else None)
+            grid = getattr(r, "grid", None) or scene5.jumpgrid
+            img, hdr = render_frame(grid, o, d, r.sun, 0.0, cfg,
+                                    sky=r._sky(0.0), raster=raster,
+                                    sunmask=r._sunmask() if r.use_sunmask
+                                    else None)
+            torch.cuda.synchronize()
+            out[f"{name} {trav}"] = {"hdr": digest(hdr), "u8": digest(img),
+                                     "shape": list(img.shape)}
     torch.cuda.synchronize()
     print(json.dumps(out))
     return 0

@@ -137,7 +137,9 @@ def main(argv=None) -> int:
                  force_regenerate=True,
                  cache_path=root / "build" / "vvr_tpu_torch"
                  / "map_256.npz")
-    grid, faces = r.scene.jumpgrid, r.scene.ensure_faces()
+    # the Renderer's grid (a package before the paged grid: the scene's)
+    grid = getattr(r, "grid", None) or r.scene.jumpgrid
+    faces = r.scene.ensure_faces()
     cam = Camera.look_at(*CAMERA[:2], fov=CAMERA[2])
     w, h = cfg.width, cfg.height
     o, d = camera_rays(cam, w, h, dev)

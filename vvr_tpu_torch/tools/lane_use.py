@@ -206,7 +206,7 @@ def main(argv=None) -> int:
     scene = build_scene(WorldConfig(depth=4), dev, force_regenerate=True,
                         cache_path=repo / "build" / "vvr_tpu_torch"
                         / "map_256.npz")
-    grid = scene.jumpgrid
+    grid = scene.ensure_jumpgrid()
     cam = Camera.look_at(*CAMERA[:2], fov=CAMERA[2])
     o, d = camera_rays(cam, cfg.width, cfg.height, dev)
     n = o.shape[0]

@@ -1,6 +1,7 @@
 """Where the time of the slice frame goes, on one NVIDIA GPU.
 
     python3 vvr_tpu_torch/tools/profile_frame.py [--trace PATH] [--root DIR]
+        [--traversal jump|paged ...]
 
 Renders the frames that chip_smoke.py drives (256^3 world, 1920x1080, the
 bench camera, a fixed time so no sky rebuild falls in a frame window; the
@@ -9,8 +10,10 @@ rasterizer and sun classifier, one hard shadow ray per lit pixel) and the
 DDA frame (`primary_raster="off", sun_mask="off"`), and, where the
 measured package renders them, the soft-shadow frames (four samples, with
 the cone classifier and with `sun_mask="off"`), the pixelated one (four
-samples) and config 4 (four soft samples with the cone classifier, four
-mirror bounces, the filtered AO), over one scene, and prints, each from
+samples), config 4 (four soft samples with the cone classifier, four
+mirror bounces, the filtered AO) and chip_smoke.py's lights frame (its
+first ten lights set near the view's surface before each of its
+windows), over one scene, and prints, each from
 this run:
 
 1. the default frame's setup beyond the DDA frame's: the merged faces
@@ -59,6 +62,18 @@ this run:
    busiest tile against the mean at 16 and 32 texels a side, and the
    support pass's (face, coarse texel) pairs (the most of one face).
 
+With --traversal it measures config 5 instead (tools/bench_scale.py:62-97
+without its edits: the 1024^3 world, 1920x1080, its camera): the setup
+steps one by one (world generation, the dense occupancy, the merged faces,
+each grid named, K11 per sun direction), then for each traversal named, in
+the order given, over one scene, the default-knob frame, the DDA frame,
+the soft cone frame, config 4's knobs and the lights frame on the host
+clock (as in 2.) and in a profiled window (as in 4., K1's or K16's time
+per call of the DDA frame, K14's and K15's per bounce), and the peak
+device memory; so
+`--traversal paged jump jump paged` holds the jump grid to the paged grid
+at 1024^3 in turns.
+
 It measures the vvr_tpu_torch package found under DIR (default: this
 checkout), so one call can run it on an unpacked `git archive` of another
 commit and on this one in turns; where that package's K1 wrapper predates
@@ -89,17 +104,21 @@ PROFILED = 20    # frames in the profiled window
 DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
 # The __global__ functions of csrc/, to tell the port's kernels from the
 # torch ops (ray generation, the sun expand, the host-to-device copies).
-PORT_KERNELS = ("vvr_jump_trace_kernel", "vvr_shade_surface_kernel",
+PORT_KERNELS = ("vvr_trace_kernel", "vvr_shade_surface_kernel",
                 "vvr_shade_pixel_kernel", "skybox_kernel", "clouds_kernel",
                 "vvr_sky_kernel",
                 "vvr_bloom_pyramid_kernel", "composite_kernel",
                 "vvr_raster_", "vvr_scan_", "vvr_sun_",
                 "vvr_masked_shadow_kernel", "vvr_generate_rays_kernel",
                 "vvr_soft_shadow_kernel", "vvr_shade_bounce_kernel")
+# K1 and K16: the two grid views of one kernel body (csrc/trace.cu)
+K1_NAME = "vvr_trace_kernel<VvrFlatView"
+K16_NAME = "vvr_trace_kernel<VvrPagedView"
 # the device kernels of one C entry point, by name part: K9 launches
 # project, scan, bin and tile kernels (and a memset), the others one each
 ENTRY_KERNELS = {
-    "K1 jump_trace": ("vvr_jump_trace_kernel",),
+    "K1 jump_trace": (K1_NAME,),
+    "K16 paged_trace": (K16_NAME,),
     "K9 raster_fragments": ("vvr_raster_project", "vvr_scan_",
                             "vvr_raster_bin", "vvr_raster_tile"),
     "K4 bloom_pyramid": ("vvr_bloom_pyramid_kernel",),
@@ -114,15 +133,28 @@ ENTRY_KERNELS = {
 SOFT_FRAMES = (("soft, cone", dict(shadow_samples=4)),
                ("soft, DDA", dict(shadow_samples=4, sun_mask="off")),
                ("pixelated", dict(shadow_samples=4, pixelated_shadows=True)))
-# config 4 (tools/bench_scale.py:33-50): label, knobs beside the default
-# frame's, the Renderer's keywords
+# config 4 (tools/bench_scale.py:33-50) and chip_smoke.py's lights frame
+# (hard shadows, AO, the first ten lights set near the view's surface,
+# wavy mirrors): label, knobs beside the default frame's, the Renderer's
+# keywords
 BOUNCE_FRAMES = (("config 4", dict(shadow_samples=4, max_ray_iterations=4,
                                    ambient_occlusion=True),
-                  dict(mirror_materials=True)),)
+                  dict(mirror_materials=True)),
+                 ("lights", dict(max_ray_iterations=3,
+                                 ambient_occlusion=True, point_lights=True,
+                                 wavy_reflections=True),
+                  dict(mirror_materials=True)))
 # K3's device kernels: one per texture in earlier checkouts, one for both
 K3_KERNELS = ("skybox_kernel", "clouds_kernel", "vvr_sky_kernel")
 SKY_BUCKETS = 8  # sky rebuilds in the K3 window
 LOW_SUN = (0.6, 0.05, 0.8)   # frame_digest.py's low sun
+# config 5 (tools/bench_scale.py:62-97) without its edits: its camera and
+# the frames measured at 1024^3
+CONFIG5_CAMERA = ([512.0, 400.0, 80.0], [512.0, 80.0, 720.0], 85.0)
+CONFIG5_FRAMES = (("default knobs", {}, {}),
+                  ("DDA", dict(primary_raster="off", sun_mask="off"), {}),
+                  ("soft, cone", dict(shadow_samples=4), {}),
+                  *BOUNCE_FRAMES)
 DRAG_STEP = 0.5   # degrees the dragged sun turns about the vertical a frame
 
 
@@ -136,6 +168,20 @@ def dragged_sun(sun, k: int):
     v = np.array([x * math.cos(a) + z * math.sin(a), y,
                   -x * math.sin(a) + z * math.cos(a)])
     return np.append(v / np.linalg.norm(v), 0.0).astype(np.float32)
+
+
+def place_lights(scene, grid, rays, trace) -> None:
+    """The scene's first ten lights 2 units back along ten seeded camera
+    rays `rays` (o, d) from their hits by `trace` on `grid`, as
+    chip_smoke.py places them for the lights frame (every frame of every
+    Renderer on the scene moves them, so they are placed again before
+    each window)."""
+    o, d = rays
+    first = trace(grid, o, d, 2048)
+    seeded = np.random.default_rng(11).choice(
+        torch.nonzero(first.hit)[:, 0].cpu().numpy(), 10, replace=False)
+    scene.lights[:10, :3] = (o + d * (first.t[:, None] - 2.0))[
+        seeded].cpu().numpy()
 
 
 def union_us(intervals) -> float:
@@ -237,16 +283,18 @@ def window(label, renderer, cam, trace_path) -> None:
         got = [v for k, v in per_name.items() if any(p in k for p in parts)]
         print(f"  entry {entry}: device {sum(v[1] for v in got) / n:.2f} "
               f"us/frame in {sum(v[0] for v in got) / n:.1f} kernels/frame")
-    k1 = sorted((e["ts"], e["dur"]) for e in dev_ev
-                if "vvr_jump_trace_kernel" in e["name"])
-    if k1 and len(k1) == 2 * n:
-        primary, shadow = (sum(u for _, u in k1[k::2]) / n for k in (0, 1))
-        print(f"  K1 per call: primary rays {primary:.2f} us/frame, shadow "
-              f"rays {shadow:.2f} us/frame")
+    for label, part in (("K1", K1_NAME), ("K16", K16_NAME)):
+        k1 = sorted((e["ts"], e["dur"]) for e in dev_ev
+                    if part in e["name"])
+        if k1 and len(k1) == 2 * n:
+            primary, shadow = (sum(u for _, u in k1[k::2]) / n
+                               for k in (0, 1))
+            print(f"  {label} per call: primary rays {primary:.2f} us/frame,"
+                  f" shadow rays {shadow:.2f} us/frame")
     # the kernels a bounce loop launches more than once a frame, by their
     # k-th launch of a frame: K14's and K15's is bounce k, K1's bounce k +
     # 1 in a frame with mirrors and the rasterizer
-    for label, part in (("K1", "vvr_jump_trace_kernel"),
+    for label, part in (("K1", K1_NAME), ("K16", K16_NAME),
                         ("K14", "vvr_soft_shadow_kernel"),
                         ("K15", "vvr_shade_bounce_kernel")):
         ev_k = sorted((e["ts"], e["dur"]) for e in dev_ev
@@ -494,6 +542,9 @@ def main(argv=None) -> int:
     ap.add_argument("--root", type=pathlib.Path,
                     default=pathlib.Path(__file__).resolve().parents[2],
                     help="the checkout whose vvr_tpu_torch is measured")
+    ap.add_argument("--traversal", nargs="+", choices=("jump", "paged"),
+                    default=(), help="measure config 5 at 1024^3 through "
+                    "each of these grids in turn instead")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("profile_frame: no CUDA device", file=sys.stderr)
@@ -520,6 +571,8 @@ def main(argv=None) -> int:
     kernels.build()
     knobs = dict(width=1920, height=1080, shadow_samples=1,
                  max_ray_iterations=3)
+    if args.traversal:
+        return config5(root, args.traversal, knobs, dev)
     cfg = RenderConfig(**knobs)
     wcfg = WorldConfig(depth=4)
     renderer = Renderer(wcfg, cfg, device=dev, force_regenerate=True,
@@ -542,7 +595,8 @@ def main(argv=None) -> int:
         except NotImplementedError as e:
             print(f"frame ({label}): not rendered by this package ({e})")
     cam = Camera.look_at(*CAMERA[:2], fov=CAMERA[2])
-    grid = renderer.scene.jumpgrid
+    # the Renderer's grid (a package before the paged grid: the scene's)
+    grid = getattr(renderer, "grid", None) or renderer.scene.jumpgrid
     max_steps = cfg.traversal_max_steps * 8
     sun3 = torch.from_numpy(renderer.sun[:3].copy())
     sun_np = renderer.sun[:3].copy()
@@ -574,6 +628,9 @@ def main(argv=None) -> int:
     # ---- 2. host clock, no profiler
     for r, label in ((renderer, "default knobs"), (dda, "DDA"),
                      *((r_, l_) for l_, r_ in soft)):
+        if label == "lights":
+            place_lights(renderer.scene, grid, camera_rays(cam, w, h, dev),
+                         jump.trace_jump)
         host_frames(r, cam, 5, True)
         synced = host_frames(r, cam, FRAMES, True)
         piped = host_frames(r, cam, FRAMES, False)[0]
@@ -659,6 +716,9 @@ def main(argv=None) -> int:
         window("default knobs", renderer, cam, path)
         window("DDA", dda, cam, pathlib.Path(tmp) / "dda_trace.json")
         for k, (label, r) in enumerate(soft):
+            if label == "lights":
+                place_lights(renderer.scene, grid,
+                             camera_rays(cam, w, h, dev), jump.trace_jump)
             window(label, r, cam, pathlib.Path(tmp) / f"soft{k}_trace.json")
         sky_window(renderer, cam, pathlib.Path(tmp) / "sky_trace.json")
         for g in (ss.GRID, ss.GRID_DRAGGING):
@@ -723,6 +783,89 @@ def main(argv=None) -> int:
 
     # ---- 6. K11's work per tile
     k11_balance(faces, wcfg.size, {"default": sun_np, "low": LOW_SUN})
+    return 0
+
+
+def config5(root: pathlib.Path, traversals, knobs: dict, dev) -> int:
+    """Config 5's setup and its static frames at 1024^3 through each grid
+    of `traversals` in turn, over one scene (module docstring)."""
+    from vvr_tpu_torch.config import RenderConfig, WorldConfig
+    from vvr_tpu_torch.ops import sunshadow as ss
+    from vvr_tpu_torch.render.renderer import Renderer
+    from vvr_tpu_torch.ops.raygen import camera_rays
+    from vvr_tpu_torch.render.scene import build_scene
+    from vvr_tpu_torch.utils.camera import Camera
+    try:   # the tracer of either grid (an older package: the jump grid)
+        from vvr_tpu_torch.ops.trace import trace
+    except ImportError:
+        from vvr_tpu_torch.ops.jump import trace_jump as trace
+    wcfg = WorldConfig(depth=5)
+    torch.zeros(1, device=dev)   # the allocator's state for the device
+    torch.cuda.reset_peak_memory_stats(dev)
+
+    def timed(label, fn):
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        print(f"setup (config 5) {label}: {time.perf_counter() - t0:.3f} s "
+              "(host clock)")
+        return out
+
+    scene = timed("world generation", lambda: build_scene(
+        wcfg, dev, force_regenerate=True,
+        cache_path=root / "build" / "vvr_tpu_torch" / "map_1024.npz"))
+    if hasattr(scene, "dense"):   # a package that builds its grids lazily
+        timed("dense occupancy", scene.dense)
+        for trav in dict.fromkeys(traversals):
+            g = timed(f"{trav} grid", scene.ensure_paged if trav == "paged"
+                      else scene.ensure_jumpgrid)
+            tabs = [g.prows, g.brows] if trav == "paged" else [g.rows]
+            print(f"setup (config 5) {trav} grid: "
+                  f"{sum(t.numel() * 4 for t in tabs) / 2**20:.2f} MiB")
+    faces = timed("merged faces", scene.ensure_faces)
+    print(f"setup (config 5): {faces[0].shape[0]} merged faces")
+    sun = np.array([-0.28, 0.65, -0.71], np.float32)
+    e1, e2, s = ss.sun_basis(sun / np.linalg.norm(sun))
+    ss.sun_grids(faces, e1, e2, s, wcfg.size)
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+    ev[0].record()
+    for _ in range(10):
+        ss.sun_grids(faces, e1, e2, s, wcfg.size)
+    ev[1].record()
+    torch.cuda.synchronize()
+    print(f"setup (config 5) sun grids (K11, per sun direction): "
+          f"{ev[0].elapsed_time(ev[1]) / 10:.4f} ms, {ss.GRID}^2 texels")
+    cam = Camera.look_at(*CONFIG5_CAMERA[:2], fov=CONFIG5_CAMERA[2])
+
+    with tempfile.TemporaryDirectory() as tmp:
+        for k, trav in enumerate(traversals):
+            for name, extra, kw in CONFIG5_FRAMES:
+                label = f"config 5 {name}, {trav}"
+                try:
+                    r = Renderer(wcfg, RenderConfig(**{
+                        **knobs, **extra, "traversal": trav}), device=dev,
+                        scene=scene, **kw)
+                except NotImplementedError as e:
+                    print(f"frame ({label}): not rendered by this package "
+                          f"({e})")
+                    continue
+                rays = camera_rays(cam, knobs["width"], knobs["height"], dev)
+                grid = getattr(r, "grid", None) or scene.jumpgrid
+                if name == "lights":
+                    place_lights(scene, grid, rays, trace)
+                host_frames(r, cam, 3, True)
+                synced = host_frames(r, cam, FRAMES, True)
+                piped = host_frames(r, cam, FRAMES, False)[0]
+                print(f"frame ({label}), synchronized: median "
+                      f"{statistics.median(synced):.4f} ms, mean "
+                      f"{statistics.fmean(synced):.4f} ms over {FRAMES}")
+                print(f"frame ({label}), back to back: {piped:.4f} ms per "
+                      f"frame over {FRAMES}")
+                if name == "lights":
+                    place_lights(scene, grid, rays, trace)
+                window(label, r, cam, pathlib.Path(tmp) / f"c5_{k}.json")
+    print(f"config 5 peak device memory: "
+          f"{torch.cuda.max_memory_allocated(dev) / 2**20:.1f} MiB")
     return 0
 
 
