@@ -151,7 +151,30 @@
    config 4's knobs and of the lights frame (BounceCheck); rows for the
    kernels line (K16, paged K12 on the raster hits, paged K14's cone
    gate, paged K15 at the lights frame's bounce 0) and the peak device
-   memory (run before 6.).
+   memory (run before 6.);
+8. the dynamic world (ROADMAP A12; tools/bench_scale.py:61-150), on a
+   copy of the 256^3 world's chunks (the jump grid) and then on config
+   5's (the paged grid): a WorldEditor over the chunks builds the grid
+   and the region faces the scene takes, `Renderer(...,
+   dynamic_world=True)` the sparse voxel texture; each setup step timed;
+   a radius-3 ball on the surface where the centre ray lands is added,
+   removed, added, then added and removed in turn, `apply_edits` and a
+   frame a step, counters reset before the steps and read after: fails
+   unless every per-frame kernel and K17 launched once a step, K18 once an
+   edit, and nothing else (no sun grids, no sky), or unless after each
+   edit the frame equals one with K11's grids rebuilt from the patched
+   faces, byte for byte, and the raster's hits equal the trace's on the
+   patched grid but at ties the oracle takes the raster's way; prints
+   each edit's timings and frame time, the median, and under
+   torch.profiler a window of steps' device busy time and K17's and K18's
+   device time; then fails unless the editor's occupancy equals the
+   script's own copy, and the patched grid answers like a fresh build
+   (the jump grid's rows equal; K16 on the patched paged grid gives every
+   primary ray's hit, face, axis_coord and t of a fresh build); K17 on
+   three bricks (one at the world's far edge) and twice on one, and K18
+   on fresh hard and cone grids, against their plain versions byte for
+   byte; their rows for the kernels line (K18 on the host's rectangles,
+   its library call `index_put_` of the texel list).
 
 Any failed check raises and the script exits non-zero. Without a CUDA
 device it exits non-zero before printing any result. Before the last line
@@ -166,7 +189,8 @@ cone rows' bounds from the kernel's tight boxes; K14 three times:
 launches; K14's bound counts this run's DDA sub-steps of its samples;
 K15 twice: `shade_bounce` at config 4's bounce 0 with its frames'
 launches, `shade_bounce_lights` at the lights frame's bounce 0, its
-bound counting the lights' DDA sub-steps);
+bound counting the lights' DDA sub-steps; K17 and K18 with the launches
+of config 5's dynamic steps);
 the last line of stdout is {"ok": true, "device": {...}}.
 """
 
@@ -773,12 +797,13 @@ ROW_READ = {"jump": (("rows", 96),),
             "paged": (("page rows", 16), ("pool rows", 72))}
 
 
-def config5_phase(repo, dev, errs: dict, launches: dict) -> list:
-    """Phase 3g (module docstring): the 1024^3 scene built once, each setup
+def config5_phase(repo, dev, errs: dict, launches: dict):
+    """Phase 7 (module docstring): the 1024^3 scene built once, each setup
     step timed; the frames of C5_PHASES, counters reset before each
     configuration and read after; then K16, the paged K12, K14 and K15
     against their plain versions. Returns the kernels line's rows of the
-    paged kernels; fills `errs` and `launches`."""
+    paged kernels and the world's chunks (phase 8 edits them); fills
+    `errs` and `launches`."""
     import numpy as np
     import torch
 
@@ -1182,6 +1207,422 @@ def config5_phase(repo, dev, errs: dict, launches: dict) -> list:
           f"device memory {torch.cuda.max_memory_allocated(dev) / 2**20:.1f}"
           f" MiB; rays at the cap: primary {cap_p}, shadow {cap_s}; frame "
           f"medians {meds}")
+    return rows, scene.chunks
+
+
+# the dynamic world (ROADMAP A12; phase 8 of the module docstring): config
+# 5 with its per-frame edits (tools/bench_scale.py:61-150): the 1024^3
+# world at 1920x1080, one hard shadow ray, max_ray_iterations 3,
+# `dynamic_world`, traversal "auto" (the paged grid), its camera; the
+# radius-3 ball of `_brush` (:52) 4 voxels above the surface of the column
+# the centre pixel's ray hits (dynamic_run), added, removed and added
+# again, then DYN_FRAMES frames adding and
+# removing it in turn (:103-125), an edit before each frame. Then the
+# 256^3 bench world (bench.py's camera) with the same steps on the jump
+# grid. The editor is made before the Renderer, and the scene takes its
+# paged grid (or jump grid) and region faces: each is built once.
+DYN_CFG = dict(width=1920, height=1080, shadow_samples=1,
+               max_ray_iterations=3)
+DYN_FRAMES = 8
+DYN_PROFILED = 6     # edit-and-frame steps under torch.profiler
+# each world's depth, camera and tools/bench_scale.py's brush column (x, z)
+DYN_WORLDS = {"config 5": (5, C5_CAMERA, (512, 400)),
+              "256^3": (4, CAMERA, (128, 100))}
+_DYN_FRAME = {"generate_rays": 1, "raster_fragments": 1,
+              "raster_resolve": 1, "shade_pixel": 1, "bloom_pyramid": 1,
+              "composite": 1, "svt_update_brick": 1}
+# K17's operations a voxel: a blurred one 27 taps of 4 channels (a
+# multiply and an add each), the blur's multiply and the output's FMA a
+# channel; a solid one the block colour (SHADE's hash and normalize) and
+# the output's FMA a channel
+SVT_BLUR_OPS = 27 * 4 * 2 + 4 + 4 * 2
+SVT_SOLID_OPS = 45 + 4 * 2
+
+
+def brush(center, radius: int = 3):
+    """tools/bench_scale.py `_brush`: the voxel ball around `center`."""
+    import numpy as np
+    g = np.mgrid[-radius:radius + 1, -radius:radius + 1,
+                 -radius:radius + 1].reshape(3, -1).T
+    return (np.asarray(center, np.int64)[None]
+            + g[(g ** 2).sum(1) <= radius * radius])
+
+
+def dynamic_run(label, repo, dev, chunks, errs, launches) -> dict:
+    """One world of DYN_WORLDS through the dynamic path: the editor, its
+    structures in the scene, the Renderer with `dynamic_world`; counters
+    reset before the steps and read after (the checks between them
+    restore the counts they add); after each edit, the frame against one
+    with K11's grids rebuilt from the patched faces (byte for byte) and
+    the raster's hits against the trace on the patched grid (each ray
+    where they differ against the oracle); after the steps, the editor's
+    occupancy against the host copy the script keeps, and the patched
+    grid against one built afresh from it (the paged grid's traces of
+    every primary ray; the jump grid's rows). Returns what the kernels
+    line and the checks of K17 and K18 need."""
+    import numpy as np
+    import torch
+
+    from vvr_tpu_torch import kernels
+    from vvr_tpu_torch.config import RenderConfig, WorldConfig
+    from vvr_tpu_torch.ops import rastertrace as rt
+    from vvr_tpu_torch.ops import sunshadow as ss
+    from vvr_tpu_torch.ops import trace as tracer
+    from vvr_tpu_torch.ops.raygen import camera_rays
+    from vvr_tpu_torch.render.frame import render_frame
+    from vvr_tpu_torch.render.oracle import trace_dense
+    from vvr_tpu_torch.render.renderer import Renderer
+    from vvr_tpu_torch.render.scene import Scene
+    from vvr_tpu_torch.tools.profile_frame import trace_events, union_us
+    from vvr_tpu_torch.utils.camera import Camera
+    from vvr_tpu_torch.world.edit import WorldEditor
+    from vvr_tpu_torch.world.generator import assemble_dense
+    from vvr_tpu_torch.world.jumpgrid import build_jump_grid
+    from vvr_tpu_torch.world.paged import build_paged_grid
+
+    depth, camera, (bx, bz) = DYN_WORLDS[label]
+    wcfg = WorldConfig(depth=depth)
+    size = wcfg.size
+    cfg = RenderConfig(**DYN_CFG)
+    paged = cfg.use_paged(size)
+    cam = Camera.look_at(*camera[:2], fov=camera[2])
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    t_phase = time.perf_counter()
+    setup = {}
+
+    def timed(step, fn):
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        setup[step] = time.perf_counter() - t0
+        return out
+
+    occ = timed("assemble_dense (the script's host copy)",
+                lambda: assemble_dense(chunks, size))
+    scene = Scene(wcfg, chunks, device=dev)
+    editor = WorldEditor(chunks, None, size=size, device=dev)
+    if paged:
+        scene.paged = timed("editor.attach_paged", editor.attach_paged)
+    else:
+        scene.jumpgrid = timed("jump grid + editor.attach_jump_grid",
+                               lambda: editor.attach_jump_grid(
+                                   build_jump_grid(occ, dev)))
+    scene.faces = timed("editor.attach_faces_incremental",
+                        editor.attach_faces_incremental)
+    r = timed("Renderer (the sparse voxel texture)", lambda: Renderer(
+        wcfg, cfg, device=dev, scene=scene, dynamic_world=True))
+    check(r.use_paged == paged and r.use_raster and r.use_sunmask,
+          f"{label}: the dynamic Renderer must rasterize, classify and "
+          f"trace the {'paged' if paged else 'jump'} grid")
+    check(r.grid is (editor.paged if paged else editor.jumpgrid)
+          and scene.faces is editor.faces, f"{label}: the scene must hold "
+          "the editor's grid and faces")
+    # the brush lands where the camera looks (tools/bench_scale.py:98): on
+    # the surface of the column the centre pixel's ray hits. Its own
+    # column (512, 400) lies behind a hill from the camera, and its y
+    # (:99-101) reads occ[:, :, x][:, z], the voxels at y = z, which puts
+    # the ball 166 voxels under the surface
+    w, h, n = cfg.width, cfg.height, cfg.width * cfg.height
+    o, d = camera_rays(cam, w, h, dev)
+    mid = (h // 2) * w + w // 2
+    probe0 = scene.solid_at_host(cam.position)
+    centre = rt.trace_raster(scene.faces, rt.raster_camera(cam), d, probe0,
+                             size, w, h)
+    check(bool(centre.hit[mid]), f"{label}: the centre ray hits nothing")
+    hx, _, hz = (int(v) for v in torch.floor(
+        o[mid] + d[mid] * centre.t[mid]).cpu())
+    col = np.nonzero(occ[hz, :, hx])[0]
+    top = int(col.max()) if len(col) else 0
+    ball = brush((hx, top + 4, hz))
+    at_col = np.nonzero(occ[bz, :, bx])[0]
+    bench_col = np.nonzero(occ[:, bz, bx])[0]
+    print(f"dynamic {label}: setup (host clock) " + ", ".join(
+        f"{k} {v:.2f} s" for k, v in setup.items())
+        + f"; {editor.faces[0].shape[0]} face rows "
+        f"({int((editor.faces[5] > 0).sum())} faces), "
+        + (f"pool {tuple(editor.paged.brows.shape)}, "
+           f"{editor.paged.memory_bytes() / 2**20:.2f} MiB; " if paged
+           else "")
+        + f"SVT {r.svt.num_bricks} bricks, "
+        f"{r.svt.memory_bytes() / 2**20:.2f} MiB; brush of {len(ball)} "
+        f"voxels at ({hx}, {top + 4}, {hz}), the centre ray's column "
+        f"(surface y {top}); tools/bench_scale.py's column ({bx}, {bz}) has "
+        f"its surface at y {int(at_col.max()) if len(at_col) else -1}, its "
+        f"expression gives y "
+        f"{int(bench_col.max()) + 4 if len(bench_col) else 104})")
+
+    max_steps = cfg.traversal_max_steps * 8
+    rcam = rt.raster_camera(cam)
+    e1, e2, s = ss.sun_basis(r.sun[:3])
+    for _ in range(2):       # warm-up: K11 and K3, the first K17 passes
+        r.render(cam, time=0.0)
+    torch.cuda.synchronize()
+    solids = [True, False, True] + [i % 2 == 0 for i in range(DYN_FRAMES)]
+    marked, ties = [], 0
+
+    def after_edit(k, t, img):
+        """The checks of one step (their launches not counted)."""
+        nonlocal ties
+        saved = dict(kernels.LAUNCHES)
+        grids = r._sunmask_cache[1][2]
+        fresh = ss.sun_grids(scene.faces, e1, e2, s, size, ss.GRID)
+        probe = scene.solid_at_host(cam.position)
+        ref, _ = render_frame(r.grid, o, d, r.sun, t, r.cfg, sky=r._sky(t),
+                              raster=(scene.faces, rcam, probe),
+                              sunmask=(e1, e2, fresh))
+        check(torch.equal(img, ref), f"{label} step {k}: the frame with the "
+              f"repaired grids differs from the rebuilt grids' on "
+              f"{int((img != ref).any(-1).sum())} pixels")
+        marked.append(int((grids[0] != fresh[0]).any(1).sum()))
+        ras = rt.trace_raster(scene.faces, rcam, d, probe, size, w, h)
+        tr = tracer.trace(r.grid, o, d, max_steps, width=w, stats=False)
+        off = ((ras.hit != tr.hit) | (ras.hit & (
+            (ras.face != tr.face) | (ras.axis_coord != tr.axis_coord))))
+        bad = torch.nonzero(off)[:, 0].cpu().numpy()
+        if len(bad):
+            ora = trace_dense(occ, o[bad].cpu().numpy(),
+                              d[bad].cpu().numpy())
+            for q, ray in enumerate(bad):
+                check(bool(ora["hit"][q]) == bool(ras.hit[ray])
+                      and int(ora["axis_coord"][q])
+                      == int(ras.axis_coord[ray]),
+                      f"{label} step {k}: ray {ray}, the raster is not the "
+                      "oracle's answer")
+        check(len(bad) <= K16_ORACLE_SLACK, f"{label} step {k}: the raster "
+              f"and the trace differ on {len(bad)} primary rays")
+        ties = max(ties, len(bad))
+        kernels.LAUNCHES.update(saved)
+
+    kernels.reset_launches()
+    ms, infos, changed, prev = [], [], [], None
+    for k, solid in enumerate(solids):
+        t = (k + 1) / 60.0
+        t1 = time.perf_counter()
+        info = r.apply_edits(editor, ball, solid)
+        img = r.render(cam, time=t)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t1) * 1e3)
+        occ[ball[:, 2], ball[:, 1], ball[:, 0]] = solid
+        infos.append(info)
+        after_edit(k, t, img)
+        changed.append(prev is not None and not torch.equal(img, prev))
+        prev = img
+    got = dict(kernels.LAUNCHES)
+    steps = len(solids)
+    want = {**_DYN_FRAME, ("masked_shadow_paged" if paged
+                           else "masked_shadow"): 1}
+    uneven = {k: got[k] for k, v in want.items() if got[k] != v * steps}
+    check(not uneven, f"{label}: kernels not launched {want} times a step "
+          f"over {steps} steps: {uneven}")
+    check(got["invalidate_texels"] == steps, f"{label}: K18 launched "
+          f"{got['invalidate_texels']} times for {steps} edits")
+    others = {k: v for k, v in got.items() if v and k not in want
+              and k != "invalidate_texels"}
+    check(not others, f"{label}: launched {others} (no sun grids, sky, or "
+          "other trace may run between the edits)")
+    for k in ("svt_update_brick", "invalidate_texels"):
+        launches[f"dyn {label} {k}"] = got[k]
+    check(tuple(img.shape) == (h, w, 3) and float(img.float().std()) > 10,
+          f"{label}: the frame is wrong")
+    check(changed[1], f"{label}: removing the ball left the frame as it was "
+          "(the brush is out of view)")
+    for k, info in enumerate(infos):
+        print(f"dynamic {label} step {k} ({'add' if solids[k] else 'remove'}"
+              f"): " + json.dumps({**info, "edit_ms": round(
+                  info["edit_ms"], 3), "frame_ms": round(ms[k], 3),
+                  "texels_off_rebuilt": marked[k],
+                  "frame_changed": changed[k]}))
+    med = sorted(ms)[steps // 2]
+    print(f"dynamic {label}: {steps} steps (edit + frame, host clock, "
+          f"synchronized), median {med:.3f} ms, edit_ms median "
+          f"{sorted(i['edit_ms'] for i in infos)[steps // 2]:.3f}; "
+          f"launches {({k: v for k, v in got.items() if v})}; each frame "
+          f"equal to the rebuilt grids' frame; raster and trace apart on at "
+          f"most {ties} rays a step, each the oracle's tie")
+
+    # a profiled window of edit-and-frame steps: device busy a step, K17's
+    # and K18's device time. A step's device work runs from one frame's
+    # K17 (the frame's first kernel) to the next frame's: the frame, then
+    # the next edit's copies, scatters and K18; the busy time a step is the
+    # union of the device events between the first and the last K17 the
+    # trace recorded, over the steps between them
+    base = len(solids)
+
+    def run():
+        for q in range(DYN_PROFILED + 1):
+            solid = (base + q) % 2 == 0
+            r.apply_edits(editor, ball, solid)
+            r.render(cam, time=(base + q + 1) / 60.0)
+            torch.cuda.synchronize()
+            occ[ball[:, 2], ball[:, 1], ball[:, 0]] = solid
+
+    t1 = time.perf_counter()
+    events = trace_events(repo / "build" / "vvr_tpu_torch"
+                          / "dyn_trace.json", run)
+    wall = (time.perf_counter() - t1) * 1e3 / (DYN_PROFILED + 1)
+    per = {}
+    for e in events:
+        for key, part in (("K17", "vvr_svt_update_kernel"),
+                          ("K17 copy", "Memcpy DtoD"),
+                          ("K18", "vvr_invalidate_texels_kernel")):
+            if part in e["name"]:
+                per.setdefault(key, []).append(e)
+    starts = sorted(e["ts"] for e in per.get("K17", []))
+    check(len(starts) >= 2, f"{label}: the trace recorded "
+          f"{len(starts)} K17 launches of {DYN_PROFILED + 1}")
+    busy = union_us((e["ts"], e["ts"] + e["dur"]) for e in events
+                    if starts[0] <= e["ts"] < starts[-1])
+    print(f"dynamic {label}: profiled window of {DYN_PROFILED + 1} steps, "
+          f"host {wall:.4f} ms a step (profiled), device busy "
+          f"{busy / (len(starts) - 1) / 1e3:.4f} ms a step over the "
+          f"{len(starts) - 1} steps between the first and last K17 the "
+          f"trace recorded; " + ", ".join(
+              f"{k} {sum(e['dur'] for e in v) / len(v):.2f} us a launch "
+              f"({len(v)} launches recorded)" for k, v in per.items()))
+
+    # after the steps: the world, and the grid against a fresh build
+    check(np.array_equal(editor.occupancy(), occ), f"{label}: the editor's "
+          "occupancy differs from the script's copy")
+    if paged:
+        fresh = timed("fresh build_paged_grid", lambda: build_paged_grid(
+            occ, dev))
+        a = tracer.trace(r.grid, o, d, max_steps, width=w, stats=False)
+        b = tracer.trace(fresh, o, d, max_steps, width=w, stats=False)
+        for f in ("hit", "face", "axis_coord", "t"):
+            check(torch.equal(getattr(a, f), getattr(b, f)), f"{label}: K16 "
+                  f"on the patched grid and on a fresh build differ in {f}")
+        print(f"dynamic {label}: K16 on the patched paged grid (pool "
+              f"{tuple(r.grid.brows.shape)}) answers all {n} primary rays "
+              f"as on a fresh build (pool {tuple(fresh.brows.shape)}; "
+              f"{setup['fresh build_paged_grid']:.2f} s)")
+    else:
+        fresh = build_jump_grid(occ, dev)
+        check(torch.equal(r.grid.rows, fresh.rows), f"{label}: the patched "
+              "jump grid's rows differ from a fresh build's")
+        print(f"dynamic {label}: the patched jump grid's rows equal a fresh "
+              "build's")
+    print(f"dynamic {label}: {time.perf_counter() - t_phase:.1f} s, peak "
+          f"device memory {torch.cuda.max_memory_allocated(dev) / 2**20:.1f}"
+          f" MiB")
+    return {"renderer": r, "ball": ball,
+            "k17_us": [e["dur"] for e in per.get("K17", [])],
+            "k18_us": [e["dur"] for e in per.get("K18", [])]}
+
+
+def dynamic_phase(repo, dev, errs: dict, launches: dict, chunks_1024,
+                  chunks_256) -> list:
+    """Phase 8 (module docstring): the dynamic runs of both worlds, then
+    K17 and K18 against their plain versions and their rows of the
+    kernels line (launches from config 5's dynamic run)."""
+    import numpy as np
+    import torch
+
+    from vvr_tpu_torch import kernels
+    from vvr_tpu_torch.ops import sunshadow as ss
+    from vvr_tpu_torch.tools.microbench_gather import bound_ms, cuda_ms
+    from vvr_tpu_torch.world import bricks
+
+    run_256 = dynamic_run("256^3", repo, dev, chunks_256, errs, launches)
+    del run_256
+    got = dynamic_run("config 5", repo, dev, chunks_1024, errs, launches)
+    r, ball = got["renderer"], got["ball"]
+    size = r.scene.cfg.size
+
+    # K17: three bricks (the first, a middle one, one at the world's far
+    # edge) once each, then the first again, against the plain version on
+    # copies of the same bricks, every byte
+    svt = r.svt
+    edge = int(np.argmax(svt.origins_host.max(1)))
+    check(int(svt.origins_host[edge].max()) == size - 64, "no SVT brick "
+          "touches the world's far edge")
+    sel = [0, svt.num_bricks // 2, edge]
+    sub = dataclasses.replace(svt, bricks=svt.bricks[sel].clone(),
+                              origins_host=svt.origins_host[sel],
+                              scratch=None)
+    plain = sub.bricks.clone()
+    for slot in (0, 1, 2, 0):
+        bricks.svt_update_brick(sub, slot)
+        bricks.svt_update_brick_plain(plain, slot, sub.origins_host[slot])
+        check(torch.equal(sub.bricks, plain), f"K17 slot {sel[slot]}: "
+              f"{int((sub.bricks != plain).sum())} bytes differ from plain")
+    errs["svt_update_brick"] = 0.0
+    solid_n = int((sub.bricks[0, ..., 3] == 255).sum())
+    print(f"K17: bricks {sel} (origins {sub.origins_host.tolist()}), one "
+          f"pass each and a second on brick {sel[0]}: every byte equal to "
+          f"plain; brick {sel[0]}: {solid_n} solid voxels of {64 ** 3}")
+
+    # K18: the hard and the cone grids of config 5's patched faces at the
+    # frame's sun, built afresh, on copies, the brush's texels: gBC equal
+    # to plain
+    e1, e2, s = ss.sun_basis(r.sun[:3])
+    hard = ss.sun_grids(r.scene.faces, e1, e2, s, size, ss.GRID)
+    cone = ss.sun_grids(r.scene.faces, e1, e2, s, size, ss.GRID,
+                        ss.CONE_TAN)
+    for name, g, tan in (("hard", hard, 0.0), ("cone", cone, ss.CONE_TAN)):
+        a = (g[0].clone(),) + tuple(g[1:])
+        b = (g[0].clone(),) + tuple(g[1:])
+        ss.invalidate_sun_texels(a, e1, e2, ball, size, tan)
+        rects = ss.texel_rects(e1, e2, ball, size, ss.GRID, *g[1:], tan)
+        ss.invalidate_texels_plain(b[0], rects)
+        check(torch.equal(a[0], b[0]), f"K18 ({name}): gBC differs from "
+              "plain")
+        print(f"K18 ({name} grids): {len(rects)} rectangles, "
+              f"{int((a[0] != g[0]).any(1).sum())} texels changed, gBC equal "
+              "to plain")
+    errs["invalidate_texels"] = 0.0
+
+    # the rows; K18 on the rectangles the host formed (its wrapper's whole
+    # call, the host's float64 rectangles included, is printed beside)
+    g0 = hard[0].clone()
+    grids = (g0,) + tuple(hard[1:])
+    whole = cuda_ms(lambda: ss.invalidate_sun_texels(grids, e1, e2, ball,
+                                                     size), 20)
+    rects = ss.texel_rects(e1, e2, ball, size, ss.GRID, *hard[1:])
+    mask = np.zeros((ss.GRID, ss.GRID), bool)
+    for i0, i1, j0, j1 in rects.tolist():
+        mask[j0:j1 + 1, i0:i1 + 1] = True
+    jj, ii = np.nonzero(mask)
+    tex = torch.from_numpy((jj * ss.GRID + ii).astype(np.int64)).to(dev)
+    amb = torch.tensor([ss.NEG, 3e38], dtype=torch.float32,
+                       device=dev).expand(len(jj), 2).contiguous()
+    n_solid = float((sub.bricks[0, ..., 3] == 255).sum())
+    rows = []
+    timed_rows = {
+        "svt_update_brick": (
+            lambda: bricks.svt_update_brick(sub, 0),
+            lambda: bricks.svt_update_brick_plain(plain, 0,
+                                                  sub.origins_host[0]),
+            None, 2.0 * bricks.BRICK_BYTES,
+            n_solid * SVT_SOLID_OPS + (64 ** 3 - n_solid) * SVT_BLUR_OPS),
+        "invalidate_texels": (
+            lambda: ss.invalidate_texels(g0, rects),
+            lambda: ss.invalidate_texels_plain(g0, rects),
+            lambda: g0.index_put_((tex,), amb),
+            8.0 * len(jj) + rects.nbytes, 0.0),
+    }
+    for name, (kfn, pfn, lfn, moved, ops) in timed_rows.items():
+        k_ms, p_ms = cuda_ms(kfn, 20), cuda_ms(pfn, 2)
+        l_ms = cuda_ms(lfn, 20) if lfn else None
+        b_ms, b_by = bound_ms(moved, ops, "fp32")
+        k = kernels.KERNELS[name]
+        rows.append({"name": name, "route": "cuda", "source": k.source,
+                     "replaces": k.replaces,
+                     "launches": launches[f"dyn config 5 {name}"],
+                     "max_abs_err": errs[name], "ms": k_ms,
+                     "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by,
+                     "library_ms": l_ms})
+        print(f"time {name} (config 5): kernel {k_ms:.4f} ms (wrapper), "
+              f"plain torch {p_ms:.4f} ms, "
+              + (f"index_put_ of the {len(jj)} texels {l_ms:.4f} ms, "
+                 if l_ms else "")
+              + (f"invalidate_sun_texels whole {whole:.4f} ms, "
+                 if name == "invalidate_texels" else "")
+              + f"bound {b_ms:.6f} ms ({b_by}); device "
+              + (f"{sum(got['k17_us']) / max(len(got['k17_us']), 1):.2f}"
+                 if name == "svt_update_brick" else
+                 f"{sum(got['k18_us']) / max(len(got['k18_us']), 1):.2f}")
+              + " us a launch in the profiled steps")
     return rows
 
 
@@ -2852,7 +3293,15 @@ def main() -> int:
 
     # ---- 5b. config 5, the 1024^3 world on the paged grid (phase 7 of
     # the module docstring), its counters reset before each configuration
-    rows += config5_phase(repo, dev, errs, launches)
+    c5_rows, c5_chunks = config5_phase(repo, dev, errs, launches)
+    rows += c5_rows
+
+    # ---- 5c. the dynamic world (phase 8 of the module docstring): the
+    # 256^3 world's edits on a copy of its chunks, then config 5's
+    from vvr_tpu_torch.world.chunk import Chunk
+    rows += dynamic_phase(repo, dev, errs, launches, c5_chunks, [
+        Chunk(c.position, c.voxels.copy()) for c in renderer.scene.chunks])
+    del c5_chunks
 
     # ---- 6. the gather microbenchmark's path, through its entry point
     gather_kernels = [k for k, v in kernels.KERNELS.items()

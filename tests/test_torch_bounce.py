@@ -274,15 +274,22 @@ def test_lights_wavy_frame_equals_jax(world, sky, rays):
     _check_frame(hdr, counts, ref, ref_counts, 2)
 
 
-def test_config4_golden(world):
+@pytest.fixture(scope="module")
+def cone_sunmask(world):
+    """(e1, e2, cone grids) of the 64^3 world's merged faces at SUN, the
+    2048^2 build of soft shadows, built once for the two config-4 tests
+    below (the Renderer's scene holds the same faces)."""
+    faces = extract_merged_faces(world[0]).device_tuple("cpu")
+    e1, e2, s = sunshadow.sun_basis(SUN[:3])
+    return e1, e2, sunshadow.sun_grids(faces, e1, e2, s, 64, sunshadow.GRID,
+                                       sunshadow.CONE_TAN)
+
+
+def test_config4_golden(world, cone_sunmask):
     """tests/test_render.py:436's config-4 frame (the JAX package renders
     it on its brick pyramid, without the rasterizer) through the port's
     plain path on the jump grid, also without it."""
     occ, _, grid, _, dens = world
-    faces = extract_merged_faces(occ).device_tuple("cpu")
-    e1, e2, s = sunshadow.sun_basis(SUN[:3])
-    cone = sunshadow.sun_grids(faces, e1, e2, s, 64, sunshadow.GRID,
-                               sunshadow.CONE_TAN)
     cfg = RenderConfig(width=96, height=64, shadow_samples=4,
                        max_ray_iterations=4, skybox_resolution=32,
                        clouds_resolution=32, ambient_occlusion=True,
@@ -290,7 +297,7 @@ def test_config4_golden(world):
     o, d = camera_rays(TERRAIN, 96, 64, "cpu")
     demand = {}
     img, hdr = render_frame(grid, o, d, SUN, 0.0, cfg,
-                            sunmask=(e1, e2, cone), density=dens,
+                            sunmask=cone_sunmask, density=dens,
                             mirror_materials=True, demand=demand)
     assert torch.isfinite(hdr).all()
     assert int(demand["b3_active"]) > 0   # four bounces live
@@ -299,18 +306,23 @@ def test_config4_golden(world):
     assert off.mean() < 0.005, f"{off.mean():.4%} off, at {_where(off)}"
 
 
-def test_renderer_config4_on_the_cpu(world):
+def test_renderer_config4_on_the_cpu(world, cone_sunmask):
     """Renderer with config 4's knobs and the point lights: the scene
     builds its density, the lights move every frame, and the frame is
     the render_frame call with the scene's density and first lights; the
     second frame too, whose continuation buffers (kept by the Renderer)
-    hold the first frame's rays, against fresh zero-filled ones."""
+    hold the first frame's rays, against fresh zero-filled ones. The
+    Renderer's cone grids are seeded with the module's (the same faces
+    and sun)."""
     cfg = RenderConfig(width=48, height=32, shadow_samples=4,
                        max_ray_iterations=4, ambient_occlusion=True,
                        point_lights=True, skybox_resolution=32,
                        clouds_resolution=32)
     r = Renderer(WorldConfig(depth=3), cfg, device="cpu",
                  mirror_materials=True)
+    assert np.array_equal(r.sun[:3], SUN[:3])
+    r._sunmask_cache = ((r.sun[:3].tobytes(), r.scene.epoch, False, True),
+                        cone_sunmask)
     np.testing.assert_array_equal(r.scene.density.numpy(),
                                   world[4].numpy())
     before = r.scene.lights.copy()

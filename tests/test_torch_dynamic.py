@@ -1,0 +1,449 @@
+"""The dynamic world (ROADMAP A12): the world editor, the sparse voxel
+texture with its update pass (K17) and the sun grids' repair (K18), the
+port's plain versions held to the JAX package on the CPU, on 64^3 worlds
+and 48x32 frames.
+
+- `build_svt`'s page table, metadata, bricks and origins equal JAX's, and
+  `is_solid` and `sample_colour_nearest` JAX's on seeded points; the plain
+  K17 equals JAX `svt_update_brick` on every byte, two passes on each of
+  two bricks (seeded colours; one brick touches the world's edge).
+- The editor: after the same adds and removes (a superbrick and a page
+  turning empty and non-empty, a page outgrowing its pool span into the
+  tail and an exhausted tail rebuilding the grid under a small
+  `tail_slack`, a face slot overflowing under a small `slack`), the jump
+  grid's rows, the paged grid's page table and pool and the eight face
+  arrays equal the JAX editor's element for element, and the occupancy
+  equals its dense copy.
+- The plain K18 writes the texels JAX `invalidate_sun_texels` writes, with
+  the same values, on the same seeded gBC, hard (2048^2) and cone (512^2):
+  the whole gBC is equal.
+- `Renderer.apply_edits` frames at the default knobs (the 512^2 grids of
+  a dragged sun) meet the JAX Renderer's after the same edits (the golden
+  bar: fewer than 0.5% of values off by more than 2; both get the same
+  seeded sky textures): on the jump grid after every edit, on the paged
+  grid after the last, its earlier frames equal to the jump grid's byte
+  for byte; the frame with the repaired grids equals a frame with the
+  grids rebuilt from the patched faces byte for byte, for soft shadows
+  with the cone grids too.
+- C2: after the sun moves and then an edit, the frame equals a frame with
+  grids built afresh for the present sun. C4: the editor refuses a size
+  that is not a power of 4, and the paged grid one that is not a multiple
+  of 32.
+"""
+
+import numpy as np
+import pytest
+import torch
+import jax
+import jax.numpy as jnp
+
+from vvr_tpu.config import RenderConfig as JaxRenderConfig
+from vvr_tpu.config import WorldConfig as JaxWorldConfig
+from vvr_tpu.ops.sunshadow import COARSE as JAX_COARSE
+from vvr_tpu.ops.sunshadow import \
+    invalidate_sun_texels as jax_invalidate_sun_texels
+from vvr_tpu.render.renderer import Renderer as JaxRenderer
+from vvr_tpu.render.scene import Scene as JaxScene
+from vvr_tpu.utils.camera import Camera as JaxCamera
+from vvr_tpu.world import bricks as jax_bricks
+from vvr_tpu.world.chunk import Chunk as JaxChunk
+from vvr_tpu.world.chunk import ChunkKind as JaxChunkKind
+from vvr_tpu.world.edit import WorldEditor as JaxWorldEditor
+from vvr_tpu.world.jumpgrid import build_jump_grid as jax_build_jump_grid
+from vvr_tpu_torch.config import RenderConfig, WorldConfig
+from vvr_tpu_torch.ops import sunshadow
+from vvr_tpu_torch.render.renderer import Renderer
+from vvr_tpu_torch.render.scene import Scene
+from vvr_tpu_torch.utils.camera import Camera
+from vvr_tpu_torch.world import bricks
+from vvr_tpu_torch.world.chunk import Chunk, ChunkKind, chunk_kind
+from vvr_tpu_torch.world.edit import WorldEditor, world_depth
+from vvr_tpu_torch.world.generator import assemble_dense, generate_world
+from vvr_tpu_torch.world.jumpgrid import build_jump_grid
+
+# one intra-op thread: the suite runs six pytest workers on eight cores
+torch.set_num_threads(1)
+
+SUN = np.array([-0.28, 0.65, -0.71], np.float32)
+SUN = np.concatenate([SUN / np.linalg.norm(SUN), [0.0]]).astype(np.float32)
+VIEW = Camera.look_at([32, 28, 6], [32, 2, 45], fov=85)
+SMALL = dict(width=48, height=32, shadow_samples=1, max_ray_iterations=2,
+             skybox_resolution=32, clouds_resolution=32)
+FIELDS = ("vx", "vy", "vz", "axis", "sgn", "eu", "ev", "einfo")
+
+
+def _ball(center, r=3):
+    """The voxel ball of tools/bench_scale.py `_brush` around `center`."""
+    g = np.mgrid[-r:r + 1, -r:r + 1, -r:r + 1].reshape(3, -1).T
+    return np.asarray(center, np.int64)[None] + g[(g ** 2).sum(1) <= r * r]
+
+
+def _chunk_pair(voxels, position):
+    """The same chunk for each package (the JAX one classified, without
+    the mips that only its brick pyramid reads)."""
+    jc = JaxChunk(np.array(position), voxels.copy())
+    jc.kind = JaxChunkKind[chunk_kind(voxels).name]
+    return jc, Chunk(np.array(position), voxels.copy())
+
+
+@pytest.fixture(scope="module")
+def terrain():
+    """The 64^3 world's occupancy (the port's generator, equal to the JAX
+    package's: tests/test_torch_world.py) and its surface height at (32,
+    32)."""
+    occ = assemble_dense(generate_world(WorldConfig(depth=3), "cpu"), 64)
+    return occ, _surface(occ, 32, 32)
+
+
+def _surface(occ, x, z) -> int:
+    """The top solid voxel's y in column (x, z)."""
+    return int(np.nonzero(occ[z, :, x])[0].max())
+
+
+def _edit_chunks(occ):
+    """A fresh copy of the 64^3 world's one chunk for each package."""
+    return [[c] for c in _chunk_pair(occ, (0, 0, 0))]
+
+
+# ---- the sparse voxel texture and K17 ------------------------------------
+
+@pytest.fixture(scope="module")
+def svt_pair(terrain):
+    """build_svt of both packages over a 128^3 world of four chunks: the
+    terrain chunk, a full one, an empty one and a partial slab at the far
+    corner (its brick touches the world's edge)."""
+    slab = np.zeros((64,) * 3, bool)
+    slab[:, :, 40:] = True
+    pairs = [_chunk_pair(terrain[0], (0, 0, 0)),
+             _chunk_pair(np.ones((64,) * 3, bool), (1, 0, 0)),
+             _chunk_pair(np.zeros((64,) * 3, bool), (0, 1, 0)),
+             _chunk_pair(slab, (1, 1, 1))]
+    ref = jax_bricks.build_svt([p[0] for p in pairs], 128)
+    return ref, bricks.build_svt([p[1] for p in pairs], 128, "cpu")
+
+
+def test_build_svt_equals_jax(svt_pair):
+    ref, svt = svt_pair
+    assert svt.num_bricks == ref.num_bricks == 2
+    for name in ("page_table", "metadata", "bricks", "origins"):
+        np.testing.assert_array_equal(getattr(svt, name).numpy(),
+                                      np.asarray(getattr(ref, name)), name)
+    np.testing.assert_array_equal(svt.page_host, np.asarray(ref.page_table))
+    np.testing.assert_array_equal(svt.origins_host, np.asarray(ref.origins))
+    rng = np.random.default_rng(3)
+    pos = rng.integers(0, 128, (2000, 3))
+    np.testing.assert_array_equal(
+        bricks.is_solid(svt, torch.from_numpy(pos)).numpy(),
+        np.asarray(jax.jit(jax_bricks.is_solid)(ref, jnp.asarray(pos))))
+    posf = rng.uniform(0, 128, (2000, 3)).astype(np.float32)
+    np.testing.assert_array_equal(
+        bricks.sample_colour_nearest(svt, torch.from_numpy(posf)).numpy(),
+        np.asarray(jax_bricks.sample_colour_nearest(ref, jnp.asarray(posf))))
+    assert [c.kind for c in (Chunk([0, 0, 0], np.ones((64,) * 3, bool)),
+                             Chunk([0, 0, 0], np.zeros((64,) * 3, bool)))] \
+        == [ChunkKind.FULL, ChunkKind.EMPTY]
+
+
+def test_svt_update_equals_jax(svt_pair):
+    """Two passes on each brick, from seeded colours (alpha from the
+    occupancy, a fifth of the other voxels at 255): every byte."""
+    ref, svt = svt_pair
+    rng = np.random.default_rng(5)
+    start = np.asarray(ref.bricks).copy()
+    start[..., :3] = rng.integers(0, 256, start[..., :3].shape)
+    start[..., 3] = np.where(rng.random(start.shape[:4]) < 0.2, 255,
+                             start[..., 3])
+    jb = jnp.asarray(start)
+    svt.bricks = torch.from_numpy(start.copy())
+    for _ in range(2):
+        for slot in range(2):
+            jb = jax_bricks.svt_update_brick(jb, jnp.int32(slot),
+                                             ref.origins[slot])
+            bricks.svt_update_brick(svt, slot)
+            np.testing.assert_array_equal(svt.bricks.numpy(),
+                                          np.asarray(jb))
+    assert (svt.bricks.numpy() != start).any()
+
+
+def test_dynamic_renderer_runs_the_pass_round_robin(tmp_path):
+    """Renderer(dynamic_world=True): the texture of the scene's chunks,
+    and each frame the pass on brick frame_count % num_bricks."""
+    r = Renderer(WorldConfig(depth=3), RenderConfig(**{
+        **SMALL, "primary_raster": "off", "sun_mask": "off"}), device="cpu",
+        cache_path=tmp_path / "map_64.npz", dynamic_world=True)
+    fresh = bricks.build_svt(r.scene.chunks, 64, "cpu")
+    np.testing.assert_array_equal(r.svt.bricks.numpy(),
+                                  fresh.bricks.numpy())
+    for _ in range(2):
+        r.render(VIEW, time=0.0)
+        bricks.svt_update_brick_plain(fresh.bricks,
+                                      (r.frame_count - 1) % fresh.num_bricks,
+                                      fresh.origins_host[0])
+    np.testing.assert_array_equal(r.svt.bricks.numpy(), fresh.bricks.numpy())
+
+
+# ---- the editor ----------------------------------------------------------
+
+def _assert_editors_equal(jed, ed, what):
+    np.testing.assert_array_equal(ed.jumpgrid.rows.numpy(), np.asarray(
+        jed.jumpgrid.rows).view(np.int32), f"{what}: jump rows")
+    np.testing.assert_array_equal(ed.paged.prows.numpy(), np.asarray(
+        jed.paged.prows).view(np.int32), f"{what}: page table")
+    np.testing.assert_array_equal(ed.paged.brows.numpy(), np.asarray(
+        jed.paged.brows).view(np.int32), f"{what}: pool")
+    for k, a, b in zip(FIELDS, ed.faces, jed.faces):
+        np.testing.assert_array_equal(a.numpy(), np.asarray(b),
+                                      f"{what}: faces {k}")
+    np.testing.assert_array_equal(ed.occupancy(), jed.occupancy(), what)
+
+
+def test_editor_equals_jax(terrain):
+    occ, top = terrain
+    (jchunks, chunks) = _edit_chunks(occ)
+    jed = JaxWorldEditor(jchunks, None, size=64)
+    jed.attach_paged(tail_slack=3)
+    jed.attach_jump_grid(jax_build_jump_grid(occ))
+    jed.attach_faces_incremental(region=16, slack=0.05, pad_rows=1)
+    ed = WorldEditor(chunks, None, jumpgrid=build_jump_grid(occ, "cpu"),
+                     size=64, device="cpu")
+    ed.attach_paged(tail_slack=3)
+    ed.attach_faces_incremental(region=16, slack=0.05, pad_rows=1)
+    _assert_editors_equal(jed, ed, "attach")
+    seen = set()
+    steps = [(_ball((32, top + 4, 32)), True),     # a superbrick and a
+             (_ball((32, top + 4, 32)), False),    # face slot overflow
+             (_ball((10, 60, 50)), True),          # a page, the tail
+             (_ball((10, 60, 50)), False)]
+    for i, (pos, solid) in enumerate(steps):
+        before = (ed.paged.brows, ed.faces[0].shape[0], ed.paged.prows[:, 3]
+                  .clone(), ed._occ_sb_j.copy())
+        n = ed.set_voxels(pos, solid)
+        assert n == jed.set_voxels(pos, solid)
+        _assert_editors_equal(jed, ed, f"edit {i}")
+        seen |= {"rebuild"} if ed.paged.brows is not before[0] else set()
+        seen |= {"overflow"} if ed.faces[0].shape[0] != before[1] else set()
+        seen |= ({"page flip"} if not torch.equal(ed.paged.prows[:, 3],
+                                                  before[2]) else set())
+        seen |= ({"superbrick flip"} if (ed._occ_sb_j != before[3]).any()
+                 else set())
+        assert set(ed.last_timings) == {"paged_ms", "jump_ms", "faces_ms"}
+    assert seen == {"rebuild", "overflow", "page flip", "superbrick flip"}
+
+
+def test_editor_creates_chunks_and_refuses_what_it_lacks(terrain):
+    """An edit where no chunk exists creates one; a pyramid, a size that
+    is not a power of 4 (C4) and a paged grid on a size that is not a
+    multiple of 32 are refused."""
+    occ, _ = terrain
+    jc, c = _chunk_pair(occ, (0, 0, 0))
+    jed = JaxWorldEditor([jc], None, size=256)
+    ed = WorldEditor([c], None, size=256, device="cpu")
+    jed.attach_faces_incremental(region=128)
+    ed.attach_faces_incremental(region=128)
+    pos = _ball((100, 70, 130))
+    jed.set_voxels(pos, True)
+    ed.set_voxels(pos, True)
+    assert len(ed.chunks) == len(jed.chunks) == 3
+    for a, b in zip(ed.faces, jed.faces):
+        np.testing.assert_array_equal(a.numpy(), np.asarray(b))
+    assert [world_depth(s) for s in (4, 16, 64, 256, 1024)] == [1, 2, 3, 4,
+                                                                5]
+    for size in (48, 96, 128, 512):
+        with pytest.raises(ValueError, match="C4"):
+            WorldEditor([], None, size=size, device="cpu")
+    with pytest.raises(ValueError, match="C4"):
+        WorldEditor([], None, size=16, device="cpu").attach_paged()
+    with pytest.raises(NotImplementedError, match="A13"):
+        WorldEditor([], object(), size=64, device="cpu")
+
+
+# ---- K18 -----------------------------------------------------------------
+
+@pytest.mark.parametrize("cone,g", [(False, sunshadow.GRID),
+                                    (True, sunshadow.GRID_DRAGGING)],
+                         ids=["hard", "cone"])
+def test_invalidate_equals_jax(cone, g):
+    """The same seeded gBC (2048^2; the cone grids at the dragged sun's
+    512^2) through both packages after edits at a ball and at scattered
+    voxels, one of them at the world's edge: the same texels marked,
+    every value equal."""
+    e1, e2, _ = sunshadow.sun_basis(SUN[:3])
+    a0, b0, ts = sunshadow.grid_frame(e1, e2, 64, g)
+    rng = np.random.default_rng(9)
+    gbc = rng.uniform(-50, 50, (g * g, 2)).astype(np.float32)
+    pos = np.concatenate([_ball((30, 20, 40)), rng.integers(0, 64, (12, 3)),
+                          [[63, 63, 63]]])
+    cone_tan = sunshadow.CONE_TAN if cone else 0.0
+    co = min(JAX_COARSE, g)
+    ref = jax_invalidate_sun_texels(
+        (jnp.asarray(gbc), jnp.zeros((co * co, 2), jnp.float32),
+         jnp.float32(a0), jnp.float32(b0), jnp.float32(ts)),
+        e1, e2, None, pos, 64, cone_tan)[0]
+    got = torch.from_numpy(gbc.copy())
+    out = sunshadow.invalidate_sun_texels((got, a0, b0, ts), e1, e2, pos,
+                                          64, cone_tan)
+    assert out[0] is got
+    marked = (got.numpy() != gbc).any(1)
+    np.testing.assert_array_equal(marked, (np.asarray(ref) != gbc).any(1))
+    np.testing.assert_array_equal(got.numpy(), np.asarray(ref))
+    assert marked.sum() > 100
+    assert (got.numpy()[marked] == np.float32([sunshadow.NEG, 3e38])).all()
+
+
+# ---- the Renderer --------------------------------------------------------
+
+def _sky_textures():
+    rng = np.random.default_rng(0)
+    return (rng.uniform(0.0, 1.0, (6, 32, 32, 3)).astype(np.float32),
+            rng.uniform(0.0, 1.0, (32, 32, 4)).astype(np.float32))
+
+
+def _renderers(occ, traversal, knobs=None):
+    """A JAX Renderer and a port Renderer on the 64^3 world with an
+    editor each (the grid of `traversal`, the incremental faces), their
+    sky caches seeded with the same textures for t = 0, their sun grids
+    those of a dragged sun."""
+    cfg = {**SMALL, **(knobs or {}), "traversal": traversal}
+    jchunks, chunks = _edit_chunks(occ)
+    jed = JaxWorldEditor(jchunks, None, size=64)
+    ed = WorldEditor(chunks, None, size=64, device="cpu")
+    jscene = JaxScene(JaxWorldConfig(depth=3), jchunks, None, None, None,
+                      np.zeros((100, 4), np.float32))
+    scene = Scene(WorldConfig(depth=3), chunks, device="cpu")
+    if traversal == "paged":
+        jscene.paged, scene.paged = jed.attach_paged(), ed.attach_paged()
+    else:
+        jscene.jumpgrid = jed.attach_jump_grid(jax_build_jump_grid(occ))
+        scene.jumpgrid = ed.attach_jump_grid(build_jump_grid(occ, "cpu"))
+    jscene.faces = jed.attach_faces_incremental()
+    scene.faces = ed.attach_faces_incremental()
+    jr = JaxRenderer(JaxWorldConfig(depth=3), JaxRenderConfig(**cfg),
+                     scene=jscene)
+    r = Renderer(WorldConfig(depth=3), RenderConfig(**cfg), device="cpu",
+                 scene=scene)
+    assert r.use_paged == (traversal == "paged") and r.use_sunmask
+    # the 512^2 grids of a dragged sun: the same build, repair and key
+    # (its reduced-resolution flag) at a sixteenth of the texels
+    jr.set_sun_dragging(True)
+    r.set_sun_dragging(True)
+    sb, cl = _sky_textures()
+    key = (r.sun[:3].tobytes(), 0.0)
+    jr._sky_cache = (key, (jnp.asarray(sb), jnp.asarray(cl)))
+    r._sky_cache = (key, (torch.from_numpy(sb), torch.from_numpy(cl)))
+    return (jr, jed), (r, ed)
+
+
+def _rebuilt(r):
+    """The port Renderer's frame with its sun grids built afresh (from the
+    patched faces), the repaired grids put back after."""
+    cache = r._sunmask_cache
+    r._sunmask_cache = None
+    img = r.render(VIEW, time=0.0, fetch=True)
+    r._sunmask_cache = cache
+    return img
+
+
+def _assert_golden_bar(img, ref, what):
+    off = np.abs(img.astype(int) - ref.astype(int)) > 2
+    assert off.mean() < 0.005, f"{what}: {off.mean():.4%} off by more than 2"
+
+
+EDITS = ("add", "remove", "crater")
+
+
+@pytest.fixture(scope="module")
+def edited_frames(terrain):
+    """The port's frames on both grids and the JAX Renderer's, before and
+    after each edit of EDITS (a ball added on the surface in view, removed
+    again, then a crater carved into the surface), with the port's frames
+    after the last edit from rebuilt grids. The JAX frames on the jump
+    grid follow every edit; on the paged grid only the last: once frames
+    of both grids are compiled in one process, the jax 0.9 pjit fast path
+    serves the second grid's later calls a stale argument list, and the
+    JAX renderer's self-healing retry (vvr_tpu/render/renderer.py:28)
+    recompiles each of them."""
+    occ, _ = terrain
+    center = (30, _surface(occ, 30, 20) + 3, 20)
+    crater = (31, _surface(occ, 31, 16), 16)
+    steps = dict(zip(EDITS, [(_ball(center), True), (_ball(center), False),
+                             (_ball(crater, 4), False)]))
+    out = {}
+    for traversal in ("jump", "paged"):
+        (jr, jed), (r, ed) = _renderers(occ, traversal)
+        port, ref, infos = [r.render(VIEW, time=0.0, fetch=True)], [], []
+        if traversal == "jump":
+            ref.append(jr.render(_jax_view(), time=0.0, fetch=True))
+        for i, (pos, solid) in enumerate(steps.values()):
+            info = r.apply_edits(ed, pos, solid)
+            infos.append((info, jr.apply_edits(jed, pos, solid),
+                          r.scene.epoch, r._sunmask_cache[0][1]))
+            port.append(r.render(VIEW, time=0.0, fetch=True))
+            if traversal == "jump" or i == len(steps) - 1:
+                ref.append(jr.render(_jax_view(), time=0.0, fetch=True))
+        out[traversal] = dict(port=port, ref=ref, infos=infos,
+                              rebuilt=_rebuilt(r),
+                              grid_is_editors=r.grid is (
+                                  ed.paged if traversal == "paged"
+                                  else ed.jumpgrid))
+    return out
+
+
+@pytest.mark.parametrize("traversal", ["jump", "paged"])
+def test_apply_edits_frames_equal_jax(traversal, edited_frames):
+    """After each edit the frame meets the JAX frame (on the paged grid:
+    equals the jump grid's frame byte for byte, and meets the JAX frame
+    after the last edit), each edit changes the frame, the returned
+    timings are the JAX renderer's keys, the grid is the editor's, and
+    the frame with the repaired grids equals the rebuilt one."""
+    got = edited_frames[traversal]
+    port, ref = got["port"], got["ref"]
+    if traversal == "jump":
+        for k, (img, want) in enumerate(zip(port, ref)):
+            _assert_golden_bar(img, want, f"frame {k}")
+    else:
+        for k, (img, want) in enumerate(zip(port, edited_frames["jump"][
+                "port"])):
+            np.testing.assert_array_equal(img, want, f"frame {k}")
+        _assert_golden_bar(port[-1], ref[-1], "after the edits")
+    for i, (info, jinfo, epoch, key_epoch) in enumerate(got["infos"]):
+        assert set(info) == set(jinfo), (set(info), set(jinfo))
+        assert info["patched_rows"] == jinfo["patched_rows"]
+        assert epoch == key_epoch == i + 1
+        assert (port[i + 1] != port[i]).any(), EDITS[i]
+    assert got["grid_is_editors"]
+    np.testing.assert_array_equal(port[-1], got["rebuilt"])
+
+
+def _jax_view():
+    return JaxCamera(VIEW.position, VIEW.rotation, VIEW.fov)
+
+
+def test_soft_frame_after_edits_equals_rebuilt(terrain):
+    """Soft shadows with the cone grids on the paged grid: after an edit
+    the frame with the repaired cone grids equals the rebuilt one."""
+    occ, _ = terrain
+    _, (r, ed) = _renderers(occ, "paged", dict(shadow_samples=4))
+    r.render(VIEW, time=0.0)
+    assert r._sunmask_cache[0][3]     # the cone grids
+    r.apply_edits(ed, _ball((28, 20, 22), 4), True)
+    np.testing.assert_array_equal(r.render(VIEW, time=0.0, fetch=True),
+                                  _rebuilt(r))
+
+
+def test_sun_moved_then_edit_uses_fresh_grids(terrain):
+    """C2: grids cached for one sun, the sun moved, then an edit: the
+    next frame builds grids for the present sun (the JAX renderer stamps
+    the present sun on the old grids and serves them)."""
+    occ, _ = terrain
+    _, (r, ed) = _renderers(occ, "jump")
+    r.render(VIEW, time=0.0)
+    old_key = r._sunmask_cache[0]
+    sun = np.array([0.45, 0.6, 0.3], np.float32)
+    r.sun = np.concatenate([sun / np.linalg.norm(sun), [0.0]]).astype(
+        np.float32)
+    r._sky_cache = ((r.sun[:3].tobytes(), 0.0), r._sky_cache[1])
+    r.apply_edits(ed, _ball((30, 24, 22)), True)
+    assert r._sunmask_cache[0] == (old_key[0], 1) + old_key[2:]
+    img = r.render(VIEW, time=0.0, fetch=True)
+    assert r._sunmask_cache[0][0] == r.sun[:3].tobytes()
+    np.testing.assert_array_equal(img, _rebuilt(r))

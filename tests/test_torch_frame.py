@@ -315,16 +315,21 @@ def test_config_fields_equal_jax(pair):
     assert port == ref
 
 
-def test_timed_clock_spans_the_frame_call(tmp_path, grids, monkeypatch):
+def test_timed_clock_spans_the_frame_call(tmp_path, grids, classifier,
+                                         monkeypatch):
     """`render(timed=True)` starts its clock after the rays, the sun grids
     and the sky, just before the frame call, as the JAX renderer does
     (vvr_tpu/render/renderer.py:188), stops it after the synchronize, and
     pushes one timing a frame: on a frame that rebuilds the sky and on one
-    that does not."""
+    that does not. The Renderer's sun grids are seeded with the module's
+    (the same faces and sun)."""
     from vvr_tpu_torch.render import renderer as rmod
     cfg = {**SLICE, "primary_raster": "auto", "sun_mask": "auto"}
     r = Renderer(WorldConfig(depth=3), RenderConfig(**cfg), device="cpu",
                  cache_path=tmp_path / "map_64.npz")
+    assert np.array_equal(r.sun, SUN)
+    r._sunmask_cache = ((r.sun[:3].tobytes(), 0, False, False),
+                        classifier[1])
     events = []
 
     def logged(name, fn):
@@ -419,7 +424,7 @@ OUTSIDE = [
     ("pyramid_1024", {"traversal": "pyramid"}, {"depth": 5}),
     ("jump2", {"traversal": "jump2"}, {}),
     ("debug_raster", {"debug_type": 0}, {}),
-    ("dynamic", {}, {"dynamic_world": True}),
+    ("dynamic", {"traversal": "pyramid"}, {"dynamic_world": True}),
 ]
 
 

@@ -4,8 +4,13 @@ and `composite_p`.
 
 Tolerances: bloom atol=rtol=1e-5 (the 3x3 window sum may add in another
 order than XLA's reduce_window); composite u8 within 1 (pow's last ulp can
-move a value across a quantization step)."""
+move a value across a quantization step).
 
+The JAX passes run jitted, as the JAX frame runs them: one compile a
+shape, where op-by-op dispatch compiles each primitive (about 5 s a shape
+on the CPU)."""
+
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -16,6 +21,10 @@ from vvr_tpu_torch.ops import post
 
 # one intra-op thread: the suite runs six pytest workers on eight cores
 torch.set_num_threads(1)
+
+jax_downsample = jax.jit(jpost.bloom_downsample, static_argnums=(1, 2))
+jax_upsample = jax.jit(jpost.bloom_upsample, static_argnums=(1, 2))
+jax_pyramid = jax.jit(jpost.bloom_pyramid_p)
 
 
 def _hdr(h, w, seed):
@@ -36,15 +45,14 @@ def test_bloom_passes_and_pyramid_equal_jax(shape):
     nh, nw = max(h >> 1, 1), max(w >> 1, 1)
     down = post.bloom_downsample_plain(torch.from_numpy(img), nh, nw)
     np.testing.assert_allclose(
-        down.numpy(), np.asarray(jpost.bloom_downsample(jnp.asarray(img),
-                                                        nh, nw)),
+        down.numpy(), np.asarray(jax_downsample(jnp.asarray(img), nh, nw)),
         rtol=1e-5, atol=1e-5)
     up = post.bloom_upsample_plain(down, h, w)
     np.testing.assert_allclose(
-        up.numpy(), np.asarray(jpost.bloom_upsample(jnp.asarray(
-            down.numpy()), h, w)), rtol=1e-5, atol=1e-5)
+        up.numpy(), np.asarray(jax_upsample(jnp.asarray(down.numpy()), h,
+                                            w)), rtol=1e-5, atol=1e-5)
     b2 = post.bloom_pyramid_p(torch.from_numpy(img))
-    ref = np.asarray(jpost.bloom_pyramid_p(jnp.asarray(img)))
+    ref = np.asarray(jax_pyramid(jnp.asarray(img)))
     assert b2.shape == ref.shape
     if shape == (5, 700):
         assert b2.shape == (4, 1, 175)
@@ -56,7 +64,7 @@ def test_bloom_passes_and_pyramid_equal_jax(shape):
 def test_composite_equals_jax(out_scale, bloom):
     h, w = 64, 96
     img = _hdr(h, w, 2)
-    b2 = np.array(jpost.bloom_pyramid_p(jnp.asarray(img)))
+    b2 = np.array(jax_pyramid(jnp.asarray(img)))
     oh, ow = h * out_scale, w * out_scale
     ref = np.asarray(jpost.composite_p(jnp.asarray(img), jnp.asarray(b2),
                                        oh, ow, 0.05, bloom))

@@ -96,13 +96,15 @@ def test_samplers_equal_jax():
     d[:100] = np.array([0.0, 1.0, 0.0], np.float32)   # straight up
     d[100:200, 1] = 0.0                               # grazing the plane
     pos = rng.uniform(-500, 500, (3000, 3)).astype(np.float32)
-    ref_c = np.asarray(jsky.sample_clouds(jnp.asarray(jcl), jnp.asarray(d),
-                                          jnp.asarray(pos)))
+    # the JAX samplers run jitted, as the JAX frame runs them
+    ref_c = np.asarray(jax.jit(jsky.sample_clouds)(
+        jnp.asarray(jcl), jnp.asarray(d), jnp.asarray(pos)))
     td, tp = torch.from_numpy(d), torch.from_numpy(pos)
     out_c = sky.sample_clouds(cl, *td.unbind(1), *tp.unbind(1))
     np.testing.assert_array_equal(out_c.numpy(), ref_c)
     assert (ref_c[:, 3] > 0).any()
-    ref_s = np.asarray(jsky.sample_skybox(jnp.asarray(jbox), jnp.asarray(d)))
+    ref_s = np.asarray(jax.jit(jsky.sample_skybox)(jnp.asarray(jbox),
+                                                   jnp.asarray(d)))
     np.testing.assert_array_equal(sky.sample_skybox(box, *td.unbind(1))
                                   .numpy(), ref_s)
 

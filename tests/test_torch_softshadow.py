@@ -379,10 +379,11 @@ def cone_case(world):
 def test_gate_equals_jax(cone_case):
     (e1, e2, _), ref, grids, p, act = cone_case
     kh, km = sunshadow.soft_shadow_gate(p, SUN, e1, e2, grids, act, 64)
-    jkh, jkm = jax_gate(jnp.asarray(p.numpy()), jnp.asarray(SUN),
-                        jnp.asarray(e1), jnp.asarray(e2),
-                        tuple(jnp.asarray(a) for a in ref),
-                        jnp.asarray(act.numpy()), 64)
+    # the JAX gate and walk run jitted, as the JAX frame runs them
+    jkh, jkm = jax.jit(jax_gate, static_argnums=6)(
+        jnp.asarray(p.numpy()), jnp.asarray(SUN), jnp.asarray(e1),
+        jnp.asarray(e2), tuple(jnp.asarray(a) for a in ref),
+        jnp.asarray(act.numpy()), 64)
     np.testing.assert_array_equal(kh.numpy(), np.asarray(jkh))
     np.testing.assert_array_equal(km.numpy(), np.asarray(jkm))
     assert kh.any() and km.any() and (act & ~kh & ~km).any()
@@ -401,10 +402,9 @@ def test_near_walk_equals_jax(s, world, cone_case):
     row_c = sunshadow.surface_row_c(p[idx], SUN, e1, e2, grids, 64)
     wh, wm = sunshadow.near_walk_classify(world[2], start, dirs, row_c, SUN,
                                           64)
-    jwh, jwm = jax_near_walk(world[1], jnp.asarray(start.numpy()),
-                             jnp.asarray(dirs.numpy()),
-                             jnp.asarray(row_c.numpy()), jnp.asarray(SUN),
-                             64)
+    jwh, jwm = jax.jit(jax_near_walk, static_argnums=5)(
+        world[1], jnp.asarray(start.numpy()), jnp.asarray(dirs.numpy()),
+        jnp.asarray(row_c.numpy()), jnp.asarray(SUN), 64)
     np.testing.assert_array_equal(wh.numpy(), np.asarray(jwh))
     np.testing.assert_array_equal(wm.numpy(), np.asarray(jwm))
     assert wh.any() and wm.any() and (~wh & ~wm).any()

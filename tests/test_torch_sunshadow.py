@@ -14,6 +14,7 @@ in float64 and requires such a face for every texel that differs. Both
 sides are conservative there (the SAFE margin). Shadow booleans have no
 tolerance."""
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -354,7 +355,9 @@ def test_near_segment_equals_jax(world, surface):
     s_o, act = surface
     p = s_o[act]
     sun = SUNS["default"]
-    ref = jax_near_segment(jgrid, jnp.asarray(p.numpy()), jnp.asarray(sun))
+    # jitted, as the JAX frame runs it
+    ref = jax.jit(jax_near_segment)(jgrid, jnp.asarray(p.numpy()),
+                                    jnp.asarray(sun))
     out = sunshadow.near_segment_plain(grid, p, sun)
     for a, b in zip(out, ref):
         np.testing.assert_array_equal(a.numpy(), np.asarray(b))

@@ -1,7 +1,8 @@
-// K11 sun_grids and K12 masked_shadow: the sun classifier. Replace
-// vvr_tpu/ops/sunshadow.py:112 `build_sun_grids` (with cone_tan 0, and
-// with cone_tan > 0 for soft shadows) and :654 `masked_shadow_hits`
-// (ops/sunshadow.py wraps them).
+// K11 sun_grids, K12 masked_shadow and K18 invalidate_texels: the sun
+// classifier. Replace vvr_tpu/ops/sunshadow.py:112 `build_sun_grids` (with
+// cone_tan 0, and with cone_tan > 0 for soft shadows), :654
+// `masked_shadow_hits` and :460 `invalidate_sun_texels` (ops/sunshadow.py
+// wraps them; K18 is at the end of the file).
 //
 // K11 builds, once per sun direction (every frame while the sun is
 // dragged, at 512^2), two conservative depth grids over the world's
@@ -1076,4 +1077,36 @@ extern "C" int vvr_masked_shadow_paged(
                                     axis_coord, n, sx, sy, sz, e1x, e1y, e1z,
                                     e2x, e2y, e2z, gbc, grid, a0, b0, ts,
                                     back, max_steps, out, stream);
+}
+
+// K18 invalidate_texels: the sun grids' repair after a world edit. Replaces
+// vvr_tpu/ops/sunshadow.py:460 `invalidate_sun_texels` (ops/sunshadow.py
+// wraps it): every texel of each rectangle takes (NEG, 3e38), certain of
+// neither shadow nor light, so the lanes landing there run the exact DDA
+// against the patched grid. The host forms the rectangles (i0, i1, j0, j1),
+// inclusive, one per edited superbrick, in float64 as the JAX function
+// does; rectangles may overlap (both write the same values). One block a
+// rectangle, its threads striding over the rectangle's texels, rows of i
+// adjacent in memory.
+__global__ void __launch_bounds__(256)
+vvr_invalidate_texels_kernel(float2* __restrict__ gbc, int grid,
+                             const int4* __restrict__ rects) {
+    const int4 r = rects[blockIdx.x];
+    const int w = r.y - r.x + 1, h = r.w - r.z + 1;
+    const int n = (w > 0 && h > 0) ? w * h : 0;   // empty off the grid
+    for (int k = threadIdx.x; k < n; k += blockDim.x) {
+        const int j = r.z + k / w;
+        const int i = r.x + k - (k / w) * w;
+        gbc[(size_t)j * grid + i] = make_float2(-3e38f, 3e38f);
+    }
+}
+
+// gbc: (grid^2, 2) float32; rects: (n_rects, 4) int32 inside the grid
+extern "C" int vvr_invalidate_texels(void* gbc, int grid, const void* rects,
+                                     int n_rects, void* stream) {
+    if (grid <= 0 || n_rects < 0) return (int)cudaErrorInvalidValue;
+    if (n_rects == 0) return (int)cudaSuccess;
+    vvr_invalidate_texels_kernel<<<n_rects, 256, 0, (cudaStream_t)stream>>>(
+        (float2*)gbc, grid, (const int4*)rects);
+    return (int)cudaGetLastError();
 }

@@ -139,6 +139,14 @@ KERNELS = {
         + (_I, _P, _P, _I, _I, _I, _I, _F) + (_P,) * 5 + (_P,),
         "vvr_tpu_torch/csrc/bounce.cu",
         "vvr_tpu/render/frame.py:192, vvr_tpu/ops/paged.py:322"),
+    # the dynamic world's kernels (world/bricks.py, ops/sunshadow.py): the
+    # update pass on one brick a frame, the sun grids' repair an edit
+    "svt_update_brick": Kernel(
+        "vvr_svt_update_brick", (_P, _I, _I, _I, _I, _I, _P, _P),
+        "vvr_tpu_torch/csrc/svt.cu", "vvr_tpu/world/bricks.py:94"),
+    "invalidate_texels": Kernel(
+        "vvr_invalidate_texels", (_P, _I, _P, _I, _P),
+        "vvr_tpu_torch/csrc/sunshadow.cu", "vvr_tpu/ops/sunshadow.py:460"),
     "gather_chain": Kernel(
         "vvr_gather_chain", (_P, _I, _I, _P, _I, _P, _I, _P, _U64, _P),
         "vvr_tpu_torch/csrc/gather.cu",

@@ -6,9 +6,10 @@ Replaces vvr_tpu/ops/sunshadow.py: `sun_basis` (:83), `build_sun_grids`
 (:112) with cone_tan 0 (hard shadows) and CONE_TAN (the cone grids of
 soft shadows), `masked_shadow_hits` (:654) with its `_certain` (:525) and
 `_near_segment` (:536), and `soft_shadow_gate` (:771) and
-`near_walk_classify` (:617) as plain versions of K14's gate mode.
-`invalidate_sun_texels` waits for ROADMAP A12; `classify` is used only by
-the JAX package's tests and tools and is not ported.
+`near_walk_classify` (:617) as plain versions of K14's gate mode, and
+`invalidate_sun_texels` (:460) as K18 `invalidate_texels`, the grids'
+repair after a world edit. `classify` is used only by the JAX package's
+tests and tools and is not ported.
 
 All shadow rays of a frame share the sun direction s, so occlusion is a
 property of the world's projection along s. A ray toward the sun can enter
@@ -502,6 +503,84 @@ def sun_grids(faces, e1, e2, s, size: int, grid: int = GRID,
                    float(cone_tan), float(world_zmin(s, size)) if cone
                    else 0.0, scratch.data_ptr(), gbc.data_ptr())
     return gbc, a0, b0, ts
+
+
+def texel_rects(e1, e2, positions, size: int, grid: int, a0, b0, ts,
+                cone_tan: float = 0.0) -> np.ndarray:
+    """(R, 4) int32 texel rectangles (i0, i1, j0, j1), inclusive, one per
+    8^3 superbrick holding an edited voxel of `positions` ((K, 3) int x, y,
+    z): the projection of its edited voxels' cubes grown by the largest
+    margin the build applies (SAFE, and with cone_tan > 0 the cone's reach
+    over the world's whole depth), plus a texel, clamped to the grid.
+    Host float64, as vvr_tpu/ops/sunshadow.py:486-509 forms them."""
+    e1n = np.asarray(e1, np.float64)
+    e2n = np.asarray(e2, np.float64)
+    a0f, b0f, tsf = float(a0), float(b0), float(ts)
+    grow = SAFE + (cone_tan * (size * math.sqrt(3.0) + S_SLACK)
+                   if cone_tan > 0.0 else 0.0)
+    pos = np.atleast_2d(np.asarray(positions, np.int64))
+    sbs, inv = np.unique(pos >> 3, axis=0, return_inverse=True)
+    inv = inv.reshape(-1)
+    offs = np.array([[x, y, z] for x in (0, 1) for y in (0, 1)
+                     for z in (0, 1)], np.float64)
+    rects = np.zeros((len(sbs), 4), np.int32)
+    for k in range(len(sbs)):
+        sel = pos[inv == k].astype(np.float64)
+        cs = (sel[:, None, :] + offs[None]).reshape(-1, 3)   # cube corners
+        pa = cs @ e1n
+        pb = cs @ e2n
+        rects[k] = (
+            max(int(np.floor((pa.min() - grow - a0f) / tsf)) - 1, 0),
+            min(int(np.floor((pa.max() + grow - a0f) / tsf)) + 1, grid - 1),
+            max(int(np.floor((pb.min() - grow - b0f) / tsf)) - 1, 0),
+            min(int(np.floor((pb.max() + grow - b0f) / tsf)) + 1, grid - 1))
+    return rects
+
+
+def invalidate_texels_plain(gbc, rects: np.ndarray) -> None:
+    """Plain torch K18: (NEG, 3e38) into every texel of each rectangle
+    of gBC (grid^2, 2), in place."""
+    g = math.isqrt(gbc.shape[0])
+    view = gbc.view(g, g, 2)
+    for i0, i1, j0, j1 in np.asarray(rects).tolist():
+        view[j0:j1 + 1, i0:i1 + 1, 0] = NEG
+        view[j0:j1 + 1, i0:i1 + 1, 1] = 3e38
+
+
+def invalidate_texels(gbc, rects: np.ndarray) -> None:
+    """(NEG, 3e38) into every texel of the (R, 4) rectangles (i0, i1, j0,
+    j1) of gBC (grid^2, 2), in place. CUDA: K18, after one copy of the
+    rectangles to the card."""
+    if not kernels.on_cuda(gbc):
+        invalidate_texels_plain(gbc, rects)
+        return
+    kernels.check_cuda(gbc)
+    g = math.isqrt(gbc.shape[0])
+    if gbc.dtype != F32 or gbc.shape != (g * g, 2):
+        raise ValueError("gBC must be float32 (grid^2, 2)")
+    if len(rects):
+        r = torch.from_numpy(np.ascontiguousarray(rects, np.int32)).to(
+            gbc.device)
+        kernels.launch("invalidate_texels", gbc.device, gbc.data_ptr(), g,
+                       r.data_ptr(), len(rects))
+
+
+def invalidate_sun_texels(grids, e1, e2, positions, size: int,
+                          cone_tan: float = 0.0):
+    """Repair cached sun grids (gBC, a0, b0, ts) of basis (e1, e2) after
+    edits at `positions`: every texel whose answer the edit could change
+    becomes ambiguous, certain of neither shadow nor light (NEG, 3e38),
+    so its lanes run the exact DDA against the patched grid; frames stay
+    exact without rebuilding the grids. Any face the edit adds or removes
+    registers only within the texel_rects rectangles, and every query
+    reads its own ray's texel (the projection is invariant along s), so
+    no query elsewhere can see the change. gBC is written in place
+    (invalidate_texels: K18 on the card) and the grids are returned."""
+    gbc, a0, b0, ts = grids
+    invalidate_texels(gbc, texel_rects(e1, e2, positions, size,
+                                       math.isqrt(gbc.shape[0]), a0, b0, ts,
+                                       cone_tan))
+    return grids
 
 
 def near_segment_plain(grid: JumpGrid, p_o, sun3, k: int = NEAR_K,

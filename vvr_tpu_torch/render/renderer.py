@@ -13,8 +13,12 @@ world); the scene builds only the grid the Renderer reads, and no brick
 pyramid. With `ambient_occlusion` the scene builds its
 density field; the lights move every frame, as in the JAX renderer
 (:159-160), and with `point_lights` the frame reads the first ten.
-Configurations outside the port raise NotImplementedError naming the
-ROADMAP item that adds them.
+With `dynamic_world` the Renderer builds the sparse voxel texture and runs
+its update pass (K17) on one brick at the start of each frame, round-robin
+(:66-69, :152-158); `apply_edits` applies a world editor's edits
+(world/edit.py) and repairs the cached sun grids (K18). Configurations
+outside the port raise NotImplementedError naming the ROADMAP item that
+adds them.
 """
 
 from __future__ import annotations
@@ -35,6 +39,7 @@ from vvr_tpu_torch.render.frame import check_frame_config, render_frame
 from vvr_tpu_torch.render.scene import Scene, build_scene
 from vvr_tpu_torch.utils.camera import Camera
 from vvr_tpu_torch.utils.statistics import Statistics, mrays_per_sec
+from vvr_tpu_torch.world.bricks import build_svt, svt_update_brick
 
 log = logging.getLogger(__name__)
 
@@ -56,13 +61,9 @@ def use_sunmask(cfg: RenderConfig) -> bool:
             and not cfg.pixelated_shadows)
 
 
-def check_slice(world_cfg: WorldConfig, cfg: RenderConfig,
-                dynamic_world: bool = False) -> None:
+def check_slice(world_cfg: WorldConfig, cfg: RenderConfig) -> None:
     """Raise NotImplementedError unless the port renders the configuration;
     each message names the ROADMAP item that adds the feature."""
-    if dynamic_world:
-        raise NotImplementedError(
-            "the dynamic world is not ported yet: ROADMAP A12")
     if cfg.traversal == "jump2":
         raise NotImplementedError(
             "traversal 'jump2' is a measured negative result the port does "
@@ -80,7 +81,7 @@ class Renderer:
                  force_regenerate: bool = False,
                  mirror_materials: bool = False,
                  dynamic_world: bool = False, cache_path=None):
-        check_slice(world_cfg, render_cfg, dynamic_world)
+        check_slice(world_cfg, render_cfg)
         self.world_cfg = world_cfg
         self.cfg = render_cfg
         self.device = torch.device(device)
@@ -88,9 +89,14 @@ class Renderer:
         self.scene = scene or build_scene(world_cfg, self.device,
                                           force_regenerate=force_regenerate,
                                           cache_path=cache_path)
+        self.dynamic_world = dynamic_world
+        self.svt = (build_svt(self.scene.chunks, self.scene.cfg.size,
+                              self.device) if dynamic_world else None)
         self.use_paged = render_cfg.use_paged(world_cfg.size)
-        self.grid = (self.scene.ensure_paged() if self.use_paged
-                     else self.scene.ensure_jumpgrid())
+        if self.use_paged:
+            self.scene.ensure_paged()
+        else:
+            self.scene.ensure_jumpgrid()
         self.use_raster = use_raster(render_cfg)
         self.use_sunmask = use_sunmask(render_cfg)
         if self.use_raster or self.use_sunmask:
@@ -107,6 +113,13 @@ class Renderer:
         self._sunmask_cache = None  # (key, (e1, e2, grids))
         self._sun_dragging = False
         self._nxt = None  # the mirror bounces' continuation buffers
+
+    @property
+    def grid(self):
+        """The DDA's grid, read from the scene at every frame: an edit
+        patches it in place or, when the paged grid is rebuilt, replaces
+        it (apply_edits)."""
+        return self.scene.paged if self.use_paged else self.scene.jumpgrid
 
     @property
     def rays_per_frame(self) -> int:
@@ -171,6 +184,10 @@ class Renderer:
         with fetch=True). With timed=True the frame is synchronized and its
         wall time pushed into Statistics."""
         t = self.elapsed if time is None else time
+        # the dynamic world's pass on one brick, round-robin
+        # (renderer.rs:581-609)
+        if self.svt is not None:
+            svt_update_brick(self.svt, self.frame_count % self.svt.num_bricks)
         # animated point lights (renderer.rs:494-505), every frame
         self.scene.animate_lights(camera.position, t, 1.0 / 60.0)
         o, d = camera_rays(camera, self.cfg.render_width,
@@ -202,6 +219,50 @@ class Renderer:
             log.info("Sample Count: %d, Avg: %.3fms, StdDev: %.4f",
                      res["samples"], res["avg_ms"], res["stddev"])
         return img.cpu().numpy() if fetch else img
+
+    def apply_edits(self, editor, positions, solid: bool) -> dict:
+        """Set (solid) or clear the voxels at (K, 3) int positions through
+        `editor` (world/edit.py WorldEditor over this scene's chunks, its
+        structures the scene's), then point the scene at the editor's
+        grids and faces, advance the scene's epoch and repair the cached
+        sun grids in place (K18: the texels the edit can change become
+        ambiguous, so their lanes run the DDA against the patched grid;
+        the next sun move rebuilds them). The repaired grids keep their
+        key but for the epoch, and are repaired in their own basis, not
+        the present sun's (ROADMAP C2: the JAX renderer stamps the present
+        sun on grids built for another). Returns patched_rows, edit_ms,
+        set_voxels_ms, invalidate_ms and the editor's last_timings
+        (host clock; the device work is enqueued, and the next frame's
+        synchronize waits for it)."""
+        t0 = _time.monotonic()
+        positions = np.atleast_2d(np.asarray(positions, np.int64))
+        n = editor.set_voxels(positions, solid)
+        t_sv = _time.monotonic()
+        if editor.paged is not None:
+            self.scene.paged = editor.paged
+        if editor.jumpgrid is not None:
+            self.scene.jumpgrid = editor.jumpgrid
+        if editor.faces is not None:
+            self.scene.faces = editor.faces
+        self.scene.epoch += 1
+        self.scene._chunk_index = None     # an edit may create chunks
+        self.scene.release_dense()
+        cache = self._sunmask_cache
+        if self.use_sunmask and cache is not None \
+                and cache[0][1] == self.scene.epoch - 1:
+            # grids current before this edit (others stay stale: rebuilt)
+            key, (e1, e2, grids) = cache
+            grids = sunshadow.invalidate_sun_texels(
+                grids, e1, e2, positions, self.scene.cfg.size,
+                sunshadow.CONE_TAN if key[3] else 0.0)
+            self._sunmask_cache = ((key[0], self.scene.epoch) + key[2:],
+                                   (e1, e2, grids))
+        return {"patched_rows": int(n),
+                "edit_ms": (_time.monotonic() - t0) * 1e3,
+                "set_voxels_ms": round((t_sv - t0) * 1e3, 1),
+                "invalidate_ms": round((_time.monotonic() - t_sv) * 1e3,
+                                       1),
+                **editor.last_timings}
 
     def benchmark(self, camera: Camera, duration_s: float = 2.0,
                   warmup: int = 2) -> dict:

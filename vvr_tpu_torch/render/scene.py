@@ -9,8 +9,11 @@ exposed faces of the face rasterizer and the sun-grid build, and the u8
 density field of the filtered ambient occlusion, each on the scene's
 device. They all come from the dense occupancy, which the scene assembles
 once and keeps until `release_dense` (the Renderer releases it once it
-has built what it reads: 1 GiB at 1024^3). The brick pyramid and the SVO
-tree come back with their consumers (ROADMAP A12, A13).
+has built what it reads: 1 GiB at 1024^3). A world editor
+(world/edit.py) made over the scene's chunks patches the grids and the
+faces it hands the scene, and `Renderer.apply_edits` points the scene at
+them. The brick pyramid and the SVO tree come back with their consumers
+(ROADMAP A13).
 """
 
 from __future__ import annotations

@@ -145,6 +145,27 @@ def _v_edge_internal(mask_wvu: np.ndarray, w, u0, v0, eu, ev) -> np.ndarray:
     return flags
 
 
+def _merged(exposed, size: int, origin=(0, 0, 0)) -> FaceSet:
+    """The merged faces of the masks `exposed(axis, sgn)` ([z, y, x]), in
+    the JAX package's order ((axis, sgn) blocks, then the merge order),
+    their corners shifted by `origin` (x, y, z)."""
+    out = {k: [] for k in FIELDS}
+    for axis in (0, 1, 2):
+        for sgn in (0, 1):
+            mask = exposed(axis, sgn).transpose(_TRANSP[axis])
+            w, u0, v0, eu, ev = _merge_layer_runs(mask)
+            vxyz = {0: (w, u0, v0), 1: (u0, w, v0), 2: (u0, v0, w)}[axis]
+            cols = (*(c + np.int32(o) for c, o in zip(vxyz, origin)),
+                    np.full(len(w), axis, np.int32),
+                    np.full(len(w), sgn, np.int32), eu, ev,
+                    _v_edge_internal(mask, w, u0, v0, eu, ev))
+            for k, c in zip(FIELDS, cols):
+                out[k].append(c)
+    cat = {k: np.concatenate(v) for k, v in out.items()}
+    return FaceSet(cat["vx"], cat["vy"], cat["vz"], cat["axis"],
+                   cat["sgn"], size, cat["eu"], cat["ev"], cat["einfo"])
+
+
 def extract_merged_faces(occ: np.ndarray) -> FaceSet:
     """Exposed faces with coplanar greedy-rectangle merging, in the JAX
     package's order ((axis, sgn) blocks, then the merge order). The merged
@@ -152,18 +173,24 @@ def extract_merged_faces(occ: np.ndarray) -> FaceSet:
     coverage test is a per-cell range test, so its per-pixel winners are
     the same."""
     occ = np.asarray(occ, bool)
-    out = {k: [] for k in FIELDS}
-    for axis in (0, 1, 2):
-        for sgn in (0, 1):
-            mask = _exposed_mask(occ, axis, sgn).transpose(_TRANSP[axis])
-            w, u0, v0, eu, ev = _merge_layer_runs(mask)
-            vxyz = {0: (w, u0, v0), 1: (u0, w, v0), 2: (u0, v0, w)}[axis]
-            cols = (*vxyz, np.full(len(w), axis, np.int32),
-                    np.full(len(w), sgn, np.int32), eu, ev,
-                    _v_edge_internal(mask, w, u0, v0, eu, ev))
-            for k, c in zip(FIELDS, cols):
-                out[k].append(c)
-    cat = {k: np.concatenate(v) for k, v in out.items()}
-    return FaceSet(cat["vx"], cat["vy"], cat["vz"], cat["axis"],
-                   cat["sgn"], occ.shape[0], cat["eu"], cat["ev"],
-                   cat["einfo"])
+    return _merged(lambda axis, sgn: _exposed_mask(occ, axis, sgn),
+                   occ.shape[0])
+
+
+def extract_merged_faces_region(occ_halo: np.ndarray, origin, size: int,
+                                core: int) -> FaceSet:
+    """Merged exposed faces of one core region of edge `core` whose min
+    corner is `origin` (x, y, z), from the (core+2)^3 occupancy `occ_halo`
+    of the region and a one-voxel halo (vvr_tpu/world/faces.py:227). The
+    exposure masks are cropped to the core before merging, so runs stop at
+    the region's edge and one region's faces do not depend on what its
+    neighbours hold beyond the halo; the einfo flags see the core only (an
+    edge beside a coplanar face of another region reads as a silhouette,
+    which only widens the sun classifier's ambiguous residue). This is the
+    unit of the world editor's face patches (world/edit.py)."""
+    occ_halo = np.asarray(occ_halo, bool)
+    if occ_halo.shape != (core + 2,) * 3:
+        raise ValueError(f"halo must be {core + 2}^3, got {occ_halo.shape}")
+    c = slice(1, core + 1)
+    return _merged(lambda axis, sgn: _exposed_mask(occ_halo, axis, sgn)[
+        c, c, c], size, origin)
