@@ -174,7 +174,46 @@
    three bricks (one at the world's far edge) and twice on one, and K18
    on fresh hard and cone grids, against their plain versions byte for
    byte; their rows for the kernels line (K18 on the host's rectangles,
-   its library call `index_put_` of the texel list).
+   its library call `index_put_` of the texel list);
+9. the brick pyramid (ROADMAP A13, `traversal="pyramid"`; run before 7.)
+   over the 256^3 scene: builds the pyramid on the card (timed) and holds
+   it to the CPU build row for row; renders the frames of PYR_PHASES (the
+   default knobs, the DDA frame, soft cone and DDA, pixelated, config 4's
+   knobs, the lights frame, the overlap AO frame and the five debug
+   heatmaps) through `Renderer.render`, counters reset before each and
+   read after: fails unless each launched as that table says (K19 for
+   every DDA, the pyramid forms of K12, K14 and K15, K21 once a debug
+   frame, no bloom there, no K1), K11 once where the frame classifies,
+   K3 once, and unless every pyramid form ran at the pyramid's own cap
+   (traversal_max_steps) and K19 walked the any masks by 8x4 tiles, its
+   counters written only for a heatmap's primary rays; prints each
+   median and a profiled window of the DDA frame; then K19 bit for bit
+   against trace_pyramid_plain on the primary and the shadow rays at
+   1920x1080 and 33x67, with and without counters, flat and tiled, with
+   and without the FULL early-out, and at a cap most rays reach; K19's
+   hits against K1's on every primary ray, each ray where they differ
+   printed with the numpy oracle's answer (an exact tie, the oracle's
+   answer one of the two) or counted as capped by the pyramid's steps;
+   each pyramid frame of PYR_VS_JUMP against the jump grid's frame of
+   the same knobs (the cone frames against its per-sample DDA frames),
+   call by call: the same rays at every DDA call, K12's answers and K14's
+   sample hits equal, every lane where they part a printed tie or capped
+   ray, the HDR equal on every other pixel; K21's five images, K20's
+   overlap_ao, cube and planar densities on the primary hits (the
+   overlap library's entry points, counters reset: its path's launches)
+   and overlap_ao through the jump grid's voxels, the pyramid K12 (and
+   an every-lane K19 shadow trace but on capped lanes), the pyramid K14 in
+   its three modes (the cone gate's hits equal to its DDA mode's), the
+   pyramid K15 at every bounce of config 4's knobs, the lights frame and
+   the overlap AO frame (BounceCheck), each against its plain version;
+   the kernel path's frames against the plain path's; rows for the
+   kernels line (K19 on the primary and the shadow rays, the pyramid
+   K12, K14's cone gate, K15 at the overlap AO frame's bounce 0, K20's
+   overlap_ao, K21's world image) with their device time
+   (torch.profiler); and in 7., at 1024^3, builds config 5's pyramid on
+   the card (timed, its size) and holds K19 on the primary rays to its
+   plain version and to K16 (ties printed with the oracle, capped rays
+   counted).
 
 Any failed check raises and the script exits non-zero. Without a CUDA
 device it exits non-zero before printing any result. Before the last line
@@ -190,7 +229,10 @@ launches; K14's bound counts this run's DDA sub-steps of its samples;
 K15 twice: `shade_bounce` at config 4's bounce 0 with its frames'
 launches, `shade_bounce_lights` at the lights frame's bounce 0, its
 bound counting the lights' DDA sub-steps; K17 and K18 with the launches
-of config 5's dynamic steps);
+of config 5's dynamic steps; K19 twice, `pyramid_trace` and
+`pyramid_trace_shadow`, with the pyramid forms of K12, K14 and K15, K20
+`overlap_density` and K21 `debug_image`, each also with its device
+time);
 the last line of stdout is {"ok": true, "device": {...}}.
 """
 
@@ -219,7 +261,8 @@ OPS_PER_ITEM = {"jump_trace": 30, "shade_surface": 40, "shade_pixel": 250,
                 "raster_fragments": 70,
                 "raster_resolve": 45, "sun_grids": 90, "masked_shadow": 60,
                 "generate_rays": 75, "soft_shadow": 140,
-                "shade_bounce": 340}
+                "shade_bounce": 340, "pyramid_trace": 40,
+                "overlap_density": 25, "debug_image": 40}
 # K13's 75 per pixel: two IEEE divisions (11 each), a correctly rounded
 # sqrtf (6) and three more divisions, and the sums and products of u, v
 # and the direction. K14's 140 per (lit pixel, sample): the jitter (two
@@ -307,6 +350,7 @@ K1_ORACLE_SLACK = 16
 # K11's rows: the 2048^2 build (once per sun direction) and the 512^2 one
 # (every frame while the sun is dragged), both of the sun_grids kernel
 ROW_KERNEL = {"sun_grids_512": "sun_grids", "sun_grids_cone": "sun_grids",
+              "pyramid_trace_shadow": "pyramid_trace",
               "shade_bounce_lights": "shade_bounce",
               "sun_grids_cone_512": "sun_grids",
               "soft_shadow_cone": "soft_shadow",
@@ -650,7 +694,7 @@ def rows_bytes(grid, label: str, run) -> float:
     read = tuple(torch.zeros(t.shape[0], dtype=torch.bool, device=t.device)
                  for t in tracer.tensors(grid))
     run(read)
-    tables = ROW_READ["paged" if tracer.is_paged(grid) else "jump"]
+    tables = ROW_READ[tracer.kind(grid)]
     counts = [int(r.sum()) for r in read]
     print(f"{label}: loads " + " and ".join(
         f"{c} of {r.numel()} {name}" for c, r, (name, _) in
@@ -710,10 +754,11 @@ class BounceCheck:
         import torch
         (grid, o, d, hit, face, ac, shadow, skybox, clouds, sun, sun_col,
          out, col, active, pix, dens, lights, ms, mirror, wavy, t,
-         nxt) = args
+         nxt, ov) = args
         if self.first is None:
             self.first = args[:11] + (out.clone(), col, active) + args[14:21] \
-                + ((tuple(x.clone() for x in nxt),) if nxt else (None,))
+                + ((tuple(x.clone() for x in nxt),) if nxt else (None,)) \
+                + (ov,)
         out_p = out.clone()
         nxt_p = tuple(x.clone() for x in nxt) if nxt else None
         live = (torch.ones_like(hit) if active is None else active.clone())
@@ -721,12 +766,14 @@ class BounceCheck:
         self.bounce.shade_bounce_plain(
             grid, ins[0], ins[1], hit, face, ac, shadow, skybox, clouds, sun,
             sun_col, out_p, ins[2], ins[3], pix, dens, lights, ms, mirror,
-            wavy, t, nxt_p)
+            wavy, t, nxt_p, ov)
         launched = self.kernels.LAUNCHES
-        before = launched["shade_bounce"] + launched["shade_bounce_paged"]
+        forms = ("shade_bounce", "shade_bounce_paged",
+                 "shade_bounce_pyramid")
+        before = sum(launched[f] for f in forms)
         self.orig(*args)
-        check(launched["shade_bounce"] + launched["shade_bounce_paged"]
-              == before + 1, "K15 did not launch once")
+        check(sum(launched[f] for f in forms) == before + 1,
+              "K15 did not launch once")
         k = len(self.bounces)
         a, b = out.view(4, -1), out_p.view(4, -1)
         check(torch.equal(a[3], b[3]), f"K15 bounce {k}: alpha differs on "
@@ -794,7 +841,8 @@ K16_ORACLE_SLACK = 64
 # of its 128 B); a page row's words 0-3 (mask, pool base, octant radii:
 # one 16-byte load); a pool row's words 0-17 (voxel words, subcell mask)
 ROW_READ = {"jump": (("rows", 96),),
-            "paged": (("page rows", 16), ("pool rows", 72))}
+            "paged": (("page rows", 16), ("pool rows", 72)),
+            "pyramid": (("node rows", 8),)}
 
 
 def config5_phase(repo, dev, errs: dict, launches: dict):
@@ -982,6 +1030,58 @@ def config5_phase(repo, dev, errs: dict, launches: dict):
                   "(an exact tie, ROADMAP C8)")
     print(f"raster vs K16 at 1024^3: {n - len(bad)} of {n} primary rays "
           f"equal; {len(bad)} differ, each the oracle's tie (above)")
+
+    # the brick pyramid of this world (traversal="pyramid" at 1024^3, as
+    # the JAX renderer allows): built on the card from the dense
+    # occupancy, K19 on the primary rays (the frame's form, and flat with
+    # the counters) against its plain version and against K16, each ray
+    # where they differ an exact tie or a ray the pyramid's walk caps
+    from vvr_tpu_torch.ops import traverse
+    from vvr_tpu_torch.world.pyramid import build_brick_pyramid
+    t0 = time.perf_counter()
+    pyr5 = build_brick_pyramid(occ, dev)
+    torch.cuda.synchronize()
+    t_pyr = time.perf_counter() - t0
+    cap5 = cfg.traversal_max_steps
+    k19_t = traverse.trace_pyramid(pyr5, o, d, cap5, width=w, stats=False,
+                                   use_full=False)
+    k19_s = traverse.trace_pyramid(pyr5, o, d, cap5, use_full=False)
+    ref19 = traverse.trace_pyramid_plain(pyr5, o, d, cap5, use_full=False)
+    for f in fields:
+        check(torch.equal(getattr(k19_s, f), getattr(ref19, f)),
+              f"K19 at 1024^3: {f} differs from plain")
+    for f in fields[:4]:
+        check(torch.equal(getattr(k19_t, f), getattr(ref19, f)),
+              f"K19 at 1024^3 (tiled, no counters): {f} differs")
+    off19 = (ref19.hit != res_k.hit) | (ref19.hit & (
+        (ref19.face != res_k.face) | (ref19.axis_coord != res_k.axis_coord)))
+    capped19 = (ref19.iterations >= cap5) & ~ref19.hit
+    ties19 = torch.nonzero(off19 & ~capped19)[:, 0].cpu().numpy()
+    check(len(ties19) <= K16_ORACLE_SLACK, f"K19 and K16 differ on "
+          f"{len(ties19)} uncapped primary rays at 1024^3")
+    if len(ties19):
+        ora = trace_dense(occ, o[ties19].cpu().numpy(),
+                          d[ties19].cpu().numpy())
+        for k, ray in enumerate(ties19):
+            o_ans = ((int(ora["face"][k]), int(ora["axis_coord"][k]))
+                     if ora["hit"][k] else "miss")
+            mine = [((int(r.face[ray]), int(r.axis_coord[ray]))
+                     if bool(r.hit[ray]) else "miss") for r in (ref19, res_k)]
+            check(o_ans in mine, f"K19 ray {ray} at 1024^3: the oracle "
+                  "agrees with neither K19 nor K16")
+            print(f"primary ray {ray} at 1024^3: K19 {mine[0]}, K16 "
+                  f"{mine[1]}, the numpy oracle {o_ans} (an exact tie)")
+    print(f"pyramid at 1024^3: built on the card in {t_pyr:.2f} s (host "
+          f"clock, from the dense occupancy), {tuple(pyr5.rows.shape)} "
+          f"rows, {pyr5.memory_bytes() / 2**20:.2f} MiB; K19 on the {n} "
+          f"primary rays bit-exact vs plain (seven outputs; the frame's "
+          f"tiled form the four), steps mean "
+          f"{float(ref19.iterations.float().mean()):.2f} max "
+          f"{int(ref19.iterations.max())}; against K16: "
+          f"{int((off19 & capped19).sum())} rays capped by the pyramid's "
+          f"{cap5} steps ({int(capped19.sum())} capped in all), "
+          f"{len(ties19)} exact ties, the rest equal")
+    del pyr5, k19_t, k19_s, ref19
 
     # the paged K12 on the raster hits: against its plain version and
     # against an every-lane K16 shadow trace on every lit lane (C6)
@@ -1623,6 +1723,789 @@ def dynamic_phase(repo, dev, errs: dict, launches: dict, chunks_1024,
                  if name == "svt_update_brick" else
                  f"{sum(got['k18_us']) / max(len(got['k18_us']), 1):.2f}")
               + " us a launch in the profiled steps")
+    return rows
+
+
+# the brick pyramid (ROADMAP A13; phase 9 of the module docstring):
+# `traversal="pyramid"` over the 256^3 scene, each configuration's kernels
+# a frame (K3 and K11 apart): K19 for every DDA, the pyramid forms of K12,
+# K14 and K15, K21 once a debug frame and no bloom there
+PYR_FRAMES = 4       # timed frames a configuration, after a warm-up
+_PYR_RASTER = {"generate_rays": 1, "raster_fragments": 1,
+               "raster_resolve": 1, "bloom_pyramid": 1, "composite": 1}
+_PYR_SOFT = {**_PYR_RASTER, "soft_shadow_pyramid": 1, "shade_pixel": 1}
+_PYR_DEBUG = {"generate_rays": 1, "pyramid_trace": 1,
+              "masked_shadow_pyramid": 1, "shade_pixel": 1,
+              "debug_image": 1, "composite": 1}
+PYR_PHASES = {
+    "default knobs": ({}, False, {**_PYR_RASTER, "masked_shadow_pyramid": 1,
+                                  "shade_pixel": 1}),
+    "DDA": (dict(primary_raster="off", sun_mask="off"), False,
+            {"generate_rays": 1, "pyramid_trace": 2, "shade_surface": 1,
+             "shade_pixel": 1, "bloom_pyramid": 1, "composite": 1}),
+    "soft, cone": (dict(shadow_samples=4), False, _PYR_SOFT),
+    "soft, DDA": (dict(shadow_samples=4, sun_mask="off"), False, _PYR_SOFT),
+    "pixelated": (dict(shadow_samples=4, pixelated_shadows=True), False,
+                  _PYR_SOFT),
+    "config-4 knobs": (CONFIG4, True, {
+        **_PYR_RASTER, "soft_shadow_pyramid": 4, "pyramid_trace": 3,
+        "shade_bounce_pyramid": 4}),
+    "lights": (LIGHTS_FRAME, True, {
+        **_PYR_RASTER, "masked_shadow_pyramid": 3, "pyramid_trace": 2,
+        "shade_bounce_pyramid": 3}),
+    "overlap AO": (dict(ambient_occlusion=True, ao_mode="overlap"), False,
+                   {**_PYR_RASTER, "masked_shadow_pyramid": 1,
+                    "shade_bounce_pyramid": 1}),
+    **{f"debug {t}": (dict(debug_type=t), False, _PYR_DEBUG)
+       for t in range(1, 6)},
+}
+# the jump-grid frame each pyramid frame is held to byte for byte: the
+# same knobs, but the jump grid's per-sample DDA where the pyramid's frame
+# has the cone gate (the pyramid walks no near segment, so its gate
+# answers each sample as the DDA)
+PYR_VS_JUMP = {"default knobs": {}, "DDA": {},
+               "soft, cone": dict(sun_mask="off"), "soft, DDA": {},
+               "pixelated": {}, "config-4 knobs": dict(sun_mask="off"),
+               "lights": {}, "overlap AO": {}}
+# the index of max_steps among each pyramid form's launch arguments
+# (kernels.KERNELS): the frame passes the pyramid's own cap,
+# traversal_max_steps, where the grids take it times 8
+PYR_MAX_STEPS_ARG = {"pyramid_trace": 10, "masked_shadow_pyramid": 26,
+                     "soft_shadow_pyramid": 17, "shade_bounce_pyramid": 28}
+# lanes a frame comparison may part at exact ties and at the cap, and the
+# cap of the K19 check at the cap (most primary rays reach it)
+PYR_SLACK = 64
+PYR_CAP_CHECK = 24
+# the overlap AO's cells a lane: two squares of (2k+1)^2, k = 1 and 3
+OVERLAP_AO_CELLS = 9 + 49
+
+
+@contextlib.contextmanager
+def recorded_traces(frame_mod, rec: dict):
+    """Within it the frame's DDA calls (`trace`), its K12 calls and its K14
+    calls (with their sample hits) are appended to rec["trace"],
+    rec["k12"] and rec["k14"], their inputs copied (a later bounce writes
+    its rays in place)."""
+    tr, k12, k14 = (frame_mod.trace, frame_mod.masked_shadow_from_hits,
+                    frame_mod.soft_shadow)
+
+    def trace_(grid, o, d, max_steps, active=None, width=None, stats=True):
+        res = tr(grid, o, d, max_steps, active=active, width=width,
+                 stats=stats)
+        rec["trace"].append((o.clone(), d.clone(),
+                             None if active is None else active.clone(),
+                             max_steps, res))
+        return res
+
+    def k12_(grid, *args):
+        out = k12(grid, *args)
+        rec["k12"].append((tuple(t.clone() for t in args[:5]), out.clone(),
+                           args[-1]))
+        return out
+
+    def k14_(*args, **kw):
+        factor, hits = k14(*args, with_hits=True, **kw)
+        rec["k14"].append((tuple(t.clone() for t in args[1:6]), hits,
+                           args[10], args[9]))
+        return factor
+
+    frame_mod.trace = trace_
+    frame_mod.masked_shadow_from_hits = k12_
+    frame_mod.soft_shadow = k14_
+    try:
+        yield
+    finally:
+        frame_mod.trace = tr
+        frame_mod.masked_shadow_from_hits = k12
+        frame_mod.soft_shadow = k14
+
+
+def device_us(fn, parts, reps: int, trace_path) -> float:
+    """Device time of one launch (torch.profiler) of the kernel whose name
+    holds every part of `parts`, fn() launching it once: the mean over
+    the launches the trace of `reps` calls after a warm-up records (the
+    profiler can drop a window's first ones)."""
+    import torch
+
+    from vvr_tpu_torch.tools import profile_frame
+    fn()
+
+    def run():
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()   # every launch ends inside the window
+    durs = [e["dur"] for e in profile_frame.trace_events(trace_path, run)
+            if all(p in e["name"] for p in parts)]
+    check(bool(durs), f"the profiler recorded no launch of {parts}")
+    return sum(durs) / len(durs)
+
+
+def pyramid_phase(repo, dev, renderer, cam, occ, lights_np, errs: dict,
+                  launches: dict, frames: int = PYR_FRAMES) -> list:
+    """Phase 9 (module docstring): the 256^3 scene's brick pyramid built
+    on the card; the frames of PYR_PHASES through `Renderer.render`,
+    counters reset before each configuration and read after; K19 against
+    its plain version and against K1; each pyramid frame against the jump
+    grid's (PYR_VS_JUMP), every parted lane an exact tie or a capped ray;
+    K20, K21 and the pyramid forms of K12, K14 and K15 against their
+    plain versions, the kernel path's frames against the plain path's.
+    Returns the kernels line's rows of K19-K21 and the pyramid forms."""
+    import torch
+
+    from vvr_tpu_torch import kernels
+    from vvr_tpu_torch.ops import bounce, debug, jump, overlap, shade
+    from vvr_tpu_torch.ops import rastertrace as rt
+    from vvr_tpu_torch.ops import softshadow
+    from vvr_tpu_torch.ops import sunshadow as ss
+    from vvr_tpu_torch.ops import traverse
+    from vvr_tpu_torch.ops.raygen import camera_rays
+    from vvr_tpu_torch.render import frame as frame_mod
+    from vvr_tpu_torch.render.frame import render_frame
+    from vvr_tpu_torch.render.oracle import trace_dense
+    from vvr_tpu_torch.render.renderer import Renderer, use_sunmask
+    from vvr_tpu_torch.tools.microbench_gather import bound_ms, cuda_ms
+    from vvr_tpu_torch.world.pyramid import build_brick_pyramid
+
+    t_phase = time.perf_counter()
+    scene = renderer.scene
+    wcfg = scene.cfg
+    jgrid = scene.jumpgrid
+    cfg = dataclasses.replace(renderer.cfg, traversal="pyramid")
+    w, h = cfg.width, cfg.height
+    n = w * h
+    cap = cfg.traversal_max_steps
+    trace_path = repo / "build" / "vvr_tpu_torch" / "pyr_trace.json"
+
+    # ---- the pyramid, built on the card from the dense occupancy
+    t0 = time.perf_counter()
+    dense = scene.dense()
+    t1 = time.perf_counter()
+    pyr = build_brick_pyramid(dense, dev)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    scene.pyramid = pyr
+    scene.release_dense()
+    check(torch.equal(pyr.rows, build_brick_pyramid(occ, "cpu").rows.to(
+        dev)), "the pyramid built on the card differs from the CPU build")
+    print(f"pyramid setup (256^3, host clock): assemble_dense "
+          f"{t1 - t0:.3f} s, build on the card {t2 - t1:.3f} s; rows "
+          f"{tuple(pyr.rows.shape)}, {pyr.memory_bytes() / 2**20:.2f} MiB, "
+          f"depth {pyr.depth}; equal to the CPU build row for row")
+
+    # ---- the frames through Renderer.render, each configuration's
+    # counters reset before its frames and read after; the pyramid forms'
+    # launch arguments recorded (the cap, the any-only walk, the width,
+    # the counters)
+    scene.lights[:] = lights_np
+    args_of = {k: [] for k in PYR_MAX_STEPS_ARG}
+    launch = kernels.launch
+
+    def recorded(name, device, *args):
+        if name in args_of:
+            args_of[name].append(args)
+        launch(name, device, *args)
+
+    rend, meds = {}, {}
+    kernels.launch = recorded
+    try:
+        for label, (knobs, mirrors, per_frame) in PYR_PHASES.items():
+            scene.lights[:] = lights_np
+            for v in args_of.values():
+                v.clear()
+            kernels.reset_launches()
+            r = Renderer(wcfg, dataclasses.replace(cfg, **knobs),
+                         device=dev, scene=scene, mirror_materials=mirrors)
+            check(r.use_pyramid and r.grid is pyr, f"pyramid {label}: the "
+                  "Renderer must trace the scene's pyramid")
+            ms = []
+            for i in range(frames + 1):   # frame 0 warms up (K11, K3)
+                t1 = time.perf_counter()
+                img = r.render(cam, time=i / 60.0)
+                torch.cuda.synchronize()
+                ms.append((time.perf_counter() - t1) * 1e3)
+            check(tuple(img.shape) == (h, w, 3)
+                  and float(img.float().std()) > 10,
+                  f"pyramid {label}: the frame is wrong")
+            got = dict(kernels.LAUNCHES)
+            frames_ = frames + 1
+            uneven = {k: got[k] for k, v in per_frame.items()
+                      if got[k] != v * frames_}
+            check(not uneven, f"pyramid {label}: kernels not launched "
+                  f"{per_frame} times a frame over {frames_} frames: "
+                  f"{uneven}")
+            once = ["sun_grids"] if r.use_sunmask else []
+            for k in once:
+                check(got[k] == 1, f"pyramid {label}: {k} launched {got[k]}"
+                      " times")
+            check(got["write_sky"] == 1, f"pyramid {label}: K3 launched "
+                  f"{got['write_sky']} times in one sky bucket")
+            others = {k: v for k, v in got.items() if v and k not in
+                      per_frame and k not in once and k != "write_sky"}
+            check(not others, f"pyramid {label}: launched {others} (no K1, "
+                  "no jump-grid or paged forms, no bloom in a debug frame)")
+            caps = {k: sorted({a[i] for a in args_of[k]})
+                    for k, i in PYR_MAX_STEPS_ARG.items() if args_of[k]}
+            check(all(c == [cap] for c in caps.values()),
+                  f"pyramid {label}: the pyramid forms' caps {caps}, "
+                  f"expected {cap}")
+            k19 = args_of["pyramid_trace"]
+            stats = debug.needs_stats(r.cfg.debug_type)
+            check(all(a[3] == 0 and a[9] == w for a in k19),
+                  f"pyramid {label}: K19 must walk the any masks by 8x4 "
+                  "tiles")
+            check(all((a[15] != 0) == (stats and a[6] == 3) for a in k19),
+                  f"pyramid {label}: K19's counters written "
+                  f"{[a[15] != 0 for a in k19]}, expected only for the "
+                  "heatmap's primary trace")
+            for k, v in got.items():
+                if k in per_frame or k in once:
+                    launches[f"pyr {k}"] = launches.get(f"pyr {k}", 0) + v
+            launches["pyr shadow"] = (launches.get("pyr shadow", 0)
+                                      + sum(a[6] == 0 for a in k19))
+            meds[label] = sorted(ms[1:])[frames // 2]
+            print(f"pyramid {label}: {frames} frames after a warm-up of "
+                  f"{ms[0]:.1f} ms, median {meds[label]:.3f} ms (host "
+                  f"clock, synchronized); launches "
+                  f"{ {k: v for k, v in got.items() if v} }; caps {caps}")
+            rend[label] = r
+    finally:
+        kernels.launch = launch
+    scene.lights[:] = lights_np
+    from vvr_tpu_torch.tools import profile_frame
+    profile_frame.window("pyramid DDA", rend["DDA"], cam, trace_path)
+
+    # ---- K19 against its plain version: primary and shadow rays at
+    # 1920x1080 and 33x67, with and without counters, flat and tiled, with
+    # the FULL early-out and without, and at a cap most rays reach
+    fields = ("hit", "face", "axis_coord", "t", "iterations", "fetches",
+              "missed_pops")
+    sun_np = renderer.sun[:3].copy()
+    sun3 = torch.from_numpy(sun_np)
+    sun_d = sun3.to(dev)
+    o, d = camera_rays(cam, w, h, dev)
+
+    def k19_check(ro, rd, ra, width, label, cap_=cap):
+        out = {}
+        for uf in (True, False):
+            full = traverse.trace_pyramid(pyr, ro, rd, cap_, active=ra,
+                                          use_full=uf)
+            ref = traverse.trace_pyramid_plain(pyr, ro, rd, cap_, ra,
+                                               use_full=uf)
+            lean = traverse.trace_pyramid(pyr, ro, rd, cap_, active=ra,
+                                          width=width, stats=False,
+                                          use_full=uf)
+            for f in fields:
+                check(torch.equal(getattr(full, f), getattr(ref, f)),
+                      f"K19 ({label}, full {uf}): {f} differs from plain on "
+                      f"{int((getattr(full, f) != getattr(ref, f)).sum())}"
+                      " rays")
+            for f in fields[:4]:
+                check(torch.equal(getattr(lean, f), getattr(ref, f)),
+                      f"K19 ({label}, full {uf}, tiled, no counters): {f} "
+                      "differs")
+            check(lean.iterations is None, "K19 wrote counters without "
+                  "stats")
+            out[uf] = full
+        any_ = out[False]
+        capped = int((any_.iterations >= cap_).sum())
+        check(torch.equal(out[True].hit, any_.hit) or capped,
+              f"K19 ({label}): the FULL early-out changes a hit")
+        print(f"K19 ({label}): {ro.shape[0]} rays, hits "
+              f"{int(any_.hit.sum())}, bit-exact vs plain (seven outputs; "
+              f"tiled without counters the four), with and without the FULL"
+              f" early-out; steps mean "
+              f"{float(any_.iterations.float().mean()):.2f}"
+              f" max {int(any_.iterations.max())} (FULL: mean "
+              f"{float(out[True].iterations.float().mean()):.2f}), fetches "
+              f"mean {float(any_.fetches.float().mean()):.2f}; rays at the "
+              f"{cap_} cap: {capped}")
+        return any_, capped
+
+    res_p, cap_p = k19_check(o, d, None, w, f"primary, {w}x{h}")
+    so_p, sa_p = shade.shade_surface(o, d, res_p.hit, res_p.face,
+                                     res_p.axis_coord, sun3)
+    sh_p, cap_s = k19_check(so_p, sun_d, sa_p, w, f"shadow, {w}x{h}, one "
+                            "sun direction")
+    o_s, d_s = camera_rays(cam, 33, 67, dev)
+    r_s, _ = k19_check(o_s, d_s, None, 33, "primary, 33x67")
+    so_s, sa_s = shade.shade_surface(o_s, d_s, r_s.hit, r_s.face,
+                                     r_s.axis_coord, sun3)
+    k19_check(so_s, sun_d, sa_s, 33, "shadow, 33x67")
+    _, at_cap = k19_check(o, d, None, w, f"primary at a cap of "
+                          f"{PYR_CAP_CHECK}", PYR_CAP_CHECK)
+    check(at_cap > 0, f"K19 at a cap of {PYR_CAP_CHECK}: no ray reaches it")
+    errs["pyramid_trace"] = errs["pyramid_trace_shadow"] = 0.0
+
+    # the oracle's answer for a lane the two grids answer apart: an exact
+    # tie (the oracle's answer is one of theirs) or a ray the pyramid's
+    # walk caps
+    def verify(what, ro, rd, got_p, got_j, cap_, shadow):
+        ora = trace_dense(occ, ro, rd)
+        o_ans = (bool(ora["hit"][0]) if shadow else
+                 ((int(ora["face"][0]), int(ora["axis_coord"][0]))
+                  if ora["hit"][0] else "miss"))
+        pl = traverse.trace_pyramid_plain(
+            pyr, torch.from_numpy(ro).to(dev), torch.from_numpy(rd).to(dev),
+            cap_, use_full=False)
+        capped = int(pl.iterations[0]) >= cap_ and not bool(pl.hit[0])
+        kind_ = ("capped" if capped else "tie" if o_ans in (got_p, got_j)
+                 else "neither")
+        print(f"{what}: the pyramid {got_p}, the jump grid {got_j}, the "
+              f"numpy oracle {o_ans}: {kind_}")
+        check(kind_ != "neither", f"{what}: the oracle agrees with neither "
+              "grid, and the pyramid's ray is not capped")
+        return kind_
+
+    def answer(res, lane, shadow):
+        if shadow:
+            return bool(res.hit[lane])
+        return ((int(res.face[lane]), int(res.axis_coord[lane]))
+                if bool(res.hit[lane]) else "miss")
+
+    # K19 against K1 on every primary ray
+    res_j = jump.trace_jump(jgrid, o, d, cap * 8, width=w, stats=False)
+    off = (res_p.hit != res_j.hit) | (res_p.hit & (
+        (res_p.face != res_j.face) | (res_p.axis_coord != res_j.axis_coord)))
+    bad = torch.nonzero(off)[:, 0].cpu().numpy()
+    check(len(bad) <= PYR_SLACK, f"K19 and K1 differ on {len(bad)} primary "
+          "rays")
+    kinds = [verify(f"primary ray {ray} (pixel {ray % w}, {ray // w})",
+                    o[ray:ray + 1].cpu().numpy(),
+                    d[ray:ray + 1].cpu().numpy(), answer(res_p, ray, False),
+                    answer(res_j, ray, False), cap, False) for ray in bad]
+    print(f"K19 vs K1 on every primary ray: {n - len(bad)} of {n} equal "
+          f"(hit, face, axis_coord); {kinds.count('tie')} exact ties, "
+          f"{kinds.count('capped')} capped by the pyramid's {cap} steps "
+          "(printed above)")
+
+    # ---- each pyramid frame against the jump grid's (PYR_VS_JUMP): the
+    # same rays at every DDA call but on lanes parted at a tie or a cap,
+    # K12's answers and K14's sample hits equal off them, each lane where
+    # they differ a tie or a capped ray, and the HDR equal off the parted
+    # lanes
+    sky = renderer._sky(0.25)
+    faces = scene.ensure_faces()
+    rcam = rt.raster_camera(cam)
+    probe = scene.solid_at_host(cam.position)
+    dens = scene.ensure_density()
+
+    def frame_kw(cfg_, sunmask):
+        return dict(
+            sky=sky, raster=((faces, rcam, probe) if cfg_.primary_raster
+                             != "off" and cfg_.debug_type == 6 else None),
+            sunmask=sunmask, density=dens,
+            lights=lights_np if cfg_.point_lights else None)
+
+    def shaded_of(h, mirrors):
+        """The lanes shaded with a bounce's shadow: the hits, but the
+        mirrors of a frame with mirrors (whose continuation may start
+        inside solid, ROADMAP C13, where the cone gate claims light)."""
+        if not mirrors:
+            return h[2]
+        block = shade._reconstruct(*h[:2], *h[3:])[2]
+        return h[2] & ~bounce.mirror_lanes(h[2], block)
+
+    def pyr_vs_jump(label):
+        knobs, mirrors, _ = PYR_PHASES[label]
+        r = rend[label]
+        cfg_j = dataclasses.replace(r.cfg, traversal="auto",
+                                    **PYR_VS_JUMP[label])
+        sm = r._sunmask() if r.use_sunmask else None
+        sm_j = sm if use_sunmask(cfg_j) else None
+        recs = []
+        for g, c, s in ((pyr, r.cfg, sm), (jgrid, cfg_j, sm_j)):
+            rec = {"trace": [], "k12": [], "k14": []}
+            with recorded_traces(frame_mod, rec):
+                img_, hdr_ = render_frame(g, o, d, r.sun, 0.25, c,
+                                          mirror_materials=mirrors,
+                                          **frame_kw(c, s))
+            recs.append((img_, hdr_, rec))
+        (img_p, hdr_p, rp), (img_j, hdr_j, rj) = recs
+        parted = torch.zeros(n, dtype=torch.bool, device=dev)
+        why = []
+        for key in ("trace", "k12", "k14"):
+            check(len(rp[key]) == len(rj[key]), f"pyramid {label}: "
+                  f"{len(rp[key])} {key} calls against {len(rj[key])}")
+        for k, (cp, cj) in enumerate(zip(rp["trace"], rj["trace"])):
+            (op, dp, ap, msp, resp), (oj, dj, aj, _, resj) = cp, cj
+            shadow = dp.dim() == 1
+            live = torch.ones(n, dtype=torch.bool, device=dev) \
+                if ap is None else ap.clone()
+            live &= ~parted
+            same_in = (op == oj).all(1) & ((dp == dj).all() if shadow
+                                           else (dp == dj).all(1))
+            check(bool((same_in | ~live).all()), f"pyramid {label} trace "
+                  f"{k}: other rays than the jump frame's")
+            diff = resp.hit != resj.hit
+            if not shadow:
+                diff |= resp.hit & ((resp.face != resj.face)
+                                    | (resp.axis_coord != resj.axis_coord))
+            for lane in torch.nonzero(diff & live)[:, 0].tolist():
+                why.append(verify(
+                    f"pyramid {label} trace {k} lane {lane}",
+                    op[lane:lane + 1].cpu().numpy(),
+                    (dp if shadow else dp[lane]).reshape(1, 3).cpu()
+                    .numpy(), answer(resp, lane, shadow),
+                    answer(resj, lane, shadow), msp, shadow))
+                parted[lane] = True
+        for k, ((hp, outp, msp), (hj, outj, _)) in enumerate(
+                zip(rp["k12"], rj["k12"])):
+            used = shaded_of(hp, mirrors)
+            lanes = torch.nonzero((outp != outj) & used & ~parted)[:, 0]\
+                .tolist()
+            s_o, _ = shade.shade_surface_plain(*hp, sun3)
+            for lane in lanes:
+                why.append(verify(
+                    f"pyramid {label} K12 call {k} lane {lane}",
+                    s_o[lane:lane + 1].cpu().numpy(), sun_np[None],
+                    bool(outp[lane]), bool(outj[lane]), msp, True))
+                parted[lane] = True
+        for k, ((hp, sp, pix, msp), (_, sj, _, _)) in enumerate(
+                zip(rp["k14"], rj["k14"])):
+            p_q = softshadow.query_points(*hp, sun_d, pix)[0]
+            used = shaded_of(hp, mirrors) & ~parted
+            for s_k, lane in torch.nonzero((sp != sj) & used[None])\
+                    .tolist():
+                q = p_q[lane:lane + 1].unbind(1)
+                dirs = softshadow.sample_dir(s_k, *q, sun_d)[:3]
+                start = torch.stack(softshadow.ray_start(*q, *dirs, sun_d),
+                                    -1)
+                why.append(verify(
+                    f"pyramid {label} K14 call {k} sample {s_k} lane {lane}",
+                    start.cpu().numpy(),
+                    torch.stack(dirs, -1).cpu().numpy(), bool(sp[s_k, lane]),
+                    bool(sj[s_k, lane]), msp, True))
+                parted[lane] = True
+        check(int(parted.sum()) <= PYR_SLACK, f"pyramid {label}: "
+              f"{int(parted.sum())} lanes parted")
+        px = (hdr_p != hdr_j).any(-1).reshape(-1) & ~parted
+        check(not bool(px.any()), f"pyramid {label}: the HDR differs from "
+              f"the jump grid's frame on {int(px.sum())} pixels off the "
+              f"parted lanes {torch.nonzero(px)[:8, 0].tolist()}")
+        u8_off = int((img_p != img_j).any(-1).sum())
+        unused = sum(int(((sp != sj).any(0) & ~shaded_of(hp, mirrors))
+                         .sum()) for (hp, sp, _, _), (_, sj, _, _)
+                     in zip(rp["k14"], rj["k14"]))
+        if unused:
+            print(f"pyramid {label}: K14's sample hits differ from the jump "
+                  f"grid's on {unused} mirror lanes whose shadow the frame "
+                  "does not use (ROADMAP C13)")
+        knobs_j = ", ".join(f"{k}={v}" for k, v in
+                            PYR_VS_JUMP[label].items()) or "the same knobs"
+        print(f"pyramid {label} vs the jump grid's frame ({knobs_j}): "
+              f"{len(rp['trace'])} DDA calls, {len(rp['k12'])} K12 and "
+              f"{len(rp['k14'])} K14 calls; {int(parted.sum())} lanes "
+              f"parted ({why.count('tie')} ties, {why.count('capped')} "
+              f"capped, printed above), the HDR equal on every other pixel; "
+              f"u8 pixels that differ: {u8_off}")
+
+    for label in PYR_VS_JUMP:
+        pyr_vs_jump(label)
+
+    # ---- K21 against its plain version on the DDA primary trace (with
+    # the counters), each debug type
+    res_c = traverse.trace_pyramid(pyr, o, d, cap, width=w, use_full=False)
+    check(torch.equal(res_c.iterations, res_p.iterations),
+          "K19 tiled with counters differs from flat")
+    for t in range(1, 6):
+        counter = (getattr(res_c, debug.HEATMAPS[t][0])
+                   if debug.needs_stats(t) else None)
+        out_k = torch.zeros((4, h, w), device=dev)
+        out_p = torch.zeros((4, h, w), device=dev)
+        before = kernels.LAUNCHES["debug_image"]
+        debug.debug_image(o, d, res_c.face, res_c.axis_coord, counter, t,
+                          out_k)
+        check(kernels.LAUNCHES["debug_image"] == before + 1,
+              "K21 did not launch once")
+        debug.debug_image_plain(o, d, res_c.face, res_c.axis_coord, counter,
+                                t, out_p)
+        check(torch.equal(out_k, out_p), f"K21 debug {t}: "
+              f"{int((out_k != out_p).any(0).sum())} pixels differ from "
+              "plain")
+    errs["debug_image"] = 0.0
+    print(f"K21: the five debug images of the {w}x{h} primary trace (its "
+          f"misses' far points included) bit-exact vs plain")
+
+    # ---- K20 on the primary hits: overlap_ao, the cube and the planar
+    # densities, through the overlap library's entry points with the
+    # counters reset, each against its plain version
+    hit_lanes = torch.nonzero(res_p.hit)[:, 0]
+    normal_, world_, _ = shade._reconstruct(o, d, res_p.face,
+                                            res_p.axis_coord)
+    wpos = torch.stack(world_, -1)[hit_lanes].contiguous()
+    wnrm = torch.stack(normal_, -1)[hit_lanes].contiguous()
+    wface = res_p.face[hit_lanes].contiguous()
+    kernels.reset_launches()
+    ao_k = overlap.overlap_ao(pyr, wpos, wnrm, wface)
+    cube_k = overlap.cube_overlap_density(pyr, wpos, 1.5)
+    plane_k = overlap.planar_overlap_density(pyr, wpos, 0.8, wface)
+    launches["overlap_density"] = kernels.LAUNCHES["overlap_density"]
+    check(launches["overlap_density"] == 3, "K20 did not launch once a call")
+    for what, got_, ref_ in (
+            ("overlap_ao", ao_k, overlap.overlap_ao_plain(pyr, wpos, wnrm,
+                                                          wface)),
+            ("cube 1.5", cube_k, overlap.cube_overlap_density_plain(
+                pyr, wpos, 1.5)),
+            ("planar 0.8", plane_k, overlap.planar_overlap_density_plain(
+                pyr, wpos, 0.8, wface))):
+        check(torch.equal(got_, ref_), f"K20 {what}: "
+              f"{int((got_ != ref_).sum())} of {got_.numel()} differ from "
+              "plain")
+    ao_j = overlap.overlap_ao_plain(jgrid, wpos, wnrm, wface)
+    check(torch.equal(ao_k, ao_j), "overlap_ao through the jump grid's "
+          "voxels differs from the pyramid's")
+    errs["overlap_density"] = 0.0
+    print(f"K20 on the {hit_lanes.numel()} primary hits: overlap_ao, the cube"
+          f" (half 1.5) and the planar (half 0.8) densities bit-exact vs "
+          f"plain; overlap_ao equal through the jump grid's voxels; AO mean "
+          f"{float(ao_k.mean()):.4f}")
+
+    # ---- the pyramid K12 on the raster hits: against its plain version
+    # and an every-lane K19 shadow trace on every lit lane
+    ras = rt.trace_raster(faces, rcam, d, probe, wcfg.size, w, h)
+    hits = (o, d, ras.hit, ras.face, ras.axis_coord)
+    e1, e2, _ = ss.sun_basis(sun_np)
+    grids_k = rend["default knobs"]._sunmask()[2]
+    ms_k = ss.masked_shadow_from_hits(pyr, *hits, sun_np, e1, e2, grids_k,
+                                      cap)
+    ms_p = ss.masked_shadow_from_hits_plain(pyr, *hits, sun_np, e1, e2,
+                                            grids_k, cap)
+    check(torch.equal(ms_k, ms_p), f"pyramid K12 vs plain: "
+          f"{int((ms_k != ms_p).sum())} lanes differ")
+    so_r, sa_r = shade.shade_surface(*hits, sun3)
+    every = traverse.trace_pyramid(pyr, so_r, sun_d, cap, active=sa_r,
+                                   width=w, stats=False,
+                                   use_full=False).hit
+    # a lane where they differ must be a shadow ray the walk caps before
+    # the occluder the sun grids are certain of
+    apart = torch.nonzero((ms_k & sa_r) != every)[:, 0]
+    if apart.numel():
+        it_a = traverse.trace_pyramid_plain(pyr, so_r[apart], sun_d, cap,
+                                            use_full=False).iterations
+        check(bool((it_a >= cap).all()), f"pyramid K12 and an every-lane "
+              f"K19 shadow trace differ on {apart.numel()} lanes, not all "
+              "capped")
+    print(f"pyramid K12 vs an every-lane K19 shadow trace: equal but on "
+          f"{apart.numel()} lanes the walk caps")
+    branch = ss.shadow_branches(pyr, so_r, sun_np, e1, e2, grids_k, sa_r)
+    counts = torch.bincount(branch, minlength=len(ss.BRANCHES)).tolist()
+    residue = branch == ss.BRANCHES.index("residue")
+    res_it = traverse.trace_pyramid(pyr, so_r, sun_d, cap, active=residue,
+                                    use_full=False).iterations[residue]
+    errs["masked_shadow_pyramid"] = 0.0
+    print(f"pyramid K12: {int(sa_r.sum())} lit lanes bit-exact vs plain; "
+          f"branches "
+          f"{dict(zip(ss.BRANCHES, counts))}; residue steps "
+          f"{int(res_it.sum())}")
+
+    # ---- the pyramid K14 in its three modes, as the paged form is held
+    _, cl_k = renderer._sky(0.0)
+    cl_cpu = cl_k.cpu()
+    cone_k = rend["soft, cone"]._sunmask()[2]
+    gate = (e1, e2, cone_k)
+    soft = {}
+    for name, (pix, g) in {"DDA": (False, None), "cone gate": (False, gate),
+                           "pixelated": (True, None)}.items():
+        before = kernels.LAUNCHES["soft_shadow_pyramid"]
+        fk, hk = softshadow.soft_shadow(pyr, *hits, sun_np, SOFT_SAMPLES,
+                                        cl_k, cap, pix, g, with_hits=True,
+                                        width=w)
+        check(kernels.LAUNCHES["soft_shadow_pyramid"] == before + 1,
+              f"pyramid K14 ({name}) did not launch once")
+        hp = softshadow.sample_hits_plain(pyr, *hits, sun_np, SOFT_SAMPLES,
+                                          cap, pix, g)
+        check(torch.equal(hk, hp), f"pyramid K14 ({name}): "
+              f"{int((hk != hp).sum())} sample hits differ from plain")
+        fp = softshadow.shadow_factor_plain(
+            *(t.cpu() for t in hits), sun_np, hk.cpu(), cl_cpu, pix)
+        err = float((fk.cpu() - fp).abs().max())
+        check(err <= SOFT_FACTOR_TOL, f"pyramid K14 ({name}): factor off "
+              f"the plain factor by {err}")
+        soft[name] = (fk, hk, err)
+        print(f"pyramid K14 ({name}): {SOFT_SAMPLES} sample hits of {n} "
+              f"lanes equal to plain ({int(hk.sum())} hits), factor max "
+              f"|diff| {err:.3e} vs plain on the CPU")
+    check(torch.equal(soft["DDA"][1], soft["cone gate"][1]),
+          "pyramid K14: the cone gate's sample hits differ from the DDA "
+          "mode's")
+    errs["soft_shadow_pyramid"] = soft["cone gate"][2]
+
+    # ---- the pyramid K15 at every bounce (BounceCheck) of config 4's
+    # knobs, the lights frame and the overlap AO frame; and the kernel
+    # path's frames against the plain path's
+    checks = {}
+    for label in ("config-4 knobs", "lights", "overlap AO"):
+        r = rend[label]
+        mirrors = PYR_PHASES[label][1]
+        kw = frame_kw(r.cfg, r._sunmask() if r.use_sunmask else None)
+        with BounceCheck(frame_mod, bounce, kernels) as bc:
+            img_k, hdr_k = render_frame(pyr, o, d, r.sun, 0.25, r.cfg,
+                                        mirror_materials=mirrors, **kw)
+        check(len(bc.bounces) == (r.cfg.max_ray_iterations if mirrors
+                                  else 1), f"pyramid {label}: "
+              f"{len(bc.bounces)} bounces")
+        for k, (live, hit_n, mir, shd, diff, nbe, _) in enumerate(
+                bc.bounces):
+            print(f"pyramid {label} bounce {k}: {live} live lanes, {hit_n} "
+                  f"hits, {mir} mirrors, {shd} shaded; K15 vs plain bit for"
+                  f" bit but the shaded rgb, max |diff| {diff:.3e} ({nbe} "
+                  f"lanes not bit-equal)")
+        checks[label] = bc
+    errs["shade_bounce_pyramid"] = max(b[4] for b in
+                                       checks["overlap AO"].bounces)
+    for label in ("config-4 knobs", "lights", "overlap AO", "DDA",
+                  "debug 1", "debug 4"):
+        r = rend[label]
+        mirrors = PYR_PHASES[label][1]
+        kw = frame_kw(r.cfg, r._sunmask() if r.use_sunmask else None)
+        img_k, hdr_k = render_frame(pyr, o, d, r.sun, 0.25, r.cfg,
+                                    mirror_materials=mirrors, **kw)
+        before = dict(kernels.LAUNCHES)
+        with plain_path(kernels):
+            img_q, hdr_q = render_frame(pyr, o, d, r.sun, 0.25, r.cfg,
+                                        mirror_materials=mirrors, **kw)
+        check(kernels.LAUNCHES == before, f"pyramid {label}: the plain "
+              "path launched a kernel")
+        check(torch.equal(hdr_k[..., 3], hdr_q[..., 3]),
+              f"pyramid {label}: alpha differs from the plain path")
+        close = torch.isclose(hdr_k, hdr_q, rtol=1e-4, atol=1e-4).all(-1)
+        check(bool(close.all()), f"pyramid {label}: kernel vs plain path: "
+              f"{int((~close).sum())} pixels beyond rtol=atol=1e-4")
+        print(f"pyramid {label}: kernel path vs plain path on the card: "
+              f"alpha equal, HDR within rtol=atol=1e-4 (max |diff| "
+              f"{float((hdr_k - hdr_q).abs().max()):.3e}); u8 pixels that "
+              f"differ: {int((img_k != img_q).any(-1).sum())}")
+
+    # ---- the rows: kernel and plain times (CUDA events), device time
+    # (torch.profiler), bounds
+    def nbytes(*ts):
+        return float(sum(t.nbytes for t in ts))
+
+    lanes = float(sa_r.sum())
+    p_q, act_q = softshadow.query_points(*hits, sun_d, False)
+    kh, km = ss.soft_shadow_gate(p_q, sun_np, e1, e2, cone_k, act_q,
+                                 wcfg.size)
+    traced = act_q & ~kh & ~km
+    soft_steps = 0.0
+    for k in range(SOFT_SAMPLES):
+        dirs = softshadow.sample_dir(k, *p_q.unbind(1), sun_d)[:3]
+        start = torch.stack(softshadow.ray_start(*p_q.unbind(1), *dirs,
+                                                 sun_d), -1)
+        it = traverse.trace_pyramid(pyr, start, torch.stack(dirs, -1), cap,
+                                    active=traced,
+                                    use_full=False).iterations
+        soft_steps += float(it[traced].sum())
+    ov_args = checks["overlap AO"].first
+    ov_shaded = float(checks["overlap AO"].bounces[0][3])
+    trace_ops = OPS_PER_ITEM["pyramid_trace"]
+    out_w = torch.zeros((4, h, w), device=dev)
+    timed_rows = {
+        "pyramid_trace": (
+            lambda: traverse.trace_pyramid(pyr, o, d, cap, width=w,
+                                           stats=False, use_full=False),
+            lambda: traverse.trace_pyramid_plain(pyr, o, d, cap, stats=False,
+                                                 use_full=False),
+            nbytes(o, d, *(getattr(res_p, f) for f in fields[:4]))
+            + rows_bytes(pyr, "K19 primary", lambda r: traverse.
+                         trace_pyramid_plain(pyr, o, d, cap, stats=False,
+                                             use_full=False, rows_read=r)),
+            float(res_p.iterations.sum()) * trace_ops,
+            ("vvr_trace_kernel", "VvrPyramidViewT"),
+            launches.get("pyr pyramid_trace", 0) - launches.get("pyr shadow",
+                                                                0)),
+        "pyramid_trace_shadow": (
+            lambda: traverse.trace_pyramid(pyr, so_p, sun_d, cap,
+                                           active=sa_p, width=w, stats=False,
+                                           use_full=False),
+            lambda: traverse.trace_pyramid_plain(pyr, so_p, sun_d, cap, sa_p,
+                                                 stats=False,
+                                                 use_full=False),
+            nbytes(so_p, sa_p, *(getattr(sh_p, f) for f in fields[:4]))
+            + rows_bytes(pyr, "K19 shadow", lambda r: traverse.
+                         trace_pyramid_plain(pyr, so_p, sun_d, cap, sa_p,
+                                             stats=False, use_full=False,
+                                             rows_read=r)),
+            float(sh_p.iterations.sum()) * trace_ops,
+            ("vvr_trace_kernel", "VvrPyramidViewT"),
+            launches.get("pyr shadow", 0)),
+        "masked_shadow_pyramid": (
+            lambda: ss.masked_shadow_from_hits(pyr, *hits, sun_np, e1, e2,
+                                               grids_k, cap),
+            lambda: ss.masked_shadow_from_hits_plain(
+                pyr, *hits, sun_np, e1, e2, grids_k, cap),
+            nbytes(*hits, grids_k[0], ms_k)
+            + rows_bytes(pyr, "pyramid K12", lambda r: ss.
+                         masked_shadow_from_hits_plain(
+                             pyr, *hits, sun_np, e1, e2, grids_k, cap,
+                             rows_read=r)),
+            lanes * OPS_PER_ITEM["masked_shadow"]
+            + n * OPS_PER_ITEM["shade_surface"]
+            + float(res_it.sum()) * trace_ops,
+            ("vvr_masked_shadow_kernel", "VvrPyramidViewT"),
+            launches.get("pyr masked_shadow_pyramid", 0)),
+        "soft_shadow_pyramid": (
+            lambda: softshadow.soft_shadow(pyr, *hits, sun_np, SOFT_SAMPLES,
+                                           cl_k, cap, gate=gate, width=w),
+            lambda: softshadow.soft_shadow_plain(
+                pyr, *hits, sun_np, SOFT_SAMPLES, cl_k, cap, gate=gate),
+            nbytes(*hits, cl_k, cone_k[0], soft["cone gate"][0])
+            + rows_bytes(pyr, "pyramid K14, cone gate", lambda r: softshadow.
+                         soft_shadow_plain(pyr, *hits, sun_np, SOFT_SAMPLES,
+                                           cl_k, cap, gate=gate,
+                                           rows_read=r)),
+            float(act_q.sum()) * SOFT_SAMPLES * OPS_PER_ITEM["soft_shadow"]
+            + soft_steps * trace_ops,
+            ("vvr_soft_shadow_kernel", "VvrPyramidViewT"),
+            launches.get("pyr soft_shadow_pyramid", 0)),
+        "shade_bounce_pyramid": (
+            lambda: bounce.shade_bounce(*ov_args),
+            lambda: bounce.shade_bounce_plain(*ov_args),
+            float(checks["overlap AO"].bounces[0][6])
+            + rows_bytes(pyr, "pyramid K15, overlap AO", lambda r: bounce.
+                         shade_bounce_plain(*ov_args, rows_read=r)),
+            n * OPS_PER_ITEM["shade_bounce"]
+            + ov_shaded * OVERLAP_AO_CELLS * OPS_PER_ITEM["overlap_density"],
+            ("vvr_shade_bounce_kernel", "VvrPyramidViewT"),
+            launches.get("pyr shade_bounce_pyramid", 0)),
+        "overlap_density": (
+            lambda: overlap.overlap_ao(pyr, wpos, wnrm, wface),
+            lambda: overlap.overlap_ao_plain(pyr, wpos, wnrm, wface),
+            nbytes(wpos, wnrm, wface, ao_k)
+            + rows_bytes(pyr, "K20 overlap_ao", lambda r: overlap.
+                         overlap_ao_plain(pyr, wpos, wnrm, wface,
+                                          rows_read=r)),
+            float(hit_lanes.numel()) * OVERLAP_AO_CELLS
+            * OPS_PER_ITEM["overlap_density"],
+            ("vvr_overlap_density_kernel",),
+            launches["overlap_density"]),
+        "debug_image": (
+            lambda: debug.debug_image(o, d, res_c.face, res_c.axis_coord,
+                                      None, 4, out_w),
+            lambda: debug.debug_image_plain(o, d, res_c.face,
+                                            res_c.axis_coord, None, 4,
+                                            out_w),
+            nbytes(o, d, res_c.face, res_c.axis_coord, out_w[:3]),
+            n * OPS_PER_ITEM["debug_image"],
+            ("vvr_debug_image_kernel",),
+            launches.get("pyr debug_image", 0)),
+    }
+    rows = []
+    for name, (kfn, pfn, moved, ops, parts, count) in timed_rows.items():
+        k_ms, p_ms = cuda_ms(kfn, 10), cuda_ms(pfn, 1)
+        dev_us = device_us(kfn, parts, 20, trace_path)
+        b_ms, b_by = bound_ms(moved, ops, "fp32")
+        k = kernels.KERNELS[ROW_KERNEL.get(name, name)]
+        rows.append({"name": name, "route": "cuda", "source": k.source,
+                     "replaces": k.replaces, "launches": count,
+                     "max_abs_err": errs[name], "ms": k_ms,
+                     "device_us": dev_us, "plain_ms": p_ms,
+                     "bound_ms": b_ms, "bound_by": b_by,
+                     "library_ms": None})
+        print(f"time {name} (pyramid, 256^3): kernel {k_ms:.4f} ms, device "
+              f"{dev_us:.2f} us, plain torch {p_ms:.4f} ms, bound "
+              f"{b_ms:.6f} ms ({b_by}), {count} launches in the frames")
+    print(f"pyramid phase: {time.perf_counter() - t_phase:.1f} s; rays at "
+          f"the cap: primary {cap_p}, shadow {cap_s}; frame medians {meds}")
     return rows
 
 
@@ -3290,6 +4173,11 @@ def main() -> int:
         torch.cuda.synchronize()
     print(f"host us per call over {LAUNCH_CALLS} (64x2 table, 32 lanes): "
           + ", ".join(f"{k} {v:.3f}" for k, v in host.items()))
+
+    # ---- 5a. the brick pyramid over the 256^3 scene (phase 9 of the
+    # module docstring), its counters reset before each configuration
+    rows += pyramid_phase(repo, dev, renderer, cam, occ, lights_np, errs,
+                          launches)
 
     # ---- 5b. config 5, the 1024^3 world on the paged grid (phase 7 of
     # the module docstring), its counters reset before each configuration

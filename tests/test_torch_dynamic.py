@@ -60,6 +60,7 @@ from vvr_tpu_torch.world.chunk import Chunk, ChunkKind, chunk_kind
 from vvr_tpu_torch.world.edit import WorldEditor, world_depth
 from vvr_tpu_torch.world.generator import assemble_dense, generate_world
 from vvr_tpu_torch.world.jumpgrid import build_jump_grid
+from vvr_tpu_torch.world.pyramid import build_brick_pyramid
 
 # one intra-op thread: the suite runs six pytest workers on eight cores
 torch.set_num_threads(1)
@@ -253,8 +254,10 @@ def test_editor_creates_chunks_and_refuses_what_it_lacks(terrain):
             WorldEditor([], None, size=size, device="cpu")
     with pytest.raises(ValueError, match="C4"):
         WorldEditor([], None, size=16, device="cpu").attach_paged()
-    with pytest.raises(NotImplementedError, match="A13"):
-        WorldEditor([], object(), size=64, device="cpu")
+    pyr = build_brick_pyramid(np.zeros((64,) * 3, bool), "cpu")
+    assert WorldEditor([], pyr, device="cpu").size == 64
+    with pytest.raises(ValueError, match="pyramid"):
+        WorldEditor([], pyr, size=256, device="cpu")
 
 
 # ---- K18 -----------------------------------------------------------------

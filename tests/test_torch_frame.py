@@ -38,7 +38,7 @@ from vvr_tpu_torch.ops import sunshadow
 from vvr_tpu_torch.ops.rastertrace import raster_camera
 from vvr_tpu_torch.ops.raygen import camera_rays
 from vvr_tpu_torch.render.frame import render_frame
-from vvr_tpu_torch.render.renderer import Renderer
+from vvr_tpu_torch.render.renderer import Renderer, check_slice
 from vvr_tpu_torch.utils.camera import Camera, load_snapshots
 from vvr_tpu_torch.world.faces import extract_merged_faces
 
@@ -417,14 +417,8 @@ def test_shadow_knobs_render(knobs, hard_renderer):
 
 
 OUTSIDE = [
-    ("ao", {"ambient_occlusion": True, "ao_mode": "overlap"}, {}),
-    ("debug_normals", {"debug_type": 3}, {}),
-    ("debug_iterations", {"debug_type": 1}, {}),
-    ("pyramid", {"traversal": "pyramid"}, {}),
-    ("pyramid_1024", {"traversal": "pyramid"}, {"depth": 5}),
     ("jump2", {"traversal": "jump2"}, {}),
     ("debug_raster", {"debug_type": 0}, {}),
-    ("dynamic", {"traversal": "pyramid"}, {"dynamic_world": True}),
 ]
 
 
@@ -438,3 +432,34 @@ def test_outside_the_slice_raises(knobs, kwargs):
     depth = kwargs.pop("depth", 3)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         Renderer(WorldConfig(depth=depth), cfg, device="cpu", **kwargs)
+
+
+# knobs the port refused before the brick pyramid came (ROADMAP A13)
+FORMERLY_OUTSIDE = [
+    ("ao", {"ambient_occlusion": True, "ao_mode": "overlap"}, {}),
+    ("debug_normals", {"debug_type": 3}, {}),
+    ("debug_iterations", {"debug_type": 1}, {}),
+    ("pyramid", {"traversal": "pyramid"}, {}),
+    ("pyramid_1024", {"traversal": "pyramid"}, {"depth": 5}),
+    ("dynamic", {"traversal": "pyramid"}, {"dynamic_world": True}),
+]
+
+
+@pytest.mark.parametrize("knobs,kwargs", [c[1:] for c in FORMERLY_OUTSIDE],
+                         ids=[c[0] for c in FORMERLY_OUTSIDE])
+def test_formerly_outside_renders(knobs, kwargs, tmp_path):
+    """Each renders a 64^3 frame; the 1024^3 pyramid passes the slice
+    check (no scene built: the JAX renderer allows it too)."""
+    cfg = RenderConfig(**{**SLICE, **knobs})
+    kwargs = dict(kwargs)
+    depth = kwargs.pop("depth", 3)
+    if depth != 3:
+        check_slice(WorldConfig(depth=depth), cfg)
+        return
+    r = Renderer(WorldConfig(depth=3), cfg, device="cpu",
+                 cache_path=tmp_path / "map_64.npz", **kwargs)
+    img = r.render(_views()["terrain"], time=0.0, fetch=True)
+    assert img.shape == (64, 96, 3) and img.std() > 10
+    assert r.use_pyramid == (cfg.traversal == "pyramid")
+    assert (r.scene.density is None) == (cfg.ao_mode == "overlap"
+                                         or not cfg.ambient_occlusion)

@@ -15,6 +15,8 @@ import torch
 from vvr_tpu_torch.world.faces import FIELDS
 from vvr_tpu_torch.world.jumpgrid import ROW_WORDS, JumpGrid
 from vvr_tpu_torch.world.paged import PAGE_WORDS, POOL_WORDS, PagedGrid
+from vvr_tpu_torch.world.pyramid import ROW_WORDS as PYR_WORDS
+from vvr_tpu_torch.world.pyramid import BrickPyramid, pyramid_depth
 
 
 def jumpgrid_from_numpy(rows: np.ndarray, size: int,
@@ -40,6 +42,19 @@ def paged_grid_from_numpy(prows: np.ndarray, brows: np.ndarray, size: int,
                          f"a {size}^3 paged grid")
     return PagedGrid(torch.from_numpy(prows.view(np.int32)).to(device),
                      torch.from_numpy(brows.view(np.int32)).to(device), size)
+
+
+def pyramid_from_numpy(rows: np.ndarray, size: int,
+                       device="cuda") -> BrickPyramid:
+    """BrickPyramid from `np.asarray(vvr_tpu BrickPyramid.rows)` ((R, 4)
+    u32; its `rows_any` and `rows_grp` are not carried)."""
+    rows = np.array(rows, np.uint32)
+    depth = pyramid_depth(size)
+    n = sum((size >> (2 * lv)) ** 3 for lv in range(1, depth + 1))
+    if rows.shape != (n, PYR_WORDS):
+        raise ValueError(f"rows {rows.shape} do not fit a {size}^3 pyramid")
+    return BrickPyramid(torch.from_numpy(rows.view(np.int32)).to(device),
+                        depth)
 
 
 def sky_from_numpy(skybox: np.ndarray, clouds: np.ndarray,

@@ -31,6 +31,7 @@
 // grid's (K16's), from one body.
 #include "clouds.cuh"
 #include "grid_view.cuh"
+#include "overlap.cuh"
 #include "shading.cuh"
 #include "surface.cuh"
 
@@ -60,7 +61,8 @@ struct VvrBounceArgs {
     const float* shadow_factor; // soft shadows' factor, or null
     const float* skybox;
     const float* clouds;
-    const uint8_t* density;     // the AO field [z, y, x], with AO
+    const uint8_t* density;     // the filtered AO's field [z, y, x], or
+                                // null for the overlap AO (with AO)
     float sx, sy, sz, cr, cg, cb, time;
     bool pixelated;
     float* out;                 // planar (4, n)
@@ -248,15 +250,22 @@ __global__ void __launch_bounds__(VVR_K15_BLOCK) vvr_shade_bounce_kernel(
         }
         float vis = 1.0f;
         if (AO) {
-            // one voxel off the surface along the normal, two on a
-            // negative axis
-            const float ao = 1.0f - vvr_clamp(
-                vvr_density_trilinear(
-                    A.density, A.grid.size,
-                    s.wx + (s.nx < 0.0f ? -2.0f : s.nx),
-                    s.wy + (s.ny < 0.0f ? -2.0f : s.ny),
-                    s.wz + (s.nz < 0.0f ? -2.0f : s.nz)) * 0.5f,
-                0.0f, 1.0f);
+            float ao;
+            if (A.density != nullptr) {
+                // filtered: one voxel off the surface along the normal,
+                // two on a negative axis
+                ao = 1.0f - vvr_clamp(
+                    vvr_density_trilinear(
+                        A.density, A.grid.size,
+                        s.wx + (s.nx < 0.0f ? -2.0f : s.nx),
+                        s.wy + (s.ny < 0.0f ? -2.0f : s.ny),
+                        s.wz + (s.nz < 0.0f ? -2.0f : s.nz)) * 0.5f,
+                    0.0f, 1.0f);
+            } else {
+                // overlap (overlap.cuh) through the grid's voxels
+                ao = vvr_overlap_ao(A.grid, s.wx, s.wy, s.wz, s.nx, s.ny,
+                                    s.nz, A.face[i]);
+            }
             vis = powf(ao, 1.4f);
         }
         float3 lit = vvr_lighting(ar, ag, ab, s.nx, s.ny, s.nz, -dx, -dy,
@@ -332,7 +341,8 @@ static void vvr_launch_bounce(const VvrBounceArgs<View>& A,
 // continuation is written to o_out, d_out, col_out, active_out: the
 // mirror lanes' rays and colours and the live lanes' flags (every lane's
 // at bounce 0); after bounce 0 the buffers are the bounce's own inputs;
-// wavy only with mirror. V: the grid's view (grid_view.cuh).
+// wavy only with mirror. overlap_ao: the AO is the overlap AO (with a null
+// density). V: the grid's view (grid_view.cuh).
 template <class View>
 static int vvr_shade_bounce_launch(
         const View& V, const void* o_in, const void* d_in,
@@ -341,14 +351,16 @@ static int vvr_shade_bounce_launch(
         const void* shadow_factor, int n, const void* skybox, int sky_res,
         const void* clouds, int cl_res, float sx, float sy, float sz,
         float cr, float cg, float cb, int pixelated, const void* density,
-        const void* lights, int n_lights, int max_steps, int mirror,
+        int overlap_ao, const void* lights, int n_lights, int max_steps,
+        int mirror,
         int wavy, float time, void* out, void* o_out, void* d_out,
         void* col_out, void* active_out, void* stream) {
     if (n_lights < 0 || n_lights > VVR_MAX_LIGHTS
         || (n_lights > 0 && lights == nullptr)
         || (mirror != 0 && (o_out == nullptr || d_out == nullptr
                             || col_out == nullptr || active_out == nullptr))
-        || (wavy != 0 && mirror == 0)) {
+        || (wavy != 0 && mirror == 0)
+        || (overlap_ao != 0 && density != nullptr)) {
         return (int)cudaErrorInvalidValue;
     }
     if (n <= 0) return (int)cudaGetLastError();
@@ -394,9 +406,10 @@ static int vvr_shade_bounce_launch(
     }
     const cudaStream_t st = (cudaStream_t)stream;
     const bool m = mirror != 0, w = wavy != 0;
-    if (density != nullptr && n_lights > 0) {
+    const bool ao = density != nullptr || overlap_ao != 0;
+    if (ao && n_lights > 0) {
         vvr_launch_bounce<View, true, true>(A, L, m, w, st);
-    } else if (density != nullptr) {
+    } else if (ao) {
         vvr_launch_bounce<View, true, false>(A, L, m, w, st);
     } else if (n_lights > 0) {
         vvr_launch_bounce<View, false, true>(A, L, m, w, st);
@@ -414,14 +427,16 @@ extern "C" int vvr_shade_bounce(
         const void* shadow_factor, int n, const void* skybox, int sky_res,
         const void* clouds, int cl_res, float sx, float sy, float sz,
         float cr, float cg, float cb, int pixelated, const void* density,
-        const void* lights, int n_lights, int max_steps, int mirror,
+        int overlap_ao, const void* lights, int n_lights, int max_steps,
+        int mirror,
         int wavy, float time, void* out, void* o_out, void* d_out,
         void* col_out, void* active_out, void* stream) {
     const VvrFlatView V = {(const uint32_t*)rows, size};
     return vvr_shade_bounce_launch(
         V, o_in, d_in, col_in, active_in, hit, face,
         axis_coord, shadow_hit, shadow_factor, n, skybox, sky_res, clouds,
-        cl_res, sx, sy, sz, cr, cg, cb, pixelated, density, lights, n_lights,
+        cl_res, sx, sy, sz, cr, cg, cb, pixelated, density, overlap_ao,
+        lights, n_lights,
         max_steps, mirror, wavy, time, out, o_out, d_out, col_out,
         active_out, stream);
 }
@@ -435,7 +450,8 @@ extern "C" int vvr_shade_bounce_paged(
         const void* shadow_factor, int n, const void* skybox, int sky_res,
         const void* clouds, int cl_res, float sx, float sy, float sz,
         float cr, float cg, float cb, int pixelated, const void* density,
-        const void* lights, int n_lights, int max_steps, int mirror,
+        int overlap_ao, const void* lights, int n_lights, int max_steps,
+        int mirror,
         int wavy, float time, void* out, void* o_out, void* d_out,
         void* col_out, void* active_out, void* stream) {
     const VvrPagedView V = {(const uint32_t*)prows, (const uint32_t*)brows,
@@ -443,7 +459,31 @@ extern "C" int vvr_shade_bounce_paged(
     return vvr_shade_bounce_launch(
         V, o_in, d_in, col_in, active_in, hit, face,
         axis_coord, shadow_hit, shadow_factor, n, skybox, sky_res, clouds,
-        cl_res, sx, sy, sz, cr, cg, cb, pixelated, density, lights, n_lights,
+        cl_res, sx, sy, sz, cr, cg, cb, pixelated, density, overlap_ao,
+        lights, n_lights,
+        max_steps, mirror, wavy, time, out, o_out, d_out, col_out,
+        active_out, stream);
+}
+
+// K15 on the brick pyramid (its rows, size and depth)
+extern "C" int vvr_shade_bounce_pyramid(
+        const void* rows, int size, int depth, const void* o_in,
+        const void* d_in, const void* col_in, const void* active_in,
+        const void* hit, const void* face, const void* axis_coord,
+        const void* shadow_hit, const void* shadow_factor, int n,
+        const void* skybox, int sky_res, const void* clouds, int cl_res,
+        float sx, float sy, float sz, float cr, float cg, float cb,
+        int pixelated, const void* density, int overlap_ao,
+        const void* lights, int n_lights, int max_steps, int mirror,
+        int wavy, float time, void* out,
+        void* o_out, void* d_out, void* col_out, void* active_out,
+        void* stream) {
+    const VvrPyramidView V = {(const uint32_t*)rows, size, depth};
+    return vvr_shade_bounce_launch(
+        V, o_in, d_in, col_in, active_in, hit, face,
+        axis_coord, shadow_hit, shadow_factor, n, skybox, sky_res, clouds,
+        cl_res, sx, sy, sz, cr, cg, cb, pixelated, density, overlap_ao,
+        lights, n_lights,
         max_steps, mirror, wavy, time, out, o_out, d_out, col_out,
         active_out, stream);
 }

@@ -386,3 +386,20 @@ extern "C" int vvr_soft_shadow_paged(
                                   e2z, gbc, grid, a0, b0, ts, factor, hits,
                                   stream);
 }
+
+// K14 on the brick pyramid (its rows, size and depth; the any-only HDDA)
+extern "C" int vvr_soft_shadow_pyramid(
+        const void* rows, int size, int depth, const void* o, const void* d,
+        const void* hit, const void* face, const void* axis_coord, int n,
+        int width, float sx, float sy, float sz, int samples, int pixelated,
+        const void* clouds, int cl_res, int max_steps, float e1x, float e1y,
+        float e1z, float e2x, float e2y, float e2z, const void* gbc,
+        int grid, float a0, float b0, float ts, void* factor, void* hits,
+        void* stream) {
+    const VvrPyramidView V = {(const uint32_t*)rows, size, depth};
+    return vvr_soft_shadow_launch(V, o, d, hit, face, axis_coord, n, width,
+                                  sx, sy, sz, samples, pixelated, clouds,
+                                  cl_res, max_steps, e1x, e1y, e1z, e2x, e2y,
+                                  e2z, gbc, grid, a0, b0, ts, factor, hits,
+                                  stream);
+}

@@ -1079,6 +1079,21 @@ extern "C" int vvr_masked_shadow_paged(
                                     back, max_steps, out, stream);
 }
 
+// the same on the brick pyramid (its rows, size and depth)
+extern "C" int vvr_masked_shadow_pyramid(
+        const void* rows, int size, int depth, const void* s_o,
+        const void* active, const void* o, const void* d, const void* hit,
+        const void* face, const void* axis_coord, int n, float sx, float sy,
+        float sz, float e1x, float e1y, float e1z, float e2x, float e2y,
+        float e2z, const void* gbc, int grid, float a0, float b0, float ts,
+        float back, int max_steps, void* out, void* stream) {
+    const VvrPyramidView V = {(const uint32_t*)rows, size, depth};
+    return vvr_masked_shadow_launch(V, s_o, active, o, d, hit, face,
+                                    axis_coord, n, sx, sy, sz, e1x, e1y, e1z,
+                                    e2x, e2y, e2z, gbc, grid, a0, b0, ts,
+                                    back, max_steps, out, stream);
+}
+
 // K18 invalidate_texels: the sun grids' repair after a world edit. Replaces
 // vvr_tpu/ops/sunshadow.py:460 `invalidate_sun_texels` (ops/sunshadow.py
 // wraps it): every texel of each rectangle takes (NEG, 3e38), certain of

@@ -1,9 +1,12 @@
-// K1 and K16: a grid's trace, one thread per ray (ops/jump.py and
-// ops/paged.py wrap them). K1 replaces vvr_tpu/ops/jump.py:289
-// `trace_jump` on the jump grid, K16 vvr_tpu/ops/paged.py:322 `trace_paged`
-// on the paged grid; one kernel body serves both through the grid view of
-// grid_view.cuh, whose `trace` is the per-ray DDA (vvr_jump_trace_ray in
-// jump_dda.cuh, vvr_paged_trace_ray in paged_dda.cuh).
+// K1, K16 and K19: a grid's trace, one thread per ray (ops/jump.py,
+// ops/paged.py and ops/traverse.py wrap them). K1 replaces
+// vvr_tpu/ops/jump.py:289 `trace_jump` on the jump grid, K16
+// vvr_tpu/ops/paged.py:322 `trace_paged` on the paged grid, K19
+// vvr_tpu/ops/traverse.py:406 `trace` (the HDDA) on the brick pyramid; one
+// kernel body serves all three through the grid view of grid_view.cuh,
+// whose `trace` is the per-ray DDA (vvr_jump_trace_ray in jump_dda.cuh,
+// vvr_paged_trace_ray in paged_dda.cuh, vvr_pyramid_trace_ray in
+// pyramid_dda.cuh).
 //
 // Bound on an H100 by each ray's chain of dependent row loads and by warps
 // whose lanes walk apart, not by bytes (ops/jump.py). The page table and
@@ -108,6 +111,33 @@ extern "C" int vvr_paged_trace(const void* prows, const void* brows,
                                   (const uint32_t*)brows, size, psize},
                      o, d, d_stride, active, n, width, max_steps, hit, face,
                      axis_coord, t, iterations, fetches, missed_pops, stream);
+}
+
+// K19: the brick pyramid's rows, size and depth; use_full: the FULL-node
+// early-out (16 B rows), else the any-only walk (8 B of each row). Bound,
+// as K1, by each ray's chain of dependent row loads: a ray's descents and
+// ascents each wait on one load, the in-node steps on none.
+extern "C" int vvr_pyramid_trace(const void* rows, int size, int depth,
+                                 int use_full, const void* o, const void* d,
+                                 int d_stride, const void* active, int n,
+                                 int width, int max_steps, void* hit,
+                                 void* face, void* axis_coord, void* t,
+                                 void* iterations, void* fetches,
+                                 void* missed_pops, void* stream) {
+    if (depth < 1 || depth > 5 || size != 1 << (2 * depth)) {
+        return (int)cudaErrorInvalidValue;
+    }
+    if (use_full) {
+        return vvr_trace(VvrPyramidViewT<true>{(const uint32_t*)rows, size,
+                                               depth},
+                         o, d, d_stride, active, n, width, max_steps, hit,
+                         face, axis_coord, t, iterations, fetches,
+                         missed_pops, stream);
+    }
+    return vvr_trace(VvrPyramidView{(const uint32_t*)rows, size, depth}, o,
+                     d, d_stride, active, n, width, max_steps, hit, face,
+                     axis_coord, t, iterations, fetches, missed_pops,
+                     stream);
 }
 
 extern "C" const char* vvr_error_string(int err) {

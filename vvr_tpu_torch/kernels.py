@@ -56,7 +56,8 @@ class Kernel:
     #                    ctypes types), the stream last
     source: str        # file in the repository
     replaces: str      # JAX pass or Pallas kernel it ports, file:line
-    path: str = "frame"  # the entry point that runs it: frame or gather
+    path: str = "frame"  # the entry point that runs it: frame, gather or
+    #                      overlap (the overlap AO library)
 
 
 KERNELS = {
@@ -112,7 +113,7 @@ KERNELS = {
     "shade_bounce": Kernel(
         "vvr_shade_bounce",
         (_P, _I) + (_P,) * 9 + (_I, _P, _I, _P, _I) + (_F,) * 6
-        + (_I, _P, _P, _I, _I, _I, _I, _F) + (_P,) * 5 + (_P,),
+        + (_I, _P, _I, _P, _I, _I, _I, _I, _F) + (_P,) * 5 + (_P,),
         "vvr_tpu_torch/csrc/bounce.cu", "vvr_tpu/render/frame.py:192"),
     "paged_trace": Kernel(
         "vvr_paged_trace", (_P, _P, _I, _I, _P, _P, _I, _P, _I, _I, _I)
@@ -136,9 +137,45 @@ KERNELS = {
     "shade_bounce_paged": Kernel(
         "vvr_shade_bounce_paged",
         (_P, _P, _I, _I) + (_P,) * 9 + (_I, _P, _I, _P, _I) + (_F,) * 6
-        + (_I, _P, _P, _I, _I, _I, _I, _F) + (_P,) * 5 + (_P,),
+        + (_I, _P, _I, _P, _I, _I, _I, _I, _F) + (_P,) * 5 + (_P,),
         "vvr_tpu_torch/csrc/bounce.cu",
         "vvr_tpu/render/frame.py:192, vvr_tpu/ops/paged.py:322"),
+    "pyramid_trace": Kernel(
+        "vvr_pyramid_trace", (_P, _I, _I, _I, _P, _P, _I, _P, _I, _I, _I)
+        + (_P,) * 7 + (_P,),
+        "vvr_tpu_torch/csrc/trace.cu", "vvr_tpu/ops/traverse.py:406"),
+    # the brick pyramid's instantiations of the kernels that trace inline:
+    # the jump-grid entry's arguments with (rows, size) replaced by the
+    # pyramid's (rows, size, depth)
+    "masked_shadow_pyramid": Kernel(
+        "vvr_masked_shadow_pyramid",
+        (_P, _I, _I) + (_P,) * 7 + (_I,) + (_F,) * 9 + (_P, _I)
+        + (_F,) * 4 + (_I, _P, _P),
+        "vvr_tpu_torch/csrc/sunshadow.cu",
+        "vvr_tpu/ops/sunshadow.py:654, vvr_tpu/ops/traverse.py:406"),
+    "soft_shadow_pyramid": Kernel(
+        "vvr_soft_shadow_pyramid",
+        (_P, _I, _I, _P, _P, _P, _P, _P, _I, _I, _F, _F, _F, _I, _I, _P,
+         _I, _I) + (_F,) * 6 + (_P, _I, _F, _F, _F, _P, _P, _P),
+        "vvr_tpu_torch/csrc/softshadow.cu",
+        "vvr_tpu/render/frame.py:308, vvr_tpu/ops/traverse.py:406"),
+    "shade_bounce_pyramid": Kernel(
+        "vvr_shade_bounce_pyramid",
+        (_P, _I, _I) + (_P,) * 9 + (_I, _P, _I, _P, _I) + (_F,) * 6
+        + (_I, _P, _I, _P, _I, _I, _I, _I, _F) + (_P,) * 5 + (_P,),
+        "vvr_tpu_torch/csrc/bounce.cu",
+        "vvr_tpu/render/frame.py:192, vvr_tpu/ops/traverse.py:406"),
+    # the overlap AO library on the pyramid (ops/overlap.py); the frame's
+    # overlap AO runs inside K15
+    "overlap_density": Kernel(
+        "vvr_overlap_density", (_P, _I, _I, _P, _P, _P, _I, _I, _F, _I, _F,
+                                _P, _P),
+        "vvr_tpu_torch/csrc/overlap.cu",
+        "vvr_tpu/ops/overlap.py:62, :81, :117", "overlap"),
+    # the debug heatmaps (render/frame.py)
+    "debug_image": Kernel(
+        "vvr_debug_image", (_P, _P, _P, _P, _P, _P, _I, _I, _P),
+        "vvr_tpu_torch/csrc/debug.cu", "vvr_tpu/render/frame.py:701"),
     # the dynamic world's kernels (world/bricks.py, ops/sunshadow.py): the
     # update pass on one brick a frame, the sun grids' repair an edit
     "svt_update_brick": Kernel(

@@ -59,6 +59,7 @@ from vvr_tpu_torch import kernels
 from vvr_tpu_torch.ops import trace as tracer
 from vvr_tpu_torch.ops.jump import BIG_T
 from vvr_tpu_torch.ops.noise import snoise3
+from vvr_tpu_torch.ops.overlap import overlap_ao_plain
 from vvr_tpu_torch.ops.shade import (ROUGHNESS, _reconstruct,
                                      check_trace_inputs, lighting_soa,
                                      material_at_soa, pixelate)
@@ -164,7 +165,8 @@ def shade_bounce_plain(grid: tracer.Grid, o, d, hit, face, axis_coord, shadow,
                        active=None, pixelated: bool = False, density=None,
                        lights=None, max_steps: int = 2048,
                        mirror: bool = False, wavy: bool = False,
-                       time: float = 0.0, nxt=None, rows_read=None):
+                       time: float = 0.0, nxt=None, overlap_ao: bool = False,
+                       rows_read=None):
     """Plain torch K15 (the module docstring), writing `out` and `nxt` in
     place; returns `out`. `rows_read` as `add_lights` takes it."""
     n = o.shape[0]
@@ -195,6 +197,10 @@ def shade_bounce_plain(grid: tracer.Grid, o, d, hit, face, axis_coord, shadow,
     vis = 1.0
     if density is not None:
         vis = torch.pow(ambient_occlusion(density, world, normal), 1.4)
+    elif overlap_ao:
+        vis = torch.pow(overlap_ao_plain(grid, torch.stack(world, -1),
+                                         torch.stack(normal, -1), face,
+                                         rows_read), 1.4)
     lit = lighting_soa(alb, normal, ROUGHNESS, vis, factor, (-dx, -dy, -dz),
                        sun, sun_col)
     if lights is not None:
@@ -230,25 +236,30 @@ def shade_bounce(grid: tracer.Grid, o, d, hit, face, axis_coord, shadow,
                  skybox, clouds, sun, sun_col, out, col=None, active=None,
                  pixelated: bool = False, density=None, lights=None,
                  max_steps: int = 2048, mirror: bool = False,
-                 wavy: bool = False, time: float = 0.0, nxt=None):
+                 wavy: bool = False, time: float = 0.0, nxt=None,
+                 overlap_ao: bool = False):
     """One bounce (the module docstring) into the planar HDR `out` (4, H, W)
     float32 and, with `mirror`, the continuation `nxt` = (o, d, col,
     active), both written in place. `o`, `d`: the bounce's rays (N, 3);
     `hit`, `face`, `axis_coord`: their trace; `shadow`: None, the hard
     shadow rays' (N,) bool hits or a soft (N,) float32 factor; `col`: the
     lanes' colours (N, 3), None for ones (bounce 0); `active`: the live
-    lanes (N,) bool, None at bounce 0 (all); `density`: the AO field, or
-    None for no AO; `lights`: the scene's lights (L, >= 3) float32 on the
+    lanes (N,) bool, None at bounce 0 (all); `density`: the filtered AO's
+    field, or None; `overlap_ao`: the overlap AO instead (density None);
+    neither: no AO; `lights`: the scene's lights (L, >= 3) float32 on the
     host, or None. CUDA: K15, one launch; the lights ride in its
     arguments, with no copy to the card."""
     if wavy and not mirror:
         raise ValueError("wavy reflections bend mirrors only: wavy needs "
                          "mirror")
+    if overlap_ao and density is not None:
+        raise ValueError("one AO: the filtered AO's density or overlap_ao")
     if not kernels.on_cuda(o):
         return shade_bounce_plain(grid, o, d, hit, face, axis_coord, shadow,
                                   skybox, clouds, sun, sun_col, out, col,
                                   active, pixelated, density, lights,
-                                  max_steps, mirror, wavy, time, nxt)
+                                  max_steps, mirror, wavy, time, nxt,
+                                  overlap_ao)
     check_trace_inputs(o, d, hit, face, axis_coord)
     n = o.shape[0]
     if out.dtype != F32 or out.dim() != 3 or out.shape[0] != 4 \
@@ -314,6 +325,7 @@ def shade_bounce(grid: tracer.Grid, o, d, hit, face, axis_coord, shadow,
                    skybox.data_ptr(), skybox.shape[1], clouds.data_ptr(),
                    clouds.shape[0], *s, *c, int(pixelated),
                    0 if density is None else density.data_ptr(),
-                   table.ctypes.data, table.shape[0], max_steps, int(mirror),
-                   int(wavy), float(time), out.data_ptr(), *nxt_ptrs)
+                   int(overlap_ao), table.ctypes.data, table.shape[0],
+                   max_steps, int(mirror), int(wavy), float(time),
+                   out.data_ptr(), *nxt_ptrs)
     return out

@@ -7,18 +7,21 @@ sun-grid caches, the animated point lights and the frame statistics.
 `primary_raster` and `sun_mask` resolve as in the JAX package
 (renderer.py:79-98): at their "auto" defaults the main view rasterizes its
 primary visibility and answers shadows with the sun classifier (its cone
-grids for soft shadows). `traversal` resolves as there (:72-78): "auto"
+grids for soft shadows); a debug heatmap (debug_type 1-5) traces its
+primary rays. `traversal` resolves as there (:49-75, :163-165): "auto"
 traces the jump grid up to 512^3 and the paged grid past it (the 1024^3
-world); the scene builds only the grid the Renderer reads, and no brick
-pyramid. With `ambient_occlusion` the scene builds its
-density field; the lights move every frame, as in the JAX renderer
+world), "pyramid" the brick pyramid at any size; the scene builds only
+the grid the Renderer reads. With `ambient_occlusion` and ao_mode
+"filtered" the scene builds its density field; "overlap" reads the
+grid's own voxels (the JAX renderer builds a pyramid for it on the other
+grids, :166-169, :197); the lights move every frame, as in the JAX renderer
 (:159-160), and with `point_lights` the frame reads the first ten.
 With `dynamic_world` the Renderer builds the sparse voxel texture and runs
 its update pass (K17) on one brick at the start of each frame, round-robin
 (:66-69, :152-158); `apply_edits` applies a world editor's edits
 (world/edit.py) and repairs the cached sun grids (K18). Configurations
-outside the port raise NotImplementedError naming the ROADMAP item that
-adds them.
+outside the port (`jump2`, debug_type 0) raise NotImplementedError naming
+the ROADMAP item.
 """
 
 from __future__ import annotations
@@ -68,10 +71,8 @@ def check_slice(world_cfg: WorldConfig, cfg: RenderConfig) -> None:
         raise NotImplementedError(
             "traversal 'jump2' is a measured negative result the port does "
             "not carry (ROADMAP 'Not to port')")
-    if not (cfg.use_jump(world_cfg.size) or cfg.use_paged(world_cfg.size)):
-        raise NotImplementedError(
-            f"traversal {cfg.traversal!r} at size {world_cfg.size} (the "
-            "brick pyramid) is not ported yet: ROADMAP A13")
+    if cfg.traversal not in ("auto", "jump", "paged", "pyramid"):
+        raise ValueError(f"unknown traversal {cfg.traversal!r}")
     check_frame_config(cfg)
 
 
@@ -93,7 +94,10 @@ class Renderer:
         self.svt = (build_svt(self.scene.chunks, self.scene.cfg.size,
                               self.device) if dynamic_world else None)
         self.use_paged = render_cfg.use_paged(world_cfg.size)
-        if self.use_paged:
+        self.use_pyramid = render_cfg.traversal == "pyramid"
+        if self.use_pyramid:
+            self.scene.ensure_pyramid()
+        elif self.use_paged:
             self.scene.ensure_paged()
         else:
             self.scene.ensure_jumpgrid()
@@ -101,7 +105,9 @@ class Renderer:
         self.use_sunmask = use_sunmask(render_cfg)
         if self.use_raster or self.use_sunmask:
             self.scene.ensure_faces()
-        if render_cfg.ambient_occlusion:
+        self.use_density = (render_cfg.ambient_occlusion
+                            and render_cfg.ao_mode == "filtered")
+        if self.use_density:
             self.scene.ensure_density()
         self.scene.release_dense()
         self.stats = Statistics()
@@ -119,6 +125,8 @@ class Renderer:
         """The DDA's grid, read from the scene at every frame: an edit
         patches it in place or, when the paged grid is rebuilt, replaces
         it (apply_edits)."""
+        if self.use_pyramid:
+            return self.scene.pyramid
         return self.scene.paged if self.use_paged else self.scene.jumpgrid
 
     @property
@@ -206,8 +214,7 @@ class Renderer:
         img, _ = render_frame(
             self.grid, o, d, self.sun, t, self.cfg, sky=sky,
             raster=raster, sunmask=sunmask,
-            density=(self.scene.density if self.cfg.ambient_occlusion
-                     else None),
+            density=self.scene.density if self.use_density else None,
             lights=self.scene.lights if self.cfg.point_lights else None,
             mirror_materials=self.mirror_materials, nxt=self._bounce_buffers())
         if timed:
@@ -224,8 +231,8 @@ class Renderer:
         """Set (solid) or clear the voxels at (K, 3) int positions through
         `editor` (world/edit.py WorldEditor over this scene's chunks, its
         structures the scene's), then point the scene at the editor's
-        grids and faces, advance the scene's epoch and repair the cached
-        sun grids in place (K18: the texels the edit can change become
+        pyramid, grids and faces, advance the scene's epoch and repair the
+        cached sun grids in place (K18: the texels the edit can change become
         ambiguous, so their lanes run the DDA against the patched grid;
         the next sun move rebuilds them). The repaired grids keep their
         key but for the epoch, and are repaired in their own basis, not
@@ -238,6 +245,8 @@ class Renderer:
         positions = np.atleast_2d(np.asarray(positions, np.int64))
         n = editor.set_voxels(positions, solid)
         t_sv = _time.monotonic()
+        if editor.pyramid is not None:
+            self.scene.pyramid = editor.pyramid
         if editor.paged is not None:
             self.scene.paged = editor.paged
         if editor.jumpgrid is not None:

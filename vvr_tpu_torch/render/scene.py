@@ -4,7 +4,8 @@ Counterpart of vvr_tpu/render/scene.py `build_scene` for what the port
 reads: the chunks, the animated point lights (host NumPy, as in the JAX
 package: scene.py:27, :126-141, :174-175) and, built lazily on first use,
 the DDA's grid (the jump grid up to 512^3, `ensure_jumpgrid`; the paged
-grid past it, `ensure_paged`, as scene.py:93-110 builds them), the merged
+grid past it, `ensure_paged`, as scene.py:93-110 builds them; the brick
+pyramid with `traversal="pyramid"`, `ensure_pyramid`, scene.py:47), the merged
 exposed faces of the face rasterizer and the sun-grid build, and the u8
 density field of the filtered ambient occlusion, each on the scene's
 device. They all come from the dense occupancy, which the scene assembles
@@ -12,8 +13,7 @@ once and keeps until `release_dense` (the Renderer releases it once it
 has built what it reads: 1 GiB at 1024^3). A world editor
 (world/edit.py) made over the scene's chunks patches the grids and the
 faces it hands the scene, and `Renderer.apply_edits` points the scene at
-them. The brick pyramid and the SVO tree come back with their consumers
-(ROADMAP A13).
+them. The SVO tree comes back with its consumers (ROADMAP A15).
 """
 
 from __future__ import annotations
@@ -31,6 +31,7 @@ from vvr_tpu_torch.world.faces import extract_merged_faces
 from vvr_tpu_torch.world.generator import assemble_dense, generate_world
 from vvr_tpu_torch.world.jumpgrid import JumpGrid, build_jump_grid
 from vvr_tpu_torch.world.paged import PagedGrid, build_paged_grid
+from vvr_tpu_torch.world.pyramid import BrickPyramid, build_brick_pyramid
 from vvr_tpu_torch.world.svt import density_from_occupancy
 
 log = logging.getLogger(__name__)
@@ -51,6 +52,7 @@ class Scene:
     chunks: list[Chunk]
     jumpgrid: JumpGrid | None = None   # built by ensure_jumpgrid
     paged: PagedGrid | None = None     # built by ensure_paged
+    pyramid: BrickPyramid | None = None  # built by ensure_pyramid
     faces: tuple | None = None   # FaceSet.device_tuple() on the device
     epoch: int = 0               # world version, part of the sun-grid key
     lights: np.ndarray | None = None  # (NUM_LIGHTS, 4) float32, host
@@ -88,6 +90,13 @@ class Scene:
         if self.paged is None:
             self.paged = build_paged_grid(self.dense(), self.device)
         return self.paged
+
+    def ensure_pyramid(self) -> BrickPyramid:
+        """The brick pyramid (world/pyramid.py), built once on the scene's
+        device from the dense occupancy."""
+        if self.pyramid is None:
+            self.pyramid = build_brick_pyramid(self.dense(), self.device)
+        return self.pyramid
 
     def ensure_density(self) -> torch.Tensor:
         """The density field of the filtered AO (world/svt.py), built on

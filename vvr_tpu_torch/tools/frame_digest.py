@@ -2,7 +2,7 @@
 on one card.
 
     python3 vvr_tpu_torch/tools/frame_digest.py [--root DIR] [--cpu-rays]
-        [--traversal jump|paged ...]
+        [--traversal jump|paged|pyramid ...]
 
 Renders bench.py's default-knob frame (256^3 world, the bench camera,
 t = 0: face rasterizer, sun classifier, one hard shadow ray per lit pixel)
@@ -14,8 +14,12 @@ sun_mask="off"`: K1 traces the primary and the shadow rays), the soft
 frames (K14: four samples with the cone grids and through every sample's
 DDA, pixelated with four samples and with one) and config 4 (K15: four
 soft samples, four mirror bounces, the filtered AO; and the same with the
-scene's point lights as they start and wavy reflections) at 1920x1080; a
-package that does not render a configuration gets a note in its place.
+scene's point lights as they start and wavy reflections), the overlap
+AO frame, and on the brick pyramid (`traversal="pyramid"`: K19 and the
+pyramid forms of K12, K14 and K15) the default-knob, DDA, soft cone,
+config 4 and overlap AO frames and the five debug heatmaps (K21) at
+1920x1080; a package that does not render a configuration gets a note in
+its place.
 Beside the frames it digests the sky textures (the 256^2 skybox and the
 512^2 clouds) at two (sun, time) pairs, the default sun at t = 0 and a
 low sun at t = 1.75 s, and the second at odd sizes (7^2 and 13^2), each
@@ -37,9 +41,9 @@ K13, K13's since) are held to each other on the same rays. With --traversal
 it also renders config 5's static frames (tools/bench_scale.py:62-97
 without its edits: the 1024^3 world, 1920x1080, its camera; the default
 knobs and the DDA frame) over one 1024^3 scene, once per traversal named,
-so that the jump grid's frames and the paged grid's can be held to each
-other; a package that does not render one gets a note. It exits non-zero
-without a CUDA device.
+so that the jump grid's, the paged grid's and the pyramid's frames can be
+held to each other; a package that does not render one gets a note. It
+exits non-zero without a CUDA device.
 """
 
 from __future__ import annotations
@@ -75,14 +79,35 @@ CONFIGS = {"bloom": dict(width=1920, height=1080),
                                         max_ray_iterations=4,
                                         ambient_occlusion=True,
                                         point_lights=True,
-                                        wavy_reflections=True)}
+                                        wavy_reflections=True),
+           # the overlap AO (K15's inline densities), and the brick
+           # pyramid's frames (K19 and the pyramid forms of K12, K14,
+           # K15; the heatmaps, K21)
+           "overlap ao": dict(width=1920, height=1080,
+                              ambient_occlusion=True, ao_mode="overlap"),
+           **{f"pyramid {name}": dict(knobs, traversal="pyramid")
+              for name, knobs in (
+                  ("bloom", dict(width=1920, height=1080)),
+                  ("dda", dict(width=1920, height=1080,
+                               primary_raster="off", sun_mask="off")),
+                  ("soft cone", dict(width=1920, height=1080,
+                                     shadow_samples=4)),
+                  ("config 4", dict(width=1920, height=1080,
+                                    shadow_samples=4, max_ray_iterations=4,
+                                    ambient_occlusion=True)),
+                  ("overlap ao", dict(width=1920, height=1080,
+                                      ambient_occlusion=True,
+                                      ao_mode="overlap")),
+                  *((f"debug {t}", dict(width=1920, height=1080,
+                                        debug_type=t))
+                    for t in range(1, 6)))}}
 # config 5's static frames (tools/bench_scale.py:62-97, without edits)
 CONFIG5_CAMERA = ([512.0, 400.0, 80.0], [512.0, 80.0, 720.0], 85.0)
 CONFIG5 = {"config 5": dict(width=1920, height=1080),
            "config 5 dda": dict(width=1920, height=1080,
                                 primary_raster="off", sun_mask="off")}
 # the configurations rendered with mirror materials
-MIRRORS = ("config 4", "config 4 lights wavy")
+MIRRORS = ("config 4", "config 4 lights wavy", "pyramid config 4")
 # (sun direction before normalization, or None for the renderer's, time,
 # skybox and cloud resolutions)
 SKIES = {"sky default sun t 0": (None, 0.0, 256, 512),
@@ -122,9 +147,10 @@ def main(argv=None) -> int:
                     help="the checkout whose vvr_tpu_torch renders")
     ap.add_argument("--cpu-rays", action="store_true",
                     help="make the frames' rays on the CPU")
-    ap.add_argument("--traversal", nargs="+", choices=("jump", "paged"),
-                    default=(), help="render config 5's frames at 1024^3 "
-                    "through each of these grids")
+    ap.add_argument("--traversal", nargs="+",
+                    choices=("jump", "paged", "pyramid"), default=(),
+                    help="render config 5's frames at 1024^3 through each "
+                    "of these grids")
     args = ap.parse_args(argv)
     root = args.root.resolve()
     sys.path.insert(0, str(root))

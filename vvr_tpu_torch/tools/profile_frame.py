@@ -63,16 +63,19 @@ this run:
    support pass's (face, coarse texel) pairs (the most of one face).
 
 With --traversal it measures config 5 instead (tools/bench_scale.py:62-97
-without its edits: the 1024^3 world, 1920x1080, its camera): the setup
-steps one by one (world generation, the dense occupancy, the merged faces,
-each grid named, K11 per sun direction), then for each traversal named, in
-the order given, over one scene, the default-knob frame, the DDA frame,
-the soft cone frame, config 4's knobs and the lights frame on the host
-clock (as in 2.) and in a profiled window (as in 4., K1's or K16's time
-per call of the DDA frame, K14's and K15's per bounce), and the peak
-device memory; so
+without its edits: the 1024^3 world, 1920x1080, its camera; with --depth
+4 bench.py's 256^3 world and camera): the setup steps one by one (world
+generation, the dense occupancy, the merged faces, each grid named with
+its memory, the brick pyramid built on the card, K11 per sun direction),
+then for each traversal named ("jump", "paged", "pyramid"), in the order
+given, over one scene, the default-knob frame, the DDA frame, the soft
+cone frame, config 4's knobs, the lights frame, the overlap AO frame and
+the iterations heatmap on the host clock (as in 2.) and in a profiled
+window (as in 4., K1's, K16's or K19's time per call of the DDA frame,
+K14's and K15's per bounce), and the peak device memory; so
 `--traversal paged jump jump paged` holds the jump grid to the paged grid
-at 1024^3 in turns.
+at 1024^3 in turns, and `--depth 4 --traversal jump pyramid pyramid jump`
+the pyramid to the jump grid at 256^3.
 
 It measures the vvr_tpu_torch package found under DIR (default: this
 checkout), so one call can run it on an unpacked `git archive` of another
@@ -110,15 +113,19 @@ PORT_KERNELS = ("vvr_trace_kernel", "vvr_shade_surface_kernel",
                 "vvr_bloom_pyramid_kernel", "composite_kernel",
                 "vvr_raster_", "vvr_scan_", "vvr_sun_",
                 "vvr_masked_shadow_kernel", "vvr_generate_rays_kernel",
-                "vvr_soft_shadow_kernel", "vvr_shade_bounce_kernel")
-# K1 and K16: the two grid views of one kernel body (csrc/trace.cu)
+                "vvr_soft_shadow_kernel", "vvr_shade_bounce_kernel",
+                "vvr_overlap_density_kernel", "vvr_debug_image_kernel")
+# K1, K16 and K19: the three grid views of one kernel body (csrc/trace.cu)
 K1_NAME = "vvr_trace_kernel<VvrFlatView"
 K16_NAME = "vvr_trace_kernel<VvrPagedView"
+K19_NAME = "vvr_trace_kernel<VvrPyramidViewT"
 # the device kernels of one C entry point, by name part: K9 launches
 # project, scan, bin and tile kernels (and a memset), the others one each
 ENTRY_KERNELS = {
     "K1 jump_trace": (K1_NAME,),
     "K16 paged_trace": (K16_NAME,),
+    "K19 pyramid_trace": (K19_NAME,),
+    "K21 debug_image": ("vvr_debug_image_kernel",),
     "K9 raster_fragments": ("vvr_raster_project", "vvr_scan_",
                             "vvr_raster_bin", "vvr_raster_tile"),
     "K4 bloom_pyramid": ("vvr_bloom_pyramid_kernel",),
@@ -154,7 +161,10 @@ CONFIG5_CAMERA = ([512.0, 400.0, 80.0], [512.0, 80.0, 720.0], 85.0)
 CONFIG5_FRAMES = (("default knobs", {}, {}),
                   ("DDA", dict(primary_raster="off", sun_mask="off"), {}),
                   ("soft, cone", dict(shadow_samples=4), {}),
-                  *BOUNCE_FRAMES)
+                  *BOUNCE_FRAMES,
+                  ("overlap AO", dict(ambient_occlusion=True,
+                                      ao_mode="overlap"), {}),
+                  ("iterations heatmap", dict(debug_type=1), {}))
 DRAG_STEP = 0.5   # degrees the dragged sun turns about the vertical a frame
 
 
@@ -283,7 +293,8 @@ def window(label, renderer, cam, trace_path) -> None:
         got = [v for k, v in per_name.items() if any(p in k for p in parts)]
         print(f"  entry {entry}: device {sum(v[1] for v in got) / n:.2f} "
               f"us/frame in {sum(v[0] for v in got) / n:.1f} kernels/frame")
-    for label, part in (("K1", K1_NAME), ("K16", K16_NAME)):
+    for label, part in (("K1", K1_NAME), ("K16", K16_NAME),
+                        ("K19", K19_NAME)):
         k1 = sorted((e["ts"], e["dur"]) for e in dev_ev
                     if part in e["name"])
         if k1 and len(k1) == 2 * n:
@@ -295,6 +306,7 @@ def window(label, renderer, cam, trace_path) -> None:
     # k-th launch of a frame: K14's and K15's is bounce k, K1's bounce k +
     # 1 in a frame with mirrors and the rasterizer
     for label, part in (("K1", K1_NAME), ("K16", K16_NAME),
+                        ("K19", K19_NAME),
                         ("K14", "vvr_soft_shadow_kernel"),
                         ("K15", "vvr_shade_bounce_kernel")):
         ev_k = sorted((e["ts"], e["dur"]) for e in dev_ev
@@ -542,9 +554,13 @@ def main(argv=None) -> int:
     ap.add_argument("--root", type=pathlib.Path,
                     default=pathlib.Path(__file__).resolve().parents[2],
                     help="the checkout whose vvr_tpu_torch is measured")
-    ap.add_argument("--traversal", nargs="+", choices=("jump", "paged"),
-                    default=(), help="measure config 5 at 1024^3 through "
-                    "each of these grids in turn instead")
+    ap.add_argument("--traversal", nargs="+",
+                    choices=("jump", "paged", "pyramid"), default=(),
+                    help="measure config 5 at 1024^3 through each of these "
+                    "grids in turn instead")
+    ap.add_argument("--depth", type=int, choices=(4, 5), default=5,
+                    help="with --traversal: the world's depth (4: bench.py's "
+                    "256^3 world and camera)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("profile_frame: no CUDA device", file=sys.stderr)
@@ -572,7 +588,7 @@ def main(argv=None) -> int:
     knobs = dict(width=1920, height=1080, shadow_samples=1,
                  max_ray_iterations=3)
     if args.traversal:
-        return config5(root, args.traversal, knobs, dev)
+        return config5(root, args.traversal, knobs, dev, args.depth)
     cfg = RenderConfig(**knobs)
     wcfg = WorldConfig(depth=4)
     renderer = Renderer(wcfg, cfg, device=dev, force_regenerate=True,
@@ -786,9 +802,11 @@ def main(argv=None) -> int:
     return 0
 
 
-def config5(root: pathlib.Path, traversals, knobs: dict, dev) -> int:
-    """Config 5's setup and its static frames at 1024^3 through each grid
-    of `traversals` in turn, over one scene (module docstring)."""
+def config5(root: pathlib.Path, traversals, knobs: dict, dev,
+            depth: int = 5) -> int:
+    """Config 5's setup and its static frames at 1024^3 (bench.py's world
+    at depth 4) through each grid of `traversals` in turn, over one scene
+    (module docstring)."""
     from vvr_tpu_torch.config import RenderConfig, WorldConfig
     from vvr_tpu_torch.ops import sunshadow as ss
     from vvr_tpu_torch.render.renderer import Renderer
@@ -799,7 +817,8 @@ def config5(root: pathlib.Path, traversals, knobs: dict, dev) -> int:
         from vvr_tpu_torch.ops.trace import trace
     except ImportError:
         from vvr_tpu_torch.ops.jump import trace_jump as trace
-    wcfg = WorldConfig(depth=5)
+    wcfg = WorldConfig(depth=depth)
+    world = "config 5" if depth == 5 else f"{wcfg.size}^3"
     torch.zeros(1, device=dev)   # the allocator's state for the device
     torch.cuda.reset_peak_memory_stats(dev)
 
@@ -807,23 +826,28 @@ def config5(root: pathlib.Path, traversals, knobs: dict, dev) -> int:
         t0 = time.perf_counter()
         out = fn()
         torch.cuda.synchronize()
-        print(f"setup (config 5) {label}: {time.perf_counter() - t0:.3f} s "
+        print(f"setup ({world}) {label}: {time.perf_counter() - t0:.3f} s "
               "(host clock)")
         return out
 
     scene = timed("world generation", lambda: build_scene(
         wcfg, dev, force_regenerate=True,
-        cache_path=root / "build" / "vvr_tpu_torch" / "map_1024.npz"))
+        cache_path=root / "build" / "vvr_tpu_torch"
+        / f"map_{wcfg.size}.npz"))
     if hasattr(scene, "dense"):   # a package that builds its grids lazily
         timed("dense occupancy", scene.dense)
         for trav in dict.fromkeys(traversals):
-            g = timed(f"{trav} grid", scene.ensure_paged if trav == "paged"
-                      else scene.ensure_jumpgrid)
+            build = {"paged": "ensure_paged", "jump": "ensure_jumpgrid",
+                     "pyramid": "ensure_pyramid"}[trav]
+            if not hasattr(scene, build):
+                print(f"setup ({world}) {trav} grid: not in this package")
+                continue
+            g = timed(f"{trav} grid", getattr(scene, build))
             tabs = [g.prows, g.brows] if trav == "paged" else [g.rows]
-            print(f"setup (config 5) {trav} grid: "
+            print(f"setup ({world}) {trav} grid: "
                   f"{sum(t.numel() * 4 for t in tabs) / 2**20:.2f} MiB")
     faces = timed("merged faces", scene.ensure_faces)
-    print(f"setup (config 5): {faces[0].shape[0]} merged faces")
+    print(f"setup ({world}): {faces[0].shape[0]} merged faces")
     sun = np.array([-0.28, 0.65, -0.71], np.float32)
     e1, e2, s = ss.sun_basis(sun / np.linalg.norm(sun))
     ss.sun_grids(faces, e1, e2, s, wcfg.size)
@@ -833,14 +857,16 @@ def config5(root: pathlib.Path, traversals, knobs: dict, dev) -> int:
         ss.sun_grids(faces, e1, e2, s, wcfg.size)
     ev[1].record()
     torch.cuda.synchronize()
-    print(f"setup (config 5) sun grids (K11, per sun direction): "
+    print(f"setup ({world}) sun grids (K11, per sun direction): "
           f"{ev[0].elapsed_time(ev[1]) / 10:.4f} ms, {ss.GRID}^2 texels")
-    cam = Camera.look_at(*CONFIG5_CAMERA[:2], fov=CONFIG5_CAMERA[2])
+    view = CONFIG5_CAMERA if depth == 5 else CAMERA
+    cam = Camera.look_at(*view[:2], fov=view[2])
 
     with tempfile.TemporaryDirectory() as tmp:
         for k, trav in enumerate(traversals):
             for name, extra, kw in CONFIG5_FRAMES:
-                label = f"config 5 {name}, {trav}"
+                label = (f"config 5 {name}, {trav}" if depth == 5
+                         else f"{wcfg.size}^3 {name}, {trav}")
                 try:
                     r = Renderer(wcfg, RenderConfig(**{
                         **knobs, **extra, "traversal": trav}), device=dev,
@@ -864,7 +890,7 @@ def config5(root: pathlib.Path, traversals, knobs: dict, dev) -> int:
                 if name == "lights":
                     place_lights(scene, grid, rays, trace)
                 window(label, r, cam, pathlib.Path(tmp) / f"c5_{k}.json")
-    print(f"config 5 peak device memory: "
+    print(f"{world} peak device memory: "
           f"{torch.cuda.max_memory_allocated(dev) / 2**20:.1f} MiB")
     return 0
 

@@ -1,10 +1,16 @@
 """World edits — set or clear voxels and patch the device structures.
 
-Counterpart of vvr_tpu/world/edit.py `WorldEditor` for worlds without a
-brick pyramid (the paged scale of config 5, and the jump grid below it):
-an edit changes the chunks' voxels, then patches each attached structure
-with row scatters on its device, in place wherever the tensor keeps its
-size:
+Counterpart of vvr_tpu/world/edit.py `WorldEditor`: an edit changes the
+chunks' voxels, then patches each attached structure with row scatters
+on its device, in place wherever the tensor keeps its size:
+- the brick pyramid (`WorldEditor(chunks, pyramid=...)`, :220-262): the
+  edited voxels' ancestor row at every level; level 1 from the voxels
+  (any = full), each level above from the patched rows of the level
+  below, on the device (a child is any where its any mask is not 0, full
+  where its full mask is all ones): the JAX editor recomputes each row
+  from its dense occupancy, the whole world at the top level. No grouped
+  rows are kept, so the rows patched are the ancestors only, where the
+  JAX count adds the members of their 2x2x2 groups;
 - the jump grid (`attach_jump_grid`): the edited superbricks' rows, and
   both distance columns grid-wide when a superbrick turns empty or
   non-empty;
@@ -24,8 +30,7 @@ element.
 The JAX editor keeps a dense host copy of the world (1 GiB at 1024^3)
 beside the chunks. This one reads the chunks' own voxels (the scene's,
 edited in place) and assembles the dense view only in `occupancy()`, for
-tests and tools. The brick pyramid's edits come with the pyramid (ROADMAP
-A13).
+tests and tools.
 """
 
 from __future__ import annotations
@@ -45,6 +50,11 @@ from vvr_tpu_torch.world.jumpgrid import (SB, JumpGrid, chebyshev_distance,
                                           pack_superbricks)
 from vvr_tpu_torch.world.paged import (PAGE_SB, PAGE_WORDS, PG, POOL_WORDS,
                                        PagedGrid)
+from vvr_tpu_torch.world.pyramid import BrickPyramid, pack_bits64
+
+# the 64 children of a node in bit order (x | y<<2 | z<<4): (64, 3) x, y, z
+NODE_CHILDREN = np.stack([np.arange(64) & 3, (np.arange(64) >> 2) & 3,
+                          np.arange(64) >> 4], -1)
 
 SENTINEL = -8   # the corner of a face slot's padding rows (zero extent)
 
@@ -84,16 +94,21 @@ def _empty_faces(size: int) -> FaceSet:
 
 class WorldEditor:
     """The mutable world: the chunks, and the structures attached to it.
-    `size` is the world's edge; the structures' patches land on `device`
-    (the attached grid's own device for `attach_jump_grid`)."""
+    `size` is the world's edge (the pyramid's, given one); the structures'
+    patches land on `device` (the pyramid's and an attached grid's own
+    device for them)."""
 
-    def __init__(self, chunks: list[Chunk], pyramid=None, jumpgrid=None,
+    def __init__(self, chunks: list[Chunk],
+                 pyramid: BrickPyramid | None = None, jumpgrid=None,
                  size: int | None = None, device="cuda"):
-        if pyramid is not None:
-            raise NotImplementedError(
-                "edits of the brick pyramid are not ported yet: ROADMAP A13")
         if size is None:
-            raise ValueError("size is required (the world's edge)")
+            if pyramid is None:
+                raise ValueError("size is required (the world's edge)")
+            size = pyramid.size
+        if pyramid is not None and pyramid.size != size:
+            raise ValueError(f"a {pyramid.size}^3 pyramid for a {size}^3 "
+                             "world")
+        self.pyramid = pyramid
         self.size = int(size)
         self.depth = world_depth(self.size)
         self.device = torch.device(device)
@@ -169,16 +184,31 @@ class WorldEditor:
                            bitorder="little").view(np.uint32)
         return words, sub2, regions.any(axis=(1, 2, 3))
 
+    def _voxels(self, v: np.ndarray) -> np.ndarray:
+        """bool (M,): the voxels at (M, 3) x, y, z inside the world, read
+        from their chunks (False where no chunk exists)."""
+        out = np.zeros(len(v), bool)
+        keys = v // CHUNK_SIZE
+        uniq, inv = np.unique(keys, axis=0, return_inverse=True)
+        inv = inv.reshape(-1)
+        for ki, key in enumerate(uniq):
+            c = self._chunk_index.get(tuple(int(k) for k in key))
+            if c is not None:
+                sel = inv == ki
+                lv = v[sel] % CHUNK_SIZE
+                out[sel] = c.voxels[lv[:, 2], lv[:, 1], lv[:, 0]]
+        return out
+
     # ---- edits -----------------------------------------------------------
 
     def set_voxels(self, positions: np.ndarray, solid: bool) -> int:
         """Set (solid) or clear the voxels at (K, 3) int world coords x, y,
         z (those outside the world are dropped), creating chunks where
         none exist, then patch the attached structures, timing each
-        (`last_timings`: paged_ms, jump_ms, faces_ms, host clock around
-        each patch). Returns the paged grid's pool rows written (the
-        edited positions' count after a rebuild), 0 without a paged
-        grid."""
+        (`last_timings`: pyramid_ms, paged_ms, jump_ms, faces_ms, host
+        clock around each patch). Returns the pyramid's rows written plus
+        the paged grid's pool rows written (the edited positions' count
+        after a rebuild)."""
         positions = np.atleast_2d(np.asarray(positions, np.int64))
         positions = positions[
             np.all((positions >= 0) & (positions < self.size), axis=1)]
@@ -205,6 +235,8 @@ class WorldEditor:
             return out
 
         n_patched = 0
+        if self.pyramid is not None:
+            n_patched += timed("pyramid_ms", self._patch_pyramid)
         if self._pg_prows is not None:
             n_patched += timed("paged_ms", self._patch_paged)
         if self.jumpgrid is not None:
@@ -212,6 +244,39 @@ class WorldEditor:
         if self.faces is not None:
             timed("faces_ms", self._refresh_faces)
         return n_patched
+
+    # ---- the brick pyramid (world/pyramid.py) ------------------------------
+
+    def _patch_pyramid(self, positions: np.ndarray) -> int:
+        """Each edited voxel's ancestor row at every level, one scatter a
+        level (module docstring). Returns the rows written."""
+        pyr = self.pyramid
+        rows, bases = pyr.rows, pyr.bases
+        dev = rows.device
+        n = 0
+        for level in range(1, pyr.depth + 1):
+            cells = np.unique(positions >> (2 * level), axis=0)
+            k = len(cells)
+            child = (cells[:, None, :] * 4 + NODE_CHILDREN[None]).reshape(
+                -1, 3)
+            if level == 1:
+                bits = torch.from_numpy(self._voxels(child).reshape(k, 64))
+                masks = pack_bits64(bits).to(dev)
+                vals = torch.cat([masks, masks], 1)
+            else:
+                gc = self.size >> (2 * (level - 1))
+                cidx = (bases[level - 1] + child[:, 0] + child[:, 1] * gc
+                        + child[:, 2] * gc * gc)
+                crow = rows[torch.from_numpy(cidx).to(dev)].view(k, 64, 4)
+                any_b = (crow[..., 0] != 0) | (crow[..., 1] != 0)
+                full_b = (crow[..., 2] == -1) & (crow[..., 3] == -1)
+                vals = torch.cat([pack_bits64(any_b), pack_bits64(full_b)], 1)
+            g = self.size >> (2 * level)
+            idx = bases[level] + cells[:, 0] + cells[:, 1] * g \
+                + cells[:, 2] * g * g
+            rows.index_copy_(0, torch.from_numpy(idx).to(dev), vals)
+            n += k
+        return n
 
     # ---- the jump grid (world/jumpgrid.py) --------------------------------
 
