@@ -210,10 +210,30 @@
    kernels line (K19 on the primary and the shadow rays, the pyramid
    K12, K14's cone gate, K15 at the overlap AO frame's bounce 0, K20's
    overlap_ao, K21's world image) with their device time
-   (torch.profiler); and in 7., at 1024^3, builds config 5's pyramid on
+   (torch.profiler) and a launch's time with the L2 cache flushed before
+   it (`flushed_us`); and in 7., at 1024^3, builds config 5's pyramid on
    the card (timed, its size) and holds K19 on the primary rays to its
    plain version and to K16 (ties printed with the oracle, capped rays
    counted).
+10. the raster debug view (ROADMAP A14, debug_type 0; run after 9.):
+   meshes the 256^3 world (surface nets, host, timed; its vertices and
+   triangles) and, at 1920x1080 on the bench camera, a camera 1.6 voxels
+   above the ground (triangles wider than a tile) and one whose near
+   plane cuts the terrain (straddlers; `raster_views`), prints the
+   straddlers and holds K22 `raster_triangles` to its plain version
+   (z-buffer bits and winner equal) and K23 `shade_raster` to its plain
+   version (the covered pixels' HDR equal, the sky within K3's rtol 1e-4),
+   and the kernel path's frame to the plain path's (a covered pixel may
+   flip, or a sky pixel take another texel, only where the plain rays,
+   torch on the card, differ from K13's); renders RASTER_FRAMES frames
+   through `Renderer.render`, counters reset before and read after, and
+   fails unless K13, K22, K3, K23 and K4 each launched once a frame and
+   nothing else, and no plain version ran; prints their median, a
+   profiled window (device busy, each kernel's device time) and the rows
+   of K22 and K23 for the kernels line (device time from torch.profiler,
+   K22's the sum of its six kernels); and, after 7., one raster frame of
+   1024^3 on config 5's chunks and camera (the pyramid built on the card,
+   the mesh's host time, its triangles, K22's and K23's device time).
 
 Any failed check raises and the script exits non-zero. Without a CUDA
 device it exits non-zero before printing any result. Before the last line
@@ -231,8 +251,9 @@ launches, `shade_bounce_lights` at the lights frame's bounce 0, its
 bound counting the lights' DDA sub-steps; K17 and K18 with the launches
 of config 5's dynamic steps; K19 twice, `pyramid_trace` and
 `pyramid_trace_shadow`, with the pyramid forms of K12, K14 and K15, K20
-`overlap_density` and K21 `debug_image`, each also with its device
-time);
+`overlap_density` and K21 `debug_image`, and K22 `raster_triangles` and
+K23 `shade_raster` with the raster frames' launches, each also with its
+device time);
 the last line of stdout is {"ok": true, "device": {...}}.
 """
 
@@ -1820,24 +1841,81 @@ def recorded_traces(frame_mod, rec: dict):
         frame_mod.soft_shadow = k14
 
 
-def device_us(fn, parts, reps: int, trace_path) -> float:
-    """Device time of one launch (torch.profiler) of the kernel whose name
-    holds every part of `parts`, fn() launching it once: the mean over
-    the launches the trace of `reps` calls after a warm-up records (the
-    profiler can drop a window's first ones)."""
+# device cycles the card spins at the start of a profiled window of
+# `device_us` (about 5 ms), so its launches run once the trace is live
+WINDOW_SPIN_CYCLES = 10_000_000
+
+
+def device_us(fn, parts, reps: int, trace_path, each: bool = False,
+              tries: int = 3) -> float:
+    """Device time of one fn() call (torch.profiler), from the trace of
+    `reps` calls after a warm-up: the mean launch of the kernel whose name
+    holds every part of `parts`, fn() launching it once; with `each`,
+    fn() launching one kernel whose name holds each part, the sum of their
+    mean launches. The profiler can drop a window's first launches (a
+    window of short kernels can lose them all), so the calls queue behind
+    a device spin, and a window that misses a kernel is run again, up to
+    `tries` times; after that the time is the mean of CUDA event pairs
+    around each call, and the line printed says so."""
     import torch
 
     from vvr_tpu_torch.tools import profile_frame
     fn()
 
     def run():
+        torch.cuda._sleep(WINDOW_SPIN_CYCLES)
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()   # every launch ends inside the window
-    durs = [e["dur"] for e in profile_frame.trace_events(trace_path, run)
-            if all(p in e["name"] for p in parts)]
-    check(bool(durs), f"the profiler recorded no launch of {parts}")
-    return sum(durs) / len(durs)
+    groups = [(p,) for p in parts] if each else [parts]
+    for attempt in range(tries):
+        events = profile_frame.trace_events(trace_path, run)
+        durs = [[e["dur"] for e in events if all(p in e["name"] for p in g)]
+                for g in groups]
+        missing = [g for g, d in zip(groups, durs) if not d]
+        if not missing:
+            return sum(sum(d) / len(d) for d in durs)
+        print(f"device_us: window {attempt + 1} of {tries}: the profiler "
+              f"recorded no launch of {missing}")
+    us = cuda_event_us(fn, reps)
+    print(f"device_us: {parts} timed by CUDA events instead: {us:.2f} us "
+          f"a call")
+    return us
+
+
+def cuda_event_us(fn, reps: int, before=None) -> float:
+    """Mean time in us of one fn() call between a CUDA event pair, after
+    one warm-up; before() runs ahead of each pair, outside it."""
+    import torch
+    fn()
+    total = 0.0
+    for _ in range(reps):
+        if before is not None:
+            before()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        total += start.elapsed_time(end)
+    return total / reps * 1e3
+
+
+# bytes written between the timed launches of `flushed_us`: more than the
+# H100's 50 MB L2, so each launch finds its inputs in device memory
+L2_FLUSH_BYTES = 128 << 20
+
+
+def flushed_us(fn, reps: int, dev) -> float:
+    """Mean time in us of one fn() launch with the L2 cache flushed before
+    it: a CUDA event pair around each launch, L2_FLUSH_BYTES of another
+    buffer written in between (outside the pair), after one warm-up. The
+    time of a kernel whose inputs a back-to-back loop keeps in L2."""
+    import torch
+    scrap = torch.empty(L2_FLUSH_BYTES // 4, dtype=torch.float32,
+                        device=dev)
+    return cuda_event_us(fn, reps, before=lambda: scrap.fill_(1.0))
 
 
 def pyramid_phase(repo, dev, renderer, cam, occ, lights_np, errs: dict,
@@ -2493,21 +2571,380 @@ def pyramid_phase(repo, dev, renderer, cam, occ, lights_np, errs: dict,
     for name, (kfn, pfn, moved, ops, parts, count) in timed_rows.items():
         k_ms, p_ms = cuda_ms(kfn, 10), cuda_ms(pfn, 1)
         dev_us = device_us(kfn, parts, 20, trace_path)
+        cold_us = flushed_us(kfn, 20, dev)
         b_ms, b_by = bound_ms(moved, ops, "fp32")
         k = kernels.KERNELS[ROW_KERNEL.get(name, name)]
         rows.append({"name": name, "route": "cuda", "source": k.source,
                      "replaces": k.replaces, "launches": count,
                      "max_abs_err": errs[name], "ms": k_ms,
-                     "device_us": dev_us, "plain_ms": p_ms,
-                     "bound_ms": b_ms, "bound_by": b_by,
+                     "device_us": dev_us, "l2_flushed_us": cold_us,
+                     "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by,
                      "library_ms": None})
         print(f"time {name} (pyramid, 256^3): kernel {k_ms:.4f} ms, device "
-              f"{dev_us:.2f} us, plain torch {p_ms:.4f} ms, bound "
-              f"{b_ms:.6f} ms ({b_by}), {count} launches in the frames")
+              f"{dev_us:.2f} us, {cold_us:.2f} us a launch with the L2 "
+              f"flushed, plain torch {p_ms:.4f} ms, bound {b_ms:.6f} ms "
+              f"({b_by}; {moved:.0f} B), {count} launches in the frames")
     print(f"pyramid phase: {time.perf_counter() - t_phase:.1f} s; rays at "
           f"the cap: primary {cap_p}, shadow {cap_s}; frame medians {meds}")
     return rows
 
+
+# the raster debug view (ROADMAP A14; phase 10 of the module docstring):
+# debug_type 0 at 1920x1080, each frame K13, K22, K3 (the sky at the
+# frame's own time), K23 and K4 once and nothing else
+RASTER_FRAMES = 24
+RASTER_PER_FRAME = ("generate_rays", "raster_triangles", "write_sky",
+                    "shade_raster", "composite")
+# K22's and K23's device kernels (csrc/meshraster.cu; K22's bin kernel
+# is K9's, csrc/tilebin.cuh)
+K22_PARTS = ("vvr_mesh_project_kernel", "vvr_tri_setup_kernel",
+             "vvr_tri_scan_kernel", "vvr_bin_kernel", "vvr_tri_tile_kernel")
+K23_PARTS = ("vvr_shade_raster_kernel",)
+# operations per item, counted by hand from csrc/meshraster.cu: a vertex's
+# projection (12 products and sums, two IEEE divisions, two FMAs), a
+# triangle's setup (its area, reciprocal, box and flags), a box pixel's
+# fragment test (two edge functions, three barycentrics, three IEEE
+# divisions and the depth's reciprocal), a covered fragment's band test
+# (the product, the compare and the id's min), a covered pixel's plane
+# hit (the cross product, the norm's sqrtf, three divisions by it, two
+# dots and the division of tplane, the start) and a sky pixel's two texel
+# lookups and blend (five divisions); each HDDA step at pyramid_trace's
+# rate. The function needs each fragment's test once: K22's second sweep
+# repeats it, which the bound does not count.
+RASTER_OPS = {"vertex": 45, "triangle": 40, "fragment": 70, "band": 3,
+              "plane": 90, "sky": 70}
+
+
+def raster_views(occ):
+    """The bench camera, a camera 1.6 voxels above the ground at the
+    world's centre column looking along it (triangles wider than a tile)
+    and one 0.4 voxels above it looking down the slope (its near plane
+    cuts the terrain: straddlers), as (label, Camera)."""
+    import numpy as np
+
+    from vvr_tpu_torch.utils.camera import Camera
+    c = occ.shape[0] // 2
+    h = int(np.max(np.nonzero(occ[c, :, c])[0]))
+    ht = int(np.max(np.nonzero(occ[c, :, c + 4])[0]))
+    return [("bench", Camera.look_at(*CAMERA[:2], fov=CAMERA[2])),
+            ("close-up", Camera.look_at([c + 0.5, h + 1.6, c + 0.5],
+                                        [c + 0.5, ht + 0.5, c + 4.5],
+                                        fov=85.0)),
+            ("straddling", Camera.look_at([c + 0.5, h + 0.4, c + 0.5],
+                                          [c + 6.5, h - 0.2, c + 6.5],
+                                          fov=100.0))]
+
+
+def raster_phase(repo, dev, scene, occ, errs: dict,
+                 launches: dict) -> list:
+    """Phase 10 (module docstring) at 256^3: the mesh, K22 and K23 against
+    their plain versions on the three views of `raster_views`, the kernel
+    path's frames against the plain path's, the frames through
+    `Renderer.render` with their launches, a profiled window. Returns the
+    kernels line's rows of K22 and K23."""
+    import torch
+
+    from vvr_tpu_torch import kernels
+    from vvr_tpu_torch.config import RenderConfig, WorldConfig
+    from vvr_tpu_torch.ops import sky as sky_ops
+    from vvr_tpu_torch.ops.raygen import camera_rays
+    from vvr_tpu_torch.ops.traverse import trace_pyramid_plain
+    from vvr_tpu_torch.render import raster
+    from vvr_tpu_torch.render.renderer import Renderer
+    from vvr_tpu_torch.tools import profile_frame
+    from vvr_tpu_torch.tools.microbench_gather import bound_ms, cuda_ms
+
+    t_phase = time.perf_counter()
+    trace_path = repo / "build" / "vvr_tpu_torch" / "raster_trace.json"
+    for part in ("vvr_mesh_project", "vvr_tri_", "vvr_bin_kernel",
+                 "vvr_shade_raster"):
+        for name, regs, st, ld in kernels.ptxas_usage(part):
+            print(f"ptxas: {name}: {regs} registers, spill stores {st} B, "
+                  f"spill loads {ld} B")
+    cfg = RenderConfig(width=1920, height=1080, debug_type=0)
+    w, h, n = cfg.width, cfg.height, cfg.width * cfg.height
+    r = Renderer(WorldConfig(depth=4), cfg, device=dev, scene=scene)
+    check(r.raster_view and r.grid is scene.pyramid,
+          "debug_type 0 must draw the raster view over the pyramid")
+    t0 = time.perf_counter()
+    mesh = r.mesh
+    torch.cuda.synchronize()
+    t_mesh = time.perf_counter() - t0
+    nv, nt = mesh.verts.shape[0], mesh.tris.shape[0]
+    print(f"raster view mesh (256^3, surface nets, host): {t_mesh:.3f} s, "
+          f"{nv} vertices, {nt} triangles, {len(mesh.buffers.ranges)} "
+          f"partial chunks, {mesh.nbytes() / 2**20:.2f} MiB on the card")
+    pyr = scene.pyramid
+    sun3 = r.sun[:3]
+    skybox, clouds = sky_ops.write_sky(sun3, 0.0, cfg.skybox_resolution,
+                                       cfg.clouds_resolution, dev)
+    cap = cfg.traversal_max_steps
+    k22_err = k23_err = 0.0
+    timing = None
+    for label, cam in raster_views(occ):
+        m = raster.view_proj(cam, w, h)
+        ev, et = raster.clip_straddlers(mesh.verts_host, mesh.tris_host,
+                                        cam.position, cam.basis()[2])
+        evd, etd = torch.from_numpy(ev).to(dev), torch.from_numpy(et).to(dev)
+        va, ta = torch.cat([mesh.verts, evd]), torch.cat([mesh.tris, etd])
+        z, win = raster.raster_triangles(mesh.verts, mesh.tris, m, w, h, evd,
+                                         etd)
+        zp, wp = raster.raster_triangles_plain(va, ta, m, w, h)
+        zdiff = int((z.view(torch.int32) != zp.view(torch.int32)).sum())
+        wdiff = int((win != wp).sum())
+        check(zdiff == 0 and wdiff == 0,
+              f"{label}: K22 differs from its plain version: z-buffer bits "
+              f"at {zdiff} pixels, winner at {wdiff}")
+        ts = raster.triangle_setup(*raster.project_verts(va, m, w, h), ta)
+        wide = int((((ts.x1 - ts.x0 > 32) | (ts.y1 - ts.y0 > 32))
+                    & ts.draws).sum())
+        frags = raster.raster_plan(ts, w, h)[3]
+        cov_frags = sum(len(f[0]) for f in
+                        raster.covered_fragments(va, ta, m, w, h))
+        covered = win != raster.NO_TRI
+        _, d = camera_rays(cam, w, h, dev)
+        hk = raster.shade_raster(win, mesh.verts, mesh.tris, pyr,
+                                 cam.position, d, sun3, skybox, clouds, cap,
+                                 w, h, evd, etd)
+        hp = raster.shade_raster_plain(win, va, ta, pyr, cam.position, d,
+                                       torch.from_numpy(sun3), skybox, clouds,
+                                       cap, w, h)
+        hk2, hp2 = hk.reshape(4, n), hp.reshape(4, n)
+        cov_diff = int((hk2[:, covered] != hp2[:, covered]).sum())
+        sky_err = float((hk2[:3, ~covered] - hp2[:3, ~covered]).abs().max()) \
+            if bool((~covered).any()) else 0.0
+        sky_ok = bool(torch.allclose(hk2[:, ~covered], hp2[:, ~covered],
+                                     rtol=1e-4, atol=1e-5))
+        check(cov_diff == 0 and sky_ok,
+              f"{label}: K23 differs from its plain version: {cov_diff} "
+              f"values on covered pixels, sky max {sky_err}")
+        k23_err = max(k23_err, float((hk - hp).abs().max()))
+        white = int((hk2[0, covered] == 1.0).sum())
+        print(f"raster view, {label}: {len(et)} straddler triangles (from "
+              f"{len(ev) // 2} straddlers), {wide} drawing triangles wider "
+              f"than a 32-pixel tile, {frags} box fragments "
+              f"({cov_frags} covered), "
+              f"{int(covered.sum())} covered pixels ({white} in shadow); "
+              f"K22 equals its plain version (z-buffer bits, winner), K23 "
+              f"equals its plain version (HDR, sky max abs err {sky_err})")
+        # the kernel path's frame against the plain path's: the same
+        # winners; the plain path's rays (torch on the card) and sky
+        # textures differ from K13's and K3's in the last ulp
+        kernels.reset_launches()
+        img_k, hdr_k = raster.raster_debug_frame(mesh, pyr, cam, r.sun, 0.0,
+                                                 cfg)
+        with plain_path(kernels):
+            img_p, hdr_p = raster.raster_debug_frame(mesh, pyr, cam, r.sun,
+                                                     0.0, cfg)
+            _, d_p = camera_rays(cam, w, h, dev)
+        check(kernels.LAUNCHES["raster_triangles"] == 1
+              and kernels.LAUNCHES["shade_raster"] == 1,
+              f"{label}: the plain path launched a kernel")
+        a, b = hdr_k.reshape(4, n), hdr_p.reshape(4, n)
+        ray_moved = (d != d_p).any(1)
+        flips = covered & (a[0] != b[0])
+        # sky pixels: within K3's tolerance, or a neighbouring texel where
+        # the ray moved
+        sky_off = ~covered & ~torch.isclose(a[:3], b[:3], rtol=1e-4,
+                                            atol=1e-4).all(0)
+        check(not bool(((flips | sky_off) & ~ray_moved).any())
+              and bool(torch.equal(a[3], b[3])),
+              f"{label}: the kernel and plain frames differ where the rays "
+              f"agree: {int((flips & ~ray_moved).sum())} covered, "
+              f"{int((sky_off & ~ray_moved).sum())} sky pixels")
+        check(int((flips | sky_off).sum()) <= n // 10000 + 8,
+              f"{label}: kernel frame against the plain frame: "
+              f"{int(flips.sum())} shadow flips, {int(sky_off.sum())} sky "
+              f"texels moved")
+        u8 = (img_k.int() - img_p.int()).abs().amax(-1)
+        print(f"raster view, {label}: kernel path's frame against the plain "
+              f"path's: {int(flips.sum())} covered pixels flip and "
+              f"{int(sky_off.sum())} sky pixels take another texel, each "
+              f"where the plain rays differ from K13's "
+              f"({int(ray_moved.sum())} such rays); u8 off by more than 1 "
+              f"at "
+              f"{int((u8 > 1).sum())} pixels, max {int(u8.max())}")
+        if label == "bench":
+            s_o, _ = raster.shadow_rays(win, va, ta, cam.position, d, sun3)
+            sun_d = torch.from_numpy(sun3).to(dev)
+            rays_it = trace_pyramid_plain(pyr, s_o, sun_d, cap,
+                                          active=covered, stats=True,
+                                          use_full=False).iterations
+            sky_px = float((~covered).sum())
+            rows_b = rows_bytes(pyr, "K23 shadow rays", lambda rd:
+                                trace_pyramid_plain(
+                                    pyr, s_o, sun_d, cap, active=covered,
+                                    stats=False, use_full=False,
+                                    rows_read=rd))
+            tex = float(skybox.nbytes + clouds.nbytes)
+            # the winning triangles and their corners, each read once
+            won = torch.unique(win[covered].long())
+            mesh_b = float(won.numel() * 12
+                           + torch.unique(ta[won].long()).numel() * 12)
+            timing = dict(
+                k22=(lambda: raster.raster_triangles(
+                    mesh.verts, mesh.tris, m, w, h, evd, etd),
+                     lambda: raster.raster_triangles_plain(va, ta, m, w, h),
+                     float(va.nbytes + ta.nbytes + 8 * n),
+                     float(va.shape[0]) * RASTER_OPS["vertex"]
+                     + float(ta.shape[0]) * RASTER_OPS["triangle"]
+                     + float(frags) * RASTER_OPS["fragment"]
+                     + float(cov_frags) * RASTER_OPS["band"]),
+                k23=(lambda: raster.shade_raster(
+                    win, mesh.verts, mesh.tris, pyr, cam.position, d, sun3,
+                    skybox, clouds, cap, w, h, evd, etd),
+                     lambda: raster.shade_raster_plain(
+                         win, va, ta, pyr, cam.position, d,
+                         torch.from_numpy(sun3), skybox, clouds, cap, w, h),
+                     float(win.nbytes + d.nbytes + hk.nbytes) + mesh_b
+                     + rows_b + min(sky_px * 28, tex),
+                     float(covered.sum()) * RASTER_OPS["plane"]
+                     + sky_px * RASTER_OPS["sky"]
+                     + float(rays_it.sum()) * OPS_PER_ITEM["pyramid_trace"]))
+
+    # ---- the frames through Renderer.render, counters reset before and
+    # read after; no plain version runs
+    cam = raster_views(occ)[0][1]
+    plain_calls = []
+    saved = raster.raster_triangles_plain, raster.shade_raster_plain
+    raster.raster_triangles_plain = \
+        lambda *a, **k: plain_calls.append("K22") or saved[0](*a, **k)
+    raster.shade_raster_plain = \
+        lambda *a, **k: plain_calls.append("K23") or saved[1](*a, **k)
+    try:
+        r.render(cam, time=0.0)
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        ms = []
+        img = None
+        for i in range(RASTER_FRAMES):
+            t0 = time.perf_counter()
+            img = r.render(cam, time=i / 60.0, timed=True)
+            ms.append((time.perf_counter() - t0) * 1e3)
+        got = {k: v for k, v in kernels.LAUNCHES.items() if v}
+    finally:
+        raster.raster_triangles_plain, raster.shade_raster_plain = saved
+    check(not plain_calls, f"the raster frames ran plain versions: "
+          f"{plain_calls}")
+    check(got == {k: RASTER_FRAMES for k in RASTER_PER_FRAME},
+          f"raster frames: launches {got}, expected each of "
+          f"{RASTER_PER_FRAME} once in each of {RASTER_FRAMES} frames")
+    check(tuple(img.shape) == (h, w, 3) and float(img.float().std()) > 10,
+          "the raster frame is empty or constant")
+    for k in ("raster_triangles", "shade_raster"):
+        launches[k] = got[k]
+    med = sorted(ms)[RASTER_FRAMES // 2]
+    print(f"raster view frames (bench camera, 256^3): {RASTER_FRAMES} at "
+          f"{w}x{h}, median {med:.4f} ms, min {min(ms):.4f}, max "
+          f"{max(ms):.4f} (host clock around Renderer.render(timed=True), "
+          f"which synchronizes); launches {got}; no plain version ran")
+    wall, events = profile_frame.profiled_window(r, cam, 8, trace_path)
+    dev_ev = [e for e in events if e.get("cat") in profile_frame.DEVICE_CATS]
+    span = max(e["ts"] + e["dur"] for e in events) - min(e["ts"]
+                                                         for e in events)
+    busy = profile_frame.union_us((e["ts"], e["ts"] + e["dur"])
+                                  for e in dev_ev)
+    per = {}
+    for e in dev_ev:
+        per[e["name"]] = per.get(e["name"], 0.0) + e["dur"] / 8
+    top = sorted(per.items(), key=lambda kv: -kv[1])[:8]
+    print(f"raster view profiled window: 8 synchronized frames, host "
+          f"{wall:.4f} ms a frame, device busy {busy / 8 / 1e3:.4f} ms a "
+          f"frame, busy share {busy / span:.4f}; device us a frame by "
+          f"kernel: " + ", ".join(f"{k[:40]} {v:.2f}" for k, v in top))
+
+    rows = []
+    for name, key, parts in (("raster_triangles", "k22", K22_PARTS),
+                             ("shade_raster", "k23", K23_PARTS)):
+        kfn, pfn, moved, ops = timing[key]
+        k_ms, p_ms = cuda_ms(kfn, 10), cuda_ms(pfn, 1)
+        dev_us = device_us(kfn, parts, 20, trace_path, each=True)
+        cold_us = flushed_us(kfn, 20, dev)
+        b_ms, b_by = bound_ms(moved, ops, "fp32")
+        k = kernels.KERNELS[name]
+        errs[name] = k22_err if key == "k22" else k23_err
+        rows.append({"name": name, "route": "cuda", "source": k.source,
+                     "replaces": k.replaces, "launches": launches[name],
+                     "max_abs_err": errs[name], "ms": k_ms,
+                     "device_us": dev_us, "l2_flushed_us": cold_us,
+                     "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by,
+                     "library_ms": None})
+        print(f"time {name} (raster view, bench camera, 256^3): kernel "
+              f"{k_ms:.4f} ms, device {dev_us:.2f} us, {cold_us:.2f} us a "
+              f"call with the L2 flushed, plain torch "
+              f"{p_ms:.4f} ms, bound {b_ms:.6f} ms ({b_by}; {moved:.0f} B, "
+              f"{ops:.0f} operations), {launches[name]} launches in the "
+              f"frames")
+    print(f"raster phase (256^3): {time.perf_counter() - t_phase:.1f} s")
+    return rows
+
+
+def raster_phase_1024(repo, dev, chunks) -> None:
+    """Phase 10 at 1024^3: one raster frame over config 5's chunks (its
+    camera) through `Renderer.render`, the pyramid built on the card, the
+    mesh's host time, its triangles; then K22's and K23's device time on
+    that frame's inputs."""
+    import torch
+
+    from vvr_tpu_torch import kernels
+    from vvr_tpu_torch.config import RenderConfig, WorldConfig
+    from vvr_tpu_torch.ops import sky as sky_ops
+    from vvr_tpu_torch.ops.raygen import camera_rays
+    from vvr_tpu_torch.render import raster
+    from vvr_tpu_torch.render.renderer import Renderer
+    from vvr_tpu_torch.render.scene import Scene
+    from vvr_tpu_torch.utils.camera import Camera
+
+    t_phase = time.perf_counter()
+    trace_path = repo / "build" / "vvr_tpu_torch" / "raster_trace.json"
+    wcfg = WorldConfig(depth=5)
+    cfg = RenderConfig(width=1920, height=1080, debug_type=0)
+    w, h = cfg.width, cfg.height
+    scene = Scene(wcfg, chunks, device=dev)
+    t0 = time.perf_counter()
+    r = Renderer(wcfg, cfg, device=dev, scene=scene)
+    torch.cuda.synchronize()
+    t_pyr = time.perf_counter() - t0
+    check(scene.paged is None and scene.jumpgrid is None
+          and scene.pyramid is not None,
+          "the 1024^3 raster view must build the pyramid and no grid")
+    t0 = time.perf_counter()
+    mesh = r.mesh
+    torch.cuda.synchronize()
+    t_mesh = time.perf_counter() - t0
+    cam = Camera.look_at(*C5_CAMERA[:2], fov=C5_CAMERA[2])
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    img = r.render(cam, time=0.0, timed=True)
+    t_frame = (time.perf_counter() - t0) * 1e3
+    got = {k: v for k, v in kernels.LAUNCHES.items() if v}
+    check(got == {k: 1 for k in RASTER_PER_FRAME},
+          f"1024^3 raster frame launches {got}")
+    check(float(img.float().std()) > 10, "the 1024^3 raster frame is empty")
+    m = raster.view_proj(cam, w, h)
+    ev, et = raster.clip_straddlers(mesh.verts_host, mesh.tris_host,
+                                    cam.position, cam.basis()[2])
+    evd, etd = torch.from_numpy(ev).to(dev), torch.from_numpy(et).to(dev)
+    _, win = raster.raster_triangles(mesh.verts, mesh.tris, m, w, h, evd, etd)
+    _, d = camera_rays(cam, w, h, dev)
+    skybox, clouds = sky_ops.write_sky(r.sun[:3], 0.0, cfg.skybox_resolution,
+                                       cfg.clouds_resolution, dev)
+    us = {"K22": device_us(lambda: raster.raster_triangles(
+        mesh.verts, mesh.tris, m, w, h, evd, etd), K22_PARTS, 10,
+        trace_path, each=True), "K23": device_us(
+            lambda: raster.shade_raster(
+                win, mesh.verts, mesh.tris, scene.pyramid, cam.position, d,
+                r.sun[:3], skybox, clouds, cfg.traversal_max_steps, w, h,
+                evd, etd), K23_PARTS, 10, trace_path)}
+    print(f"raster view at 1024^3 (config 5's chunks and camera): pyramid "
+          f"on the card {t_pyr:.2f} s (with the dense occupancy), mesh "
+          f"{t_mesh:.2f} s (host, {len(mesh.buffers.ranges)} partial "
+          f"chunks), {mesh.verts.shape[0]} vertices, {mesh.tris.shape[0]} "
+          f"triangles ({len(et)} straddler triangles), "
+          f"{mesh.nbytes() / 2**20:.1f} MiB; one frame through "
+          f"Renderer.render {t_frame:.3f} ms (synchronized; host clipping "
+          f"included); device us a call: K22 {us['K22']:.2f}, K23 "
+          f"{us['K23']:.2f}; phase {time.perf_counter() - t_phase:.1f} s")
 
 def main() -> int:
     import torch
@@ -4179,10 +4616,16 @@ def main() -> int:
     rows += pyramid_phase(repo, dev, renderer, cam, occ, lights_np, errs,
                           launches)
 
+    # ---- 5d. the raster debug view at 256^3 (phase 10 of the module
+    # docstring) over the same scene
+    rows += raster_phase(repo, dev, renderer.scene, occ, errs, launches)
+
     # ---- 5b. config 5, the 1024^3 world on the paged grid (phase 7 of
     # the module docstring), its counters reset before each configuration
     c5_rows, c5_chunks = config5_phase(repo, dev, errs, launches)
     rows += c5_rows
+    # ---- 5e. the raster debug view at 1024^3 on config 5's chunks
+    raster_phase_1024(repo, dev, c5_chunks)
 
     # ---- 5c. the dynamic world (phase 8 of the module docstring): the
     # 256^3 world's edits on a copy of its chunks, then config 5's

@@ -418,7 +418,6 @@ def test_shadow_knobs_render(knobs, hard_renderer):
 
 OUTSIDE = [
     ("jump2", {"traversal": "jump2"}, {}),
-    ("debug_raster", {"debug_type": 0}, {}),
 ]
 
 
@@ -434,8 +433,10 @@ def test_outside_the_slice_raises(knobs, kwargs):
         Renderer(WorldConfig(depth=depth), cfg, device="cpu", **kwargs)
 
 
-# knobs the port refused before the brick pyramid came (ROADMAP A13)
+# knobs the port refused before the brick pyramid came (ROADMAP A13) and
+# the raster debug view (A14)
 FORMERLY_OUTSIDE = [
+    ("debug_raster", {"debug_type": 0}, {}),
     ("ao", {"ambient_occlusion": True, "ao_mode": "overlap"}, {}),
     ("debug_normals", {"debug_type": 3}, {}),
     ("debug_iterations", {"debug_type": 1}, {}),
@@ -461,5 +462,6 @@ def test_formerly_outside_renders(knobs, kwargs, tmp_path):
     img = r.render(_views()["terrain"], time=0.0, fetch=True)
     assert img.shape == (64, 96, 3) and img.std() > 10
     assert r.use_pyramid == (cfg.traversal == "pyramid")
+    assert (r.scene.pyramid is not None) == (r.use_pyramid or r.raster_view)
     assert (r.scene.density is None) == (cfg.ao_mode == "overlap"
                                          or not cfg.ambient_occlusion)

@@ -12,8 +12,10 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from vvr_tpu_torch.render.raster import RasterMesh
 from vvr_tpu_torch.world.faces import FIELDS
 from vvr_tpu_torch.world.jumpgrid import ROW_WORDS, JumpGrid
+from vvr_tpu_torch.world.mesher import ChunkDrawRange, VoxelMeshBuffers
 from vvr_tpu_torch.world.paged import PAGE_WORDS, POOL_WORDS, PagedGrid
 from vvr_tpu_torch.world.pyramid import ROW_WORDS as PYR_WORDS
 from vvr_tpu_torch.world.pyramid import BrickPyramid, pyramid_depth
@@ -140,3 +142,31 @@ def lights_from_numpy(lights: np.ndarray) -> np.ndarray:
         raise ValueError(f"lights must be (L, 3) or (L, 4), got "
                          f"{lights.shape}")
     return lights
+
+
+def mesh_from_numpy(vertices: np.ndarray, indices: np.ndarray, ranges,
+                    device="cuda") -> RasterMesh:
+    """The raster view's mesh (vertices and triangles on the host and on
+    `device`) from a JAX `VoxelMeshBuffers`' vertices ((V, 3) float32),
+    indices ((I,) uint32) and ranges (its `ChunkDrawRange`s, or tuples
+    (chunk_position, first_index, index_count, vertex_offset))."""
+    vertices = np.array(vertices, np.float32).reshape(-1, 3)
+    indices = np.array(indices, np.uint32).reshape(-1)
+    out = []
+    for r in ranges:
+        if isinstance(r, tuple):
+            pos, first, count, voff = r
+        else:
+            pos, first, count, voff = (r.chunk_position, r.first_index,
+                                       r.index_count, r.vertex_offset)
+        first, count, voff = int(first), int(count), int(voff)
+        if count % 3 or first + count > len(indices) or voff < 0:
+            raise ValueError(f"range ({first}, {count}, {voff}) does not "
+                             f"fit {len(indices)} indices")
+        seg = indices[first:first + count].astype(np.int64) + voff
+        if len(seg) and seg.max() >= len(vertices):
+            raise ValueError("a range indexes past the vertices")
+        out.append(ChunkDrawRange(np.array(pos, np.int32), first, count,
+                                  voff))
+    return RasterMesh.upload(VoxelMeshBuffers(vertices, indices, out),
+                             device)

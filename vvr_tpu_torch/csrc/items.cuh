@@ -1,9 +1,9 @@
-// What K9 (raster.cu) and K11 (sunshadow.cu) share over a face set: the
-// face table, the float-to-int helpers, their tile CTAs' scan, and an
-// exclusive scan in int64 of counts into offsets (K9 scans its tile counts
-// in one block, K11 its (list, block) counts in two launches whose users
-// add each block's carry), whose total stays on the device, so no
-// capacity is fixed and nothing is read back.
+// What K9 (raster.cu), K11 (sunshadow.cu) and K22 (meshraster.cu) share:
+// the face table, the float-to-int helpers, their tile CTAs' scan, and an
+// exclusive scan in int64 of counts into offsets (K9 and K22 scan their
+// tile counts in one block, K11 its (list, block) counts in two launches
+// whose users add each block's carry), whose total stays on the device, so
+// no capacity is fixed and nothing is read back.
 #pragma once
 
 #include "common.cuh"
@@ -58,7 +58,8 @@ static __device__ long long vvr_block_scan(long long x, long long* ws) {
     return r;
 }
 
-// inclusive sum of x over the CTA's threads (K9's and K11's tile CTAs);
+// inclusive sum of x over the CTA's threads (the tile CTAs of K9, K11
+// and K22);
 // `ws` holds one int per warp
 static __device__ int vvr_tile_scan(int x, int* ws) {
     const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
@@ -84,23 +85,31 @@ static __global__ void vvr_scan_blocks_kernel(long long* v, int n,
     if (threadIdx.x == 1023) bsum[blockIdx.x] = incl;
 }
 
-static __global__ void vvr_scan_top_kernel(long long* bsum, int nb,
-                                           long long* total) {
-    __shared__ long long ws[32];
-    __shared__ long long carry;
-    if (threadIdx.x == 0) carry = 0;
+// exclusive scan of bsum[0..nb) in place by one block of 1024 threads,
+// their sum to *total; `ws` (32 words) and `carry` are shared memory
+static __device__ void vvr_scan_top(long long* bsum, int nb,
+                                    long long* total, long long* ws,
+                                    long long* carry) {
+    if (threadIdx.x == 0) *carry = 0;
     __syncthreads();
     for (int base = 0; base < nb; base += 1024) {
         const int i = base + threadIdx.x;
         const long long x = i < nb ? bsum[i] : 0;
         const long long incl = vvr_block_scan(x, ws);
-        const long long c = carry;
+        const long long c = *carry;
         __syncthreads();
         if (i < nb) bsum[i] = c + incl - x;
-        if (threadIdx.x == 1023) carry = c + incl;
+        if (threadIdx.x == 1023) *carry = c + incl;
         __syncthreads();
     }
-    if (threadIdx.x == 0) *total = carry;
+    if (threadIdx.x == 0) *total = *carry;
+}
+
+static __global__ void vvr_scan_top_kernel(long long* bsum, int nb,
+                                           long long* total) {
+    __shared__ long long ws[32];
+    __shared__ long long carry;
+    vvr_scan_top(bsum, nb, total, ws, &carry);
 }
 
 // v[0..n) counts -> partial sums: v[i] + bsum[i / 1024] is the exclusive

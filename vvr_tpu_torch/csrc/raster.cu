@@ -3,15 +3,15 @@
 // Replace vvr_tpu/ops/rastertrace.py:190 `trace_raster` (ops/rastertrace.py
 // wraps them).
 //
-// K9 bins the faces by 32x32-pixel screen tile, then rasterizes each tile
-// in shared memory, one CTA per tile. Four kernels, one C entry point:
+// K9 bins the faces by 32x32-pixel screen tile (tilebin.cuh, shared with
+// K22), then rasterizes each tile in shared memory, one CTA per tile.
+// Four kernels, one C entry point:
 //  1. project, one thread per face: its pixel bbox (`_project_faces`,
 //     :61-140, tightened to the pixels whose centres lie within
 //     VVR_BOX_MARGIN of its projected corners; a face that straddles the
 //     camera plane takes the whole screen), and the fields its fragment
-//     test reads, in one 16-byte record. A face whose bbox spans at most
-//     VVR_BIN_MAX tiles adds one to each of their counts; a larger one goes
-//     on the big list, which every tile reads.
+//     test reads, in one 16-byte record; then the bbox's tile counts
+//     (or its place on the big list);
 //  2. one block scans the tile counts into offsets (items.cuh);
 //  3. bin, one thread per face: each binned face writes its index into
 //     the list of each of its tiles (the order within a list is free: the
@@ -19,13 +19,12 @@
 //  4. tile, one CTA per tile: the tile's directions and their reciprocals
 //     (the IEEE 1.0f / d, BIG_T where d == 0) go into shared memory once;
 //     its faces come in batches of one per thread, each clipped to the
-//     tile and stored in shared memory; a CTA scan flattens the batch's
-//     fragments, and a thread finds its fragment's face by binary search
-//     in shared memory (between two entries of a map of every 32nd
-//     fragment's face), skips it if the face lies wholly behind the
-//     pixel's key so far (a lower bound on its t, vvr_face_t_key), else
-//     tests it and takes atomicMin on the pixel's key in shared memory.
-//     The tile's keys go to device memory once, coalesced.
+//     tile and stored in shared memory; the batch's fragments are
+//     flattened and searched as tilebin.cuh says; a thread skips its
+//     fragment if the face lies wholly behind the pixel's key so far (a
+//     lower bound on its t, vvr_face_t_key), else tests it and takes
+//     atomicMin on the pixel's key in shared memory. The tile's keys go to
+//     device memory once, coalesced.
 // The key is (t_bits - 0x20000000) << 2 | axis (:161-184): u32 order is t
 // order, and exact cross-axis ties resolve x > y > z as the oracle's z ->
 // y -> x stepping does. The tight box and the depth skip drop only
@@ -53,19 +52,14 @@
 // alone and nothing can overflow. The TPU design's fixed tile capacity,
 // its cumulative-max face map and its full-screen net for straddling and
 // overflowing faces are not ported.
-#include "items.cuh"
+#include "tilebin.cuh"
 
 #define VVR_SENTINEL 0xFFFFFFFFu
 #define VVR_BITS_BIAS 0x20000000u
-// K9's screen tile, its CTA, and the most tiles a binned face may span
-// (ops/rastertrace.py TILE and BIN_MAX)
-#define VVR_TILE 32
-#define VVR_TILE_PIX (VVR_TILE * VVR_TILE)
+// K9's tile CTA (its tile and the most tiles a binned face may span:
+// tilebin.cuh VVR_TILE and VVR_BIN_MAX, ops/rastertrace.py TILE and
+// BIN_MAX)
 #define VVR_TILE_THREADS 512
-#define VVR_BIN_MAX 16
-// a batch's coarse map: the face of every 32nd fragment, for batches of at
-// most 32 * VVR_COARSE fragments
-#define VVR_COARSE 512
 // pixels of a face's bbox: centres within this of its projected corners
 // (ops/rastertrace.py BOX_MARGIN)
 #define VVR_BOX_MARGIN 0.05f
@@ -177,97 +171,24 @@ static __device__ __forceinline__ unsigned vvr_axis_key(float t, int axis) {
     return (b << 2) | (unsigned)axis;
 }
 
-// the tiles of a binned face's bbox: tile k of its n, row-major over its
-// tile rectangle (tile column tx0, width rw)
-static __device__ __forceinline__ int vvr_face_tile(int k, int ty0, int tx0,
-                                                    int rw, int tiles_x) {
-    return (ty0 + k / rw) * tiles_x + tx0 + k % rw;
-}
-
 // boxes[2f] is face f's pixel bbox (imin, imax, jmin, jmax), empty when
 // it makes no fragments; boxes[2f+1] what the fragment test reads of it:
 // (plane << 2 | axis, u0, v0, eu << 16 | ev), in-plane axes (u, v) = (y, z),
 // (x, z), (x, y) for axis 0, 1, 2 (a world of at most 65535 voxels a side).
-// The tile counts are added once per warp and tile (faces of neighbouring
-// indices lie close together, so a warp's faces share tiles).
 static __global__ void vvr_raster_project_kernel(
         VvrFaces F, VvrRasterCam c, int tiles_x, int4* __restrict__ boxes,
-        unsigned long long* __restrict__ tile_cnt, int* __restrict__ big,
-        int* __restrict__ n_big) {
+        VvrBins bins) {
     const int f = blockIdx.x * blockDim.x + threadIdx.x;
-    const int lane = threadIdx.x & 31;
-    int n = 0, tx0 = 0, ty0 = 0, rw = 1;
+    int4 b = make_int4(0, -1, 0, -1);
     if (f < F.n) {
-        int4 b = make_int4(0, -1, 0, -1);
         const int ax = F.axis[f], vx = F.vx[f], vy = F.vy[f], vz = F.vz[f];
         boxes[2 * f + 1] = make_int4(
             (((ax == 0 ? vx : (ax == 1 ? vy : vz)) + F.sgn[f]) << 2) | ax,
             ax == 0 ? vy : vx, ax == 2 ? vy : vz, (F.eu[f] << 16) | F.ev[f]);
-        if (vvr_raster_box(F, f, c, &b)) {
-            tx0 = b.x / VVR_TILE;
-            ty0 = b.z / VVR_TILE;
-            rw = b.y / VVR_TILE - tx0 + 1;
-            n = rw * (b.w / VVR_TILE - ty0 + 1);
-            if (n > VVR_BIN_MAX) {
-                big[atomicAdd(n_big, 1)] = f;
-                n = 0;
-            }
-        }
+        vvr_raster_box(F, f, c, &b);
         boxes[2 * f] = b;
     }
-    const int n_max = __reduce_max_sync(0xffffffffu, n);
-    for (int k = 0; k < n_max; ++k) {
-        const int t = k < n ? vvr_face_tile(k, ty0, tx0, rw, tiles_x) : -1;
-        const unsigned peers = __match_any_sync(0xffffffffu, t);
-        if (t >= 0 && lane == __ffs(peers) - 1) {
-            atomicAdd(tile_cnt + t, (unsigned long long)__popc(peers));
-        }
-    }
-}
-
-// each binned face's index into the list of each of its tiles; one atomic
-// per warp and tile, all of a warp's atomics issued before the first
-// result is used
-static __global__ void vvr_raster_bin_kernel(
-        int n_faces, int tiles_x, const int4* __restrict__ boxes,
-        const long long* __restrict__ tile_off, int* __restrict__ fill,
-        int* __restrict__ list) {
-    const int f = blockIdx.x * blockDim.x + threadIdx.x;
-    const int lane = threadIdx.x & 31;
-    int n = 0, tx0 = 0, ty0 = 0, rw = 1;
-    if (f < n_faces) {
-        const int4 b = boxes[2 * f];
-        if (b.x <= b.y) {
-            tx0 = b.x / VVR_TILE;
-            ty0 = b.z / VVR_TILE;
-            rw = b.y / VVR_TILE - tx0 + 1;
-            n = rw * (b.w / VVR_TILE - ty0 + 1);
-            if (n > VVR_BIN_MAX) n = 0;
-        }
-    }
-    const int n_max = __reduce_max_sync(0xffffffffu, n);
-    int tk[VVR_BIN_MAX], base[VVR_BIN_MAX];
-    unsigned peers[VVR_BIN_MAX];
-#pragma unroll
-    for (int k = 0; k < VVR_BIN_MAX; ++k) {
-        if (k >= n_max) break;
-        tk[k] = k < n ? vvr_face_tile(k, ty0, tx0, rw, tiles_x) : -1;
-        peers[k] = __match_any_sync(0xffffffffu, tk[k]);
-        base[k] = 0;
-        if (tk[k] >= 0 && lane == __ffs(peers[k]) - 1) {
-            base[k] = atomicAdd(fill + tk[k], __popc(peers[k]));
-        }
-    }
-#pragma unroll
-    for (int k = 0; k < VVR_BIN_MAX; ++k) {
-        if (k >= n_max) break;
-        const int b =
-            __shfl_sync(0xffffffffu, base[k], __ffs(peers[k]) - 1);
-        if (tk[k] >= 0) {
-            list[tile_off[tk[k]] + b
-                 + __popc(peers[k] & ((1u << lane) - 1u))] = f;
-        }
-    }
+    vvr_bin_count(b, f, tiles_x, bins);
 }
 
 // A lower bound on t over the face's fragments, as a key (the fragment's
@@ -288,12 +209,7 @@ static __device__ __forceinline__ unsigned vvr_face_t_key(
 
 static __global__ void __launch_bounds__(VVR_TILE_THREADS)
 vvr_raster_tile_kernel(VvrRasterCam c, const float* __restrict__ d,
-                       const int4* __restrict__ boxes,
-                       const long long* __restrict__ tile_off,
-                       const int* __restrict__ fill,
-                       const int* __restrict__ list,
-                       const int* __restrict__ big,
-                       const int* __restrict__ n_big,
+                       const int4* __restrict__ boxes, VvrBins bins,
                        unsigned* __restrict__ keys) {
     __shared__ float s_d[3][VVR_TILE_PIX];
     __shared__ float s_inv[3][VVR_TILE_PIX];
@@ -338,16 +254,13 @@ vvr_raster_tile_kernel(VvrRasterCam c, const float* __restrict__ d,
     for (int p = tid; p < VVR_TILE_PIX; p += VVR_TILE_THREADS) {
         s_key[p] = VVR_SENTINEL;
     }
-    const long long off = tile_off[tile];
-    const int n_binned = fill[tile];
-    const int n_all = n_binned + *n_big;
-    for (int base = 0; base < n_all; base += VVR_TILE_THREADS) {
+    const VvrTileItems items = vvr_tile_items(bins, tile);
+    for (int base = 0; base < items.n; base += VVR_TILE_THREADS) {
         __syncthreads();  // the tile's loads, or the last batch, are done
         const int k = base + tid;
         int cnt = 0;
-        if (k < n_all) {
-            const int f = k < n_binned ? __ldg(list + off + k)
-                                       : __ldg(big + (k - n_binned));
+        if (k < items.n) {
+            const int f = vvr_tile_item(items, k);
             const int4 b = __ldg(boxes + 2 * f);
             const int4 rec = __ldg(boxes + 2 * f + 1);
             const int i0 = max(b.x, x0), i1 = min(b.y, x0 + tw - 1);
@@ -373,34 +286,11 @@ vvr_raster_tile_kernel(VvrRasterCam c, const float* __restrict__ d,
         s_pre[tid] = vvr_tile_scan(cnt, s_ws);
         __syncthreads();
         const int total = s_pre[VVR_TILE_THREADS - 1];
-        const int last = min(n_all - base, VVR_TILE_THREADS) - 1;
-        // the slot of fragment 32m for every m, which narrows each
-        // fragment's search to the faces between two entries
-        const bool coarse = total <= 32 * VVR_COARSE;
-        const int n_coarse = (total + 31) >> 5;
-        if (coarse && cnt > 0) {
-            for (int m = (s_pre[tid] - cnt + 31) >> 5;
-                 m <= (s_pre[tid] - 1) >> 5; ++m) {
-                s_coarse[m] = (unsigned short)tid;
-            }
-        }
+        const int last = min(items.n - base, VVR_TILE_THREADS) - 1;
+        vvr_batch_coarse(cnt, s_pre, total, s_coarse);
         __syncthreads();
         for (int q = tid; q < total; q += VVR_TILE_THREADS) {
-            // the fragment's face: the first slot whose prefix passes q
-            int lo = 0, hi = last;
-            if (coarse) {
-                const int m = q >> 5;
-                lo = s_coarse[m];
-                if (m + 1 < n_coarse) hi = s_coarse[m + 1];
-            }
-            while (lo < hi) {
-                const int mid = (lo + hi) >> 1;
-                if (s_pre[mid] > q) {
-                    hi = mid;
-                } else {
-                    lo = mid + 1;
-                }
-            }
+            const int lo = vvr_batch_slot(q, s_pre, last, total, s_coarse);
             const int idx = q - (lo > 0 ? s_pre[lo - 1] : 0);
             const int geo = s_geo[lo];
             const int ax = geo & 3, bw = geo >> 12;
@@ -506,29 +396,18 @@ extern "C" int vvr_raster_fragments(
     const int tiles_x = (width + VVR_TILE - 1) / VVR_TILE;
     const int n_tiles = tiles_x * ((height + VVR_TILE - 1) / VVR_TILE);
     if (n_tiles == 0) return (int)cudaGetLastError();
-    // scratch (ops/rastertrace.py _raster_scratch_words): tile counts, then
-    // offsets (n_tiles), their total, list fill per tile (n_tiles), big
-    // count, big list (n_faces), tile lists (n_faces * VVR_BIN_MAX)
-    long long* tile_off = (long long*)scratch;
-    long long* total = tile_off + n_tiles;
-    int* fill = (int*)(total + 1);
-    int* n_big = fill + n_tiles;
-    int* big = n_big + 1;
-    int* list = big + n_faces;
-    cudaMemsetAsync(scratch, 0, (size_t)(n_tiles + 1) * 12, st);
+    // scratch: the binning's (tilebin.cuh VvrBins)
+    const VvrBins bins = vvr_bins_at(scratch, n_tiles, n_faces);
+    vvr_bins_clear(bins, n_tiles, st);
     if (n_faces > 0) {
         vvr_raster_project_kernel<<<vvr_blocks(n_faces, 256), 256, 0, st>>>(
-            F, c, tiles_x, (int4*)boxes, (unsigned long long*)tile_off, big,
-            n_big);
+            F, c, tiles_x, (int4*)boxes, bins);
     }
-    vvr_scan_top_kernel<<<1, 1024, 0, st>>>(tile_off, n_tiles, total);
-    if (n_faces > 0) {
-        vvr_raster_bin_kernel<<<vvr_blocks(n_faces, 256), 256, 0, st>>>(
-            n_faces, tiles_x, (const int4*)boxes, tile_off, fill, list);
-    }
+    vvr_scan_top_kernel<<<1, 1024, 0, st>>>(bins.tile_off, n_tiles,
+                                            bins.total);
+    vvr_bins_fill(bins, n_faces, tiles_x, (const int4*)boxes, 2, st);
     vvr_raster_tile_kernel<<<n_tiles, VVR_TILE_THREADS, 0, st>>>(
-        c, (const float*)d, (const int4*)boxes, tile_off, fill, list, big,
-        n_big, (unsigned*)keys);
+        c, (const float*)d, (const int4*)boxes, bins, (unsigned*)keys);
     return (int)cudaGetLastError();
 }
 

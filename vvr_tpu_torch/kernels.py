@@ -176,6 +176,18 @@ KERNELS = {
     "debug_image": Kernel(
         "vvr_debug_image", (_P, _P, _P, _P, _P, _P, _I, _I, _P),
         "vvr_tpu_torch/csrc/debug.cu", "vvr_tpu/render/frame.py:701"),
+    # the raster debug view (render/raster.py): the mesh's z-buffer, then
+    # each pixel's fragment shadow or sky
+    "raster_triangles": Kernel(
+        "vvr_raster_triangles", (_P, _I, _P, _I, _P, _I, _P, _I)
+        + (_F,) * 12 + (_I, _I, _P, _P, _P, _P),
+        "vvr_tpu_torch/csrc/meshraster.cu",
+        "vvr_tpu/render/raster.py:118, :234"),
+    "shade_raster": Kernel(
+        "vvr_shade_raster", (_P, _I, _P, _I, _P, _P, _I, _P, _P, _I, _I, _I,
+                             _F, _F, _F, _P, _F, _F, _F, _P, _I, _P, _I, _P,
+                             _P),
+        "vvr_tpu_torch/csrc/meshraster.cu", "vvr_tpu/render/raster.py:262"),
     # the dynamic world's kernels (world/bricks.py, ops/sunshadow.py): the
     # update pass on one brick a frame, the sun grids' repair an edit
     "svt_update_brick": Kernel(

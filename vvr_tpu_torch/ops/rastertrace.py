@@ -43,9 +43,9 @@ BITS_BIAS = 0x20000000
 MASK32 = 0xFFFFFFFF
 # fragments per chunk of the plain version (bounds its memory)
 PLAIN_CHUNK = 1 << 22
-# K9's screen tile, the most tiles a binned face spans, and the margin of
-# its tight bbox in pixels (csrc/raster.cu VVR_TILE, VVR_BIN_MAX,
-# VVR_BOX_MARGIN)
+# K9's (and K22's) screen tile, the most tiles a binned face spans
+# (csrc/tilebin.cuh VVR_TILE, VVR_BIN_MAX), and the margin of K9's tight
+# bbox in pixels (csrc/raster.cu VVR_BOX_MARGIN)
 TILE = 32
 BIN_MAX = 16
 BOX_MARGIN = 0.05
@@ -395,7 +395,7 @@ def _raster_scratch_words(n_faces: int, width: int, height: int) -> int:
     """int64 words of K9's scratch: per tile a count and offset (int64)
     and a list fill (int32), the offsets' total and the big count, the big
     list (n_faces int32) and the tile lists (BIN_MAX int32 per face)
-    (csrc/raster.cu vvr_raster_fragments)."""
+    (csrc/tilebin.cuh VvrBins)."""
     n_tiles = -(-width // TILE) * -(-height // TILE)
     n_bytes = 12 * (n_tiles + 1) + 4 * n_faces * (1 + BIN_MAX)
     return -(-n_bytes // 8)

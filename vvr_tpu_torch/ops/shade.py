@@ -261,3 +261,50 @@ def shade_pixel(o, d, hit, face, axis_coord, shadow, size: int, skybox,
                    skybox.data_ptr(), skybox.shape[1], clouds.data_ptr(),
                    clouds.shape[0], *s, *c, int(pixelated), out.data_ptr())
     return out
+
+
+def ao_solver(is_solid_fn, block_pos, uv, face, dir_sign):
+    """Minecraft-style smooth per-vertex AO (lighting.slang:16-90), a plain
+    torch copy of vvr_tpu/ops/shade.py:224 (no frame calls it: the
+    reference's live AO is the filtered sample): for each axis, probe the
+    4 corner + 4 side neighbours one step off the hit face (offset flipped
+    by the ray sign on that axis), spread side occlusion to adjacent
+    corners, and interpolate bilinearly by the in-face uv. Returns ao in
+    [0, 1], the product over the three axis solves (:84-89).
+
+    is_solid_fn: callable (..., 3) int64 tensor -> bool tensor. block_pos
+    (..., 3) int; uv (..., 3) float32 fractional position in the block;
+    face (...,) int; dir_sign (..., 3) float32."""
+    block_pos = torch.as_tensor(block_pos).to(torch.int64)
+    dev = block_pos.device
+    uv = torch.as_tensor(uv, dtype=F32, device=dev)
+    face = torch.as_tensor(face, device=dev)
+    dir_sign = torch.as_tensor(dir_sign, dtype=F32, device=dev)
+    corners = [(-1, -1), (-1, 1), (1, -1), (1, 1)]          # :33-38
+    sides = [(-1, 0), (1, 0), (0, -1), (0, 1)]              # :40-45
+    corner_from_side = [(0, 1), (2, 3), (0, 2), (1, 3)]     # :47-52
+
+    def check(i, a, b, oa, ob):
+        # the probe one step off the face along axis i (flipped where the
+        # ray runs negative there, :22-28); only a hit on an i face counts
+        off = [None, None, None]
+        off[i] = torch.where(dir_sign[..., i] < 0, 1, -1)
+        off[a] = torch.full_like(block_pos[..., 0], oa)
+        off[b] = torch.full_like(block_pos[..., 0], ob)
+        probe = block_pos + torch.stack(off, -1)
+        return (face == i) & is_solid_fn(probe)
+
+    total = torch.ones(block_pos.shape[:-1], dtype=F32,
+                       device=block_pos.device)
+    for i, a, b in ((0, 1, 2), (2, 1, 0), (1, 0, 2)):        # :84-87
+        c = [check(i, a, b, ca, cb) for ca, cb in corners]
+        for s, (sa, sb) in enumerate(sides):
+            side_occ = check(i, a, b, sa, sb)
+            for ci in corner_from_side[s]:
+                c[ci] = c[ci] | side_occ
+        sel = [torch.where(x, 1.0, 0.0) for x in c]
+        ub, ua = uv[..., b], uv[..., a]
+        interp = 1.0 - ((sel[0] + (sel[1] - sel[0]) * ub) * (1.0 - ua)
+                        + (sel[2] + (sel[3] - sel[2]) * ub) * ua)
+        total = total * interp
+    return total

@@ -61,20 +61,16 @@ F32 = torch.float32
 
 
 def check_frame_config(cfg: RenderConfig) -> None:
-    """Raise NotImplementedError for the frame knobs outside the port,
-    naming the ROADMAP item that adds each, and ValueError for a negative
-    bounce count."""
+    """Raise ValueError for a negative bounce count, an unknown AO mode or
+    debug type. debug_type 0 is the raster debug view, which the Renderer
+    draws through render/raster.py, not `render_frame`."""
     if cfg.max_ray_iterations < 0:
         raise ValueError(f"max_ray_iterations must be >= 0, got "
                          f"{cfg.max_ray_iterations}")
     if cfg.ao_mode not in ("filtered", "overlap"):
         raise ValueError(f"ao_mode must be 'filtered' or 'overlap', got "
                          f"{cfg.ao_mode!r}")
-    if cfg.debug_type == 0:
-        raise NotImplementedError(
-            "debug_type 0 (the raster debug view) is not ported yet: "
-            "ROADMAP A14")
-    if not 1 <= cfg.debug_type <= DEBUG_MAIN:
+    if not 0 <= cfg.debug_type <= DEBUG_MAIN:
         raise ValueError(f"debug_type must be 0-{DEBUG_MAIN}, got "
                          f"{cfg.debug_type}")
 
@@ -127,6 +123,9 @@ def render_frame(grid: Grid, o, d, sun, time: float, cfg: RenderConfig,
     ones are made here when None. Returns (u8 image (H, W, 3), hdr rgba
     (rh, rw, 4)), both on the rays' device. The rays are not written."""
     check_frame_config(cfg)
+    if cfg.debug_type == 0:
+        raise ValueError("debug_type 0 is the raster debug view: "
+                         "render/raster.py raster_debug_frame draws it")
     if sunmask is not None and cfg.pixelated_shadows:
         raise ValueError("pixelated shadows take no sun classifier: the "
                          "quarter-voxel floor can bury the query")

@@ -19,9 +19,14 @@ grids, :166-169, :197); the lights move every frame, as in the JAX renderer
 With `dynamic_world` the Renderer builds the sparse voxel texture and runs
 its update pass (K17) on one brick at the start of each frame, round-robin
 (:66-69, :152-158); `apply_edits` applies a world editor's edits
-(world/edit.py) and repairs the cached sun grids (K18). Configurations
-outside the port (`jump2`, debug_type 0) raise NotImplementedError naming
-the ROADMAP item.
+(world/edit.py) and repairs the cached sun grids (K18). With debug_type 0
+the Renderer draws the raster debug view instead (render/raster.py, K22
+and K23, as the JAX renderer does at :150-151, :329-345): it builds the
+brick pyramid the view traces its shadows through and no other grid, and
+meshes the world at the first such frame (`mesh`, uploaded once).
+`camera_for_snapshot`, `profile_frame` (a torch.profiler Chrome trace)
+and `memory_report` serve the command line (cli.py). `jump2` raises
+NotImplementedError (ROADMAP "Not to port").
 """
 
 from __future__ import annotations
@@ -39,10 +44,12 @@ from vvr_tpu_torch.ops.bounce import bounce_buffers
 from vvr_tpu_torch.ops.rastertrace import raster_camera
 from vvr_tpu_torch.ops.raygen import camera_rays
 from vvr_tpu_torch.render.frame import check_frame_config, render_frame
+from vvr_tpu_torch.render.raster import RasterMesh, raster_debug_frame
 from vvr_tpu_torch.render.scene import Scene, build_scene
-from vvr_tpu_torch.utils.camera import Camera
+from vvr_tpu_torch.utils.camera import Camera, load_snapshots
 from vvr_tpu_torch.utils.statistics import Statistics, mrays_per_sec
 from vvr_tpu_torch.world.bricks import build_svt, svt_update_brick
+from vvr_tpu_torch.world.mesher import VoxelMeshBuffers
 
 log = logging.getLogger(__name__)
 
@@ -51,7 +58,10 @@ DEFAULT_SUN = np.array([-0.28, 0.65, -0.71, 0.0], np.float32)
 
 def use_raster(cfg: RenderConfig) -> bool:
     """Rasterized primary visibility: on for the main view (the debug
-    heatmaps need the DDA's counters)."""
+    heatmaps need the DDA's counters; the raster debug view draws its
+    mesh instead)."""
+    if cfg.debug_type == 0:
+        return False
     return cfg.primary_raster == "on" or (cfg.primary_raster == "auto"
                                           and cfg.debug_type == 6)
 
@@ -59,9 +69,10 @@ def use_raster(cfg: RenderConfig) -> bool:
 def use_sunmask(cfg: RenderConfig) -> bool:
     """The sun classifier answers the shadow rays, unless shadows are off
     or pixelated (the quarter-voxel floor can bury the query in solid,
-    where a certain-light claim is unsound)."""
+    where a certain-light claim is unsound), or the raster debug view
+    traces its own."""
     return (cfg.sun_mask != "off" and cfg.shadow_samples >= 1
-            and not cfg.pixelated_shadows)
+            and not cfg.pixelated_shadows and cfg.debug_type != 0)
 
 
 def check_slice(world_cfg: WorldConfig, cfg: RenderConfig) -> None:
@@ -95,7 +106,10 @@ class Renderer:
                               self.device) if dynamic_world else None)
         self.use_paged = render_cfg.use_paged(world_cfg.size)
         self.use_pyramid = render_cfg.traversal == "pyramid"
-        if self.use_pyramid:
+        # the raster debug view traces its shadows through the pyramid
+        # and reads no other grid (vvr_tpu/render/raster.py:289-291)
+        self.raster_view = render_cfg.debug_type == 0
+        if self.use_pyramid or self.raster_view:
             self.scene.ensure_pyramid()
         elif self.use_paged:
             self.scene.ensure_paged()
@@ -106,7 +120,8 @@ class Renderer:
         if self.use_raster or self.use_sunmask:
             self.scene.ensure_faces()
         self.use_density = (render_cfg.ambient_occlusion
-                            and render_cfg.ao_mode == "filtered")
+                            and render_cfg.ao_mode == "filtered"
+                            and not self.raster_view)
         if self.use_density:
             self.scene.ensure_density()
         self.scene.release_dense()
@@ -119,13 +134,15 @@ class Renderer:
         self._sunmask_cache = None  # (key, (e1, e2, grids))
         self._sun_dragging = False
         self._nxt = None  # the mirror bounces' continuation buffers
+        self._mesh = None
+        self._snapshots = None
 
     @property
     def grid(self):
         """The DDA's grid, read from the scene at every frame: an edit
         patches it in place or, when the paged grid is rebuilt, replaces
         it (apply_edits)."""
-        if self.use_pyramid:
+        if self.use_pyramid or self.raster_view:
             return self.scene.pyramid
         return self.scene.paged if self.use_paged else self.scene.jumpgrid
 
@@ -186,12 +203,35 @@ class Renderer:
                 self.cfg.render_width * self.cfg.render_height, self.device)
         return self._nxt
 
+    @property
+    def mesh(self) -> RasterMesh:
+        """The surface-nets world mesh of the raster debug view, built on
+        the host and uploaded to the device at first use (the JAX
+        renderer's lazy `mesh`, :329)."""
+        if self._mesh is None:
+            self._mesh = RasterMesh.upload(
+                VoxelMeshBuffers.build(self.scene.chunks), self.device)
+        return self._mesh
+
+    def camera_for_snapshot(self, index: int) -> Camera:
+        """The camera of snapshot `index` (modulo their count), its
+        position scaled from the 1024^3 world the poses were authored for
+        to this one (vvr_tpu/render/renderer.py:125)."""
+        if self._snapshots is None:
+            self._snapshots = load_snapshots()
+        snap = self._snapshots[index % len(self._snapshots)]
+        cam = Camera.from_snapshot(snap)
+        cam.position = cam.position * (self.scene.cfg.size / 1024.0)
+        return cam
+
     def render(self, camera: Camera, time: float | None = None,
                timed: bool = False, fetch: bool = False):
         """One frame -> (H, W, 3) u8 on the render device (a numpy array
         with fetch=True). With timed=True the frame is synchronized and its
         wall time pushed into Statistics."""
         t = self.elapsed if time is None else time
+        if self.raster_view:
+            return self._render_raster(camera, t, timed, fetch)
         # the dynamic world's pass on one brick, round-robin
         # (renderer.rs:581-609)
         if self.svt is not None:
@@ -217,6 +257,19 @@ class Renderer:
             density=self.scene.density if self.use_density else None,
             lights=self.scene.lights if self.cfg.point_lights else None,
             mirror_materials=self.mirror_materials, nxt=self._bounce_buffers())
+        return self._finish_frame(img, t0, timed, fetch)
+
+    def _render_raster(self, camera: Camera, t: float, timed: bool,
+                       fetch: bool):
+        """The debug_type 0 frame (render/raster.py). Its clock spans the
+        whole frame call, host clipping included, as the JAX renderer's
+        does (:341-345): the first frame's also meshes the world."""
+        t0 = _time.monotonic()
+        img, _ = raster_debug_frame(self.mesh, self.scene.ensure_pyramid(),
+                                    camera, self.sun, t, self.cfg)
+        return self._finish_frame(img, t0, timed, fetch)
+
+    def _finish_frame(self, img, t0: float, timed: bool, fetch: bool):
         if timed:
             self._sync()
             self.stats.push_timing((_time.monotonic() - t0) * 1e3)
@@ -226,6 +279,47 @@ class Renderer:
             log.info("Sample Count: %d, Avg: %.3fms, StdDev: %.4f",
                      res["samples"], res["avg_ms"], res["stddev"])
         return img.cpu().numpy() if fetch else img
+
+    def profile_frame(self, camera: Camera, trace_path="vvr_trace.json"):
+        """One frame under torch.profiler (the CPU, and the card's kernels
+        on a CUDA device), after one outside it, written as a Chrome trace
+        to `trace_path` (open it in Perfetto or chrome://tracing); returns
+        the frame."""
+        from torch.profiler import ProfilerActivity, profile
+        self.render(camera, timed=True)
+        acts = [ProfilerActivity.CPU]
+        if self.device.type == "cuda":
+            acts.append(ProfilerActivity.CUDA)
+        with profile(activities=acts) as prof:
+            img = self.render(camera, timed=True)
+        prof.export_chrome_trace(str(trace_path))
+        log.info("profile written to %s", trace_path)
+        return img
+
+    def memory_report(self) -> dict:
+        """Device-buffer sizes in MB (MiB) of the structures built so far:
+        the grids, the pyramid, the density field, the SVT bricks and the
+        raster view's mesh (the J-key allocator report analog,
+        src/renderer.rs:451-454), and the lights in KB."""
+        mib = 2 ** 20
+        sc = self.scene
+        rep = {}
+        if sc.pyramid is not None:
+            rep["pyramid_rows_mb"] = sc.pyramid.rows.nbytes / mib
+        if sc.jumpgrid is not None:
+            rep["jumpgrid_rows_mb"] = sc.jumpgrid.rows.nbytes / mib
+        if sc.paged is not None:
+            rep["paged_mb"] = sc.paged.memory_bytes() / mib
+        if sc.faces is not None:
+            rep["faces_mb"] = sum(t.nbytes for t in sc.faces) / mib
+        if sc.density is not None:
+            rep["density_mb"] = sc.density.nbytes / mib
+        if self.svt is not None:
+            rep["svt_bricks_mb"] = self.svt.bricks.nbytes / mib
+        if self._mesh is not None:
+            rep["mesh_mb"] = self._mesh.nbytes() / mib
+        rep["lights_kb"] = sc.lights.nbytes / 1024
+        return rep
 
     def apply_edits(self, editor, positions, solid: bool) -> dict:
         """Set (solid) or clear the voxels at (K, 3) int positions through

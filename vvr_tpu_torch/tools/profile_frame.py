@@ -111,23 +111,31 @@ PORT_KERNELS = ("vvr_trace_kernel", "vvr_shade_surface_kernel",
                 "vvr_shade_pixel_kernel", "skybox_kernel", "clouds_kernel",
                 "vvr_sky_kernel",
                 "vvr_bloom_pyramid_kernel", "composite_kernel",
-                "vvr_raster_", "vvr_scan_", "vvr_sun_",
+                "vvr_raster_", "vvr_scan_", "vvr_bin_kernel", "vvr_sun_",
                 "vvr_masked_shadow_kernel", "vvr_generate_rays_kernel",
                 "vvr_soft_shadow_kernel", "vvr_shade_bounce_kernel",
-                "vvr_overlap_density_kernel", "vvr_debug_image_kernel")
+                "vvr_overlap_density_kernel", "vvr_debug_image_kernel",
+                "vvr_mesh_project_kernel", "vvr_tri_",
+                "vvr_shade_raster_kernel")
 # K1, K16 and K19: the three grid views of one kernel body (csrc/trace.cu)
 K1_NAME = "vvr_trace_kernel<VvrFlatView"
 K16_NAME = "vvr_trace_kernel<VvrPagedView"
 K19_NAME = "vvr_trace_kernel<VvrPyramidViewT"
 # the device kernels of one C entry point, by name part: K9 launches
-# project, scan, bin and tile kernels (and a memset), the others one each
+# project, scan, bin and tile kernels (and a memset), K22 project, setup,
+# scan, bin and tile kernels (and a memset), the others one each. K9 and
+# K22 launch the same bin kernel (csrc/tilebin.cuh), so each entry counts
+# it; no frame runs both
 ENTRY_KERNELS = {
     "K1 jump_trace": (K1_NAME,),
     "K16 paged_trace": (K16_NAME,),
     "K19 pyramid_trace": (K19_NAME,),
     "K21 debug_image": ("vvr_debug_image_kernel",),
     "K9 raster_fragments": ("vvr_raster_project", "vvr_scan_",
-                            "vvr_raster_bin", "vvr_raster_tile"),
+                            "vvr_bin_kernel", "vvr_raster_tile"),
+    "K22 raster_triangles": ("vvr_mesh_project_kernel", "vvr_tri_",
+                             "vvr_bin_kernel"),
+    "K23 shade_raster": ("vvr_shade_raster_kernel",),
     "K4 bloom_pyramid": ("vvr_bloom_pyramid_kernel",),
     "K4 composite": ("composite_kernel",),
     "K12 masked_shadow": ("vvr_masked_shadow_kernel",),

@@ -1,7 +1,8 @@
-"""Camera and snapshots.
+"""Camera, snapshots, and matrices.
 
-Mirrors src/movement.rs: quaternion camera rotation and the JSON
-camera-snapshot system
+Mirrors src/movement.rs: RH perspective with near=0.5 far=10000
+(movement.rs:103), horizontal->vertical fov conversion (movement.rs:159-161),
+quaternion camera rotation and the JSON camera-snapshot system
 (movement.rs:7-14,124-151; fixtures src/snapshots.json) used as the golden
 test poses (SURVEY.md §4). A numpy copy of vvr_tpu/utils/camera.py.
 
@@ -19,6 +20,11 @@ import numpy as np
 
 ASSETS = (pathlib.Path(__file__).resolve().parents[2] / "vvr_tpu"
           / "assets")
+
+
+def horizontal_to_vertical(hfov_deg: float, ratio: float) -> float:
+    """radians; movement.rs:159-161."""
+    return 2.0 * np.arctan(np.tan(np.radians(hfov_deg) / 2.0) / ratio)
 
 
 def quat_to_mat3(q) -> np.ndarray:
@@ -40,6 +46,14 @@ class Snapshot:
     rotation: np.ndarray     # (4,) quaternion x,y,z,w
     fov: float               # horizontal fov, degrees
 
+    def to_json(self) -> dict:
+        p, r = self.position, self.rotation
+        return {"position": {"x": float(p[0]), "y": float(p[1]),
+                             "z": float(p[2])},
+                "rotation": {"x": float(r[0]), "y": float(r[1]),
+                             "z": float(r[2]), "w": float(r[3])},
+                "fov": float(self.fov)}
+
     @classmethod
     def from_json(cls, d: dict) -> "Snapshot":
         return cls(np.array([d["position"][k] for k in "xyz"], np.float32),
@@ -58,6 +72,8 @@ class Camera:
     position: np.ndarray                    # (3,) f32 world
     rotation: np.ndarray                    # (4,) quat x,y,z,w
     fov: float = 90.0                       # horizontal degrees
+    near: float = 0.5
+    far: float = 10000.0
 
     @classmethod
     def from_snapshot(cls, s: Snapshot) -> "Camera":
@@ -93,3 +109,23 @@ class Camera:
         up = r @ np.array([0, 1, 0], np.float32)
         forward = r @ np.array([0, 0, -1], np.float32)
         return right, up, forward
+
+    def matrices(self, width: int, height: int):
+        """(view, proj) float32 4x4 — parity with PerFrameUniformData
+        (src/pipeline.rs:19-32); the ray tracer itself uses basis(), the
+        raster debug view (render/raster.py) projects with proj @ view."""
+        ratio = width / height
+        fy = horizontal_to_vertical(self.fov, ratio)
+        f = 1.0 / np.tan(fy / 2)
+        n, fa = self.near, self.far
+        proj = np.array([
+            [f / ratio, 0, 0, 0],
+            [0, f, 0, 0],
+            [0, 0, fa / (n - fa), n * fa / (n - fa)],
+            [0, 0, -1, 0],
+        ], np.float32)
+        r = quat_to_mat3(self.rotation)
+        view = np.eye(4, dtype=np.float32)
+        view[:3, :3] = r.T
+        view[:3, 3] = -(r.T @ self.position)
+        return view, proj
