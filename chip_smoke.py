@@ -234,6 +234,27 @@
    K22's the sum of its six kernels); and, after 7., one raster frame of
    1024^3 on config 5's chunks and camera (the pyramid built on the card,
    the mesh's host time, its triangles, K22's and K23's device time).
+11. setup and the app (ROADMAP A15, B9; run after 8.): K24
+   `height_field` bit for bit against its plain version run on the card
+   and on the host's CPU at 256^2 and 1024^2 (the differing columns
+   printed, 0), with its time, device time, bound and share; the 256^3
+   and 1024^3 worlds generated from cold (`build_scene`,
+   force_regenerate), counters reset before each, failing unless K24
+   launched once a world, each step's host time printed beside the plain
+   torch world's (PERF.md section 5); each world's SVO tree
+   (`Scene.ensure_tree`, flattened on the card), failing unless
+   `verify_popcount_invariant` passes and every node's bitmask equals
+   the any mask of its cell in the scene's brick pyramid, its node
+   counts per level printed; then
+   `App(Renderer(...))` at 256^3 and 1920x1080 with the default knobs on
+   a scripted flight from APP_START (APP_SEGMENTS: W/A/S/D with boost, H
+   through all seven views, then G, the middle-mouse drag turning the
+   sun every frame, L until its 2 s capture ends, J, U, O, I, then Q),
+   counters reset before each segment and read after: fails unless each
+   segment launched what its view's frame needs once a frame (APP_VIEW:
+   the default frame's kernels, the raster view's, the heatmaps' with
+   K21), K11 (512^2) and K3 once in every dragged frame, and nothing
+   else; prints each segment's median frame time.
 
 Any failed check raises and the script exits non-zero. Without a CUDA
 device it exits non-zero before printing any result. Before the last line
@@ -253,7 +274,8 @@ of config 5's dynamic steps; K19 twice, `pyramid_trace` and
 `pyramid_trace_shadow`, with the pyramid forms of K12, K14 and K15, K20
 `overlap_density` and K21 `debug_image`, and K22 `raster_triangles` and
 K23 `shade_raster` with the raster frames' launches, each also with its
-device time);
+device time; K24 `height_field` with the main path's launch, its world
+from cold);
 the last line of stdout is {"ok": true, "device": {...}}.
 """
 
@@ -2946,6 +2968,275 @@ def raster_phase_1024(repo, dev, chunks) -> None:
           f"included); device us a call: K22 {us['K22']:.2f}, K23 "
           f"{us['K23']:.2f}; phase {time.perf_counter() - t_phase:.1f} s")
 
+# setup from cold and the app shell (ROADMAP A15, B9; phase 11 of the
+# module docstring)
+# K24's operations a column: each corner's lattice hash (15 integer
+# operations), gradient (6) and dot (4); each octave's coordinates,
+# floors, fades, lerps and sum (28); the terrace and the detail (12)
+TERRAIN_OPS = {"corner": 25, "octave": 28, "column": 12}
+APP_DEFAULT = ("generate_rays", "raster_fragments", "raster_resolve",
+               "masked_shadow", "shade_pixel", "bloom_pyramid", "composite")
+# the kernels each view launches once a frame in the App: the main view's
+# (the rasterizer and the classifier, as its Renderer was made), the
+# raster debug view's (RASTER_PER_FRAME) and a heatmap's (the main view's
+# primary and shadow kernels, K21, the composite without bloom)
+APP_VIEW = {6: APP_DEFAULT, 0: RASTER_PER_FRAME}
+APP_VIEW.update({v: ("generate_rays", "raster_fragments", "raster_resolve",
+                     "masked_shadow", "shade_pixel", "debug_image",
+                     "composite") for v in range(1, 6)})
+# the scripted flight: (label, frames, keys pressed at its first frame,
+# keys released there, keys held through it); the view is the Renderer's
+# debug_type after its first frame's keys
+APP_SEGMENTS = (("fly, W with boost", 8, ("w", "shift"), (), ()),
+                ("S and A", 4, ("s", "a"), ("w", "shift"), ()),
+                ("D", 4, ("d",), ("s", "a"), ()),
+                *((f"H -> view {(6 + k) % 7}", 4, ("h",), ("h", "d"), ())
+                  for k in range(1, 8)),
+                ("G -> view 5", 4, ("g",), ("h",), ()),
+                ("H -> view 6", 2, ("h",), ("g",), ()),
+                ("middle-mouse drag", 6, ("mouse_middle",), ("h",),
+                 ("mouse",)),
+                ("release, L (capture), J, U", 4, ("l", "j", "u"),
+                 ("mouse_middle",), ()),
+                ("O, I", 2, ("o", "i"), ("l", "j", "u"), ()))
+APP_CAPTURE_MAX = 2000   # frames the L capture may take to end
+# where the flight starts: above the 256^3 terrain, looking along -z (the
+# App's first pose, snapshot 0 scaled to 256^3, lies inside the terrain,
+# and its rotation comes from the mouse alone, as in the JAX App)
+APP_START = (128.0, 100.0, 240.0)
+
+
+def terrain_ops(cfg) -> float:
+    """K24's operations for one call (TERRAIN_OPS per column)."""
+    octaves = cfg.fbm_octaves + cfg.detail_octaves
+    per_column = (octaves * (4 * TERRAIN_OPS["corner"]
+                             + TERRAIN_OPS["octave"])
+                  + TERRAIN_OPS["column"])
+    return float(cfg.size) ** 2 * per_column
+
+
+def setup_phase(repo, dev, errs: dict, main_launches: int) -> list:
+    """Phase 11's first half (module docstring): K24 against its plain
+    versions, the worlds from cold and their SVO trees. Returns K24's row
+    of the kernels line, its launches the main path's (its world from
+    cold, phase 2)."""
+    import numpy as np
+    import torch
+
+    from vvr_tpu_torch import kernels
+    from vvr_tpu_torch.config import WorldConfig
+    from vvr_tpu_torch.render.scene import build_scene
+    from vvr_tpu_torch.tools.microbench_gather import bound_ms, cuda_ms
+    from vvr_tpu_torch.world import generator
+    from vvr_tpu_torch.world import tree as tree_mod
+
+    t_phase = time.perf_counter()
+    trace_path = repo / "build" / "vvr_tpu_torch" / "setup_trace.json"
+    row = None
+    for depth in (4, 5):
+        wcfg = WorldConfig(depth=depth)
+        s = wcfg.size
+        kernels.reset_launches()
+        k = generator.height_field(wcfg, dev)
+        torch.cuda.synchronize()
+        check(kernels.LAUNCHES["height_field"] == 1,
+              f"height_field at {s}^2: {kernels.LAUNCHES['height_field']} "
+              "launches of K24, expected 1")
+        plain_dev = generator.height_field_plain(wcfg, dev)
+        t0 = time.perf_counter()
+        plain_cpu = generator.height_field_plain(wcfg, "cpu")
+        t_cpu = time.perf_counter() - t0
+        kb = k.cpu().numpy().view(np.uint32)
+        diff_dev = int((kb != plain_dev.cpu().numpy().view(np.uint32))
+                       .sum())
+        diff_cpu = int((kb != plain_cpu.numpy().view(np.uint32)).sum())
+        err = float((k.cpu() - plain_cpu).abs().max())
+        check(diff_dev == 0 and diff_cpu == 0,
+              f"K24 at {s}^2: {diff_dev} columns differ from the plain "
+              f"version on the card, {diff_cpu} from it on the CPU")
+        check(bool(torch.isfinite(k).all()), "K24 wrote a non-finite height")
+        k_ms = cuda_ms(lambda: generator.height_field(wcfg, dev), 10)
+        p_ms = cuda_ms(lambda: generator.height_field_plain(wcfg, dev), 1)
+        dev_us = device_us(lambda: generator.height_field(wcfg, dev),
+                           ("vvr_height_field",), 20, trace_path)
+        ops = terrain_ops(wcfg)
+        b_ms, b_by = bound_ms(4.0 * s * s, ops, "fp32")
+        print(f"K24 height_field at {s}^2: columns differing from the plain "
+              f"version on the card {diff_dev}, on the host CPU {diff_cpu} "
+              f"(plain on the CPU {t_cpu:.2f} s), max abs err {err}; kernel "
+              f"{k_ms:.4f} ms, device {dev_us:.2f} us, plain torch on the "
+              f"card {p_ms:.4f} ms, bound {b_ms:.6f} ms ({b_by}; {ops:.0f} "
+              f"operations), share {b_ms * 1e3 / dev_us:.3f}")
+        if depth == 5:
+            errs["height_field"] = err
+            kk = kernels.KERNELS["height_field"]
+            row = {"name": "height_field", "route": "cuda",
+                   "source": kk.source, "replaces": kk.replaces,
+                   "launches": main_launches, "max_abs_err": err,
+                   "ms": k_ms, "device_us": dev_us, "plain_ms": p_ms,
+                   "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
+        del k, plain_dev, plain_cpu
+
+    earlier = {4: "not measured", 5: "3.02-5.49 s (PERF.md section 5)"}
+    for depth in (4, 5):
+        wcfg = WorldConfig(depth=depth)
+        s = wcfg.size
+        steps = {}
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        scene = build_scene(wcfg, dev, force_regenerate=True,
+                            cache_path=repo / "build" / "vvr_tpu_torch"
+                            / f"map_{s}.npz")
+        steps["world from cold (K24, the host's chunk split, the cache "
+              "file)"] = time.perf_counter() - t0
+        got = {k: v for k, v in kernels.LAUNCHES.items() if v}
+        check(got == {"height_field": 1},
+              f"the {s}^3 world from cold launched {got}, expected K24 "
+              "once")
+        t0 = time.perf_counter()
+        generator.height_field(wcfg, dev).cpu()
+        steps["height field alone (K24 and its copy to the host)"] = \
+            time.perf_counter() - t0
+        t0 = time.perf_counter()
+        t = scene.ensure_tree()
+        torch.cuda.synchronize()
+        steps["SVO tree (dense occupancy, pyramids, flatten on the card)"] \
+            = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        tree_mod.verify_popcount_invariant(t)
+        steps["verify_popcount_invariant"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        pyr = scene.ensure_pyramid()
+        torch.cuda.synchronize()
+        steps["brick pyramid"] = time.perf_counter() - t0
+        masks = tree_mod.brick_pyramid_masks(t, pyr)
+        bad = int((masks != t.bitmasks).sum())
+        check(bad == 0, f"{s}^3 tree: {bad} of {t.num_nodes} node bitmasks "
+              "differ from the brick pyramid's any masks")
+        counts = t.metrics["level_counts"]
+        print(f"setup {s}^3 (host clock, synchronized): " + ", ".join(
+            f"{k} {v:.3f} s" for k, v in steps.items())
+            + f"; world generation with plain torch before K24: "
+            f"{earlier[depth]}")
+        mib = t.memory_bytes() / 2 ** 20
+        print(f"SVO tree {s}^3: {t.num_nodes} nodes, per level "
+              f"{counts}, {t.metrics['full_nodes']} full, avg bits set "
+              f"{t.metrics['avg_bits_set']:.3f}, {mib:.2f} MiB on the card; "
+              f"popcount invariant holds; every bitmask equals its cell's "
+              f"any mask in the brick pyramid")
+        del scene, t, pyr, masks
+    print(f"setup phase: {time.perf_counter() - t_phase:.1f} s")
+    return [row]
+
+
+def app_phase(repo, dev, scene) -> None:
+    """Phase 11's second half (module docstring): the App's scripted
+    flight over the 256^3 scene at 1920x1080, the default knobs."""
+    import numpy as np
+    import torch
+
+    from vvr_tpu_torch import kernels
+    from vvr_tpu_torch.app import App
+    from vvr_tpu_torch.config import RenderConfig, WorldConfig
+    from vvr_tpu_torch.render.renderer import Renderer
+
+    t_phase = time.perf_counter()
+    r = Renderer(WorldConfig(depth=4), RenderConfig(width=1920, height=1080),
+                 device=dev, scene=scene)
+    app = App(r)
+    app.movement.position = np.array(APP_START, np.float32)
+    plan = []
+    for label, n, press, release, hold in APP_SEGMENTS:
+        plan += [(label, i, press, release, hold) for i in range(n)]
+    # the first frame and the raster view's first must show terrain
+    shown = {0, next(j for j, p in enumerate(plan) if p[0] == "H -> view 0")}
+    segs = []          # (label, view, frames, launches, dragged, ms)
+    state = {"frame_t": None, "ms": [], "views": set(), "drag": []}
+
+    def close(label):
+        torch.cuda.synchronize()
+        segs.append((label, sorted(state["views"]), len(state["ms"]),
+                     {k: v for k, v in kernels.LAUNCHES.items() if v},
+                     list(state["drag"]), list(state["ms"])))
+        kernels.reset_launches()
+        state.update(ms=[], views=set(), drag=[])
+
+    def script(frame, inp):
+        if frame < len(plan):
+            label, i, press, release, hold = plan[frame]
+            if i == 0:
+                if frame:
+                    close(plan[frame - 1][0])
+                for key in release:
+                    inp.key_up(key)
+                for key in press:
+                    inp.key_down(key)
+            if "mouse" in hold:
+                inp.mouse_move(40.0, 6.0)
+        elif frame == len(plan):
+            close(plan[-1][0])
+            inp.key_up("o")
+            inp.key_up("i")
+        if frame >= len(plan) and r.stats.benchmark is None:
+            inp.key_down("q")
+
+    def sink(frame, img):
+        now = time.perf_counter()
+        if state["frame_t"] is not None:
+            state["ms"].append((now - state["frame_t"]) * 1e3)
+        else:
+            state["ms"].append(float("nan"))
+        state["frame_t"] = now
+        state["views"].add(r.cfg.debug_type)
+        state["drag"].append(r._sun_dragging)
+        if frame in shown:
+            check(tuple(img.shape) == (1080, 1920, 3)
+                  and float(img.float().std()) > 10,
+                  f"App frame {frame} is empty or constant")
+
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    n = app.run(max_frames=len(plan) + APP_CAPTURE_MAX, script=script,
+                frame_sink=sink)
+    close("L capture until it ends, then Q")
+    check(not app.running, "the App did not quit on Q")
+    check(r.stats.last_result is not None,
+          "the L capture did not end within the run")
+    seen_views = sorted({v for s_ in segs for v in s_[1]})
+    check(seen_views == list(range(7)), f"the flight saw views {seen_views}")
+    for label, views, frames, got, drag, ms in segs:
+        check(len(views) == 1, f"App segment {label!r}: views {views}")
+        need = APP_VIEW[views[0]]
+        want = {k: frames for k in need}
+        dragged = sum(drag)
+        if dragged:
+            check(dragged == frames, f"App segment {label!r}: the sun was "
+                  f"dragged in {dragged} of {frames} frames")
+            want["sun_grids"] = frames
+            want["write_sky"] = frames
+        extra = {k: v for k, v in got.items() if k not in want}
+        # the classifier's full grids come back once after a drag, and the
+        # first frame builds the sun grids and the sky
+        allowed = {"sun_grids": 1, "write_sky": 1} if views[0] == 6 else {}
+        check(all(k in allowed and v <= allowed[k] for k, v in extra.items())
+              and all(got.get(k, 0) == v for k, v in want.items()),
+              f"App segment {label!r} (view {views[0]}, {frames} frames): "
+              f"launches {got}, expected {want}")
+        timed = [x for x in ms if x == x]
+        med = sorted(timed)[len(timed) // 2] if timed else float("nan")
+        print(f"App segment {label!r}: view {views[0]}, {frames} frames, "
+              f"median frame {med:.3f} ms (host clock from one frame's end "
+              f"to the next's, each frame synchronized), launches {got}")
+    res = r.stats.last_result or {}
+    print(f"App flight: {n} frames through App.run (256^3, 1920x1080, the "
+          f"default knobs), quit on Q; L capture: {res}; memory report "
+          f"{ {k: round(v, 2) for k, v in r.memory_report().items()} }; "
+          f"camera at {np.round(app.movement.position, 2).tolist()} "
+          f"(fixed snapshot {app.movement.fixed_mode_snapshot_index}); "
+          f"phase {time.perf_counter() - t_phase:.1f} s")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3132,8 +3423,10 @@ def main() -> int:
               f"once in each of the {n_frames} frames: {uneven}")
         print(f"launches in the {label} frame ({n_frames} frames): "
               f"{ {k: v for k, v in got.items() if v} }")
-        print(f"kernel launches per {label} frame: "
-              f"{sum(got.values()) / n_frames:.2f} through kernels.launch")
+        per = sum(v for k, v in got.items()
+                  if kernels.KERNELS[k].path != "setup") / n_frames
+        print(f"kernel launches per {label} frame: {per:.2f} through "
+              f"kernels.launch (the world's K24 not counted)")
         return got
 
     med = frames(renderer, "default knobs")
@@ -3146,6 +3439,8 @@ def main() -> int:
           f"(write_sky) for {buckets} sky buckets, both textures each")
     check(launches["shade_surface"] == 0 and launches["jump_trace"] == 0,
           "the default-knob frame launched K1 or K2 shade_surface")
+    check(launches["height_field"] == 1, f"the world from cold launched K24 "
+          f"{launches['height_field']} times, expected once")
     print(f"peak device memory: {peak_mb:.1f} MiB "
           f"(max_memory_allocated over setup and frames)")
     print(f"({len(per_frame)} per-frame kernels, plus K3 per sky bucket and "
@@ -4633,6 +4928,11 @@ def main() -> int:
     rows += dynamic_phase(repo, dev, errs, launches, c5_chunks, [
         Chunk(c.position, c.voxels.copy()) for c in renderer.scene.chunks])
     del c5_chunks
+
+    # ---- 11. setup from cold and the app shell (phase 11 of the module
+    # docstring): K24, the worlds and their trees, then the App's flight
+    rows += setup_phase(repo, dev, errs, launches["height_field"])
+    app_phase(repo, dev, renderer.scene)
 
     # ---- 6. the gather microbenchmark's path, through its entry point
     gather_kernels = [k for k, v in kernels.KERNELS.items()

@@ -106,6 +106,11 @@ def _case(name, occ):
         # width: the middle column's x and z crossings are near ties
         return _staircase(), Camera.look_at([1.5, 16.0, 1.5],
                                             [60.0, 10.0, 60.0], 40.0), 97, 65
+    if name == "sky":
+        # looking up from above the terrain: no face on screen, every
+        # pixel misses (every tile bin of K9's design stays empty)
+        return occ, Camera.look_at([32.0, 60.0, 32.0], [32.0, 90.0, 33.0],
+                                   70.0), 32, 24
     if name == "edges_at_centres":
         return _edges_at_centres()
     if name == "straddle":
@@ -114,7 +119,8 @@ def _case(name, occ):
 
 
 CASES = ["single_block", "inside_solid", "outside_world", "close_big_faces",
-         "random0", "random1", "staircase", "edges_at_centres", "straddle"]
+         "random0", "random1", "staircase", "edges_at_centres", "straddle",
+         "sky"]
 
 
 def _corners(fs):
@@ -146,7 +152,7 @@ def test_raster_equals_oracle(name, small_world):
     assert (res.iterations == 0).all() and (res.fetches == 0).all()
     if name == "inside_solid":
         assert hit.all() and (res.t == 0).all() and (res.face == 0).all()
-    if name == "outside_world":
+    if name in ("outside_world", "sky"):
         assert not hit.any()
     if name in ("single_block", "staircase", "close_big_faces",
                 "edges_at_centres", "straddle"):
@@ -169,6 +175,8 @@ def test_tiled_twin_equals_plain(name, small_world):
         assert torch.equal(out, ref), (bin_max, int((out != ref).sum()))
     if name in ("single_block", "staircase", "edges_at_centres", "straddle"):
         assert (ref != -1).any()
+    if name == "sky":
+        assert (ref == -1).all()
 
 
 @pytest.mark.parametrize("name", CASES)

@@ -56,8 +56,8 @@ class Kernel:
     #                    ctypes types), the stream last
     source: str        # file in the repository
     replaces: str      # JAX pass or Pallas kernel it ports, file:line
-    path: str = "frame"  # the entry point that runs it: frame, gather or
-    #                      overlap (the overlap AO library)
+    path: str = "frame"  # the entry point that runs it: frame, gather,
+    #                      overlap (the overlap AO library) or setup
 
 
 KERNELS = {
@@ -196,6 +196,12 @@ KERNELS = {
     "invalidate_texels": Kernel(
         "vvr_invalidate_texels", (_P, _I, _P, _I, _P),
         "vvr_tpu_torch/csrc/sunshadow.cu", "vvr_tpu/ops/sunshadow.py:460"),
+    # setup from cold (world/generator.py): the terrain's height field
+    "height_field": Kernel(
+        "vvr_height_field", (_P, _I, _I, _I) + (_F,) * 6 + (_I,) + (_F,) * 3
+        + (_P,),
+        "vvr_tpu_torch/csrc/terrain.cu", "vvr_tpu/world/generator.py:29",
+        "setup"),
     "gather_chain": Kernel(
         "vvr_gather_chain", (_P, _I, _I, _P, _I, _P, _I, _P, _U64, _P),
         "vvr_tpu_torch/csrc/gather.cu",

@@ -2,7 +2,11 @@
 
 Counterpart of vvr_tpu/ops/noise.py (`perlin2`, `fbm2`, `sdnoise2`,
 `snoise2`, and `snoise3` of the wavy mirror reflections), the same
-formulas in the same op order. The lattice hash is
+formulas. `sdnoise2`, `snoise2` and `snoise3` keep the JAX op order;
+`perlin2` and `fbm2` round as the JAX functions do under jax.jit, the
+form the JAX program runs them in (its height field is jitted): FMAs
+where XLA on the CPU contracts and the reciprocals it folds (see
+`perlin2_lerp` and `fbm2_sum`). The lattice hash is
 uint32 arithmetic with wrapping multiplies. torch has no `>>` for uint32 on
 the CPU, so words are held as int64 masked to 32 bits, and every multiply
 is split in 16-bit halves so that no int64 product overflows. The CUDA copy
@@ -11,7 +15,10 @@ is split in 16-bit halves so that no int64 product overflows. The CUDA copy
 
 from __future__ import annotations
 
+import numpy as np
 import torch
+
+from vvr_tpu_torch.utils.hash import _fma
 
 F32 = torch.float32
 MASK32 = 0xFFFFFFFF
@@ -69,8 +76,18 @@ def _fade(t):
     return t * t * t * (t * (t * 6.0 - 15.0) + 10.0)
 
 
-def perlin2(x, y, seed: int = 0):
-    """2D Perlin gradient noise, output approximately [-1, 1]."""
+# perlin2's output scale as the float32 constant the JAX package uses
+SQRT2 = float(np.float32(1.41421356))
+
+
+def perlin2_lerp(x, y, seed: int = 0, swap11: bool = False):
+    """perlin2 before its final scale by SQRT2, rounded as XLA's jit rounds
+    it on the CPU: each corner's gradient dot is fma(gx, fx - ox, gy *
+    (fy - oy)), the fade's inner polynomial fma(t, fma(t, 6, -15), 10),
+    and the three lerps fma(u, b - a, a). `swap11` contracts the other
+    product of the (1, 1) corner's dot, fma(gy, fy - 1, gx * (fx - 1)), as
+    the jitted height field does in its first octave. csrc/terrain.cu
+    places __fmaf_rn at the same points."""
     x = x.to(F32)
     y = y.to(F32)
     x0 = torch.floor(x)
@@ -80,41 +97,96 @@ def perlin2(x, y, seed: int = 0):
     ix = x0.to(torch.int64)
     iy = y0.to(torch.int64)
 
-    def dot_grad(ox, oy):
+    def dot_grad(ox, oy, swap=False):
         gx, gy = _grad2(_lattice_hash2(ix + ox, iy + oy, seed))
-        return gx * (fx - ox) + gy * (fy - oy)
+        dx, dy = fx - ox, fy - oy
+        return _fma(gy, dy, gx * dx) if swap else _fma(gx, dx, gy * dy)
 
-    u = _fade(fx)
-    v = _fade(fy)
+    def fade(t):
+        return t * t * t * _fma(t, _fma(t, 6.0, -15.0), 10.0)
+
+    u = fade(fx)
+    v = fade(fy)
     n00 = dot_grad(0, 0)
     n10 = dot_grad(1, 0)
     n01 = dot_grad(0, 1)
-    n11 = dot_grad(1, 1)
-    nx0 = n00 + u * (n10 - n00)
-    nx1 = n01 + u * (n11 - n01)
-    return 1.41421356 * (nx0 + v * (nx1 - nx0))
+    n11 = dot_grad(1, 1, swap11)
+    nx0 = _fma(u, n10 - n00, n00)
+    nx1 = _fma(u, n11 - n01, n01)
+    return _fma(v, nx1 - nx0, nx0)
+
+
+def perlin2(x, y, seed: int = 0):
+    """2D Perlin gradient noise, output approximately [-1, 1], as the JAX
+    package's jitted perlin2 computes it."""
+    return perlin2_lerp(x, y, seed) * SQRT2
+
+
+def octave_constants(octaves: int, frequency: float, lacunarity: float = 2.0,
+                     persistence: float = 0.5):
+    """Each octave's float32 (frequency, amplitude) of fbm2, and the norm,
+    the sum of the amplitudes, as Python floats (the frequency and the
+    norm summed in float64, as the JAX function does)."""
+    out = []
+    amp, freq, norm = 1.0, frequency, 0.0
+    for _ in range(octaves):
+        out.append((float(np.float32(freq)), amp))
+        norm += amp
+        amp *= persistence
+        freq *= lacunarity
+    return out, norm
+
+
+def fbm2_sum(x, y, octaves: int, frequency: float, seed: int = 0,
+             lacunarity: float = 2.0, persistence: float = 0.5,
+             billow: bool = False, swap11: bool = False):
+    """fbm2's sum of octaves before the division by the norm, rounded as
+    XLA's jit rounds it: it folds perlin2's SQRT2 into each octave's
+    amplitude (a float32 product) and contracts each octave's product
+    into the sum, fma(n, amp, total); the first two octaves of plain
+    noise sum as fma(lerp0, SQRT2, lerp1 * SQRT2 * amp1). The Billow
+    octave is fma(|lerp * SQRT2|, 2, -1). `swap11` goes to the first
+    octave's perlin2_lerp."""
+    x = x.to(F32)
+    y = y.to(F32)
+    consts, _ = octave_constants(octaves, frequency, lacunarity, persistence)
+    total = first = None
+    for i, (freq, amp) in enumerate(consts):
+        lerp = perlin2_lerp(x * freq, y * freq, seed + i, swap11 and i == 0)
+        if billow:
+            n = _fma(torch.abs(lerp * SQRT2), 2.0, -1.0)
+            total = n if total is None else _fma(
+                n, float(np.float32(amp)), total)
+            continue
+        c = float(np.float32(SQRT2) * np.float32(amp))
+        if i == 0:
+            first = lerp
+        elif i == 1:
+            total = _fma(first, SQRT2, lerp * c)
+        else:
+            total = _fma(lerp, c, total)
+    if total is None and first is not None:
+        total = first * SQRT2
+    return total
+
+
+def reciprocal32(v: float) -> float:
+    """1 / float32(v) in float32: XLA's jit turns a division by a constant
+    into a multiply by this reciprocal."""
+    return float(np.float32(1.0) / np.float32(v))
 
 
 def fbm2(x, y, octaves: int, frequency: float, seed: int = 0,
          lacunarity: float = 2.0, persistence: float = 0.5,
          billow: bool = False):
-    """Fractal Brownian motion over perlin2. `billow=True` gives the Billow
-    variant (per-octave abs()*2-1) the reference uses for terrain detail."""
-    x = x.to(F32)
-    y = y.to(F32)
-    total = torch.zeros_like(x)
-    amp = 1.0
-    freq = frequency
-    norm = 0.0
-    for i in range(octaves):
-        n = perlin2(x * freq, y * freq, seed + i)
-        if billow:
-            n = torch.abs(n) * 2.0 - 1.0
-        total = total + n * amp
-        norm += amp
-        amp *= persistence
-        freq *= lacunarity
-    return total / norm
+    """Fractal Brownian motion over perlin2, as the JAX package's jitted
+    fbm2 computes it: fbm2_sum times the reciprocal of the norm.
+    `billow=True` gives the Billow variant (per-octave abs()*2-1) the
+    reference uses for terrain detail."""
+    _, norm = octave_constants(octaves, frequency, lacunarity, persistence)
+    total = fbm2_sum(x, y, octaves, frequency, seed, lacunarity,
+                     persistence, billow)
+    return total * reciprocal32(norm)
 
 
 _F2 = 0.36602540378  # (sqrt(3)-1)/2

@@ -23,7 +23,12 @@ its update pass (K17) on one brick at the start of each frame, round-robin
 the Renderer draws the raster debug view instead (render/raster.py, K22
 and K23, as the JAX renderer does at :150-151, :329-345): it builds the
 brick pyramid the view traces its shadows through and no other grid, and
-meshes the world at the first such frame (`mesh`, uploaded once).
+meshes the world at the first such frame (`mesh`, uploaded once). The
+view is read from `cfg.debug_type` at every frame, as there, so a change
+of `cfg` between frames (the App's H and G keys, app.py) switches it and
+builds what the new view reads at its first frame; the other decisions
+(the traversal, the rasterizer, the classifier, the density field) are
+made once, at construction, as the JAX renderer makes them.
 `camera_for_snapshot`, `profile_frame` (a torch.profiler Chrome trace)
 and `memory_report` serve the command line (cli.py). `jump2` raises
 NotImplementedError (ROADMAP "Not to port").
@@ -67,12 +72,12 @@ def use_raster(cfg: RenderConfig) -> bool:
 
 
 def use_sunmask(cfg: RenderConfig) -> bool:
-    """The sun classifier answers the shadow rays, unless shadows are off
-    or pixelated (the quarter-voxel floor can bury the query in solid,
-    where a certain-light claim is unsound), or the raster debug view
-    traces its own."""
+    """The sun classifier answers the main view's shadow rays, unless
+    shadows are off or pixelated (the quarter-voxel floor can bury the
+    query in solid, where a certain-light claim is unsound). The raster
+    debug view traces its own and never reads it."""
     return (cfg.sun_mask != "off" and cfg.shadow_samples >= 1
-            and not cfg.pixelated_shadows and cfg.debug_type != 0)
+            and not cfg.pixelated_shadows)
 
 
 def check_slice(world_cfg: WorldConfig, cfg: RenderConfig) -> None:
@@ -104,27 +109,15 @@ class Renderer:
         self.dynamic_world = dynamic_world
         self.svt = (build_svt(self.scene.chunks, self.scene.cfg.size,
                               self.device) if dynamic_world else None)
+        # decided once, as the JAX renderer decides them (:51-98); the
+        # view (debug_type) is read at every frame
         self.use_paged = render_cfg.use_paged(world_cfg.size)
         self.use_pyramid = render_cfg.traversal == "pyramid"
-        # the raster debug view traces its shadows through the pyramid
-        # and reads no other grid (vvr_tpu/render/raster.py:289-291)
-        self.raster_view = render_cfg.debug_type == 0
-        if self.use_pyramid or self.raster_view:
-            self.scene.ensure_pyramid()
-        elif self.use_paged:
-            self.scene.ensure_paged()
-        else:
-            self.scene.ensure_jumpgrid()
         self.use_raster = use_raster(render_cfg)
         self.use_sunmask = use_sunmask(render_cfg)
-        if self.use_raster or self.use_sunmask:
-            self.scene.ensure_faces()
         self.use_density = (render_cfg.ambient_occlusion
-                            and render_cfg.ao_mode == "filtered"
-                            and not self.raster_view)
-        if self.use_density:
-            self.scene.ensure_density()
-        self.scene.release_dense()
+                            and render_cfg.ao_mode == "filtered")
+        self._ensure_view()
         self.stats = Statistics()
         self.frame_count = 0
         self.elapsed = 0.0
@@ -136,6 +129,42 @@ class Renderer:
         self._nxt = None  # the mirror bounces' continuation buffers
         self._mesh = None
         self._snapshots = None
+
+    @property
+    def raster_view(self) -> bool:
+        """The present frame is the raster debug view: cfg.debug_type 0,
+        read at every frame as the JAX renderer reads it (:150), so the
+        App's H and G keys switch views between frames."""
+        return self.cfg.debug_type == 0
+
+    def _ensure_view(self) -> None:
+        """Build what the present view reads and the scene lacks, then drop
+        the dense occupancy: the raster debug view traces its shadows
+        through the brick pyramid and reads no other grid
+        (vvr_tpu/render/raster.py:289-291; its mesh comes at its first
+        frame); the main and heatmap views read the traversal's grid, the
+        faces of the rasterizer and the sun classifier, and the density
+        field of the filtered AO."""
+        sc = self.scene
+        if self.use_pyramid or self.raster_view:
+            sc.ensure_pyramid()
+        if not self.raster_view:
+            if self.use_paged and not self.use_pyramid:
+                sc.ensure_paged()
+            elif not self.use_pyramid:
+                sc.ensure_jumpgrid()
+            if self.use_raster or self.use_sunmask:
+                sc.ensure_faces()
+            if self.use_density:
+                sc.ensure_density()
+        sc.release_dense()
+
+    @property
+    def snapshots(self) -> list:
+        """The canned camera poses (assets/snapshots.json), loaded once."""
+        if self._snapshots is None:
+            self._snapshots = load_snapshots()
+        return self._snapshots
 
     @property
     def grid(self):
@@ -217,9 +246,7 @@ class Renderer:
         """The camera of snapshot `index` (modulo their count), its
         position scaled from the 1024^3 world the poses were authored for
         to this one (vvr_tpu/render/renderer.py:125)."""
-        if self._snapshots is None:
-            self._snapshots = load_snapshots()
-        snap = self._snapshots[index % len(self._snapshots)]
+        snap = self.snapshots[index % len(self.snapshots)]
         cam = Camera.from_snapshot(snap)
         cam.position = cam.position * (self.scene.cfg.size / 1024.0)
         return cam
@@ -230,6 +257,7 @@ class Renderer:
         with fetch=True). With timed=True the frame is synchronized and its
         wall time pushed into Statistics."""
         t = self.elapsed if time is None else time
+        self._ensure_view()
         if self.raster_view:
             return self._render_raster(camera, t, timed, fetch)
         # the dynamic world's pass on one brick, round-robin
@@ -298,9 +326,9 @@ class Renderer:
 
     def memory_report(self) -> dict:
         """Device-buffer sizes in MB (MiB) of the structures built so far:
-        the grids, the pyramid, the density field, the SVT bricks and the
-        raster view's mesh (the J-key allocator report analog,
-        src/renderer.rs:451-454), and the lights in KB."""
+        the grids, the pyramid, the density field, the SVT bricks, the
+        raster view's mesh and the SVO tree (the J-key allocator report
+        analog, src/renderer.rs:451-454), and the lights in KB."""
         mib = 2 ** 20
         sc = self.scene
         rep = {}
@@ -318,6 +346,8 @@ class Renderer:
             rep["svt_bricks_mb"] = self.svt.bricks.nbytes / mib
         if self._mesh is not None:
             rep["mesh_mb"] = self._mesh.nbytes() / mib
+        if sc.tree is not None:
+            rep["tree_mb"] = sc.tree.memory_bytes() / mib
         rep["lights_kb"] = sc.lights.nbytes / 1024
         return rep
 

@@ -13,7 +13,8 @@ once and keeps until `release_dense` (the Renderer releases it once it
 has built what it reads: 1 GiB at 1024^3). A world editor
 (world/edit.py) made over the scene's chunks patches the grids and the
 faces it hands the scene, and `Renderer.apply_edits` points the scene at
-them. The SVO tree comes back with its consumers (ROADMAP A15).
+them. The reference-layout SVO tree (`ensure_tree`, scene.py:75) is
+built on request only: no frame reads it.
 """
 
 from __future__ import annotations
@@ -31,8 +32,11 @@ from vvr_tpu_torch.world.faces import extract_merged_faces
 from vvr_tpu_torch.world.generator import assemble_dense, generate_world
 from vvr_tpu_torch.world.jumpgrid import JumpGrid, build_jump_grid
 from vvr_tpu_torch.world.paged import PagedGrid, build_paged_grid
-from vvr_tpu_torch.world.pyramid import BrickPyramid, build_brick_pyramid
+from vvr_tpu_torch.world.pyramid import (BrickPyramid, build_brick_pyramid,
+                                         build_pyramid)
 from vvr_tpu_torch.world.svt import density_from_occupancy
+from vvr_tpu_torch.world.tree import (SparseVoxelTree,
+                                      bounds_pyramid_from_dense, flatten_tree)
 
 log = logging.getLogger(__name__)
 
@@ -53,6 +57,7 @@ class Scene:
     jumpgrid: JumpGrid | None = None   # built by ensure_jumpgrid
     paged: PagedGrid | None = None     # built by ensure_paged
     pyramid: BrickPyramid | None = None  # built by ensure_pyramid
+    tree: SparseVoxelTree | None = None  # built by ensure_tree
     faces: tuple | None = None   # FaceSet.device_tuple() on the device
     epoch: int = 0               # world version, part of the sun-grid key
     lights: np.ndarray | None = None  # (NUM_LIGHTS, 4) float32, host
@@ -97,6 +102,20 @@ class Scene:
         if self.pyramid is None:
             self.pyramid = build_brick_pyramid(self.dense(), self.device)
         return self.pyramid
+
+    def ensure_tree(self) -> SparseVoxelTree:
+        """The reference-layout SVO buffers, flattened on the scene's
+        device from the chunks' dense occupancy: its occupancy pyramid
+        and bounds pyramid (the JAX scene reads the chunk mips for both,
+        which give the same tree); a checkpoint artifact no frame
+        reads."""
+        if self.tree is None:
+            occ = torch.from_numpy(self.dense()).to(self.device)
+            self.tree = flatten_tree(build_pyramid(occ, self.device),
+                                     bounds_pyramid_from_dense(occ,
+                                                               self.device))
+            log.info("tree: %s", self.tree.metrics)
+        return self.tree
 
     def ensure_density(self) -> torch.Tensor:
         """The density field of the filtered AO (world/svt.py), built on

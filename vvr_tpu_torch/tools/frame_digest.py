@@ -2,7 +2,7 @@
 on one card.
 
     python3 vvr_tpu_torch/tools/frame_digest.py [--root DIR] [--cpu-rays]
-        [--traversal jump|paged|pyramid ...]
+        [--traversal jump|paged|pyramid ...] [--worlds DIR]
 
 Renders bench.py's default-knob frame (256^3 world, the bench camera,
 t = 0: face rasterizer, sun classifier, one hard shadow ray per lit pixel)
@@ -42,8 +42,12 @@ it also renders config 5's static frames (tools/bench_scale.py:62-97
 without its edits: the 1024^3 world, 1920x1080, its camera; the default
 knobs and the DDA frame) over one 1024^3 scene, once per traversal named,
 so that the jump grid's, the paged grid's and the pyramid's frames can be
-held to each other; a package that does not render one gets a note. It
-exits non-zero without a CUDA device.
+held to each other; a package that does not render one gets a note. Each
+package generates its worlds from cold, unless --worlds names a directory
+of world files (map_256.npz, map_1024.npz in the npz of world/cache.py):
+a file there is loaded, a missing one is generated and written, so two
+checkouts whose height fields differ can be held to each other on one
+world. It exits non-zero without a CUDA device.
 """
 
 from __future__ import annotations
@@ -151,6 +155,9 @@ def main(argv=None) -> int:
                     choices=("jump", "paged", "pyramid"), default=(),
                     help="render config 5's frames at 1024^3 through each "
                     "of these grids")
+    ap.add_argument("--worlds", type=pathlib.Path,
+                    help="load the worlds from this directory's files, "
+                    "writing a missing one")
     args = ap.parse_args(argv)
     root = args.root.resolve()
     sys.path.insert(0, str(root))
@@ -167,18 +174,21 @@ def main(argv=None) -> int:
     from vvr_tpu_torch.utils.camera import Camera
 
     dev = torch.device("cuda", 0)
+    worlds = (args.worlds.resolve() if args.worlds
+              else root / "build" / "vvr_tpu_torch")
+    regenerate = args.worlds is None
+    out = {"root": str(root), "cpu rays": args.cpu_rays,
+           "worlds": str(args.worlds) if args.worlds else "from cold"}
     cam = Camera.look_at(*CAMERA[:2], fov=CAMERA[2])
     scene = None
-    out = {"root": str(root), "cpu rays": args.cpu_rays}
     for name, knobs in CONFIGS.items():
         cfg = RenderConfig(**{"shadow_samples": 1, "max_ray_iterations": 3,
                               **knobs})
         mirrors = {"mirror_materials": True} if name in MIRRORS else {}
         try:
             r = Renderer(WorldConfig(depth=4), cfg, device=dev, scene=scene,
-                         force_regenerate=scene is None,
-                         cache_path=root / "build" / "vvr_tpu_torch"
-                         / "map_256.npz", **mirrors)
+                         force_regenerate=regenerate and scene is None,
+                         cache_path=worlds / "map_256.npz", **mirrors)
         except NotImplementedError as e:
             out[name] = f"not rendered by this package ({e})"
             continue
@@ -228,9 +238,9 @@ def main(argv=None) -> int:
                                   "traversal": trav})
             try:
                 r = Renderer(WorldConfig(depth=5), cfg, device=dev,
-                             scene=scene5, force_regenerate=scene5 is None,
-                             cache_path=root / "build" / "vvr_tpu_torch"
-                             / "map_1024.npz")
+                             scene=scene5,
+                             force_regenerate=regenerate and scene5 is None,
+                             cache_path=worlds / "map_1024.npz")
             except NotImplementedError as e:
                 out[f"{name} {trav}"] = f"not rendered by this package ({e})"
                 continue

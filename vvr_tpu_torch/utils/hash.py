@@ -94,11 +94,25 @@ def light_colours(count: int) -> np.ndarray:
 
 
 def _fma(a, b, c):
-    """float32 a*b + c with one rounding, as an FMA gives it. The product
-    of two floats is exact in float64, so only the float64 sum rounds
-    before the float32 one; that double rounding differs from a true FMA
-    only when the float64 sum lands exactly halfway between two floats."""
-    return (a.double() * b.double() + c.double()).to(F32)
+    """float32 a*b + c with one rounding, as an FMA gives it. Each of a, b,
+    c is a float32 tensor or a Python number that is a float32 value (a or
+    b a tensor). The product of two floats is exact in float64, so only
+    the float64 sum rounds before the float32 one. That double rounding
+    differs from one FMA rounding only where the float64 sum lands exactly
+    halfway between two floats and was itself inexact: there the sum steps
+    one float64 ulp toward the exact one (its error from TwoSum), so the
+    float32 rounding is the FMA's on the CPU and on the card alike. (The
+    halfway test reads the float64 bits as a float32 normal number's.)"""
+    a, b, c = (v.double() if torch.is_tensor(v) else float(v)
+               for v in (a, b, c))
+    p = a * b
+    s = p + c
+    bb = s - p
+    err = (p - (s - bb)) + (c - bb)
+    halfway = (s.view(torch.int64) & 0x1FFFFFFF) == 0x10000000
+    toward = torch.copysign(torch.full_like(s, torch.inf), err)
+    s = torch.where(halfway & (err != 0), torch.nextafter(s, toward), s)
+    return s.to(F32)
 
 
 def sqrt32(x):

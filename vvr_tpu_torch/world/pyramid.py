@@ -1,4 +1,5 @@
-"""Brick pyramid — the node tables of the hierarchical DDA (HDDA).
+"""Brick pyramid — the node tables of the hierarchical DDA (HDDA) — and
+the flat occupancy pyramid the SVO tree reads.
 
 Counterpart of vvr_tpu/world/pyramid.py `BrickPyramid`,
 `_pack_node_masks`, `build_brick_pyramid` and `brick_pyramid_from_chunks`
@@ -19,6 +20,15 @@ here). At 1024^3 (depth 5) the table has 17,043,521 rows, 273 MB.
 
 The build runs in torch on the pyramid's device from the dense occupancy,
 a slab of node rows at a time, so the card builds its own pyramid.
+
+`OccupancyPyramid`, `build_pyramid` and `build_pyramid_from_chunks` are
+the counterparts of vvr_tpu/world/pyramid.py:37, :81 and :105: one flat
+array of u32 words, level 0 one bit a voxel, level l in [1, depth] two
+bits a cell (bit 0 any voxel below, bit 1 all of them), cells x-major,
+bits little-endian within a word, level l from word `bases[l]`. Its words
+are equal to the JAX ones; they live on the given device and
+`level_bits` is the host accessor. Only the SVO tree (world/tree.py)
+reads it.
 """
 
 from __future__ import annotations
@@ -126,3 +136,91 @@ def brick_pyramid_from_chunks(chunks, size: int,
     """The pyramid of a world given as chunks (assembled densely, as the
     JAX version does)."""
     return build_brick_pyramid(assemble_dense(chunks, size), device)
+
+
+def _pack_bits_u32(bits: torch.Tensor) -> torch.Tensor:
+    """bool (n,) -> int32 little-endian packed u32 words (bit patterns),
+    padded to a whole word, a slab at a time."""
+    bits = bits.reshape(-1)
+    n = bits.numel()
+    words = (n + 31) // 32
+    out = torch.empty(words + (words & 1), dtype=torch.int32,
+                      device=bits.device)
+    for b0 in range(0, n, SLAB_VOXELS):
+        slab = bits[b0:b0 + SLAB_VOXELS]
+        pad = (-slab.numel()) % 64
+        if pad:
+            slab = torch.cat([slab, slab.new_zeros(pad)])
+        w0 = b0 // 32
+        out[w0:w0 + slab.numel() // 32] = pack_bits64(
+            slab.reshape(-1, 64)).reshape(-1)
+    return out[:words]
+
+
+def _unpack_bits(words: torch.Tensor, count: int) -> torch.Tensor:
+    """The first `count` bits of int32 words, little-endian, as bool."""
+    byte = words.contiguous().view(torch.uint8)[:(count + 7) // 8]
+    shifts = torch.arange(8, dtype=torch.uint8, device=words.device)
+    return ((byte[:, None] >> shifts) & 1).to(torch.bool).reshape(-1)[:count]
+
+
+@dataclasses.dataclass
+class OccupancyPyramid:
+    """words (W,) int32 u32 bit patterns on the device; `depth` levels
+    above the voxels; `bases` the first word of each level 0..depth."""
+
+    words: torch.Tensor
+    depth: int
+    bases: tuple
+
+    @property
+    def size(self) -> int:
+        return 1 << (2 * self.depth)
+
+    def level_masks(self, level: int) -> tuple[torch.Tensor, torch.Tensor]:
+        """(any, full) bool (s, s, s) [z, y, x] of a level, on the words'
+        device (at level 0 both are the voxels)."""
+        s = self.size >> (2 * level)
+        n = s ** 3
+        if level == 0:
+            a = _unpack_bits(self.words[self.bases[0]:], n).reshape(s, s, s)
+            return a, a.clone()
+        raw = _unpack_bits(self.words[self.bases[level]:], 2 * n)
+        raw = raw.reshape(-1, 2)
+        return raw[:, 0].reshape(s, s, s), raw[:, 1].reshape(s, s, s)
+
+    def level_bits(self, level: int) -> tuple[np.ndarray, np.ndarray]:
+        """(any, full) bool arrays [z,y,x] for a level (host)."""
+        return tuple(m.cpu().numpy() for m in self.level_masks(level))
+
+
+def build_pyramid(occ, device="cuda") -> OccupancyPyramid:
+    """The occupancy pyramid of a dense bool occupancy [z,y,x] (numpy
+    array or tensor), built in torch on `device`."""
+    if isinstance(occ, np.ndarray):
+        occ = torch.from_numpy(np.ascontiguousarray(occ, bool))
+    occ = occ.to(device=device, dtype=torch.bool)
+    size = occ.shape[0]
+    depth = (size.bit_length() - 1) // 2
+    if 4 ** depth != size:
+        raise ValueError(f"size {size} must be a power of 4")
+    level_words = [_pack_bits_u32(occ)]
+    any_l = full_l = occ
+    for _ in range(1, depth + 1):
+        any_l = _reduce4(any_l, torch.any)
+        full_l = _reduce4(full_l, torch.all)
+        level_words.append(_pack_bits_u32(
+            torch.stack([any_l.reshape(-1), full_l.reshape(-1)], -1)))
+    bases, off = [], 0
+    for w in level_words:
+        bases.append(off)
+        off += w.numel()
+    return OccupancyPyramid(torch.cat(level_words), depth, tuple(bases))
+
+
+def build_pyramid_from_chunks(chunks, size: int,
+                              device="cuda") -> OccupancyPyramid:
+    """The occupancy pyramid of a world given as chunks (assembled
+    densely; the JAX version reads the chunk mips for levels 1-3, which
+    give the same words)."""
+    return build_pyramid(assemble_dense(chunks, size), device)
