@@ -90,8 +90,9 @@
    two sizes above 48 KB of shared memory in the order A, B, A
    (SHARED_IN_TURN); prints the registers and spills of K3 and K8;
    K13's rays bit-exact against the plain version run on the CPU at
-   1920x1080 and 33x67, and camera_rays on the card one K13 launch with no
-   host-to-device copy (torch.profiler); K11's cone grids (the kernel's
+   RAY_SIZES and its device time back to back and with the L2 flushed,
+   and camera_rays on the card one K13 launch with no host-to-device copy
+   (a CUDA graph, torch.profiler); K11's cone grids (the kernel's
    tight boxes) bit for bit against the plain cone build over the present
    boxes at 2048^2 and 512^2 under two suns, and the cone build's device
    time split into its support pass and the rest (launch order,
@@ -172,9 +173,11 @@
    (the jump grid's rows equal; K16 on the patched paged grid gives every
    primary ray's hit, face, axis_coord and t of a fresh build); K17 on
    three bricks (one at the world's far edge) and twice on one, and K18
-   on fresh hard and cone grids, against their plain versions byte for
-   byte; their rows for the kernels line (K18 on the host's rectangles,
-   its library call `index_put_` of the texel list);
+   on fresh hard and cone grids (one launch, its rectangles formed on the
+   card equal to `texel_rects`'), against their plain versions byte for
+   byte; their rows for the kernels line (K18 from the positions, its
+   device time, the whole `invalidate_sun_texels` call and its library
+   call `index_put_` of the texel list, in one call);
 9. the brick pyramid (ROADMAP A13, `traversal="pyramid"`; run before 7.)
    over the 256^3 scene: builds the pyramid on the card (timed) and holds
    it to the CPU build row for row; renders the frames of PYR_PHASES (the
@@ -382,6 +385,9 @@ K5_KERNEL, K6_KERNEL, K7_KERNEL = ("chain_kernel", "chain_shared_kernel",
                                    "onehot_kernel")
 LAUNCH_CALLS = 10_000   # host timing of kernels.launch
 RAY_CALLS = 20          # camera_rays calls under the profiler
+# K13's shapes held to the plain version: the frame's, an odd one, and
+# three whose last span ends inside a float4 (1x1, 5x3, 257x3)
+RAY_SIZES = ((1920, 1080), (33, 67), (1, 1), (5, 3), (257, 3))
 # the bloom pyramid's items are its downsampled texels (220 operations
 # each) and its upsampled ones, at this many operations
 BLOOM_UP_OPS = 40
@@ -911,7 +917,8 @@ def config5_phase(repo, dev, errs: dict, launches: dict):
     from vvr_tpu_torch.render.renderer import Renderer
     from vvr_tpu_torch.render.scene import build_scene
     from vvr_tpu_torch.tools import profile_frame
-    from vvr_tpu_torch.tools.microbench_gather import bound_ms, cuda_ms
+    from vvr_tpu_torch.tools.microbench_gather import bound_ms
+    from vvr_tpu_torch.tools.profile_frame import cuda_ms
     from vvr_tpu_torch.utils.camera import Camera
 
     # the registers and spills of K16 and of every paged instantiation
@@ -1663,7 +1670,8 @@ def dynamic_phase(repo, dev, errs: dict, launches: dict, chunks_1024,
 
     from vvr_tpu_torch import kernels
     from vvr_tpu_torch.ops import sunshadow as ss
-    from vvr_tpu_torch.tools.microbench_gather import bound_ms, cuda_ms
+    from vvr_tpu_torch.tools.microbench_gather import bound_ms
+    from vvr_tpu_torch.tools.profile_frame import cuda_ms, device_us
     from vvr_tpu_torch.world import bricks
 
     run_256 = dynamic_run("256^3", repo, dev, chunks_256, errs, launches)
@@ -1696,8 +1704,9 @@ def dynamic_phase(repo, dev, errs: dict, launches: dict, chunks_1024,
           f"plain; brick {sel[0]}: {solid_n} solid voxels of {64 ** 3}")
 
     # K18: the hard and the cone grids of config 5's patched faces at the
-    # frame's sun, built afresh, on copies, the brush's texels: gBC equal
-    # to plain
+    # frame's sun, built afresh, on copies, the brush's texels through the
+    # entry the Renderer calls: one launch, its rectangles (formed on the
+    # card) equal to texel_rects', gBC equal to the plain version's
     e1, e2, s = ss.sun_basis(r.sun[:3])
     hard = ss.sun_grids(r.scene.faces, e1, e2, s, size, ss.GRID)
     cone = ss.sun_grids(r.scene.faces, e1, e2, s, size, ss.GRID,
@@ -1705,18 +1714,36 @@ def dynamic_phase(repo, dev, errs: dict, launches: dict, chunks_1024,
     for name, g, tan in (("hard", hard, 0.0), ("cone", cone, ss.CONE_TAN)):
         a = (g[0].clone(),) + tuple(g[1:])
         b = (g[0].clone(),) + tuple(g[1:])
-        ss.invalidate_sun_texels(a, e1, e2, ball, size, tan)
+        before = kernels.LAUNCHES["invalidate_texels"]
+        got_rects = ss.invalidate_texels(a[0], e1, e2, ball, size, *g[1:],
+                                         tan, want_rects=True)
+        check(kernels.LAUNCHES["invalidate_texels"] == before + 1,
+              f"K18 ({name}) did not launch once")
         rects = ss.texel_rects(e1, e2, ball, size, ss.GRID, *g[1:], tan)
+        check(np.array_equal(got_rects.cpu().numpy(), rects),
+              f"K18 ({name}): the card's rectangles "
+              f"{got_rects.cpu().tolist()} differ from texel_rects' "
+              f"{rects.tolist()}")
         ss.invalidate_texels_plain(b[0], rects)
         check(torch.equal(a[0], b[0]), f"K18 ({name}): gBC differs from "
               "plain")
-        print(f"K18 ({name} grids): {len(rects)} rectangles, "
-              f"{int((a[0] != g[0]).any(1).sum())} texels changed, gBC equal "
-              "to plain")
+        print(f"K18 ({name} grids): {len(rects)} rectangles formed on the "
+              f"card equal to texel_rects', {int((a[0] != g[0]).any(1).sum())}"
+              f" texels changed, gBC equal to plain")
+    # an edit without positions: no launch, no rectangle, gBC unchanged
+    a = hard[0].clone()
+    before = kernels.LAUNCHES["invalidate_texels"]
+    got_rects = ss.invalidate_texels(a, e1, e2, np.zeros((0, 3), np.int64),
+                                     size, *hard[1:], want_rects=True)
+    check(kernels.LAUNCHES["invalidate_texels"] == before
+          and got_rects.shape == (0, 4) and torch.equal(a, hard[0]),
+          "K18: an edit without positions launched or changed gBC")
+    print("K18 (no positions): no launch, gBC unchanged")
     errs["invalidate_texels"] = 0.0
 
-    # the rows; K18 on the rectangles the host formed (its wrapper's whole
-    # call, the host's float64 rectangles included, is printed beside)
+    # the rows; K18 from the positions (host grouping, the pinned copy and
+    # the launch), its device time, the whole invalidate_sun_texels call
+    # and one index_put_ of the same texels, in turns on the same gBC
     g0 = hard[0].clone()
     grids = (g0,) + tuple(hard[1:])
     whole = cuda_ms(lambda: ss.invalidate_sun_texels(grids, e1, e2, ball,
@@ -1729,6 +1756,15 @@ def dynamic_phase(repo, dev, errs: dict, launches: dict, chunks_1024,
     tex = torch.from_numpy((jj * ss.GRID + ii).astype(np.int64)).to(dev)
     amb = torch.tensor([ss.NEG, 3e38], dtype=torch.float32,
                        device=dev).expand(len(jj), 2).contiguous()
+
+    def k18():
+        ss.invalidate_texels(g0, e1, e2, ball, size, *hard[1:])
+
+    def k18_plain():
+        ss.invalidate_texels_plain(g0, ss.texel_rects(
+            e1, e2, ball, size, ss.GRID, *hard[1:]))
+    k18_dev = device_us(k18, ("vvr_invalidate_texels",), 20,
+                        repo / "build" / "vvr_tpu_torch" / "k18_trace.json")
     n_solid = float((sub.bricks[0, ..., 3] == 255).sum())
     rows = []
     timed_rows = {
@@ -1738,11 +1774,12 @@ def dynamic_phase(repo, dev, errs: dict, launches: dict, chunks_1024,
                                                   sub.origins_host[0]),
             None, 2.0 * bricks.BRICK_BYTES,
             n_solid * SVT_SOLID_OPS + (64 ** 3 - n_solid) * SVT_BLUR_OPS),
+        # bytes: the texels written, the offsets and positions read (the
+        # timed call asks for no rectangles; the float64 projections, 16
+        # a corner, are below the bytes term at any float rate)
         "invalidate_texels": (
-            lambda: ss.invalidate_texels(g0, rects),
-            lambda: ss.invalidate_texels_plain(g0, rects),
-            lambda: g0.index_put_((tex,), amb),
-            8.0 * len(jj) + rects.nbytes, 0.0),
+            k18, k18_plain, lambda: g0.index_put_((tex,), amb),
+            8.0 * len(jj) + 4.0 * (len(rects) + 1 + 3 * len(ball)), 0.0),
     }
     for name, (kfn, pfn, lfn, moved, ops) in timed_rows.items():
         k_ms, p_ms = cuda_ms(kfn, 20), cuda_ms(pfn, 2)
@@ -1760,6 +1797,7 @@ def dynamic_phase(repo, dev, errs: dict, launches: dict, chunks_1024,
               + (f"index_put_ of the {len(jj)} texels {l_ms:.4f} ms, "
                  if l_ms else "")
               + (f"invalidate_sun_texels whole {whole:.4f} ms, "
+                 f"device {k18_dev:.2f} us a call back to back, "
                  if name == "invalidate_texels" else "")
               + f"bound {b_ms:.6f} ms ({b_by}); device "
               + (f"{sum(got['k17_us']) / max(len(got['k17_us']), 1):.2f}"
@@ -1863,83 +1901,6 @@ def recorded_traces(frame_mod, rec: dict):
         frame_mod.soft_shadow = k14
 
 
-# device cycles the card spins at the start of a profiled window of
-# `device_us` (about 5 ms), so its launches run once the trace is live
-WINDOW_SPIN_CYCLES = 10_000_000
-
-
-def device_us(fn, parts, reps: int, trace_path, each: bool = False,
-              tries: int = 3) -> float:
-    """Device time of one fn() call (torch.profiler), from the trace of
-    `reps` calls after a warm-up: the mean launch of the kernel whose name
-    holds every part of `parts`, fn() launching it once; with `each`,
-    fn() launching one kernel whose name holds each part, the sum of their
-    mean launches. The profiler can drop a window's first launches (a
-    window of short kernels can lose them all), so the calls queue behind
-    a device spin, and a window that misses a kernel is run again, up to
-    `tries` times; after that the time is the mean of CUDA event pairs
-    around each call, and the line printed says so."""
-    import torch
-
-    from vvr_tpu_torch.tools import profile_frame
-    fn()
-
-    def run():
-        torch.cuda._sleep(WINDOW_SPIN_CYCLES)
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()   # every launch ends inside the window
-    groups = [(p,) for p in parts] if each else [parts]
-    for attempt in range(tries):
-        events = profile_frame.trace_events(trace_path, run)
-        durs = [[e["dur"] for e in events if all(p in e["name"] for p in g)]
-                for g in groups]
-        missing = [g for g, d in zip(groups, durs) if not d]
-        if not missing:
-            return sum(sum(d) / len(d) for d in durs)
-        print(f"device_us: window {attempt + 1} of {tries}: the profiler "
-              f"recorded no launch of {missing}")
-    us = cuda_event_us(fn, reps)
-    print(f"device_us: {parts} timed by CUDA events instead: {us:.2f} us "
-          f"a call")
-    return us
-
-
-def cuda_event_us(fn, reps: int, before=None) -> float:
-    """Mean time in us of one fn() call between a CUDA event pair, after
-    one warm-up; before() runs ahead of each pair, outside it."""
-    import torch
-    fn()
-    total = 0.0
-    for _ in range(reps):
-        if before is not None:
-            before()
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        end.synchronize()
-        total += start.elapsed_time(end)
-    return total / reps * 1e3
-
-
-# bytes written between the timed launches of `flushed_us`: more than the
-# H100's 50 MB L2, so each launch finds its inputs in device memory
-L2_FLUSH_BYTES = 128 << 20
-
-
-def flushed_us(fn, reps: int, dev) -> float:
-    """Mean time in us of one fn() launch with the L2 cache flushed before
-    it: a CUDA event pair around each launch, L2_FLUSH_BYTES of another
-    buffer written in between (outside the pair), after one warm-up. The
-    time of a kernel whose inputs a back-to-back loop keeps in L2."""
-    import torch
-    scrap = torch.empty(L2_FLUSH_BYTES // 4, dtype=torch.float32,
-                        device=dev)
-    return cuda_event_us(fn, reps, before=lambda: scrap.fill_(1.0))
-
-
 def pyramid_phase(repo, dev, renderer, cam, occ, lights_np, errs: dict,
                   launches: dict, frames: int = PYR_FRAMES) -> list:
     """Phase 9 (module docstring): the 256^3 scene's brick pyramid built
@@ -1963,7 +1924,9 @@ def pyramid_phase(repo, dev, renderer, cam, occ, lights_np, errs: dict,
     from vvr_tpu_torch.render.frame import render_frame
     from vvr_tpu_torch.render.oracle import trace_dense
     from vvr_tpu_torch.render.renderer import Renderer, use_sunmask
-    from vvr_tpu_torch.tools.microbench_gather import bound_ms, cuda_ms
+    from vvr_tpu_torch.tools.microbench_gather import bound_ms
+    from vvr_tpu_torch.tools.profile_frame import (cuda_ms, device_us,
+                                                   flushed_us)
     from vvr_tpu_torch.world.pyramid import build_brick_pyramid
 
     t_phase = time.perf_counter()
@@ -2674,7 +2637,9 @@ def raster_phase(repo, dev, scene, occ, errs: dict,
     from vvr_tpu_torch.render import raster
     from vvr_tpu_torch.render.renderer import Renderer
     from vvr_tpu_torch.tools import profile_frame
-    from vvr_tpu_torch.tools.microbench_gather import bound_ms, cuda_ms
+    from vvr_tpu_torch.tools.microbench_gather import bound_ms
+    from vvr_tpu_torch.tools.profile_frame import (cuda_ms, device_us,
+                                                   flushed_us)
 
     t_phase = time.perf_counter()
     trace_path = repo / "build" / "vvr_tpu_torch" / "raster_trace.json"
@@ -2915,6 +2880,7 @@ def raster_phase_1024(repo, dev, chunks) -> None:
     from vvr_tpu_torch.render import raster
     from vvr_tpu_torch.render.renderer import Renderer
     from vvr_tpu_torch.render.scene import Scene
+    from vvr_tpu_torch.tools.profile_frame import device_us
     from vvr_tpu_torch.utils.camera import Camera
 
     t_phase = time.perf_counter()
@@ -3026,7 +2992,8 @@ def setup_phase(repo, dev, errs: dict, main_launches: int) -> list:
     from vvr_tpu_torch import kernels
     from vvr_tpu_torch.config import WorldConfig
     from vvr_tpu_torch.render.scene import build_scene
-    from vvr_tpu_torch.tools.microbench_gather import bound_ms, cuda_ms
+    from vvr_tpu_torch.tools.microbench_gather import bound_ms
+    from vvr_tpu_torch.tools.profile_frame import cuda_ms, device_us
     from vvr_tpu_torch.world import generator
     from vvr_tpu_torch.world import tree as tree_mod
 
@@ -3261,7 +3228,9 @@ def main() -> int:
     from vvr_tpu_torch.render.renderer import Renderer
     from vvr_tpu_torch.tools import (k14_split, microbench_gather,
                                      profile_frame, sass_count)
-    from vvr_tpu_torch.tools.microbench_gather import bound_ms, cuda_ms
+    from vvr_tpu_torch.tools.microbench_gather import bound_ms
+    from vvr_tpu_torch.tools.profile_frame import (L2_FLUSH_BYTES, cuda_ms,
+                                                   device_us)
     from vvr_tpu_torch.utils.camera import Camera
     from vvr_tpu_torch.world.generator import assemble_dense
 
@@ -4001,12 +3970,14 @@ def main() -> int:
     shared_in_turn(gather, dev)
 
     # K13: the rays bit-exact against the plain version run on the CPU,
-    # at 1920x1080 and 33x67, one launch each; on the card camera_rays is
-    # one K13 kernel and copies nothing from the host: it captures into a
-    # CUDA graph (a copy from host memory cannot be captured) whose replay
-    # gives the same rays, and under torch.profiler RAY_CALLS calls show
-    # RAY_CALLS K13 kernels and no other device work
-    for w_, h_ in ((cfg.width, cfg.height), (33, 67)):
+    # at RAY_SIZES (1920x1080, 33x67 and three tails: a span's last whole
+    # float4 and its scalar stores), one launch each; its device time at
+    # 1920x1080 back to back and with the L2 flushed; on the card
+    # camera_rays is one K13 kernel and copies nothing from the host: it
+    # captures into a CUDA graph (a copy from host memory cannot be
+    # captured) whose replay gives the same rays, and under torch.profiler
+    # RAY_CALLS calls show RAY_CALLS K13 kernels and no other device work
+    for w_, h_ in RAY_SIZES:
         before = kernels.LAUNCHES["generate_rays"]
         ko, kd = camera_rays(cam, w_, h_, dev)
         check(kernels.LAUNCHES["generate_rays"] == before + 1,
@@ -4016,6 +3987,21 @@ def main() -> int:
               f"K13 at {w_}x{h_}: {int((ko.cpu() != po).sum())} origin and "
               f"{int((kd.cpu() != pd).sum())} direction components differ "
               "from the plain version")
+    # device time from the profiler's trace, back to back and with
+    # L2_FLUSH_BYTES of another buffer written before each call (CUDA
+    # events would time camera_rays' host path: 67-140 us a call against
+    # K13's 18.5 us on an H100 80GB HBM3 at 700 W, PERF.md section 6)
+    scrap = torch.empty(L2_FLUSH_BYTES // 4, dtype=torch.float32,
+                        device=dev)
+    k13_dev_us = [device_us(
+        lambda: camera_rays(cam, cfg.width, cfg.height, dev),
+        ("vvr_generate_rays",), RAY_CALLS,
+        repo / "build" / "vvr_tpu_torch" / "k13s_trace.json", before=flush)
+        for flush in (None, lambda: scrap.fill_(1.0))]
+    del scrap
+    print(f"K13: rays bit-exact vs plain on the CPU at {RAY_SIZES}; device "
+          f"{k13_dev_us[0]:.2f} us a call at {cfg.width}x{cfg.height} back "
+          f"to back, {k13_dev_us[1]:.2f} us with the L2 flushed")
     graph = torch.cuda.CUDAGraph()
     with torch.cuda.graph(graph):
         go, gd = camera_rays(cam, cfg.width, cfg.height, dev)
@@ -4035,11 +4021,9 @@ def main() -> int:
                     if "vvr_generate_rays_kernel" not in e["name"]})
     check(not other, f"camera_rays on the card ran {other} beside K13")
     k13_us = [e["dur"] for e in ray_dev]
-    print(f"K13: rays bit-exact vs plain on the CPU at {cfg.width}x"
-          f"{cfg.height} and 33x67; camera_rays captured into a CUDA graph "
-          f"and replayed equal (no host-to-device copy); under the "
-          f"profiler {RAY_CALLS} calls ran {len(k13_us)} device events, all "
-          f"K13"
+    print(f"K13: camera_rays captured into a CUDA graph and replayed equal "
+          f"(no host-to-device copy); under the profiler {RAY_CALLS} calls "
+          f"ran {len(k13_us)} device events, all K13"
           + (f", median {sorted(k13_us)[len(k13_us) // 2]:.2f} us"
              if k13_us else " (the profiler recorded none)"))
     errs["generate_rays"] = 0.0

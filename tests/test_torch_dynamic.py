@@ -16,7 +16,13 @@ and 48x32 frames.
   equals its dense copy.
 - The plain K18 writes the texels JAX `invalidate_sun_texels` writes, with
   the same values, on the same seeded gBC, hard (2048^2) and cone (512^2):
-  the whole gBC is equal.
+  the whole gBC is equal. `texel_rects`, whose projections round in one
+  fixed order (K18's on the card), marks the texels the JAX function's
+  BLAS-rounded rectangles mark, for seeded suns, brushes and scattered
+  voxels, and a brush inside one superbrick gets exactly the JAX
+  rectangle; an edit split over two calls (each superbrick whole in one,
+  some voxels repeated in the other, each call shuffled) marks the texels
+  of one call; `superbrick_groups` selects np.unique's groups.
 - `Renderer.apply_edits` frames at the default knobs (the 512^2 grids of
   a dragged sun) meet the JAX Renderer's after the same edits (the golden
   bar: fewer than 0.5% of values off by more than 2; both get the same
@@ -291,6 +297,116 @@ def test_invalidate_equals_jax(cone, g):
     np.testing.assert_array_equal(got.numpy(), np.asarray(ref))
     assert marked.sum() > 100
     assert (got.numpy()[marked] == np.float32([sunshadow.NEG, 3e38])).all()
+
+
+
+def _marked(rects, g):
+    mask = np.zeros((g, g), bool)
+    for i0, i1, j0, j1 in rects.tolist():
+        mask[j0:j1 + 1, i0:i1 + 1] = True
+    return mask
+
+
+@pytest.mark.parametrize("cone,g", [(False, sunshadow.GRID),
+                                    (True, sunshadow.GRID_DRAGGING)],
+                         ids=["hard", "cone"])
+def test_texel_rects_fixed_order_equals_jax(cone, g):
+    """texel_rects (each corner's projection (x e_x + y e_y) + z e_z in
+    float64, the order K18 keeps on the card) against the rectangles JAX
+    `invalidate_sun_texels` marks (its BLAS product): at three seeded sun
+    directions a seeded brush with scattered voxels marks the same texels;
+    a brush inside one superbrick marks exactly texel_rects' one
+    rectangle."""
+    rng = np.random.default_rng(19)
+    cone_tan = sunshadow.CONE_TAN if cone else 0.0
+    empty = (jnp.zeros((g * g, 2), jnp.float32), jnp.zeros((1, 2),
+                                                           jnp.float32))
+    for k in range(3):
+        e1, e2, _ = sunshadow.sun_basis(rng.normal(size=3))
+        a0, b0, ts = sunshadow.grid_frame(e1, e2, 64, g)
+        sets = [np.concatenate([_ball(rng.integers(4, 60, 3)),
+                                rng.integers(0, 64, (10, 3))])]
+        if k == 0:
+            sets.append(8 * rng.integers(0, 8, 3) + rng.integers(0, 8,
+                                                                 (6, 3)))
+        for pos in sets:
+            ref = jax_invalidate_sun_texels(
+                empty + (jnp.float32(a0), jnp.float32(b0), jnp.float32(ts)),
+                e1, e2, None, pos, 64, cone_tan)[0]
+            want = (np.asarray(ref) != 0).any(1).reshape(g, g)
+            rects = sunshadow.texel_rects(e1, e2, pos, 64, g, a0, b0, ts,
+                                          cone_tan)
+            np.testing.assert_array_equal(_marked(rects, g), want)
+            assert want.sum() > 20
+            if len(rects) == 1:
+                jj, ii = np.nonzero(want)
+                assert [ii.min(), ii.max(), jj.min(), jj.max()] \
+                    == rects[0].tolist()
+                assert want.sum() == len(ii) == (np.ptp(ii) + 1) * (
+                    np.ptp(jj) + 1)
+
+
+def test_an_edit_split_over_two_calls_marks_the_same_texels():
+    """The seeded brush and scattered voxels on the 2048^2 hard and 512^2
+    cone gBC: its superbricks dealt to two calls, each superbrick whole in
+    one, a quarter of the first call's voxels repeated in the second, each
+    call shuffled, leave gBC as one call in the given order does, every
+    value; each superbrick's rectangle is that of the one call."""
+    rng = np.random.default_rng(23)
+    pos = np.concatenate([_ball((30, 20, 40)), _ball((9, 50, 60), 2),
+                          rng.integers(0, 64, (16, 3))])
+    order, offsets = sunshadow.superbrick_groups(pos)
+    first = rng.random(len(offsets) - 1) < 0.5
+    half = np.repeat(first, np.diff(offsets))[np.argsort(order)]
+    a_pos = rng.permutation(pos[half])
+    b_pos = rng.permutation(np.concatenate(
+        [pos[~half], a_pos[:len(a_pos) // 4]]))
+    e1, e2, _ = sunshadow.sun_basis(SUN[:3])
+    for g, tan in ((sunshadow.GRID, 0.0),
+                   (sunshadow.GRID_DRAGGING, sunshadow.CONE_TAN)):
+        a0, b0, ts = sunshadow.grid_frame(e1, e2, 64, g)
+        base = torch.from_numpy(
+            rng.uniform(-50, 50, (g * g, 2)).astype(np.float32))
+        one, two = base.clone(), base.clone()
+        rects = sunshadow.invalidate_texels(one, e1, e2, pos, 64, a0, b0,
+                                            ts, tan, want_rects=True)
+        for part in (a_pos, b_pos):
+            sunshadow.invalidate_sun_texels((two, a0, b0, ts), e1, e2, part,
+                                            64, tan)
+        assert torch.equal(one, two)
+        assert int((one != base).any(1).sum()) > 100
+        by_brick = {tuple(b): r for b, r in zip(
+            np.unique(pos >> 3, axis=0).tolist(), rects.tolist())}
+        rects_a = sunshadow.texel_rects(e1, e2, a_pos, 64, g, a0, b0, ts,
+                                        tan)
+        bricks_a = np.unique(a_pos >> 3, axis=0).tolist()
+        assert [by_brick[tuple(b)] for b in bricks_a] == rects_a.tolist()
+
+
+def test_superbrick_groups_select_np_unique_groups():
+    """superbrick_groups' offsets into its order select, group by group,
+    the positions np.unique(pos >> 3, axis=0)'s inverse selects, in
+    np.unique's order and in their given order within a group: a seeded
+    brush, scattered voxels in a 1024^3 world, duplicates, one position,
+    none."""
+    rng = np.random.default_rng(29)
+    cases = [np.concatenate([_ball((511, 314, 272)),
+                             rng.integers(0, 1024, (40, 3)),
+                             rng.integers(0, 16, (30, 3))]),
+             np.array([[5, 900, 3]]), np.zeros((0, 3), np.int64)]
+    cases.append(np.concatenate([cases[0], cases[0][::3]]))
+    for pos in cases:
+        order, offsets = sunshadow.superbrick_groups(pos)
+        assert offsets[0] == 0 and offsets[-1] == len(pos) == len(order)
+        if not len(pos):
+            assert len(offsets) == 1
+            continue
+        sbs, inv = np.unique(pos >> 3, axis=0, return_inverse=True)
+        inv = inv.reshape(-1)
+        assert len(offsets) == len(sbs) + 1
+        for k in range(len(sbs)):
+            np.testing.assert_array_equal(
+                pos[order[offsets[k]:offsets[k + 1]]], pos[inv == k])
 
 
 # ---- the Renderer --------------------------------------------------------

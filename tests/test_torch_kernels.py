@@ -123,6 +123,7 @@ def test_the_binding_has_a_launcher_per_kernel():
     spell = {ctypes.c_void_p: ("void*", "as_ptr"),
              ctypes.c_int: ("int", "as_int"),
              ctypes.c_float: ("float", "as_float"),
+             ctypes.c_double: ("double", "as_double"),
              ctypes.c_uint64: ("unsigned long long", "as_u64")}
     for name, k in kernels.KERNELS.items():
         c = [spell[t] for t in k.argtypes]
@@ -138,7 +139,7 @@ def test_the_binding_has_a_launcher_per_kernel():
 
 # the C spelling of each ctypes argument type in csrc's entry points
 _C_TYPES = {"void*": ctypes.c_void_p, "int": ctypes.c_int,
-            "float": ctypes.c_float,
+            "float": ctypes.c_float, "double": ctypes.c_double,
             "unsigned long long": ctypes.c_uint64}
 
 

@@ -17,8 +17,8 @@ from vvr_tpu_torch.ops.jump import trace_jump_plain
 from vvr_tpu_torch.ops.raygen import camera_rays
 from vvr_tpu_torch.render.scene import build_scene
 from vvr_tpu_torch.tools import (bank_model, frame_digest, k14_split,
-                                 lane_use, profile_frame, profile_gather,
-                                 sass_count)
+                                 kernel_ab, lane_use, profile_frame,
+                                 profile_gather, sass_count)
 from vvr_tpu_torch.utils.camera import Camera
 from vvr_tpu_torch.world.faces import extract_merged_faces
 
@@ -71,7 +71,8 @@ def test_frame_digest_needs_cuda(capsys, monkeypatch):
     assert "no CUDA device" in capsys.readouterr().err
 
 
-@pytest.mark.parametrize("tool", [profile_gather], ids=["profile_gather"])
+@pytest.mark.parametrize("tool", [profile_gather, kernel_ab],
+                         ids=["profile_gather", "kernel_ab"])
 def test_measuring_tools_need_cuda(tool, capsys, monkeypatch):
     monkeypatch.setattr(sys, "path", list(sys.path))
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)

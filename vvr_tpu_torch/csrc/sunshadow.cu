@@ -121,6 +121,10 @@
 #include "sunmask.cuh"
 #include "surface.cuh"
 
+#include <algorithm>
+#include <numeric>
+#include <vector>
+
 #define VVR_NEG (-3e38f)
 // K11 (ops/sunshadow.py SUN_FPB, SUN_MAX_BINS, SUN_COARSE, SUN_BIN_MAX):
 // faces per block (one a thread) of its setup and bin kernels; the most
@@ -1096,32 +1100,244 @@ extern "C" int vvr_masked_shadow_pyramid(
 
 // K18 invalidate_texels: the sun grids' repair after a world edit. Replaces
 // vvr_tpu/ops/sunshadow.py:460 `invalidate_sun_texels` (ops/sunshadow.py
-// wraps it): every texel of each rectangle takes (NEG, 3e38), certain of
-// neither shadow nor light, so the lanes landing there run the exact DDA
-// against the patched grid. The host forms the rectangles (i0, i1, j0, j1),
-// inclusive, one per edited superbrick, in float64 as the JAX function
-// does; rectangles may overlap (both write the same values). One block a
-// rectangle, its threads striding over the rectangle's texels, rows of i
-// adjacent in memory.
-__global__ void __launch_bounds__(256)
-vvr_invalidate_texels_kernel(float2* __restrict__ gbc, int grid,
-                             const int4* __restrict__ rects) {
-    const int4 r = rects[blockIdx.x];
+// wraps it): every texel of each edited superbrick's rectangle takes
+// (NEG, 3e38), certain of neither shadow nor light, so the lanes landing
+// there run the exact DDA against the patched grid.
+//
+// The card forms the rectangles itself, from the edited positions. The
+// entry point groups the (K, 3) positions by 8^3 superbrick on the host in
+// C++ (a stable sort by the superbrick's key, as ops/sunshadow.py
+// superbrick_groups orders them in numpy), writes the R + 1 CSR offsets
+// and the positions in group order as int32 into a pinned staging buffer,
+// makes one non-blocking copy of it to the card's buffer and one launch;
+// both buffers are kept, per device, from call to call, in a ring of
+// VVR_INV_SLOTS pairs, so a call waits for none of the launches before it
+// unless the ring is full of launches still queued. One block
+// a superbrick: its threads project their voxels' eight cube corners on e1
+// and e2 in float64, each as (x e_x + y e_y) + z e_z with every product and
+// sum rounded on its own (__dmul_rn, __dadd_rn: no contraction, whatever
+// the flags), and reduce the min and max of both (warp shuffles, then
+// shared memory; min and max are exact, so the order does not matter). One
+// thread forms the rectangle (i0, i1, j0, j1), inclusive, with texel_rects'
+// formula, floor((p -/+ grow - a0) / ts) -/+ 1 in float64, clamped into the
+// grid (a rectangle off the grid comes out empty), and writes it to
+// `rects` where given; then the block fills it, its threads striding over
+// the texels, rows of i adjacent in memory. Rectangles may overlap: both
+// write the same values. The host's plain version (texel_rects) computes
+// the same expressions in numpy float64, so the rectangles are equal bit
+// for bit.
+//
+// What bounds it on an H100: nothing of the card's; its few kilobytes are
+// a launch's worth of work (1.37-1.50 us of device time before this
+// design, H100 80GB HBM3 at 700 W, PERF.md section 6), while the host's
+// rectangles took 0.5-0.7 ms an edit. The design takes that host work off
+// the edit: no per-superbrick Python loop, no BLAS product (whose rounding
+// depended on the slice it was given), and no numpy or torch call between
+// the positions and the launch, whose per-call costs (tens of us a call on
+// that machine's host) would outweigh the kernel.
+
+#define VVR_INV_THREADS 128
+
+struct VvrTexelFrame {
+    double e1x, e1y, e1z, e2x, e2y, e2z;   // the sun basis
+    double a0, b0, ts;                     // the grid's origin and texel
+    double grow;                           // the build's largest margin
+    int grid;
+};
+
+static __device__ __forceinline__ double vvr_proj64(double x, double y,
+                                                    double z, double ex,
+                                                    double ey, double ez) {
+    return __dadd_rn(__dadd_rn(__dmul_rn(x, ex), __dmul_rn(y, ey)),
+                     __dmul_rn(z, ez));
+}
+
+// floor(q) + off clamped into [lo, hi], as texel_rects clips it
+static __device__ __forceinline__ int vvr_texel_edge(double q, double off,
+                                                     int lo, int hi) {
+    return (int)fmin(fmax(floor(q) + off, (double)lo), (double)hi);
+}
+
+__global__ void __launch_bounds__(VVR_INV_THREADS)
+vvr_invalidate_texels_kernel(float2* __restrict__ gbc, VvrTexelFrame f,
+                             const int* __restrict__ offs,
+                             const int* __restrict__ pos,
+                             int4* __restrict__ rects) {
+    __shared__ double red[4][VVR_INV_THREADS / 32];
+    __shared__ int4 rect;
+    const int lo = offs[blockIdx.x], hi = offs[blockIdx.x + 1];
+    // (min, -max) of the projections on e1, then on e2
+    double m[4] = {INFINITY, INFINITY, INFINITY, INFINITY};
+    for (int v = lo + (int)threadIdx.x; v < hi; v += VVR_INV_THREADS) {
+        const double x = pos[3 * v], y = pos[3 * v + 1], z = pos[3 * v + 2];
+        for (int c = 0; c < 8; ++c) {
+            const double cx = x + (c >> 2), cy = y + ((c >> 1) & 1),
+                         cz = z + (c & 1);
+            const double pa = vvr_proj64(cx, cy, cz, f.e1x, f.e1y, f.e1z);
+            const double pb = vvr_proj64(cx, cy, cz, f.e2x, f.e2y, f.e2z);
+            m[0] = fmin(m[0], pa);
+            m[1] = fmin(m[1], -pa);
+            m[2] = fmin(m[2], pb);
+            m[3] = fmin(m[3], -pb);
+        }
+    }
+    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+    for (int k = 0; k < 4; ++k) {
+        for (int s = 16; s > 0; s >>= 1) {
+            m[k] = fmin(m[k], __shfl_xor_sync(0xffffffffu, m[k], s));
+        }
+        if (lane == 0) red[k][warp] = m[k];
+    }
+    __syncthreads();
+    if (threadIdx.x == 0) {
+        for (int k = 0; k < 4; ++k) {
+            for (int w = 1; w < VVR_INV_THREADS / 32; ++w) {
+                m[k] = fmin(m[k], red[k][w]);
+            }
+        }
+        const double g = f.grow;
+        const int4 r = make_int4(
+            vvr_texel_edge(__ddiv_rn(__dsub_rn(__dsub_rn(m[0], g), f.a0),
+                                     f.ts), -1.0, 0, f.grid),
+            vvr_texel_edge(__ddiv_rn(__dsub_rn(__dadd_rn(-m[1], g), f.a0),
+                                     f.ts), 1.0, -1, f.grid - 1),
+            vvr_texel_edge(__ddiv_rn(__dsub_rn(__dsub_rn(m[2], g), f.b0),
+                                     f.ts), -1.0, 0, f.grid),
+            vvr_texel_edge(__ddiv_rn(__dsub_rn(__dadd_rn(-m[3], g), f.b0),
+                                     f.ts), 1.0, -1, f.grid - 1));
+        if (rects != nullptr) rects[blockIdx.x] = r;
+        rect = r;
+    }
+    __syncthreads();
+    const int4 r = rect;
     const int w = r.y - r.x + 1, h = r.w - r.z + 1;
     const int n = (w > 0 && h > 0) ? w * h : 0;   // empty off the grid
-    for (int k = threadIdx.x; k < n; k += blockDim.x) {
+    for (int k = threadIdx.x; k < n; k += VVR_INV_THREADS) {
         const int j = r.z + k / w;
         const int i = r.x + k - (k / w) * w;
-        gbc[(size_t)j * grid + i] = make_float2(-3e38f, 3e38f);
+        gbc[(size_t)j * f.grid + i] = make_float2(-3e38f, 3e38f);
     }
 }
 
-// gbc: (grid^2, 2) float32; rects: (n_rects, 4) int32 inside the grid
-extern "C" int vvr_invalidate_texels(void* gbc, int grid, const void* rects,
-                                     int n_rects, void* stream) {
-    if (grid <= 0 || n_rects < 0) return (int)cudaErrorInvalidValue;
-    if (n_rects == 0) return (int)cudaSuccess;
-    vvr_invalidate_texels_kernel<<<n_rects, 256, 0, (cudaStream_t)stream>>>(
-        (float2*)gbc, grid, (const int4*)rects);
-    return (int)cudaGetLastError();
+// the groups' buffers of a device, in a ring of slots: each a pinned
+// buffer on the host and one on the card (offsets, then positions, int32)
+// and the event after the last launch that read them; a call takes the
+// next slot and writes it only once that launch is done (a wait only when
+// VVR_INV_SLOTS calls in a row are still queued on the card), so no launch
+// reads a buffer while it changes. The buffers live as long as the process
+#define VVR_INV_DEVICES 64
+#define VVR_INV_SLOTS 3
+struct VvrInvSlot {
+    int* host = nullptr;
+    int* card = nullptr;
+    size_t cap = 0;                     // ints
+    cudaEvent_t done = nullptr;
+};
+struct VvrInvStage {
+    VvrInvSlot slot[VVR_INV_SLOTS];
+    int next = 0;
+};
+static VvrInvStage vvr_inv_stage[VVR_INV_DEVICES];
+
+// gbc: (grid^2, 2) float32; positions: (k, 3) int64 on the host, each
+// coordinate of magnitude below 2^23; rects: (k, 4) int32 on the card, or
+// null: the first R rows take the rectangles; n_rects: one int on the
+// host that takes R, or null; the sun basis (e1, e2), the grid frame (a0,
+// b0, ts) and the margin grow in float64
+extern "C" int vvr_invalidate_texels(void* gbc, int grid,
+                                     const void* positions, int k,
+                                     double e1x, double e1y,
+                                     double e1z, double e2x, double e2y,
+                                     double e2z, double a0, double b0,
+                                     double ts, double grow, void* rects,
+                                     void* n_rects, void* stream) {
+    if (grid <= 0 || grid > 46340 || k < 0 || !(ts > 0.0)
+            || (k > 0 && positions == nullptr)) {
+        return (int)cudaErrorInvalidValue;
+    }
+    if (n_rects != nullptr) *(int*)n_rects = 0;
+    if (k == 0) return (int)cudaSuccess;
+    const long long* p = (const long long*)positions;
+    // the superbrick keys, ordered as (x, y, z); a stable order by key
+    std::vector<long long> key(k);
+    for (int v = 0; v < k; ++v) {
+        for (int c = 0; c < 3; ++c) {
+            if (p[3 * v + c] <= -(1LL << 23) || p[3 * v + c] >= (1LL << 23)) {
+                return (int)cudaErrorInvalidValue;
+            }
+        }
+        key[v] = (p[3 * v] >> 3) * (1LL << 42) + (p[3 * v + 1] >> 3)
+                 * (1LL << 21) + (p[3 * v + 2] >> 3);
+    }
+    std::vector<int> order(k);
+    std::iota(order.begin(), order.end(), 0);
+    std::stable_sort(order.begin(), order.end(),
+                     [&key](int a, int b) { return key[a] < key[b]; });
+    int r = 1;
+    for (int v = 1; v < k; ++v) r += key[order[v]] != key[order[v - 1]];
+    const size_t need = (size_t)r + 1 + 3 * (size_t)k;
+    int dev = 0;
+    cudaError_t err = cudaGetDevice(&dev);
+    if (err != cudaSuccess) return (int)err;
+    if (dev < 0 || dev >= VVR_INV_DEVICES) return (int)cudaErrorInvalidDevice;
+    VvrInvStage& ring = vvr_inv_stage[dev];
+    VvrInvSlot& st = ring.slot[ring.next];
+    ring.next = (ring.next + 1) % VVR_INV_SLOTS;
+    if (st.done == nullptr) {
+        err = cudaEventCreateWithFlags(&st.done, cudaEventDisableTiming);
+        if (err != cudaSuccess) {
+            st.done = nullptr;
+            return (int)err;
+        }
+    } else {                            // the last launch that read them
+        err = cudaEventQuery(st.done);
+        if (err == cudaErrorNotReady) {  // not an error: clear, then wait
+            (void)cudaGetLastError();
+            err = cudaEventSynchronize(st.done);
+        }
+        if (err != cudaSuccess) return (int)err;
+    }
+    if (need > st.cap) {
+        cudaFreeHost(st.host);
+        cudaFree(st.card);
+        st.host = nullptr;
+        st.card = nullptr;
+        st.cap = 0;
+        const size_t cap = std::max(need, (size_t)4096);
+        err = cudaHostAlloc((void**)&st.host, cap * sizeof(int),
+                            cudaHostAllocPortable);
+        if (err == cudaSuccess) {
+            err = cudaMalloc((void**)&st.card, cap * sizeof(int));
+        }
+        if (err != cudaSuccess) {
+            cudaFreeHost(st.host);
+            st.host = nullptr;
+            return (int)err;
+        }
+        st.cap = cap;
+    }
+    int* offs = st.host;
+    int* pos = st.host + r + 1;
+    int g = 0;
+    offs[0] = 0;
+    for (int v = 0; v < k; ++v) {
+        if (v > 0 && key[order[v]] != key[order[v - 1]]) offs[++g] = v;
+        for (int c = 0; c < 3; ++c) {
+            pos[3 * v + c] = (int)p[3 * order[v] + c];
+        }
+    }
+    offs[r] = k;
+    const cudaStream_t s = (cudaStream_t)stream;
+    err = cudaMemcpyAsync(st.card, st.host, need * sizeof(int),
+                          cudaMemcpyHostToDevice, s);
+    if (err != cudaSuccess) return (int)err;
+    const VvrTexelFrame f = {e1x, e1y, e1z, e2x, e2y, e2z,
+                             a0,  b0,  ts,  grow, grid};
+    vvr_invalidate_texels_kernel<<<r, VVR_INV_THREADS, 0, s>>>(
+        (float2*)gbc, f, st.card, st.card + r + 1, (int4*)rects);
+    const cudaError_t launched = cudaGetLastError();
+    err = cudaEventRecord(st.done, s);   // after the copy, launched or not
+    if (launched != cudaSuccess) return (int)launched;
+    if (err == cudaSuccess && n_rects != nullptr) *(int*)n_rects = r;
+    return (int)err;
 }

@@ -46,14 +46,14 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 PTXAS_VERBOSE = ("-Xptxas", "-v")
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-_U64 = ctypes.c_uint64
+_U64, _D = ctypes.c_uint64, ctypes.c_double
 
 
 @dataclasses.dataclass(frozen=True)
 class Kernel:
     symbol: str        # C entry point
-    argtypes: tuple    # its argument types (pointer, int, float, uint64 as
-    #                    ctypes types), the stream last
+    argtypes: tuple    # its argument types (pointer, int, float, uint64,
+    #                    double as ctypes types), the stream last
     source: str        # file in the repository
     replaces: str      # JAX pass or Pallas kernel it ports, file:line
     path: str = "frame"  # the entry point that runs it: frame, gather,
@@ -194,7 +194,7 @@ KERNELS = {
         "vvr_svt_update_brick", (_P, _I, _I, _I, _I, _I, _P, _P),
         "vvr_tpu_torch/csrc/svt.cu", "vvr_tpu/world/bricks.py:94"),
     "invalidate_texels": Kernel(
-        "vvr_invalidate_texels", (_P, _I, _P, _I, _P),
+        "vvr_invalidate_texels", (_P, _I, _P, _I) + (_D,) * 10 + (_P, _P, _P),
         "vvr_tpu_torch/csrc/sunshadow.cu", "vvr_tpu/ops/sunshadow.py:460"),
     # setup from cold (world/generator.py): the terrain's height field
     "height_field": Kernel(
@@ -251,7 +251,7 @@ def _nvcc() -> str:
 
 # the CPython binding's C spelling and converter of each argument type
 _C_ARGS = {_P: ("void*", "as_ptr"), _I: ("int", "as_int"),
-           _F: ("float", "as_float"),
+           _F: ("float", "as_float"), _D: ("double", "as_double"),
            _U64: ("unsigned long long", "as_u64")}
 MODULE = "vvr_launch"
 _BINDING_HEAD = """// generated by vvr_tpu_torch/kernels.py from KERNELS
@@ -284,6 +284,10 @@ static int as_float(PyObject* o, float* v) {
     *v = (float)x;
     return 1;
 }
+static int as_double(PyObject* o, double* v) {
+    *v = PyFloat_AsDouble(o);
+    return !(*v == -1.0 && PyErr_Occurred());
+}
 extern "C" const char* vvr_error_string(int err);
 static PyObject* error_string(PyObject*, PyObject* arg) {
     const long e = PyLong_AsLong(arg);
@@ -297,7 +301,8 @@ def binding_source() -> str:
     """C++ of the CPython binding: for each kernel a METH_FASTCALL function
     `name(*args, stream)` that converts each argument as its ctypes type
     would (a pointer from an int, a C int with a range check, a float, an
-    unsigned 64-bit int) and returns the entry point's error code."""
+    unsigned 64-bit int, a double) and returns the entry point's error
+    code."""
     out = [_BINDING_HEAD]
     table = []
     for name, k in KERNELS.items():

@@ -8,7 +8,8 @@ in the last ulp or two on about half of the directions: XLA folds
 multiply-adds.
 
 On a CUDA device `camera_rays` launches K13 once, with the camera as float
-arguments: no host-to-device copy and no other launch. K13 is bit-exact
+arguments: no host-to-device copy and no other launch. Each K13 block
+writes its span of 1024 rays whole, as 16-byte stores. K13 is bit-exact
 against `generate_rays` run on the CPU (its divisions are divisions and its
 sqrtf is correctly rounded without fast math), so K9's raster keys and
 K12's starts, which come from `d`, do not depend on where the rays were

@@ -505,41 +505,72 @@ def sun_grids(faces, e1, e2, s, size: int, grid: int = GRID,
     return gbc, a0, b0, ts
 
 
+# superbrick_groups' key of a superbrick (x, y, z), each of magnitude
+# below 2^20: ordered as (x, y, z) lexicographically
+_SB_KEY = np.array([1 << 42, 1 << 21, 1], np.int64)
+
+
+def superbrick_groups(positions) -> tuple[np.ndarray, np.ndarray]:
+    """(order, offsets): the (K, 3) int positions (coordinates of magnitude
+    below 2^23) grouped by 8^3 superbrick without a Python loop. Group k,
+    the k-th superbrick in np.unique's order (x, then y, then z), holds
+    positions[order[offsets[k]:offsets[k + 1]]], in their given order;
+    offsets has R + 1 entries for R superbricks."""
+    pos = np.asarray(positions, np.int64).reshape(-1, 3)
+    key = (pos >> 3) @ _SB_KEY
+    order = key.argsort(kind="stable")
+    if not len(pos):
+        return order, np.zeros(1, np.int64)
+    ks = key[order]
+    return order, np.concatenate(
+        ([0], np.flatnonzero(ks[1:] != ks[:-1]) + 1, [len(pos)]))
+
+
+# a voxel's eight cube corners, x outermost
+_CORNERS = np.array([[x, y, z] for x in (0, 1) for y in (0, 1)
+                     for z in (0, 1)], np.int64)
+
+
+def texel_grow(size: int, cone_tan: float = 0.0) -> float:
+    """The largest margin the sun grids' build applies (SAFE, and with
+    cone_tan > 0 the cone's reach over the world's whole depth)."""
+    return SAFE + (cone_tan * (size * math.sqrt(3.0) + S_SLACK)
+                   if cone_tan > 0.0 else 0.0)
+
+
 def texel_rects(e1, e2, positions, size: int, grid: int, a0, b0, ts,
                 cone_tan: float = 0.0) -> np.ndarray:
     """(R, 4) int32 texel rectangles (i0, i1, j0, j1), inclusive, one per
     8^3 superbrick holding an edited voxel of `positions` ((K, 3) int x, y,
-    z): the projection of its edited voxels' cubes grown by the largest
-    margin the build applies (SAFE, and with cone_tan > 0 the cone's reach
-    over the world's whole depth), plus a texel, clamped to the grid.
-    Host float64, as vvr_tpu/ops/sunshadow.py:486-509 forms them."""
-    e1n = np.asarray(e1, np.float64)
-    e2n = np.asarray(e2, np.float64)
-    a0f, b0f, tsf = float(a0), float(b0), float(ts)
-    grow = SAFE + (cone_tan * (size * math.sqrt(3.0) + S_SLACK)
-                   if cone_tan > 0.0 else 0.0)
-    pos = np.atleast_2d(np.asarray(positions, np.int64))
-    sbs, inv = np.unique(pos >> 3, axis=0, return_inverse=True)
-    inv = inv.reshape(-1)
-    offs = np.array([[x, y, z] for x in (0, 1) for y in (0, 1)
-                     for z in (0, 1)], np.float64)
-    rects = np.zeros((len(sbs), 4), np.int32)
-    for k in range(len(sbs)):
-        sel = pos[inv == k].astype(np.float64)
-        cs = (sel[:, None, :] + offs[None]).reshape(-1, 3)   # cube corners
-        pa = cs @ e1n
-        pb = cs @ e2n
-        rects[k] = (
-            max(int(np.floor((pa.min() - grow - a0f) / tsf)) - 1, 0),
-            min(int(np.floor((pa.max() + grow - a0f) / tsf)) + 1, grid - 1),
-            max(int(np.floor((pb.min() - grow - b0f) / tsf)) - 1, 0),
-            min(int(np.floor((pb.max() + grow - b0f) / tsf)) + 1, grid - 1))
-    return rects
+    z), in superbrick_groups' order: the projection of its edited voxels'
+    cubes grown by texel_grow, plus a texel, clamped into the grid (a
+    rectangle off the grid comes out empty: i0 > i1 or j0 > j1). Host
+    float64, as vvr_tpu/ops/sunshadow.py:486-509 forms them, but each
+    corner's projection is (x e_x + y e_y) + z e_z, every product and sum
+    rounded on its own: the JAX function's BLAS product rounds in an order
+    that depends on the CPU's kernel and the slice, K18 in this one."""
+    pos = np.asarray(positions, np.int64).reshape(-1, 3)
+    order, offsets = superbrick_groups(pos)
+    if not len(order):
+        return np.zeros((0, 4), np.int32)
+    grow = texel_grow(size, cone_tan)
+    tsf = float(ts)
+    cs = (pos[order][:, None, :] + _CORNERS[None]).astype(np.float64)
+    edges = []
+    for e, origin in ((e1, a0), (e2, b0)):
+        e = np.asarray(e, np.float64)
+        p = (cs[..., 0] * e[0] + cs[..., 1] * e[1]) + cs[..., 2] * e[2]
+        lo = np.minimum.reduceat(p.min(1), offsets[:-1])
+        hi = np.maximum.reduceat(p.max(1), offsets[:-1])
+        o = float(origin)
+        edges += [np.clip(np.floor((lo - grow - o) / tsf) - 1, 0, grid),
+                  np.clip(np.floor((hi + grow - o) / tsf) + 1, -1, grid - 1)]
+    return np.stack(edges, 1).astype(np.int32)
 
 
 def invalidate_texels_plain(gbc, rects: np.ndarray) -> None:
-    """Plain torch K18: (NEG, 3e38) into every texel of each rectangle
-    of gBC (grid^2, 2), in place."""
+    """Plain torch K18's fill: (NEG, 3e38) into every texel of each
+    rectangle of gBC (grid^2, 2), in place."""
     g = math.isqrt(gbc.shape[0])
     view = gbc.view(g, g, 2)
     for i0, i1, j0, j1 in np.asarray(rects).tolist():
@@ -547,22 +578,44 @@ def invalidate_texels_plain(gbc, rects: np.ndarray) -> None:
         view[j0:j1 + 1, i0:i1 + 1, 1] = 3e38
 
 
-def invalidate_texels(gbc, rects: np.ndarray) -> None:
-    """(NEG, 3e38) into every texel of the (R, 4) rectangles (i0, i1, j0,
-    j1) of gBC (grid^2, 2), in place. CUDA: K18, after one copy of the
-    rectangles to the card."""
-    if not kernels.on_cuda(gbc):
-        invalidate_texels_plain(gbc, rects)
-        return
-    kernels.check_cuda(gbc)
+def invalidate_texels(gbc, e1, e2, positions, size: int, a0, b0, ts,
+                      cone_tan: float = 0.0, want_rects: bool = False):
+    """(NEG, 3e38) into every texel of texel_rects' rectangles of gBC
+    (grid^2, 2) of basis (e1, e2) and frame (a0, b0, ts), in place, after
+    edits at `positions` ((K, 3) int, each coordinate of magnitude below
+    2^23). With `want_rects`, returns the (R, 4) int32 rectangles on gBC's
+    device (else None). CPU: texel_rects, then invalidate_texels_plain.
+    CUDA: K18's entry point groups the positions by superbrick on the host
+    (in C++, in superbrick_groups' order), copies the groups once,
+    non-blocking, from pinned memory (a ring of buffers, so the call
+    waits for no earlier launch still queued), and launches K18 once,
+    which forms the rectangles on the card, bit for bit as texel_rects
+    does, and fills them; an edit without positions launches nothing."""
     g = math.isqrt(gbc.shape[0])
+    if not kernels.on_cuda(gbc):
+        rects = texel_rects(e1, e2, positions, size, g, a0, b0, ts,
+                            cone_tan)
+        invalidate_texels_plain(gbc, rects)
+        return torch.from_numpy(rects) if want_rects else None
+    kernels.check_cuda(gbc)
     if gbc.dtype != F32 or gbc.shape != (g * g, 2):
         raise ValueError("gBC must be float32 (grid^2, 2)")
-    if len(rects):
-        r = torch.from_numpy(np.ascontiguousarray(rects, np.int32)).to(
-            gbc.device)
-        kernels.launch("invalidate_texels", gbc.device, gbc.data_ptr(), g,
-                       r.data_ptr(), len(rects))
+    pos = np.ascontiguousarray(positions, np.int64).reshape(-1, 3)
+    if not len(pos):                   # no superbrick: no launch
+        return (torch.zeros((0, 4), dtype=torch.int32, device=gbc.device)
+                if want_rects else None)
+    rects = n_rects = None
+    if want_rects:
+        rects = torch.empty((len(pos), 4), dtype=torch.int32,
+                            device=gbc.device)
+        n_rects = np.zeros(1, np.int32)
+    kernels.launch("invalidate_texels", gbc.device, gbc.data_ptr(), g,
+                   pos.ctypes.data, len(pos), *map(float, e1),
+                   *map(float, e2), float(a0), float(b0), float(ts),
+                   texel_grow(size, cone_tan),
+                   0 if rects is None else rects.data_ptr(),
+                   0 if n_rects is None else n_rects.ctypes.data)
+    return None if rects is None else rects[:int(n_rects[0])]
 
 
 def invalidate_sun_texels(grids, e1, e2, positions, size: int,
@@ -577,9 +630,7 @@ def invalidate_sun_texels(grids, e1, e2, positions, size: int,
     no query elsewhere can see the change. gBC is written in place
     (invalidate_texels: K18 on the card) and the grids are returned."""
     gbc, a0, b0, ts = grids
-    invalidate_texels(gbc, texel_rects(e1, e2, positions, size,
-                                       math.isqrt(gbc.shape[0]), a0, b0, ts,
-                                       cone_tan))
+    invalidate_texels(gbc, e1, e2, positions, size, a0, b0, ts, cone_tan)
     return grids
 
 

@@ -48,6 +48,7 @@ import numpy as np
 import torch
 
 from vvr_tpu_torch.ops import gather
+from vvr_tpu_torch.tools.profile_frame import cuda_ms
 
 N = 1 << 21
 CHAIN = gather.CHAIN
@@ -122,21 +123,6 @@ PLAIN = {"gather_chain": gather.gather_chain_plain,
          "gather_chain_shared": gather.gather_chain_plain,
          "gather_onehot": gather.gather_onehot_plain,
          "gather_rows": gather.gather_rows_plain}
-
-
-def cuda_ms(fn, reps: int) -> float:
-    """Mean device time of fn() over `reps` runs after one warm-up run
-    (CUDA events on the current stream)."""
-    fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / reps
 
 
 def bound_ms(nbytes: float, ops: float, peak: str) -> tuple[float, str]:

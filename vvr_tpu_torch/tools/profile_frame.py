@@ -339,6 +339,112 @@ def trace_events(trace_path: pathlib.Path, run):
             and e.get("cat") in DEVICE_CATS]
 
 
+# The timing helpers of the port's measurements (chip_smoke.py,
+# tools/kernel_ab.py, tools/microbench_gather.py).
+
+# device cycles the card spins at the start of a profiled window of
+# `device_us` (about 5 ms), so its launches run once the trace is live
+WINDOW_SPIN_CYCLES = 10_000_000
+# bytes written between the timed launches of `flushed_us`: more than the
+# H100's 50 MB L2, so each launch finds its inputs in device memory
+L2_FLUSH_BYTES = 128 << 20
+
+
+def device_us(fn, parts, reps: int, trace_path, each: bool = False,
+              tries: int = 3, before=None) -> float:
+    """Device time of one fn() call (torch.profiler), from the trace of
+    `reps` calls after a warm-up, before() ahead of each call where given
+    (its device work named by none of `parts`): the mean launch of the
+    kernel whose name holds every part of `parts`, fn() launching it once;
+    with `each`, fn() launching one kernel whose name holds each part, the
+    sum of their mean launches. The profiler can drop a window's first
+    launches (a window of short kernels can lose them all), so the calls
+    queue behind a device spin, and a window that misses a kernel is run
+    again, up to `tries` times; after that the time is the mean of CUDA
+    event pairs around each call, and the line printed says so."""
+    fn()
+
+    def run():
+        torch.cuda._sleep(WINDOW_SPIN_CYCLES)
+        for _ in range(reps):
+            if before is not None:
+                before()
+            fn()
+        torch.cuda.synchronize()   # every launch ends inside the window
+    groups = [(p,) for p in parts] if each else [parts]
+    for attempt in range(tries):
+        events = trace_events(trace_path, run)
+        durs = [[e["dur"] for e in events if all(p in e["name"] for p in g)]
+                for g in groups]
+        missing = [g for g, d in zip(groups, durs) if not d]
+        if not missing:
+            return sum(sum(d) / len(d) for d in durs)
+        print(f"device_us: window {attempt + 1} of {tries}: the profiler "
+              f"recorded no launch of {missing}")
+    us = cuda_event_us(fn, reps, before)
+    print(f"device_us: {parts} timed by CUDA events instead: {us:.2f} us "
+          f"a call")
+    return us
+
+
+def cuda_ms(fn, reps: int) -> float:
+    """Mean time in ms of one fn() call between CUDA events around `reps`
+    calls back to back, after one warm-up call (the host's launch path
+    included where it is slower than the card)."""
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def cuda_event_us(fn, reps: int, before=None) -> float:
+    """Mean time in us of one fn() call between a CUDA event pair, after
+    one warm-up; before() runs ahead of each pair, outside it."""
+    fn()
+    total = 0.0
+    for _ in range(reps):
+        if before is not None:
+            before()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        total += start.elapsed_time(end)
+    return total / reps * 1e3
+
+
+def flushed_us(fn, reps: int, dev) -> float:
+    """Mean time in us of one fn() launch with the L2 cache flushed before
+    it: a CUDA event pair around each launch, L2_FLUSH_BYTES of another
+    buffer written in between (outside the pair), after one warm-up. The
+    time of a kernel whose inputs a back-to-back loop keeps in L2."""
+    scrap = torch.empty(L2_FLUSH_BYTES // 4, dtype=torch.float32,
+                        device=dev)
+    return cuda_event_us(fn, reps, before=lambda: scrap.fill_(1.0))
+
+
+def host_us(fn, reps: int) -> float:
+    """Mean host time in us of one fn() call over `reps` calls after a
+    warm-up (host clock; the card synchronized before and after, outside
+    the time)."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    us = (time.perf_counter() - t0) / reps * 1e6
+    torch.cuda.synchronize()
+    return us
+
+
 def sky_window(renderer, cam, trace_path) -> None:
     """K3 per sky bucket: SKY_BUCKETS pairs of synchronized frames, the
     first of each at a new 0.25 s bucket (the sky is rebuilt), the second
