@@ -150,8 +150,9 @@
    (C6 at 1024^3); the paged K14 in its three modes as in 4., and its cone
    gate's hits equal to its DDA mode's; the paged K15 at every bounce of
    config 4's knobs and of the lights frame (BounceCheck); rows for the
-   kernels line (K16, paged K12 on the raster hits, paged K14's cone
-   gate, paged K15 at the lights frame's bounce 0) and the peak device
+   kernels line (K16 on the primary and on the shadow rays, paged K12 on
+   the raster hits, paged K14's cone gate, paged K15 at the lights frame's
+   bounce 0) and the peak device
    memory (run before 6.);
 8. the dynamic world (ROADMAP A12; tools/bench_scale.py:61-150), on a
    copy of the 256^3 world's chunks (the jump grid) and then on config
@@ -179,45 +180,48 @@
    device time, the whole `invalidate_sun_texels` call and its library
    call `index_put_` of the texel list, in one call);
 9. the brick pyramid (ROADMAP A13, `traversal="pyramid"`; run before 7.)
-   over the 256^3 scene: builds the pyramid on the card (timed) and holds
-   it to the CPU build row for row; renders the frames of PYR_PHASES (the
-   default knobs, the DDA frame, soft cone and DDA, pixelated, config 4's
-   knobs, the lights frame, the overlap AO frame and the five debug
-   heatmaps) through `Renderer.render`, counters reset before each and
-   read after: fails unless each launched as that table says (K19 for
-   every DDA, the pyramid forms of K12, K14 and K15, K21 once a debug
-   frame, no bloom there, no K1), K11 once where the frame classifies,
-   K3 once, and unless every pyramid form ran at the pyramid's own cap
-   (traversal_max_steps) and K19 walked the any masks by 8x4 tiles, its
-   counters written only for a heatmap's primary rays; prints each
-   median and a profiled window of the DDA frame; then K19 bit for bit
-   against trace_pyramid_plain on the primary and the shadow rays at
+   over the 256^3 scene: prints the registers and spills of every kernel
+   that runs the HDDA (K19, the pyramid forms of K12, K14, K15, K23) and
+   fails if one spills to local memory; builds the pyramid on the card
+   (timed) and holds it to the CPU build row for row; renders the frames
+   of PYR_PHASES (the default knobs, the DDA frame, soft cone and DDA,
+   pixelated, config 4's knobs, the lights frame, the overlap AO frame and
+   the five debug heatmaps) through `Renderer.render`, counters reset
+   before each and read after: fails unless each launched as that table
+   says (K19 for every DDA, the pyramid forms of K12, K14 and K15, K21
+   once a debug frame, no bloom there, no K1), K11 once where the frame
+   classifies, K3 once, and unless every pyramid form ran at the pyramid's
+   own cap (traversal_max_steps) and K19 walked the any masks by 8x4
+   tiles, its counters written only for a heatmap's primary rays; prints
+   each median and a profiled window of the DDA frame; then K19 bit for
+   bit against trace_pyramid_plain on the primary and the shadow rays at
    1920x1080 and 33x67, with and without counters, flat and tiled, with
-   and without the FULL early-out, and at a cap most rays reach; K19's
-   hits against K1's on every primary ray, each ray where they differ
-   printed with the numpy oracle's answer (an exact tie, the oracle's
-   answer one of the two) or counted as capped by the pyramid's steps;
-   each pyramid frame of PYR_VS_JUMP against the jump grid's frame of
-   the same knobs (the cone frames against its per-sample DDA frames),
-   call by call: the same rays at every DDA call, K12's answers and K14's
-   sample hits equal, every lane where they part a printed tie or capped
-   ray, the HDR equal on every other pixel; K21's five images, K20's
-   overlap_ao, cube and planar densities on the primary hits (the
-   overlap library's entry points, counters reset: its path's launches)
-   and overlap_ao through the jump grid's voxels, the pyramid K12 (and
-   an every-lane K19 shadow trace but on capped lanes), the pyramid K14 in
-   its three modes (the cone gate's hits equal to its DDA mode's), the
-   pyramid K15 at every bounce of config 4's knobs, the lights frame and
-   the overlap AO frame (BounceCheck), each against its plain version;
-   the kernel path's frames against the plain path's; rows for the
-   kernels line (K19 on the primary and the shadow rays, the pyramid
-   K12, K14's cone gate, K15 at the overlap AO frame's bounce 0, K20's
-   overlap_ao, K21's world image) with their device time
-   (torch.profiler) and a launch's time with the L2 cache flushed before
-   it (`flushed_us`); and in 7., at 1024^3, builds config 5's pyramid on
-   the card (timed, its size) and holds K19 on the primary rays to its
-   plain version and to K16 (ties printed with the oracle, capped rays
-   counted).
+   and without the FULL early-out, and at a cap most rays reach (the lower
+   quartile of the primary rays' steps), printing the share of the fetches
+   the masks a ray holds answer (the plain walk's `answered`); K19's hits
+   against K1's on every primary ray, each ray where they differ printed
+   with the numpy oracle's answer (an exact tie, the oracle's answer one
+   of the two) or counted as capped by the pyramid's steps; each pyramid
+   frame of PYR_VS_JUMP against the jump grid's frame of the same knobs
+   (the cone frames against its per-sample DDA frames), call by call: the
+   same rays at every DDA call, K12's answers and K14's sample hits equal,
+   every lane where they part a printed tie or capped ray, the HDR equal
+   on every other pixel; K21's five images, K20's overlap_ao, cube and
+   planar densities on the primary hits (the overlap library's entry
+   points, counters reset: its path's launches) and overlap_ao through the
+   jump grid's voxels, the pyramid K12 (and an every-lane K19 shadow trace
+   but on capped lanes), the pyramid K14 in its three modes (the cone
+   gate's hits equal to its DDA mode's), the pyramid K15 at every bounce
+   of config 4's knobs, the lights frame and the overlap AO frame
+   (BounceCheck), each against its plain version; the kernel path's frames
+   against the plain path's; rows for the kernels line (K19 on the primary
+   and the shadow rays, the pyramid K12, K14's cone gate, K15 at the
+   overlap AO frame's bounce 0, K20's overlap_ao, K21's world image) with
+   their device time (torch.profiler) and a launch's time with the L2
+   cache flushed before it (`flushed_us`); and in 7., at 1024^3, builds
+   config 5's pyramid on the card (timed, its size) and holds K19 on the
+   primary rays to its plain version and to K16 (ties printed with the
+   oracle, capped rays counted).
 10. the raster debug view (ROADMAP A14, debug_type 0; run after 9.):
    meshes the 256^3 world (surface nets, host, timed; its vertices and
    triangles) and, at 1920x1080 on the bench camera, a camera 1.6 voxels
@@ -272,7 +276,9 @@ cone rows' bounds from the kernel's tight boxes; K14 three times:
 launches; K14's bound counts this run's DDA sub-steps of its samples;
 K15 twice: `shade_bounce` at config 4's bounce 0 with its frames'
 launches, `shade_bounce_lights` at the lights frame's bounce 0, its
-bound counting the lights' DDA sub-steps; K17 and K18 with the launches
+bound counting the lights' DDA sub-steps; K16 twice, `paged_trace` with
+config 5's traces but the DDA frame's shadow rays, and
+`paged_trace_shadow` with those; K17 and K18 with the launches
 of config 5's dynamic steps; K19 twice, `pyramid_trace` and
 `pyramid_trace_shadow`, with the pyramid forms of K12, K14 and K15, K20
 `overlap_density` and K21 `debug_image`, and K22 `raster_triangles` and
@@ -400,6 +406,7 @@ K1_ORACLE_SLACK = 16
 # (every frame while the sun is dragged), both of the sun_grids kernel
 ROW_KERNEL = {"sun_grids_512": "sun_grids", "sun_grids_cone": "sun_grids",
               "pyramid_trace_shadow": "pyramid_trace",
+              "paged_trace_shadow": "paged_trace",
               "shade_bounce_lights": "shade_bounce",
               "sun_grids_cone_512": "sun_grids",
               "soft_shadow_cone": "soft_shadow",
@@ -967,51 +974,79 @@ def config5_phase(repo, dev, errs: dict, launches: dict):
         seeded].cpu().numpy()
     lights0 = scene.lights.copy()
 
-    # ---- the frames
+    # ---- the frames; K16's launch arguments recorded (a shadow trace
+    # has one direction for every ray, a direction stride of 0)
     rend, meds = {}, {}
-    for label, (knobs, mirrors, per_frame) in C5_PHASES.items():
-        scene.lights[:] = lights0
-        kernels.reset_launches()
-        r = Renderer(wcfg, dataclasses.replace(cfg, **knobs), device=dev,
-                     scene=scene, mirror_materials=mirrors)
-        check(r.use_paged and r.grid is grid and scene.jumpgrid is None,
-              f"{label}: the Renderer must trace the scene's paged grid and "
-              "build no jump grid")
-        ms = []
-        for i in range(C5_FRAMES + 1):   # frame 0 warms up (K11, K3)
-            t1 = time.perf_counter()
-            img = r.render(cam, time=i / 60.0)
-            torch.cuda.synchronize()
-            ms.append((time.perf_counter() - t1) * 1e3)
-        check(tuple(img.shape) == (h, w, 3)
-              and float(img.float().std()) > 10, f"{label}: the frame is "
-              "wrong")
-        got = dict(kernels.LAUNCHES)
-        frames_ = C5_FRAMES + 1
-        uneven = {k: got[k] for k, v in per_frame.items()
-                  if got[k] != v * frames_}
-        check(not uneven, f"{label}: kernels not launched {per_frame} times "
-              f"a frame over {frames_} frames: {uneven}")
-        once = [] if knobs.get("sun_mask") == "off" else ["sun_grids"]
-        for k in once:
-            check(got[k] == 1, f"{label}: {k} launched {got[k]} times")
-        check(got["write_sky"] == 1, f"{label}: K3 launched "
-              f"{got['write_sky']} times in one sky bucket")
-        others = {k: v for k, v in got.items() if v and k not in per_frame
-                  and k not in once and k != "write_sky"}
-        check(not others, f"{label}: launched {others} (the flat K1 and "
-              "the jump-grid forms of K12, K14 and K15 must not run)")
-        for k, v in got.items():
-            if k in per_frame or k in once:
+    k16 = []
+    launch = kernels.launch
+
+    def recorded(name, device, *args):
+        if name == "paged_trace":
+            k16.append(args)
+        launch(name, device, *args)
+
+    kernels.launch = recorded
+    try:
+        for label, (knobs, mirrors, per_frame) in C5_PHASES.items():
+            scene.lights[:] = lights0
+            k16.clear()
+            kernels.reset_launches()
+            r = Renderer(wcfg, dataclasses.replace(cfg, **knobs),
+                         device=dev, scene=scene, mirror_materials=mirrors)
+            check(r.use_paged and r.grid is grid
+                  and scene.jumpgrid is None, f"{label}: the Renderer must "
+                  "trace the scene's paged grid and build no jump grid")
+            ms = []
+            for i in range(C5_FRAMES + 1):   # frame 0 warms up (K11, K3)
+                t1 = time.perf_counter()
+                img = r.render(cam, time=i / 60.0)
+                torch.cuda.synchronize()
+                ms.append((time.perf_counter() - t1) * 1e3)
+            check(tuple(img.shape) == (h, w, 3)
+                  and float(img.float().std()) > 10, f"{label}: the frame "
+                  "is wrong")
+            got = dict(kernels.LAUNCHES)
+            shadow = sum(a[6] == 0 for a in k16)
+            primary = sum(a[6] != 0 for a in k16)
+            frames_ = C5_FRAMES + 1
+            uneven = {k: got[k] for k, v in per_frame.items()
+                      if got[k] != v * frames_}
+            check(not uneven, f"{label}: kernels not launched {per_frame} "
+                  f"times a frame over {frames_} frames: {uneven}")
+            check(primary + shadow == got["paged_trace"], f"{label}: "
+                  f"{primary + shadow} K16 launches recorded, "
+                  f"{got['paged_trace']} counted")
+            # the DDA frame traces its shadow rays, one launch a frame
+            dda = knobs.get("sun_mask") == "off"
+            check(shadow == (frames_ if dda else 0), f"{label}: {shadow} "
+                  f"K16 shadow launches over {frames_} frames")
+            once = [] if knobs.get("sun_mask") == "off" else ["sun_grids"]
+            for k in once:
+                check(got[k] == 1, f"{label}: {k} launched {got[k]} times")
+            check(got["write_sky"] == 1, f"{label}: K3 launched "
+                  f"{got['write_sky']} times in one sky bucket")
+            others = {k: v for k, v in got.items() if v and k not in
+                      per_frame and k not in once and k != "write_sky"}
+            check(not others, f"{label}: launched {others} (the flat K1 and "
+                  "the jump-grid forms of K12, K14 and K15 must not run)")
+            for k, v in got.items():
+                if (k in per_frame or k in once) and k != "paged_trace":
+                    launches[f"c5 {k}"] = launches.get(f"c5 {k}", 0) + v
+            # K16's rows from the record: the primary and the shadow traces
+            for k, v in (("paged_trace", primary),
+                         ("paged_trace_shadow", shadow)):
                 launches[f"c5 {k}"] = launches.get(f"c5 {k}", 0) + v
-        meds[label] = sorted(ms[1:])[C5_FRAMES // 2]
-        print(f"{label}: {C5_FRAMES} frames after a warm-up of "
-              f"{ms[0]:.1f} ms (K11 and K3), median {meds[label]:.3f} ms "
-              f"(host clock, synchronized); launches "
-              f"{ {k: v for k, v in got.items() if v} }")
-        rend[label] = r
-        profile_frame.window(label, r, cam, repo / "build" / "vvr_tpu_torch"
-                             / "c5_trace.json")
+            meds[label] = sorted(ms[1:])[C5_FRAMES // 2]
+            print(f"{label}: {C5_FRAMES} frames after a warm-up of "
+                  f"{ms[0]:.1f} ms (K11 and K3), median "
+                  f"{meds[label]:.3f} ms (host clock, synchronized); "
+                  f"launches { {k: v for k, v in got.items() if v} }, "
+                  f"{shadow} of K16's on shadow rays")
+            rend[label] = r
+            profile_frame.window(label, r, cam, repo / "build"
+                                 / "vvr_tpu_torch" / "c5_trace.json")
+    finally:
+        kernels.launch = launch
     scene.lights[:] = lights0
 
     # ---- K16 against its plain version: primary and shadow rays at
@@ -1054,7 +1089,7 @@ def config5_phase(repo, dev, errs: dict, launches: dict):
     so_s, sa_s = shade.shade_surface(o_s, d_s, r_s.hit, r_s.face,
                                      r_s.axis_coord, sun3)
     k16_check(so_s, sun_d, sa_s, 33, "shadow, 33x67")
-    errs["paged_trace"] = 0.0
+    errs["paged_trace"] = errs["paged_trace_shadow"] = 0.0
 
     # the raster against K16 on every primary ray, each ray where they
     # differ against the numpy oracle
@@ -1096,7 +1131,9 @@ def config5_phase(repo, dev, errs: dict, launches: dict):
     k19_t = traverse.trace_pyramid(pyr5, o, d, cap5, width=w, stats=False,
                                    use_full=False)
     k19_s = traverse.trace_pyramid(pyr5, o, d, cap5, use_full=False)
-    ref19 = traverse.trace_pyramid_plain(pyr5, o, d, cap5, use_full=False)
+    ans19 = (torch.zeros(pyr5.rows.shape[0], dtype=torch.int64, device=dev),)
+    ref19 = traverse.trace_pyramid_plain(pyr5, o, d, cap5, use_full=False,
+                                         answered=ans19)
     for f in fields:
         check(torch.equal(getattr(k19_s, f), getattr(ref19, f)),
               f"K19 at 1024^3: {f} differs from plain")
@@ -1127,11 +1164,14 @@ def config5_phase(repo, dev, errs: dict, launches: dict):
           f"primary rays bit-exact vs plain (seven outputs; the frame's "
           f"tiled form the four), steps mean "
           f"{float(ref19.iterations.float().mean()):.2f} max "
-          f"{int(ref19.iterations.max())}; against K16: "
+          f"{int(ref19.iterations.max())}, fetches "
+          f"{float(ref19.fetches.sum()):.0f} of which the held masks answer "
+          f"{float(ans19[0].sum()) / max(float(ref19.fetches.sum()), 1.0):.4f}"
+          f"; against K16: "
           f"{int((off19 & capped19).sum())} rays capped by the pyramid's "
           f"{cap5} steps ({int(capped19.sum())} capped in all), "
           f"{len(ties19)} exact ties, the rest equal")
-    del pyr5, k19_t, k19_s, ref19
+    del pyr5, k19_t, k19_s, ref19, ans19
 
     # the paged K12 on the raster hits: against its plain version and
     # against an every-lane K16 shadow trace on every lit lane (C6)
@@ -1303,6 +1343,16 @@ def config5_phase(repo, dev, errs: dict, launches: dict):
                          trace_paged_plain(grid, o, d, max_steps,
                                            stats=False, rows_read=r)),
             float(res_k.iterations.sum()) * OPS_PER_ITEM["jump_trace"]),
+        "paged_trace_shadow": (
+            lambda: paged.trace_paged(grid, so_k, sun_d, max_steps,
+                                      active=sa_k, width=w, stats=False),
+            lambda: paged.trace_paged_plain(grid, so_k, sun_d, max_steps,
+                                            sa_k, stats=False),
+            nbytes(so_k, sa_k, *(getattr(sh_k, f) for f in fields[:4]))
+            + rows_bytes(grid, "K16 shadow", lambda r: paged.
+                         trace_paged_plain(grid, so_k, sun_d, max_steps,
+                                           sa_k, stats=False, rows_read=r)),
+            float(sh_k.iterations.sum()) * OPS_PER_ITEM["jump_trace"]),
         "masked_shadow_paged": (
             lambda: ss.masked_shadow_from_hits(grid, *hits, sun_np, e1, e2,
                                                grids_k, max_steps),
@@ -1343,7 +1393,7 @@ def config5_phase(repo, dev, errs: dict, launches: dict):
     for name, (kfn, pfn, moved, ops) in timed_rows.items():
         k_ms, p_ms = cuda_ms(kfn, 10), cuda_ms(pfn, 1)
         b_ms, b_by = bound_ms(moved, ops, "fp32")
-        k = kernels.KERNELS[name]
+        k = kernels.KERNELS[ROW_KERNEL.get(name, name)]
         rows.append({"name": name, "route": "cuda", "source": k.source,
                      "replaces": k.replaces,
                      "launches": launches.get(f"c5 {name}", 0),
@@ -1853,10 +1903,15 @@ PYR_VS_JUMP = {"default knobs": {}, "DDA": {},
 # traversal_max_steps, where the grids take it times 8
 PYR_MAX_STEPS_ARG = {"pyramid_trace": 10, "masked_shadow_pyramid": 26,
                      "soft_shadow_pyramid": 17, "shade_bounce_pyramid": 28}
-# lanes a frame comparison may part at exact ties and at the cap, and the
-# cap of the K19 check at the cap (most primary rays reach it)
+# lanes a frame comparison may part at exact ties and at the cap
 PYR_SLACK = 64
-PYR_CAP_CHECK = 24
+# the kernels that run the HDDA inline and the instantiations of each
+# with the pyramid's view that the build must hold: K19 with and without
+# FULL and the counters, the pyramid K12, K14 and K15, and K23
+PYR_WALK_KERNELS = {"vvr_trace_kernel": 4, "vvr_masked_shadow_kernel": 1,
+                    "vvr_soft_shadow_kernel": 1,
+                    "vvr_shade_bounce_kernel": 1,
+                    "vvr_shade_raster_kernel": 1}
 # the overlap AO's cells a lane: two squares of (2k+1)^2, k = 1 and 3
 OVERLAP_AO_CELLS = 9 + 49
 
@@ -1930,6 +1985,25 @@ def pyramid_phase(repo, dev, renderer, cam, occ, lights_np, errs: dict,
     from vvr_tpu_torch.world.pyramid import build_brick_pyramid
 
     t_phase = time.perf_counter()
+    # every kernel that runs the HDDA inline (K20 reads the pyramid's
+    # voxels only): each found in the build's ptxas report, its spills
+    # reported and none to local memory
+    found = {k: set() for k in PYR_WALK_KERNELS}
+    for name, regs, st, ld in kernels.ptxas_usage("vvr_"):
+        kind = next((k for k in PYR_WALK_KERNELS if k in name and (
+            "VvrPyramidViewT" in name or k == "vvr_shade_raster_kernel")),
+                    None)
+        if kind is None:
+            continue
+        found[kind].add(name)
+        print(f"ptxas: {name}: {regs} registers, spill stores {st} B, "
+              f"spill loads {ld} B")
+        check(st == 0 and ld == 0, f"{name}: spill stores {st} B, loads "
+              f"{ld} B (-1: not reported)")
+    missing = {k: f"{len(v)} of {PYR_WALK_KERNELS[k]}"
+               for k, v in found.items() if len(v) < PYR_WALK_KERNELS[k]}
+    check(not missing, f"kernels that run the HDDA missing from the ptxas "
+          f"report: {missing}")
     scene = renderer.scene
     wcfg = scene.cfg
     jgrid = scene.jumpgrid
@@ -2049,11 +2123,14 @@ def pyramid_phase(repo, dev, renderer, cam, occ, lights_np, errs: dict,
 
     def k19_check(ro, rd, ra, width, label, cap_=cap):
         out = {}
+        answered = (torch.zeros(pyr.rows.shape[0], dtype=torch.int64,
+                                device=dev),)
         for uf in (True, False):
             full = traverse.trace_pyramid(pyr, ro, rd, cap_, active=ra,
                                           use_full=uf)
-            ref = traverse.trace_pyramid_plain(pyr, ro, rd, cap_, ra,
-                                               use_full=uf)
+            ref = traverse.trace_pyramid_plain(
+                pyr, ro, rd, cap_, ra, use_full=uf,
+                answered=None if uf else answered)
             lean = traverse.trace_pyramid(pyr, ro, rd, cap_, active=ra,
                                           width=width, stats=False,
                                           use_full=uf)
@@ -2082,6 +2159,15 @@ def pyramid_phase(repo, dev, renderer, cam, occ, lights_np, errs: dict,
               f"{float(out[True].iterations.float().mean()):.2f}), fetches "
               f"mean {float(any_.fetches.float().mean()):.2f}; rays at the "
               f"{cap_} cap: {capped}")
+        fetches = max(float(any_.fetches.sum()), 1.0)
+        ans = float(answered[0].sum())
+        root = float(answered[0][pyr.bases[pyr.depth]])
+        rays = max(int((any_.fetches > 0).sum()), 1)
+        print(f"K19 ({label}): the masks a ray holds answer "
+              f"{ans / fetches:.4f} of the {fetches:.0f} fetches (the root "
+              f"{root / fetches:.4f}, empty nodes "
+              f"{(ans - root) / fetches:.4f}); fetches {fetches / rays:.2f}"
+              f" a ray, {(fetches - ans) / rays:.2f} of them not answered")
         return any_, capped
 
     res_p, cap_p = k19_check(o, d, None, w, f"primary, {w}x{h}")
@@ -2094,9 +2180,12 @@ def pyramid_phase(repo, dev, renderer, cam, occ, lights_np, errs: dict,
     so_s, sa_s = shade.shade_surface(o_s, d_s, r_s.hit, r_s.face,
                                      r_s.axis_coord, sun3)
     k19_check(so_s, sun_d, sa_s, 33, "shadow, 33x67")
-    _, at_cap = k19_check(o, d, None, w, f"primary at a cap of "
-                          f"{PYR_CAP_CHECK}", PYR_CAP_CHECK)
-    check(at_cap > 0, f"K19 at a cap of {PYR_CAP_CHECK}: no ray reaches it")
+    # a cap most rays reach: the lower quartile of the primary rays' steps
+    cap_most = int(res_p.iterations.float().quantile(0.25))
+    _, at_cap = k19_check(o, d, None, w, f"primary at a cap of {cap_most}",
+                          cap_most)
+    check(at_cap * 2 > n, f"K19 at a cap of {cap_most}: {at_cap} of {n} "
+          "rays reach it, not most")
     errs["pyramid_trace"] = errs["pyramid_trace_shadow"] = 0.0
 
     # the oracle's answer for a lane the two grids answer apart: an exact
@@ -2768,21 +2857,26 @@ def raster_phase(repo, dev, scene, occ, errs: dict,
             won = torch.unique(win[covered].long())
             mesh_b = float(won.numel() * 12
                            + torch.unique(ta[won].long()).numel() * 12)
+            # the bench view's inputs bound now: the loop goes on to the
+            # other views
             timing = dict(
-                k22=(lambda: raster.raster_triangles(
+                k22=(lambda m=m, evd=evd, etd=etd: raster.raster_triangles(
                     mesh.verts, mesh.tris, m, w, h, evd, etd),
-                     lambda: raster.raster_triangles_plain(va, ta, m, w, h),
+                     lambda m=m, va=va, ta=ta: raster.raster_triangles_plain(
+                         va, ta, m, w, h),
                      float(va.nbytes + ta.nbytes + 8 * n),
                      float(va.shape[0]) * RASTER_OPS["vertex"]
                      + float(ta.shape[0]) * RASTER_OPS["triangle"]
                      + float(frags) * RASTER_OPS["fragment"]
                      + float(cov_frags) * RASTER_OPS["band"]),
-                k23=(lambda: raster.shade_raster(
-                    win, mesh.verts, mesh.tris, pyr, cam.position, d, sun3,
-                    skybox, clouds, cap, w, h, evd, etd),
-                     lambda: raster.shade_raster_plain(
-                         win, va, ta, pyr, cam.position, d,
-                         torch.from_numpy(sun3), skybox, clouds, cap, w, h),
+                k23=(lambda win=win, pos=cam.position, d=d, evd=evd,
+                     etd=etd: raster.shade_raster(
+                         win, mesh.verts, mesh.tris, pyr, pos, d, sun3,
+                         skybox, clouds, cap, w, h, evd, etd),
+                     lambda win=win, va=va, ta=ta, pos=cam.position, d=d:
+                     raster.shade_raster_plain(
+                         win, va, ta, pyr, pos, d, torch.from_numpy(sun3),
+                         skybox, clouds, cap, w, h),
                      float(win.nbytes + d.nbytes + hk.nbytes) + mesh_b
                      + rows_b + min(sky_px * 28, tex),
                      float(covered.sum()) * RASTER_OPS["plane"]

@@ -294,6 +294,92 @@ def test_the_pyramid_entries_port_the_hdda(flat, pyramid):
     assert p.argtypes == (P, I, I) + extra + f.argtypes[2:]
 
 
+def _invariant_breaks(pyr) -> int:
+    """The nodes below the root whose any mask is non-zero where their
+    bit in the parent's any mask is 0, or zero where it is set: the
+    invariant a walk would trust to answer a fetch from the masks of the
+    nodes it descended through."""
+    rows = pyr.rows.numpy().astype(np.int64) & 0xFFFFFFFF
+    any_ = rows[:, 0] | (rows[:, 1] << 32)
+    breaks = 0
+    for lv in range(1, pyr.depth):
+        g = pyr.size >> (2 * lv)
+        z, y, x = np.meshgrid(*(np.arange(g),) * 3, indexing="ij")
+        child = any_[pyr.bases[lv]:pyr.bases[lv] + g ** 3].reshape(g, g, g)
+        gp = g >> 2
+        parent = any_[pyr.bases[lv + 1] + (x >> 2) + (y >> 2) * gp
+                      + (z >> 2) * gp * gp]
+        bit = (x & 3) | ((y & 3) << 2) | ((z & 3) << 4)
+        breaks += int(((child != 0) != (((parent >> bit) & 1) == 1)).sum())
+    return breaks
+
+
+@pytest.mark.parametrize("world", ["terrain", "added", "added and removed"])
+def test_pyramid_parent_bits(world, small_world):
+    """A node's any mask is non-zero exactly when its parent's bit for it
+    is set: on a fresh build of the 64^3 world, after WorldEditor adds
+    balls (in the air, at the corner, in the terrain) and after it removes
+    them again (world/edit.py `_patch_pyramid`), which empties nodes whose
+    parents must clear their bits."""
+    chunks = [Chunk(np.array(c.position), c.voxels.copy())
+              for c in small_world[1]]
+    ed = WorldEditor(chunks, pyramid=build_brick_pyramid(small_world[2],
+                                                         "cpu"),
+                     device="cpu")
+    balls = [_ball(c) for c in ((31, 30, 32), (63, 0, 15), (16, 12, 47))]
+    if world != "terrain":
+        for b in balls:
+            assert ed.set_voxels(b, True) > 0
+    if world == "added and removed":
+        for b in balls:
+            assert ed.set_voxels(b, False) > 0
+        assert not ed.occupancy()[30, 31, 31]
+    assert _invariant_breaks(ed.pyramid) == 0
+    assert torch.equal(ed.pyramid.rows,
+                       build_brick_pyramid(ed.occupancy(), "cpu").rows)
+
+
+def _frame_rays(small_world, shadow):
+    """1024 of the TERRAIN view's 96x64 primary rays, or the shadow rays
+    from their hits along SUN (the frame's starts, ops/shade.py)."""
+    from vvr_tpu_torch.ops.shade import shade_surface
+    o, d = camera_rays(TERRAIN, 96, 64, "cpu")
+    o, d = o[::6][:N].contiguous(), d[::6][:N].contiguous()
+    if not shadow:
+        return o, d, torch.ones(N, dtype=torch.bool)
+    pyr = build_brick_pyramid(small_world[2], "cpu")
+    r = trace_pyramid_plain(pyr, o, d, 512, use_full=False)
+    so, sa = shade_surface(o, d, r.hit, r.face, r.axis_coord,
+                           torch.from_numpy(SUN[:3]))
+    return so, torch.from_numpy(SUN[:3]).expand(N, 3).contiguous(), sa
+
+
+@pytest.mark.parametrize("use_full", [True, False], ids=["full", "any"])
+@pytest.mark.parametrize("rays", ["primary", "shadow"])
+def test_answered_fetches(rays, use_full, small_world):
+    """The plain walk's count of the fetches the masks a ray holds answer
+    (`answered`): on the frame's primary and shadow rays of the 64^3
+    world each answered row is all zero or the root, the root is
+    answered once a ray, some all-zero rows are answered too, and the
+    seven outputs stay equal to JAX `trace`'s."""
+    occ = small_world[2]
+    o, d, act = _frame_rays(small_world, rays == "shadow")
+    jp, pyr = _pair(occ)
+    answered = (torch.zeros(pyr.rows.shape[0], dtype=torch.int64),)
+    res = trace_pyramid_plain(pyr, o, d, 512, act, use_full=use_full,
+                              answered=answered)
+    ref = _jax_trace(jp, o.numpy(), d.numpy(), act.numpy(), 512, use_full)
+    _assert_trace_equal(res, ref, rays)
+    count = answered[0]
+    root = pyr.bases[pyr.depth]
+    rows = torch.nonzero(count)[:, 0]
+    empty = (pyr.rows[rows, 0] == 0) & (pyr.rows[rows, 1] == 0)
+    assert bool((empty | (rows == root)).all())
+    assert int(count[root]) == int(act.sum())
+    assert int(count.sum()) - int(count[root]) > 0
+    assert int(count.sum()) < int(res.fetches.sum())
+
+
 # ---- overlap AO ----------------------------------------------------------
 
 @pytest.fixture(scope="module")

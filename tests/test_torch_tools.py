@@ -80,6 +80,40 @@ def test_measuring_tools_need_cuda(tool, capsys, monkeypatch):
     assert "no CUDA device" in capsys.readouterr().err
 
 
+def test_kernel_ab_lanes_busy():
+    """The lanes busy per warp step of a tiled launch: each 8x4 tile's
+    steps over 32 times its longest ray's, summed over the tiles."""
+    it = torch.ones((4, 16), dtype=torch.int32)
+    it[:, 8:] = 2
+    it[3, 7] = 4              # the first tile's lane (7, 3)
+    assert kernel_ab.lanes_busy(it.reshape(-1), 16, 4) == pytest.approx(
+        (31 + 4 + 64) / (32 * 4 + 64))
+    # a partial tile: its missing pixels are idle lanes
+    assert kernel_ab.lanes_busy(torch.ones(4 * 12, dtype=torch.int32), 12,
+                                4) == pytest.approx(48 / 64)
+
+
+def test_kernel_ab_answered_share():
+    """The fetches a ray that fetches and the share the held masks answer,
+    from the plain walk's `fetches` and its `answered` rows."""
+    from vvr_tpu_torch.ops import traverse
+    from vvr_tpu_torch.world.pyramid import build_brick_pyramid
+    occ = np.zeros((16,) * 3, bool)
+    occ[:, :3] = True         # a floor 3 voxels high [z, y, x]
+    pyr = build_brick_pyramid(occ, "cpu")
+    o = torch.tensor([[8.5, 12.5, 8.5], [1.5, 12.5, 14.5], [40.0] * 3])
+    d = torch.tensor([[0.0, -1.0, 0.0], [0.6, -0.8, 0.0], [0.0, -1.0, 0.0]])
+    ans = (torch.zeros(pyr.rows.shape[0], dtype=torch.int64),)
+    ref = traverse.trace_pyramid_plain(pyr, o, d, 64, use_full=False,
+                                       answered=ans)
+    assert int(ref.fetches[2]) == 0          # outside the world: no fetch
+    per_ray, share = kernel_ab.answered_share(ref.fetches, ans[0])
+    assert per_ray == pytest.approx(float(ref.fetches[:2].float().mean()))
+    assert share == pytest.approx(float(ans[0].sum())
+                                  / float(ref.fetches.sum()))
+    assert 0.0 < share < 1.0
+
+
 def test_sass_count_reads_the_listing():
     """Per kernel: every instruction once, MUFU by kind, local loads and
     stores, calls, atomics that may reach device memory (not the shared
@@ -218,6 +252,30 @@ def test_lane_use_counts_the_trips(tiled, tmp_path):
     assert out["warp_trips_new"] < out["warp_trips_old"]
     ref = trace_jump_plain(scene.ensure_jumpgrid(), o, d, 2048)
     assert out["sub_steps_max"] == int(ref.iterations.max())
+
+
+def test_lane_use_counts_the_pyramid_paths(tmp_path):
+    """lane_use's count of K19's paths on a 96x64 view of the 64^3 world:
+    a warp's trips are its slowest ray's steps and its busy lanes all its
+    rays' steps (the plain walk's trips in lockstep), each path is taken
+    in some trip, and a row is loaded in some trips but not all."""
+    from vvr_tpu_torch.ops.traverse import trace_pyramid_plain
+    scene = build_scene(WorldConfig(depth=3), "cpu",
+                        cache_path=tmp_path / "map.npz")
+    pyr = scene.ensure_pyramid()
+    cam = Camera.look_at([32, 28, 6], [32, 2, 45], fov=85)
+    o, d = camera_rays(cam, 96, 64, "cpu")
+    warp_of = lane_use.warps(96 * 64, 96, True)
+    out = lane_use.pyramid_paths(pyr, o, d, None, warp_of, 64)
+    it = trace_pyramid_plain(pyr, o, d, 64, use_full=False).iterations
+    per_warp = torch.zeros(int(warp_of.max()) + 1, dtype=torch.int32)
+    per_warp.scatter_reduce_(0, warp_of, it, "amax")
+    assert out["warp_trips"] == int(per_warp.sum())
+    assert out["lane_use"] == round(int(it.sum()) / (32 * out["warp_trips"]),
+                                    4)
+    shares = [out[f"trips with a {p}"] for p in lane_use.PATHS]
+    assert all(0 < v <= 1 for v in shares) and sum(shares) >= 1
+    assert 0 < out["trips with a load"] < 1
 
 
 @pytest.mark.parametrize("gate", [False, True], ids=["dda", "cone-gate"])

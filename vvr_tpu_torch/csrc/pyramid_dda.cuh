@@ -1,6 +1,7 @@
 // The brick pyramid's hierarchical DDA (HDDA) of one ray, as a __device__
 // function: K19 (trace.cu) runs it per primary or shadow ray, and the
-// pyramid views of K12, K14 and K15 (grid_view.cuh) run it inline.
+// pyramid views of K12, K14 and K15 (grid_view.cuh) and K23
+// (meshraster.cu) run it inline.
 //
 // Port of vvr_tpu/ops/traverse.py `_make_stepper` (fetch :179, ALU step
 // :204), `_addr_fns` :131, `_init_state` :361 and `outputs` :495, one
@@ -11,6 +12,22 @@
 // (an ascend to the coarsest level whose boundary it crossed) or the
 // world. The counters equal the JAX stepper's per ray (a step counts one
 // iteration, a load one fetch, a node exit its levels).
+//
+// On an H100 the walk's time follows the instructions a warp issues a
+// trip, the union of the paths its lanes take, more than its row loads,
+// and at the bench view the in-node step is in most warp-trips, a node
+// exit or a descend in fewer (tools/lane_use.py counts them; PERF.md
+// section 6, the HDDA's redesign). So the in-node step does the least:
+// it skips the world-bounds test (a cell of a node lies in the world),
+// and a row's address comes from the level's first row and grid edge
+// kept as state (a descend updates them, only an exit that ascends
+// recomputes them).
+// Measured slower there: answering the fetches of empty nodes from the
+// any masks of the ancestors the ray descended through, 10-12% (it skips
+// 25% of the primary rays' loads and 59% of the shadow rays', but a warp
+// still waits for its other lanes' loads, and the test lengthens the exit
+// path); the row address computed at the load; one straight-line path for
+// in-node steps and node exits; the ray's cell kept in child units.
 //
 // Rounding: every float expression keeps the JAX op order and the file
 // is compiled with -fmad=false, but for the descend's point o + d*t,
@@ -34,13 +51,6 @@ static __device__ __forceinline__ bool vvr_bit64(uint32_t lo, uint32_t hi,
 static __device__ __forceinline__ int vvr_pyr_base(int depth, int lvl) {
     return (int)(((1u << (6 * depth)) - (1u << (6 * (depth - lvl + 1))))
                  / 63u);
-}
-
-static __device__ __forceinline__ int vvr_pyr_addr(int size, int depth,
-                                                   int lvl, int cx, int cy,
-                                                   int cz) {
-    const int g = size >> (2 * lvl);
-    return vvr_pyr_base(depth, lvl) + cx + cy * g + cz * g * g;
 }
 
 // whether voxel (vx, vy, vz) of the world is solid: its level-1 node's
@@ -83,7 +93,9 @@ static __device__ JumpHit vvr_pyramid_trace_ray(
     bool hit = false, pend = act;
     float t = 0.0f;
     int face = 0, hlvl = 1, it = 0, fe = 0, em = 0;
-    int addr = vvr_pyr_addr(size, depth, lvl, 0, 0, 0);
+    // the node's level: its first row and its grid's edge
+    int base = vvr_pyr_base(depth, lvl), g = 1;
+    int addr = base;
 
     while (act) {
         if (pend) {
@@ -125,15 +137,19 @@ static __device__ JumpHit vvr_pyramid_trace_ray(
             nx = cx;
             ny = cy;
             nz = cz;
-            lvl = max(lvl - 1, 1);
-            addr = vvr_pyr_addr(size, depth, lvl, nx, ny, nz);
+            lvl = lvl - 1;   // >= 1: a set bit at level 1 is a hit
+            g <<= 2;
+            base -= g * g * g;
+            addr = base + nx + (ny + nz * g) * g;
             pend = true;
         } else {
-            // step out of the child cell: its exit plane per axis
-            const float cs = (float)(1 << (2 * (lvl - 1)));
-            const float tx = vvr_axis_t((float)(cx + px) * cs, ox, dx, ix);
-            const float ty = vvr_axis_t((float)(cy + py) * cs, oy, dy, iy);
-            const float tz = vvr_axis_t((float)(cz + pz) * cs, oz, dz, iz);
+            // step out of the child cell: its exit plane per axis, the
+            // child size times the plane's cell index, exact in integers
+            // (at most the world's edge)
+            const int cs = 2 * (lvl - 1);
+            const float tx = vvr_axis_t((float)((cx + px) << cs), ox, dx, ix);
+            const float ty = vvr_axis_t((float)((cy + py) << cs), oy, dy, iy);
+            const float tz = vvr_axis_t((float)((cz + pz) << cs), oz, dz, iz);
             const float te = fminf(tx, fminf(ty, tz));
             const int nf = tz <= te ? 2 : (ty <= te ? 1 : 0);
             const int slx = lx + (nf == 0 ? sx : 0);
@@ -141,20 +157,21 @@ static __device__ JumpHit vvr_pyramid_trace_ray(
             const int slz = lz + (nf == 2 ? sz : 0);
             t = te;
             face = nf;
-            const int gcx = nx * 4 + slx, gcy = ny * 4 + sly,
-                      gcz = nz * 4 + slz;
-            const int gsz = size >> (2 * (lvl - 1));
-            if ((unsigned)gcx >= (unsigned)gsz
-                || (unsigned)gcy >= (unsigned)gsz
-                || (unsigned)gcz >= (unsigned)gsz) {
-                break;   // left the world
-            }
             if ((unsigned)slx <= 3u && (unsigned)sly <= 3u
                 && (unsigned)slz <= 3u) {
+                // a step within the node, which lies in the world
                 lx = slx;
                 ly = sly;
                 lz = slz;
             } else {
+                const int gcx = nx * 4 + slx, gcy = ny * 4 + sly,
+                          gcz = nz * 4 + slz;
+                const int gsz = size >> (2 * (lvl - 1));
+                if ((unsigned)gcx >= (unsigned)gsz
+                    || (unsigned)gcy >= (unsigned)gsz
+                    || (unsigned)gcz >= (unsigned)gsz) {
+                    break;   // left the world
+                }
                 // node exit: ascend `a` levels, the trailing base-4 zero
                 // digits of the crossed coordinate (32 zeros for 0),
                 // capped at the root
@@ -172,7 +189,11 @@ static __device__ JumpHit vvr_pyramid_trace_ray(
                 lx = (gcx >> (2 * a)) & 3;
                 ly = (gcy >> (2 * a)) & 3;
                 lz = (gcz >> (2 * a)) & 3;
-                addr = vvr_pyr_addr(size, depth, lvl, nx, ny, nz);
+                if (a > 0) {
+                    base = vvr_pyr_base(depth, lvl);
+                    g = size >> (2 * lvl);
+                }
+                addr = base + nx + (ny + nz * g) * g;
                 pend = true;
             }
         }

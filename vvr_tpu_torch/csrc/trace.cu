@@ -114,9 +114,9 @@ extern "C" int vvr_paged_trace(const void* prows, const void* brows,
 }
 
 // K19: the brick pyramid's rows, size and depth; use_full: the FULL-node
-// early-out (16 B rows), else the any-only walk (8 B of each row). Bound,
-// as K1, by each ray's chain of dependent row loads: a ray's descents and
-// ascents each wait on one load, the in-node steps on none.
+// early-out (16 B rows), else the any-only walk (8 B of each row). On the
+// H100 its time follows the instructions its warps issue a trip more than
+// its row loads (pyramid_dda.cuh).
 extern "C" int vvr_pyramid_trace(const void* rows, int size, int depth,
                                  int use_full, const void* o, const void* d,
                                  int d_stride, const void* active, int n,

@@ -26,6 +26,13 @@ after any step. So every schedule of a ray's events gives the same seven
 outputs, and the port is held to the JAX tracer with compaction off: its
 cascade repacks a lane with its row to load again, one more fetch.
 
+A node's any mask is 0 exactly when its bit in its parent's mask is 0
+(world/pyramid.py), and the parent of a node the ray enters is a node it
+descended through. So a walk that kept its ancestors' masks could answer
+the root's fetch and an exit into a node whose bit is 0 without a load;
+the plain version counts those fetches (`answered`). K19 loads every
+fetch: answering them measured slower on the H100 (csrc/pyramid_dda.cuh).
+
 A miss keeps the face of its last step (JAX `outputs` masks axis_coord and
 t, not face): the normals heatmap shows it on sky pixels. A hit's
 `axis_coord` is the entry plane's block coordinate of the hit cell, at
@@ -58,6 +65,8 @@ from vvr_tpu_torch.world.occupancy import bit64
 from vvr_tpu_torch.world.pyramid import BrickPyramid
 
 F32 = torch.float32
+# what a ray's step does, the codes of trace_pyramid_plain's `trips`
+PATHS = ("in-node step", "node exit", "descend", "hit", "left the world")
 
 
 def node_addr(pyr: BrickPyramid, lvl, cx, cy, cz):
@@ -70,13 +79,20 @@ def node_addr(pyr: BrickPyramid, lvl, cx, cy, cz):
 def trace_pyramid_plain(pyr: BrickPyramid, ray_o, ray_d,
                         max_steps: int = 512, active=None,
                         stats: bool = True, use_full: bool = True,
-                        rows_read=None) -> TraceResult:
+                        rows_read=None, answered=None,
+                        trips=None) -> TraceResult:
     """Plain torch version of K19: per loop trip, on the compacted set of
     active rays, each ray waiting for a node row loads it, then every ray
     takes one step of the walk (module docstring). `use_full`: the FULL
     early-out (the full masks of the rows), as JAX `trace`'s default; the
     frame walks the any masks only. `rows_read`, a 1-tuple of a bool
-    tensor as long as the rows, gets True at every row the rays load."""
+    tensor as long as the rows, gets True at every row the rays load.
+    `answered`, a 1-tuple of an int64 tensor as long as the rows, gets one
+    at a row for each fetch of it that the masks the ray holds answer: the
+    root's, and a node's whose bit in its parent's any mask is 0.
+    `trips`, a list, gets a record of each trip: the active rays'
+    indices, whether each loaded a row in it and the index in PATHS of
+    its step."""
     dev = ray_o.device
     n = ray_o.shape[0]
     size, depth = pyr.size, pyr.depth
@@ -114,8 +130,12 @@ def trace_pyramid_plain(pyr: BrickPyramid, ray_o, ray_d,
         fi = idx[pend[idx]]
         if rows_read is not None:
             rows_read[0][addr[fi]] = True
+        if answered is not None:
+            ai = addr[fi][_answered(pyr, lvl[fi], node[fi])]
+            answered[0].index_add_(0, ai, torch.ones_like(ai))
         mask[fi] = pyr.rows[addr[fi], :words].to(torch.int64) & MASK32
         fe[fi] += 1
+        loaded = pend[idx].clone() if trips is not None else None
         pend[fi] = False
 
         # ---- one step of every active ray
@@ -164,6 +184,10 @@ def trace_pyramid_plain(pyr: BrickPyramid, ray_o, ray_d,
         al = (gc >> (2 * a)[:, None]) & 3
         exit_node = stepping & ~inside_node & ~oob
         trans = desc | exit_node
+        if trips is not None:
+            trips.append((idx, loaded, torch.where(
+                hit_now, 3, torch.where(desc, 2, torch.where(
+                    stepping & oob, 4, torch.where(exit_node, 1, 0))))))
 
         tlvl = torch.where(desc, torch.clamp(lv - 1, min=1), lv + a)
         tn = torch.where(desc[:, None], dn, an)
@@ -199,6 +223,18 @@ def trace_pyramid_plain(pyr: BrickPyramid, ray_o, ray_d,
     return TraceResult(hit, face.to(i32),
                        torch.where(hit, axis_coord, 0).to(i32),
                        torch.where(hit, t, BIG_T), *counters)
+
+
+def _answered(pyr: BrickPyramid, lvl, node):
+    """Whether each fetch of node `node` (int64 (K, 3)) at level `lvl`
+    is answered without a load: the node is the root, or its bit in its
+    parent's any mask is 0."""
+    up = torch.clamp(lvl + 1, max=pyr.depth)
+    parent = node_addr(pyr, up, *(node >> 2).unbind(1))
+    m = pyr.rows[parent, :2].to(torch.int64) & MASK32
+    child = node & 3
+    bit = child[:, 0] | (child[:, 1] << 2) | (child[:, 2] << 4)
+    return (lvl == pyr.depth) | ~bit64(m[:, 0], m[:, 1], bit)
 
 
 def check_pyramid(pyr: BrickPyramid) -> None:

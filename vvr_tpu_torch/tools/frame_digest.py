@@ -18,8 +18,10 @@ scene's point lights as they start and wavy reflections), the overlap
 AO frame, and on the brick pyramid (`traversal="pyramid"`: K19 and the
 pyramid forms of K12, K14 and K15) the default-knob, DDA, soft cone,
 config 4 and overlap AO frames and the five debug heatmaps (K21) at
-1920x1080; a package that does not render a configuration gets a note in
-its place.
+1920x1080, and the raster debug view (debug_type 0: the surface-nets mesh
+through K22, each fragment's sun shadow through the pyramid's HDDA in
+K23; its own rays through K13, with --cpu-rays too) at 1920x1080; a
+package that does not render a configuration gets a note in its place.
 Beside the frames it digests the sky textures (the 256^2 skybox and the
 512^2 clouds) at two (sun, time) pairs, the default sun at t = 0 and a
 low sun at t = 1.75 s, and the second at odd sizes (7^2 and 13^2), each
@@ -144,6 +146,26 @@ def grid_digests(sunshadow, faces, size: int, default_sun, grids=GRIDS):
     return out
 
 
+def raster_view_digest(scene, cam, dev):
+    """SHA-256 of the raster debug view's HDR and u8 image (debug_type 0,
+    1920x1080, t = 0) through the package's `raster_debug_frame`, or a
+    note where the package has none."""
+    import torch
+
+    from vvr_tpu_torch.config import RenderConfig, WorldConfig
+    from vvr_tpu_torch.render.renderer import Renderer
+    cfg = RenderConfig(width=1920, height=1080, debug_type=0)
+    try:
+        from vvr_tpu_torch.render.raster import raster_debug_frame
+        r = Renderer(WorldConfig(depth=4), cfg, device=dev, scene=scene)
+    except (ImportError, NotImplementedError) as e:
+        return f"not rendered by this package ({e})"
+    img, hdr = raster_debug_frame(r.mesh, scene.ensure_pyramid(), cam,
+                                  r.sun, 0.0, cfg)
+    torch.cuda.synchronize()
+    return {"hdr": digest(hdr), "u8": digest(img), "shape": list(img.shape)}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--root", type=pathlib.Path,
@@ -215,6 +237,7 @@ def main(argv=None) -> int:
         out[name] = {"hdr": digest(hdr), "u8": digest(img),
                      "shape": list(img.shape)}
     default_sun = r.sun[:3].copy()
+    out["raster view"] = raster_view_digest(scene, cam, dev)
     for name, (sun, t, r_sky, r_clouds) in SKIES.items():
         r = Renderer(WorldConfig(depth=4), RenderConfig(
             skybox_resolution=r_sky, clouds_resolution=r_clouds),

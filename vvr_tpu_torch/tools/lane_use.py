@@ -1,5 +1,5 @@
-"""Lane use of K1's loop and of K14's sample rays, counted from the plain
-tracer's trips.
+"""Lane use of K1's loop and of K14's sample rays, and the paths of K19's
+walk, counted from the plain tracers' trips.
 
     python3 -m vvr_tpu_torch.tools.lane_use [--device cuda]
 
@@ -27,6 +27,14 @@ slowest lane's), 8x4 pixel tiles the same way, and K14's rounds of a lane
 per (pixel, sample) (softshadow.soft_lane_map: a warp's 8x4 tile, its
 pixels that trace first, 8 pixels x 4 samples a round).
 
+Then K19's walk on the brick pyramid (the frame's any-only HDDA at the
+pyramid's own cap, 8x4 tiles) on the same primary and shadow rays: the
+share of a warp's trips in which some lane takes each path of the walk
+(an in-node step, a node exit, a descend, a hit, a step out of the world,
+a row load; `trace_pyramid_plain`'s trips, one step of every active ray,
+are a warp's trips in lockstep) and the lanes busy per warp trip. A trip
+costs the union of the paths its lanes take.
+
 These are counts of the algorithm on these rays, not device measurements.
 It prints one JSON line per (rays, warp shape).
 """
@@ -47,6 +55,7 @@ from vvr_tpu_torch.ops import sunshadow as ss
 from vvr_tpu_torch.ops.jump import tile_ray_index, trace_jump_plain
 from vvr_tpu_torch.ops.raygen import camera_rays
 from vvr_tpu_torch.ops.shade import shade_surface_plain
+from vvr_tpu_torch.ops.traverse import PATHS, trace_pyramid_plain
 from vvr_tpu_torch.render.renderer import DEFAULT_SUN
 from vvr_tpu_torch.render.scene import build_scene
 from vvr_tpu_torch.utils.camera import Camera
@@ -108,6 +117,33 @@ def lane_use(grid, o, d, active, warp_of, max_steps: int) -> dict:
             "old_lane_use_both_counted": round(twice, 4),
             "new_lane_use": round(new["lanes"] / (WARP * new["trips"]), 4),
             "warp_trips_old": trips, "warp_trips_new": new["trips"]}
+
+
+def pyramid_paths(pyr, o, d, active, warp_of, max_steps: int) -> dict:
+    """Trace once on the brick pyramid (the any-only walk), counting the
+    warp trips in which some lane takes each path of PATHS or loads a
+    row, and the lanes busy per warp trip."""
+    warp_of = warp_of.to(o.device)
+    nw = int(warp_of.max()) + 1
+    count = dict.fromkeys(("warp_trips", "lanes", "load", *PATHS), 0)
+
+    def trips(rays) -> int:
+        return int((torch.bincount(warp_of[rays], minlength=nw) > 0).sum())
+
+    record = []
+    trace_pyramid_plain(pyr, o, d, max_steps, active, stats=False,
+                        use_full=False, trips=record)
+    for idx, loaded, path in record:
+        count["warp_trips"] += trips(idx)
+        count["lanes"] += idx.numel()
+        count["load"] += trips(idx[loaded])
+        for k, name in enumerate(PATHS):
+            count[name] += trips(idx[path == k])
+    n = max(count["warp_trips"], 1)
+    return {"warp_trips": count["warp_trips"],
+            "lane_use": round(count["lanes"] / (WARP * n), 4),
+            **{f"trips with a {name}": round(count[name] / n, 4)
+               for name in ("load", *PATHS)}}
 
 
 def sample_trips(grid, hits, sun, samples: int, max_steps: int,
@@ -223,6 +259,18 @@ def main(argv=None) -> int:
             print(json.dumps({"rays": label,
                               "warp": "8x4 tiles" if tiled else "32x1",
                               "device": str(dev), **out}))
+    # K19's walk on the brick pyramid, the same rays, 8x4 tiles
+    pyr = scene.ensure_pyramid()
+    cap = cfg.traversal_max_steps
+    p_res = trace_pyramid_plain(pyr, o, d, cap, stats=False, use_full=False)
+    p_o, p_a = shade_surface_plain(o, d, p_res.hit, p_res.face,
+                                   p_res.axis_coord, sun)
+    for label, ro, rd, act in (("pyramid primary", o, d, None),
+                               ("pyramid shadow", p_o, sun.to(dev), p_a)):
+        out = pyramid_paths(pyr, ro, rd, act, warps(n, cfg.width, True),
+                            cap)
+        print(json.dumps({"rays": label, "warp": "8x4 tiles",
+                          "device": str(dev), **out}))
     # K14's sample rays: every sample's DDA, the cone gate, pixelated
     hits = (o, d, primary.hit, primary.face, primary.axis_coord)
     e1, e2, s = ss.sun_basis(sun.numpy())
